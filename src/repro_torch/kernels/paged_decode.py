@@ -1,0 +1,180 @@
+"""Fused paged BESF decode: the serving decode's per-token hot path.
+
+Counterpart of ``repro/kernels/paged_decode.py`` (the Pallas TPU kernel
+``paged_bitstopper_decode``).  Three pieces live here:
+
+* :func:`paged_bitstopper_decode`, the wrapper with the reference's
+  signature.  It prepares the operands in torch (``paged_decode_prep``, as
+  the reference does outside ``pallas_call``), then launches the CUDA kernel
+  ``csrc/paged_decode.cu`` for CUDA tensors, or runs the plain version for
+  CPU tensors.  A failed build or launch raises; there is no fallback.
+* :func:`paged_bitstopper_decode_plain`, the same function in plain torch
+  over the packed ``kq`` pool: unpack a page's planes, then the oracle's
+  page walk op for op.
+* ``LAUNCHES``, the number of kernel launches, so a run can show that its
+  decode went through the kernel.
+
+The kernel runs one thread block per (slot, KV head) and writes per-head
+plane counts; the slot-wide ``rounds`` of the reference is their max over
+KV heads (``tests/test_torch_paged_decode.py`` proves the rule on the plain
+version).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.besf import (BitStopperConfig, PagedDecodeOutput,
+                                   paged_decode_rows, paged_decode_prep)
+from repro_torch.kernels.runtime import load_library, on_card
+
+LAUNCHES = 0
+
+_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 12
+             + [ctypes.c_void_p])
+
+
+def _unpack_pages(kq_pages: torch.Tensor) -> torch.Tensor:
+    """uint8 [B, bits, bs/8, Hkv, D] -> planes uint8 [B, bits, bs, Hkv, D]
+    (token t of a page is bit ``t % 8`` of byte ``t // 8``)."""
+    B, bits, bs8, Hkv, D = kq_pages.shape
+    shifts = torch.arange(8, dtype=torch.int32, device=kq_pages.device)
+    u = (kq_pages.to(torch.int32)[:, :, :, None]
+         >> shifts.reshape(1, 1, 1, 8, 1, 1)) & 1
+    return u.reshape(B, bits, bs8 * 8, Hkv, D).to(torch.uint8)
+
+
+def _check(q, kq_pool, v_pool, table, lengths, q_positions, cfg):
+    B, Hq, D = q.shape
+    P, bits, bs8, Hkv, Dk = kq_pool.shape
+    if bits != cfg.bits or Dk != D:
+        raise ValueError(f"kq pool {tuple(kq_pool.shape)} does not match "
+                         f"q {tuple(q.shape)} at bits={cfg.bits}")
+    if v_pool.shape[:3] != (P, bs8 * 8, Hkv) or Hq % Hkv:
+        raise ValueError(f"v pool {tuple(v_pool.shape)} does not match kq "
+                         f"pool {tuple(kq_pool.shape)} / {Hq} query heads")
+    if table.shape[0] != B or lengths.shape != (B,) or \
+            q_positions.shape != (B,):
+        raise ValueError("table/lengths/q_positions must have batch "
+                         f"{B}, got {tuple(table.shape)}, "
+                         f"{tuple(lengths.shape)}, {tuple(q_positions.shape)}")
+
+
+def paged_bitstopper_decode_plain(q, kq_pool, v_pool, table, lengths,
+                                  q_positions, k_amax, v_amax,
+                                  cfg: BitStopperConfig = BitStopperConfig(),
+                                  window: int | None = None,
+                                  stats: bool = True) -> PagedDecodeOutput:
+    """The kernel's function in plain torch, over the packed plane pool."""
+    _check(q, kq_pool, v_pool, table, lengths, q_positions, cfg)
+    Hkv = kq_pool.shape[3]
+    prep = paged_decode_prep(q, k_amax, v_amax, Hkv, cfg)
+    q_int, m_min, m_max, scale_total, alpha_radius, _, v_scale = prep
+    out, rounds, survivors, v_fetched = paged_decode_rows(
+        q_int, m_min, m_max, scale_total, alpha_radius, table, lengths,
+        q_positions, lambda phys: _unpack_pages(kq_pool[phys]), v_pool,
+        v_scale, cfg, window)
+    if not stats:
+        return PagedDecodeOutput(out=out, rounds=rounds, survivors=None,
+                                 v_fetched=None)
+    return PagedDecodeOutput(out=out, rounds=rounds, survivors=survivors,
+                             v_fetched=v_fetched)
+
+
+def launch_kernel(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
+                  v_amax, cfg: BitStopperConfig = BitStopperConfig(),
+                  window: int | None = None, stats: bool = True):
+    """Launch the CUDA kernel once.  Returns ``(out [B,Hq,Dv] f32,
+    rounds_h [B,Hkv,MB] int32, survivors int8 [B,Hq,MB*bs] or None)`` with
+    per-KV-head plane counts."""
+    _check(q, kq_pool, v_pool, table, lengths, q_positions, cfg)
+    B, Hq, D = q.shape
+    P, bits, bs8, Hkv, _ = kq_pool.shape
+    bs = bs8 * 8
+    MB = table.shape[1]
+    Dv = v_pool.shape[-1]
+    if kq_pool.dtype != torch.uint8 or v_pool.dtype != torch.float32:
+        raise TypeError(f"kernel takes a uint8 plane pool and an f32 V pool, "
+                        f"got {kq_pool.dtype} and {v_pool.dtype}")
+    if not (kq_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("kq and V pools must be contiguous")
+    if D % 4 or kq_pool.data_ptr() % 4:
+        raise ValueError(f"the kernel copies plane rows in 4-byte pieces: "
+                         f"head_dim {D} must be a multiple of 4 and the kq "
+                         f"pool 4-byte aligned")
+    dev = q.device
+    q_int, m_min, m_max, scale_total, alpha_radius, _, v_scale = \
+        paged_decode_prep(q, k_amax, v_amax, Hkv, cfg)
+    ints = [x.to(torch.int32).contiguous()
+            for x in (table, lengths, q_positions)]
+    floats = [x.contiguous() for x in (m_min, m_max, scale_total,
+                                       alpha_radius, v_scale)]
+    q_int = q_int.contiguous()
+    out = torch.empty((B, Hq, Dv), dtype=torch.float32, device=dev)
+    rounds_h = torch.empty((B, Hkv, MB), dtype=torch.int32, device=dev)
+    surv = (torch.zeros((B, Hq, MB * bs), dtype=torch.int8, device=dev)
+            if stats else None)
+    with torch.cuda.device(dev):
+        launch_c(q_int.data_ptr(), floats[0].data_ptr(),
+                 floats[1].data_ptr(), floats[2].data_ptr(),
+                 floats[3].data_ptr(), floats[4].data_ptr(),
+                 kq_pool.data_ptr(), v_pool.data_ptr(), ints[0].data_ptr(),
+                 ints[1].data_ptr(), ints[2].data_ptr(), out.data_ptr(),
+                 rounds_h.data_ptr(), surv.data_ptr() if stats else None,
+                 B, Hq, Hkv, D, Dv, bits, bs, MB, cfg.min_rounds,
+                 int(cfg.quantize_v), int(window is not None),
+                 int(window or 0), torch.cuda.current_stream(dev).cuda_stream)
+    return out, rounds_h, surv
+
+
+def launch_c(*args) -> None:
+    """The C entry point ``paged_decode_launch`` (argument order of
+    ``csrc/paged_decode.cu``); raises on a launch error and counts the
+    launch."""
+    global LAUNCHES
+    fn = load_library("paged_decode").paged_decode_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"paged_decode kernel launch failed with CUDA "
+                           f"error {err}")
+    LAUNCHES += 1
+
+
+def paged_bitstopper_decode(
+    q: torch.Tensor,            # [B, Hq, D]: one decode query per slot
+    kq_pool: torch.Tensor,      # [P, bits, bs//8, Hkv, D] uint8 plane pool
+    v_pool: torch.Tensor,       # [P, bs, Hkv, Dv] V pool
+    table: torch.Tensor,        # [B, MB] int32 block tables
+    lengths: torch.Tensor,      # [B] int32 fill levels
+    q_positions: torch.Tensor,  # [B] int32 absolute query positions
+    k_amax: torch.Tensor,       # [Hkv] pool-wide running max|K|
+    v_amax: torch.Tensor,       # [Hkv] pool-wide running max|V|
+    cfg: BitStopperConfig = BitStopperConfig(),
+    window: int | None = None,
+    stats: bool = True,
+) -> PagedDecodeOutput:
+    """Fused paged BESF decode over every serving slot.
+
+    CUDA tensors go through the hand-written kernel, CPU tensors through
+    :func:`paged_bitstopper_decode_plain`.  ``stats=False`` (the serving
+    path) returns ``survivors``/``v_fetched`` as None."""
+    args = (q, kq_pool, v_pool, table, lengths, q_positions, k_amax, v_amax)
+    if not on_card(*args):
+        return paged_bitstopper_decode_plain(*args, cfg=cfg, window=window,
+                                             stats=stats)
+    out, rounds_h, surv = launch_kernel(*args, cfg=cfg, window=window,
+                                        stats=stats)
+    rounds = rounds_h.amax(1)
+    if not stats:
+        return PagedDecodeOutput(out=out, rounds=rounds, survivors=None,
+                                 v_fetched=None)
+    B, Hq, _ = q.shape
+    MB = table.shape[1]
+    survivors = surv.to(torch.bool)
+    v_fetched = survivors.reshape(B, Hq, MB, -1).any(3).any(1)
+    return PagedDecodeOutput(out=out, rounds=rounds, survivors=survivors,
+                             v_fetched=v_fetched)

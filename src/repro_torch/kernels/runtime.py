@@ -1,0 +1,88 @@
+"""Device and toolchain resolution for the port's kernels.
+
+Counterpart of ``repro/kernels/runtime.py``, whose ``resolve_interpret``
+chose between compiled and interpreted Pallas.  Here the choice is made by
+the tensors: a kernel wrapper launches its CUDA kernel for CUDA tensors and
+runs its plain version for CPU tensors.  Nothing falls back silently: a
+missing card, a missing ``nvcc`` or a failed build raises.
+
+Kernels are compiled at first use with ``nvcc`` into a shared library with
+a plain C interface (loaded through ``ctypes``), under ``build/kernels/`` at
+the root of the checkout, keyed by a hash of the source and flags.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+# sm_90a keeps Hopper-only instructions available to later kernels.  No
+# --use_fast_math and no FMA contraction: the LATS bounds must round
+# exactly like the plain version's separate IEEE adds and multiplies.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA card; raise if there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def on_card(*tensors: torch.Tensor) -> bool:
+    """True iff every tensor lies on one CUDA device, False iff all lie on
+    the CPU; mixed or other devices raise."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"kernel operands on mixed or unsupported devices "
+                     f"{sorted(kinds)}")
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the port's kernels")
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` (once per content hash) and load it."""
+    if name in _LIBS:
+        return _LIBS[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed for {src.name}:\n{res.stderr}")
+        os.replace(tmp, out)            # atomic: concurrent builds agree
+    _LIBS[name] = ctypes.CDLL(str(out))
+    return _LIBS[name]

@@ -1,0 +1,398 @@
+"""Multi-head attention with the paged BitStopper KV cache.
+
+Counterpart of ``repro/models/attention.py`` for the paths paged serving
+runs:
+
+* the cache write (``_update_paged_cache``), which also keeps the pool-wide
+  running quant scales and the packed bit-plane pool (``_update_plane_pool``);
+* the decode read (``_paged_cached_attention``): one query per slot through
+  the paged BESF decode, the CUDA kernel when ``fused_decode`` is set, else
+  the plain torch oracle;
+* prefill chunks, which gather the slot's logical view and run block
+  BitStopper (``_bitstopper_full``);
+* the cache-free forward with the BitStopper score path.
+
+The reference's immutable cache updates become in-place writes into the
+pool tensors (the returned dict holds the same tensors): a decode tick then
+moves only the written rows instead of copying every pool.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.core import quantization as qlib
+from repro_torch.core.besf import BitStopperConfig, besf_attention_decode_paged
+from repro_torch.models import layers as L
+
+POS_SENTINEL = 2 ** 30
+
+# A write that grows a pool-wide running max-abs overshoots the new max by
+# this factor, so growth (a whole-pool requant) happens a handful of times
+# per serve instead of on every new maximum.
+AMAX_HEADROOM = 1.25
+
+_BITSTOPPER = ("bitstopper", "bitstopper_xla")
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    window: int | None = None          # sliding-window size (None = global)
+    causal: bool = True
+    impl: str = "xla"
+    bitstopper: BitStopperConfig = BitStopperConfig()
+    fused_decode: bool = False         # paged decode through the CUDA kernel
+    spec_verify: bool = False
+
+
+def init_attention(generator, cfg: AttnConfig, device=None,
+                   dtype=torch.float32):
+    return {
+        "wq": L.init_linear(generator, cfg.d_model,
+                            (cfg.n_heads, cfg.head_dim), cfg.qkv_bias,
+                            device, dtype),
+        "wk": L.init_linear(generator, cfg.d_model,
+                            (cfg.n_kv_heads, cfg.head_dim), cfg.qkv_bias,
+                            device, dtype),
+        "wv": L.init_linear(generator, cfg.d_model,
+                            (cfg.n_kv_heads, cfg.head_dim), cfg.qkv_bias,
+                            device, dtype),
+        "wo": L.init_linear(generator, cfg.n_heads * cfg.head_dim,
+                            cfg.d_model, False, device, dtype),
+    }
+
+
+def _mask_block(q_pos, k_pos, causal: bool, window: int | None):
+    """[Sq, Sk] bool validity from absolute positions."""
+    m = (k_pos[None, :] < POS_SENTINEL) & (q_pos[:, None] >= 0)
+    if causal:
+        m &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        m &= k_pos[None, :] > q_pos[:, None] - window
+    return m
+
+
+# ---------------------------------------------------------------------------
+# BitStopper score path
+# ---------------------------------------------------------------------------
+
+
+def attention_block_shape(n: int, cap: int = 128) -> tuple[int, int]:
+    """``(block, pad)``: tile ``min(cap, n)``, axis padded to a multiple."""
+    b = min(cap, n)
+    return b, (-n) % b
+
+
+def _expand_gqa(q, k, v, G):
+    """[B,S,H*,D] -> head-major [B,Hq,S,D] with KV heads repeated."""
+    kr = k.repeat_interleave(G, dim=2).transpose(1, 2)
+    vr = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    return q.transpose(1, 2), kr, vr
+
+
+def _bitstopper_full(q, k, v, cfg: AttnConfig, mask2d):
+    """q [B,S,Hq,D], k/v [B,T,Hkv,D], mask2d [S,T] or None -> [B,S,Hq,D]."""
+    from repro_torch.core.block_adaptation import block_bitstopper_attention
+    if not (cfg.impl == "bitstopper_xla" or mask2d is not None):
+        raise NotImplementedError(
+            "the unmasked impl='bitstopper' forward runs the bitstopper_qk "
+            "kernel, not ported yet (ROADMAP queue B)")
+    qt, kr, vr = _expand_gqa(q, k, v, cfg.n_heads // cfg.n_kv_heads)
+    Sq, Sk = qt.shape[2], kr.shape[2]
+    dev = q.device
+    if mask2d is None and cfg.causal:
+        mask2d = torch.tril(torch.ones((Sq, Sk), dtype=torch.bool,
+                                       device=dev), diagonal=Sk - Sq)
+    bq, pad_q = attention_block_shape(Sq)
+    bk, pad_k = attention_block_shape(Sk)
+    if pad_q or pad_k:
+        if mask2d is None:
+            mask2d = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+        mask2d = torch.nn.functional.pad(mask2d, (0, pad_k, 0, pad_q))
+        qt = torch.nn.functional.pad(qt, (0, 0, 0, pad_q))
+        kr = torch.nn.functional.pad(kr, (0, 0, 0, pad_k))
+        vr = torch.nn.functional.pad(vr, (0, 0, 0, pad_k))
+    res = block_bitstopper_attention(qt, kr, vr, cfg=cfg.bitstopper,
+                                     block_q=bq, block_k=bk, mask=mask2d)
+    return res.out.transpose(1, 2)[:, :Sq].to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedLayout:
+    """``pool_blocks`` physical blocks of ``page_size`` token slots, shared
+    by every request through ``[batch, max_blocks_per_req]`` block tables.
+    Physical block 0 is the null block: never written, it backs unused
+    table entries."""
+    pool_blocks: int
+    page_size: int
+    max_blocks_per_req: int
+
+    def __post_init__(self):
+        if self.pool_blocks < 2:
+            raise ValueError("pool_blocks must be >= 2 (block 0 is the "
+                             f"reserved null block), got {self.pool_blocks}")
+        if self.page_size < 1 or self.max_blocks_per_req < 1:
+            raise ValueError("page_size and max_blocks_per_req must be >= 1")
+
+
+def init_cache(cfg: AttnConfig, batch: int, paged: PagedLayout,
+               dtype=torch.float32, device=None):
+    """A paged cache: batch-free ``[pool_blocks, page_size, Hkv, D]`` K/V
+    pools, per-slot block ``table`` and fill ``length``.  BitStopper layers
+    also carry the pool-wide running max-abs ``k_amax``/``v_amax`` and,
+    with ``fused_decode``, the packed plane pool ``kq`` uint8[pool_blocks,
+    bits, page_size//8, Hkv, D]."""
+    nb, bs = paged.pool_blocks, paged.page_size
+    shape = (nb, bs, cfg.n_kv_heads, cfg.head_dim)
+    cache = {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((nb, bs), POS_SENTINEL, dtype=torch.int32,
+                          device=device),
+        "table": torch.zeros((batch, paged.max_blocks_per_req),
+                             dtype=torch.int32, device=device),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+    if cfg.impl in _BITSTOPPER and bs % 8 == 0:
+        cache["k_amax"] = torch.zeros((cfg.n_kv_heads,), dtype=torch.float32,
+                                      device=device)
+        cache["v_amax"] = torch.zeros((cfg.n_kv_heads,), dtype=torch.float32,
+                                      device=device)
+        if cfg.fused_decode:
+            cache["kq"] = torch.zeros(
+                (nb, cfg.bitstopper.bits, bs // 8, cfg.n_kv_heads,
+                 cfg.head_dim), dtype=torch.uint8, device=device)
+    return cache
+
+
+def cache_is_paged(cache) -> bool:
+    return "table" in cache
+
+
+def _put_rows(dst: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor,
+              val: torch.Tensor) -> None:
+    """``dst[idx[i]] = val[i]`` for ``ok[i]``, in place and without a host
+    sync.  A dropped write is sent to row 0 (slot 0 of the null block,
+    which no real write targets) and stores that row's current value."""
+    idx = torch.where(ok, idx, torch.zeros_like(idx))
+    keep = dst[idx]
+    okb = ok.reshape((-1,) + (1,) * (val.ndim - 1))
+    dst.index_put_((idx,), torch.where(okb, val.to(dst.dtype), keep))
+
+
+def _update_plane_pool(cache, kc, vc, real, phys, p_safe, ok):
+    """Keep the pool-wide scales and, with ``kq`` present, the packed plane
+    pool at write time.
+
+    ``k_amax``/``v_amax`` are the monotone running max-abs per KV head.
+    While they hold, only the new tokens are quantized and their bits
+    merged into ``kq``; when a write grows ``k_amax``, every stored plane
+    is stale and the whole pool is requantized from the f32 K pool.  The
+    growth test is a host branch: one device-to-host sync per layer per
+    write.
+
+    Packing: token at page offset ``t`` owns bit ``t % 8`` of byte
+    ``t // 8``.  Pages fill front to back, so a write at bit ``b`` keeps
+    the bits below ``b`` (earlier tokens) and clears those above."""
+    k_amax, v_amax = cache["k_amax"], cache["v_amax"]
+    realm = real[..., None, None]
+    k_hi = (kc.float().abs() * realm).amax(dim=(0, 1, 3))
+    v_hi = (vc.float().abs() * realm).amax(dim=(0, 1, 3))
+    k_amax_new = torch.where(k_hi > k_amax, k_hi * AMAX_HEADROOM, k_amax)
+    v_amax_new = torch.where(v_hi > v_amax, v_hi * AMAX_HEADROOM, v_amax)
+    if "kq" not in cache:
+        return dict(k_amax=k_amax_new, v_amax=v_amax_new)
+    kq = cache["kq"]
+    nb, bits, bs8, H, D = kq.shape
+    bs = bs8 * 8
+    if bool((k_amax_new > k_amax).any()):
+        kq.copy_(qlib.pack_pool_planes(cache["k"], k_amax_new, bits))
+        return dict(kq=kq, k_amax=k_amax_new, v_amax=v_amax_new)
+    k_scale = qlib.scale_from_amax(k_amax_new, bits)
+    k_int = qlib.quantize_with_scale(kc.float(),
+                                     k_scale[None, None, :, None], bits)
+    u = torch.where(k_int < 0, k_int + (1 << bits), k_int)
+    shifts = torch.arange(bits - 1, -1, -1, dtype=torch.int32,
+                          device=kq.device).reshape(1, bits, 1, 1)
+    off = p_safe % bs
+    byte, bitpos = (off // 8).long(), off % 8
+    row = torch.where(ok, phys, torch.zeros_like(phys)).long()
+    # One token at a time: tokens of one chunk share bytes, and each write
+    # must see the bits its predecessors left.
+    for s in range(real.shape[1]):
+        r, by, bp = row[:, s], byte[:, s], bitpos[:, s][:, None, None, None]
+        tokbits = (u[:, s, None] >> shifts) & 1                  # [B,bits,H,D]
+        old = kq[r, :, by].to(torch.int32)                       # [B,bits,H,D]
+        new = (old & ((1 << bp) - 1)) | (tokbits << bp)
+        new = torch.where(ok[:, s, None, None, None], new, old)
+        kq[r, :, by] = new.to(torch.uint8)
+    return dict(kq=kq, k_amax=k_amax_new, v_amax=v_amax_new)
+
+
+def _update_paged_cache(cache, k, v, positions):
+    """Write new token(s) through the block table; returns the new cache.
+
+    A token at absolute position p lives in logical block p // bs at offset
+    p % bs.  Writes never target physical block 0, and pad-sentinel tokens
+    are dropped."""
+    nb, bs = cache["pos"].shape
+    B, S = k.shape[:2]
+    kc = k.to(cache["k"].dtype)
+    vc = v.to(cache["v"].dtype)
+    pc2 = torch.broadcast_to(positions.to(torch.int32), (B, S))
+    table = cache["table"]
+    MB = table.shape[1]
+    real = pc2 != POS_SENTINEL
+    p_safe = torch.where(real, pc2, torch.zeros_like(pc2))
+    logical = p_safe // bs
+    phys = torch.gather(table, 1, logical.clamp(0, MB - 1).long())
+    ok = real & (logical < MB) & (phys > 0)
+    flat = (phys * bs + p_safe % bs).long().reshape(-1)
+    okf = ok.reshape(-1)
+    H, D = kc.shape[2], kc.shape[3]
+    _put_rows(cache["k"].view(nb * bs, H, D), flat, okf, kc.reshape(-1, H, D))
+    _put_rows(cache["v"].view(nb * bs, H, vc.shape[3]), flat, okf,
+              vc.reshape(-1, H, vc.shape[3]))
+    _put_rows(cache["pos"].view(nb * bs), flat, okf, pc2.reshape(-1))
+    new = dict(cache, length=cache["length"]
+               + real.sum(1, dtype=torch.int32))
+    if "k_amax" in cache:
+        new.update(_update_plane_pool(cache, kc, vc, real, phys, p_safe, ok))
+    return new
+
+
+def gather_paged_view(cache, active=None):
+    """Each row's dense logical view ``[B, MB*bs]`` gathered from the pool;
+    slots past the fill level are invalid and zeroed.  ``active`` ([B]
+    bool) swaps an inactive row's table for the null block."""
+    nb, bs = cache["pos"].shape
+    table = cache["table"]
+    if active is not None:
+        table = torch.where(active[:, None], table, torch.zeros_like(table))
+    B, MB = table.shape
+    Tv = MB * bs
+    dev = table.device
+    view = (table[..., None].long() * bs
+            + torch.arange(bs, device=dev)).reshape(B, Tv)
+    k_view = cache["k"].reshape((nb * bs,) + cache["k"].shape[2:])[view]
+    v_view = cache["v"].reshape((nb * bs,) + cache["v"].shape[2:])[view]
+    pos_view = cache["pos"].reshape(nb * bs)[view]
+    valid = torch.arange(Tv, device=dev)[None] < cache["length"][:, None]
+    pos_view = torch.where(valid, pos_view,
+                           torch.full_like(pos_view, POS_SENTINEL))
+    vm = valid[..., None, None]
+    k_view = torch.where(vm, k_view, torch.zeros_like(k_view))
+    v_view = torch.where(vm, v_view, torch.zeros_like(v_view))
+    return k_view, v_view, pos_view
+
+
+def _paged_cached_attention(q, cache, positions, cfg: AttnConfig):
+    """Attention against the (already updated) paged cache.
+
+    One query per slot with BitStopper goes straight at the pool: the CUDA
+    kernel when ``cfg.fused_decode``, else the plain oracle.  Prefill
+    chunks gather the logical view of the active rows."""
+    B, S = q.shape[:2]
+    active = (positions != POS_SENTINEL).any(1)
+    if cfg.spec_verify:
+        raise NotImplementedError("speculative verify is not ported yet "
+                                  "(ROADMAP A6)")
+    if cfg.impl in _BITSTOPPER and S == 1 and "k_amax" in cache:
+        qt = q[:, 0]
+        q_pos = positions[:, 0]
+        # A slot still prefilling decodes at the pad sentinel; fill level 0
+        # makes all of its pages unreachable.
+        lengths = torch.where(active, cache["length"],
+                              torch.zeros_like(cache["length"]))
+        if cfg.fused_decode:
+            from repro_torch.kernels.paged_decode import \
+                paged_bitstopper_decode
+            res = paged_bitstopper_decode(
+                qt, cache["kq"], cache["v"], cache["table"], lengths, q_pos,
+                cache["k_amax"], cache["v_amax"], cfg=cfg.bitstopper,
+                window=cfg.window, stats=False)
+        else:
+            res = besf_attention_decode_paged(
+                qt, cache["k"], cache["v"], cache["table"], lengths, q_pos,
+                cache["k_amax"], cache["v_amax"], cfg=cfg.bitstopper,
+                window=cfg.window)
+        return res.out[:, None].to(q.dtype)                   # [B,1,Hq,Dv]
+    k_view, v_view, pos_view = gather_paged_view(cache, active)
+    return _cached_attention(q, k_view, v_view, positions, pos_view, cfg)
+
+
+def _cached_attention(q, k_all, v_all, q_positions, k_positions,
+                      cfg: AttnConfig):
+    """One slot's prefill chunk against its gathered view, mask from the
+    slot positions.  The reference's other branches (Sq == 1 on a planeless
+    pool, multi-slot prefill, the dense impl) are not ported yet."""
+    B, Sq = q.shape[:2]
+    if cfg.impl not in _BITSTOPPER or Sq == 1 or B != 1:
+        raise NotImplementedError(
+            f"cached attention ported for one BitStopper prefill slot only "
+            f"(impl={cfg.impl!r}, B={B}, Sq={Sq}; ROADMAP A10)")
+    mask = _mask_block(q_positions[0], k_positions[0], causal=True,
+                       window=cfg.window)
+    return _bitstopper_full(q, k_all, v_all, cfg, mask)
+
+
+# ---------------------------------------------------------------------------
+# Public layer
+# ---------------------------------------------------------------------------
+
+
+def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
+              cache: dict[str, Any] | None = None):
+    """Returns (out [B,S,d_model], new_cache).
+
+    ``positions`` is [S] or, with a paged cache, [B, S] (each slot at its
+    own absolute position; pad rows at ``POS_SENTINEL``)."""
+    B, S, _ = x.shape
+    if cfg.impl not in _BITSTOPPER:
+        raise NotImplementedError(f"attention impl {cfg.impl!r} is not "
+                                  f"ported yet (ROADMAP A10)")
+    if cache is not None and positions.ndim == 1:
+        positions = positions[None].expand(B, S)
+    q = L.linear(p["wq"], x)                         # [B, S, Hq, D]
+    k = L.linear(p["wk"], x)                         # [B, S, Hkv, D]
+    v = L.linear(p["wv"], x)
+    rope_pos = positions if positions.ndim == 2 else positions[None, :]
+    q = L.rope(q, rope_pos, cfg.rope_theta)
+    k = L.rope(k, rope_pos, cfg.rope_theta)
+    if positions.ndim == 2:
+        # Zero pad rows: their K/V writes are dropped, and zero q rows keep
+        # the per-tensor quant scale independent of bucket padding.
+        real = (positions != POS_SENTINEL)[..., None, None]
+        q, k, v = q * real, k * real, v * real
+
+    if cache is None:
+        if positions.ndim == 2:
+            positions = positions[0]
+        mask2d = None
+        if cfg.window is not None:
+            mask2d = _mask_block(positions, positions, cfg.causal,
+                                 cfg.window)
+        out = _bitstopper_full(q, k, v, cfg, mask2d)
+        new_cache = None
+    elif cache_is_paged(cache):
+        new_cache = _update_paged_cache(cache, k, v, positions)
+        out = _paged_cached_attention(q, new_cache, positions, cfg)
+    else:
+        raise NotImplementedError("contiguous KV caches are not ported yet "
+                                  "(ROADMAP A10)")
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return L.linear(p["wo"], out), new_cache

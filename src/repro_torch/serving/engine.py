@@ -1,0 +1,416 @@
+"""Paged continuous-batching engine with BitStopper decode.
+
+Counterpart of the ``PagedEngine`` core of ``repro/serving/engine.py``: a
+refcounted block-pool KV cache (``kv_pool.KVBlockPool`` owns the host-side
+allocation), admission bounded by pool capacity, copy-on-write sharing of
+full prompt-prefix blocks, chunked prefill interleaved with decode ticks,
+and greedy sampling.
+
+Decode runs the paged BESF decode once per layer per tick: the CUDA kernel
+``kernels/csrc/paged_decode.cu`` when ``fused_decode`` resolves True (the
+default on a CUDA device), else the plain torch oracle.  Both compute the
+same integer observables, so the switch does not change served tokens.
+
+Not ported yet (each is a queue A item in ROADMAP.md): seeded sampling,
+speculative decoding, oversubscription and preemption, deadlines and
+shedding, chaos/snapshot/restore and the fused-kernel circuit breaker, the
+swap and prefix-store tiers, the engine API, mesh sharding, and the
+contiguous and static engines.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.attention import POS_SENTINEL, PagedLayout
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving.kv_pool import KVBlockPool
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_len: int = 512                # default sizing of the paged pool
+    max_slots: int = 4                # concurrent decode batch width
+    prefill_bucket: int = 16          # prefill chunks pad up to a multiple
+    temperature: float = 0.0          # 0 = greedy (the only mode ported)
+    cache_dtype: str = "float32"
+    eos_id: int | None = None         # optional early stop token
+    page_size: int = 16               # tokens per KV block
+    pool_blocks: int | None = None    # physical blocks incl. the null block
+                                      # (default 1 + slots * max_blocks)
+    max_blocks_per_req: int | None = None  # block-table width per slot
+                                      # (default ceil(max_len / page_size))
+    prefill_chunk: int | None = None  # prompt tokens per prefill tick
+                                      # (default 4 * prefill_bucket)
+    prefix_sharing: bool = True       # share full prompt-prefix blocks
+    fused_decode: bool | None = None  # BitStopper decode through the CUDA
+                                      # kernel (True), the plain oracle
+                                      # (False), or auto: kernel iff the
+                                      # engine runs on a CUDA device
+
+    def __post_init__(self):
+        for name in ("max_len", "max_slots", "prefill_bucket", "page_size"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got "
+                                 f"{getattr(self, name)}")
+        if self.temperature < 0.0:
+            raise ValueError(f"temperature must be >= 0, got "
+                             f"{self.temperature}")
+        if self.temperature > 0.0:
+            raise NotImplementedError(
+                "seeded sampling (temperature > 0) is not ported yet "
+                "(ROADMAP A5); serve greedy with temperature=0")
+        if self.cache_dtype != "float32":
+            raise NotImplementedError(
+                f"cache_dtype {self.cache_dtype!r}: the port's paged decode "
+                f"kernel takes an f32 V pool; only float32 is ported")
+        if self.pool_blocks is not None and self.pool_blocks < 2:
+            raise ValueError("pool_blocks must be >= 2 (block 0 is the "
+                             f"null block), got {self.pool_blocks}")
+        if self.max_blocks_per_req is not None and self.max_blocks_per_req < 1:
+            raise ValueError(f"max_blocks_per_req must be >= 1, got "
+                             f"{self.max_blocks_per_req}")
+        if self.prefill_chunk is not None:
+            if self.prefill_chunk < 1:
+                raise ValueError(f"prefill_chunk must be >= 1, got "
+                                 f"{self.prefill_chunk}")
+            if self.prefill_chunk % self.prefill_bucket:
+                raise ValueError(
+                    f"prefill_chunk ({self.prefill_chunk}) must be a "
+                    f"multiple of prefill_bucket ({self.prefill_bucket})")
+        if self.page_size % 8:
+            raise ValueError(
+                f"page_size must be a multiple of 8 (bit planes pack 8 "
+                f"tokens/byte along the page axis), got {self.page_size}")
+
+    def resolved_max_blocks(self) -> int:
+        return self.max_blocks_per_req or -(-self.max_len // self.page_size)
+
+    def resolved_pool_blocks(self) -> int:
+        return (self.pool_blocks
+                or 1 + self.max_slots * self.resolved_max_blocks())
+
+    def resolved_chunk(self) -> int:
+        return self.prefill_chunk or 4 * self.prefill_bucket
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray                # [S] int32
+    max_new_tokens: int = 32
+    generated: list = dataclasses.field(default_factory=list)
+    rid: int = -1                     # assigned at submit()
+    prefill_len: int = 0
+    admitted_step: int = -1
+    finished_step: int = -1
+
+
+@dataclasses.dataclass
+class _PagedSlot:
+    """Scheduler-side state of one occupied serving slot."""
+    req: Request
+    next_prefill: int          # prompt tokens [0, next_prefill) are cached
+    blocks_reserved: int       # reservation units not yet turned into allocs
+    ctx: np.ndarray            # the prompt
+
+    def prefilled(self) -> bool:
+        return self.next_prefill >= len(self.ctx)
+
+
+def _attach_tables(caches, table: torch.Tensor, length: torch.Tensor):
+    """The cache tree with the engine's block table and fill levels set on
+    every layer (the pool tensors are shared, not copied)."""
+    return {seg: [{b: dict(c, table=table, length=length)
+                   for b, c in unit.items()} for unit in units]
+            for seg, units in caches.items()}
+
+
+def _kv_bytes_per_token(cfg: ModelConfig) -> int:
+    """f32 K/V bytes plus, with the fused kernel, packed plane bytes that
+    one cached token costs across all attention layers."""
+    total = 0
+    for unit, reps in cfg.segments:
+        for spec in unit:
+            acfg = cfg.attn_config(spec.mixer == "local_attn")
+            total += reps * 2 * acfg.n_kv_heads * acfg.head_dim * 4
+            if acfg.fused_decode:
+                total += (reps * acfg.bitstopper.bits * acfg.n_kv_heads
+                          * acfg.head_dim) // 8
+    return total
+
+
+class PagedEngine:
+    """Continuous batching over a paged block-pool KV cache.
+
+    ``device=None`` serves on the CUDA card and raises if there is none;
+    tests pass ``device="cpu"``."""
+
+    def __init__(self, cfg: ModelConfig, params,
+                 scfg: ServeConfig = ServeConfig(), device=None):
+        mixers = {spec.mixer for unit, _ in cfg.segments for spec in unit}
+        if mixers - {"attn", "local_attn"}:
+            raise ValueError(f"paged serving needs attention mixers, got "
+                             f"{sorted(mixers)}")
+        if cfg.attn_impl not in ("bitstopper", "bitstopper_xla"):
+            raise NotImplementedError(
+                f"attn_impl {cfg.attn_impl!r}: the port serves the "
+                f"BitStopper score path only (ROADMAP A10)")
+        self.device = resolve_device(device)
+        fused = scfg.fused_decode
+        if fused is None:
+            fused = self.device.type == "cuda"
+        self.cfg = cfg.replace(fused_decode=bool(fused))
+        self.params = params
+        self.scfg = scfg
+        self._page = scfg.page_size
+        self._mb = scfg.resolved_max_blocks()
+        self._chunk = scfg.resolved_chunk()
+        self.layout = PagedLayout(scfg.resolved_pool_blocks(), self._page,
+                                  self._mb)
+        self.pool = KVBlockPool(self.layout.pool_blocks, self._page,
+                                prefix_sharing=scfg.prefix_sharing)
+        B = scfg.max_slots
+        self.caches = T.init_caches(self.cfg, B, self.layout,
+                                    device=self.device)
+        self.slots: list[_PagedSlot | None] = [None] * B
+        self.queue: collections.deque[Request] = collections.deque()
+        self.table = np.zeros((B, self._mb), np.int32)
+        self.lengths = np.zeros((B,), np.int32)
+        self.last_token = np.zeros((B,), np.int32)
+        self._prefill_fifo: collections.deque[int] = collections.deque()
+        self._next_rid = 0
+        self._step = 0
+        self.requests: dict[int, Request] = {}
+        self.counters = {"prefill_tokens": 0, "prefix_hit_tokens": 0,
+                         "prefill_chunks": 0, "decode_tokens": 0,
+                         "decode_steps": 0, "decode_slot_steps": 0,
+                         "decode_kv_tokens": 0, "requests_finished": 0}
+
+    # ------------------------------------------------------------------
+    # tick loop
+    # ------------------------------------------------------------------
+
+    def pending(self) -> bool:
+        return bool(self.queue or any(r is not None for r in self.slots))
+
+    def run(self) -> None:
+        while self.pending():
+            self.step()
+
+    def generate(self, requests: list[Request]) -> list[Request]:
+        """Serve the requests to completion; returns them with
+        ``generated`` filled."""
+        for r in requests:
+            self.submit(r)
+        self.run()
+        return requests
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    @torch.no_grad()
+    def _forward(self, tokens: np.ndarray, positions: np.ndarray,
+                 rows: slice):
+        caches = _attach_tables(self.caches, self._tensor(self.table[rows]),
+                                self._tensor(self.lengths[rows]))
+        logits, caches, _ = T.forward(self.params, self._tensor(tokens),
+                                      self.cfg, caches=caches,
+                                      positions=self._tensor(positions))
+        self.caches = caches
+        return logits
+
+    # ------------------------------------------------------------------
+    # capacity accounting
+    # ------------------------------------------------------------------
+
+    def _blocks_for(self, req: Request) -> int:
+        """Worst-case block need: the final sampled token is never written
+        back, so at most prompt + max_new_tokens - 1 slots are cached."""
+        tokens = len(req.prompt) + req.max_new_tokens - 1
+        return max(1, -(-tokens // self._page))
+
+    def kv_bytes_resident(self, peak: bool = True) -> int:
+        """KV memory backed by live blocks (peak over the run by default):
+        f32 K/V rows, the packed plane pool when the kernel is on, and the
+        static per-layer ``k_amax``/``v_amax`` scales."""
+        blocks = (self.pool.peak_live_blocks if peak
+                  else self.pool.live_blocks())
+        amax = sum(reps * 2 * self.cfg.n_kv_heads * 4 * len(unit)
+                   for unit, reps in self.cfg.segments)
+        return blocks * self._page * _kv_bytes_per_token(self.cfg) + amax
+
+    # ------------------------------------------------------------------
+    # scheduling
+    # ------------------------------------------------------------------
+
+    def submit(self, req: Request) -> Request:
+        if req.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        need = self._blocks_for(req)
+        if need > self._mb:
+            raise ValueError(
+                f"request needs {need} KV blocks, block table holds "
+                f"{self._mb} (raise max_blocks_per_req or max_len)")
+        if need > self.pool.capacity:
+            raise ValueError(
+                f"request needs {need} KV blocks, pool has "
+                f"{self.pool.capacity} (raise pool_blocks)")
+        if req.rid < 0:
+            req.rid = self._next_rid
+        self._next_rid = max(self._next_rid, req.rid + 1)
+        self.requests[req.rid] = req
+        self.queue.append(req)
+        return req
+
+    def _match_prefix(self, tokens: np.ndarray) -> list[int]:
+        """Longest chain of already-cached full blocks of ``tokens`` (refs
+        taken), always leaving at least one token to prefill: its forward
+        gives the logits of the first new token."""
+        bs = self._page
+        matched: list[int] = []
+        for j in range((len(tokens) - 1) // bs):
+            bid = self.pool.lookup(tuple(int(t) for t in
+                                         tokens[:(j + 1) * bs]))
+            if bid is None:
+                break
+            matched.append(bid)
+        return matched
+
+    def _admit(self) -> None:
+        while self.queue and None in self.slots:
+            req = self.queue[0]
+            ctx = np.asarray(req.prompt, np.int32)
+            Lc = len(ctx)
+            goal = self._blocks_for(req)
+            n_ctx = -(-Lc // self._page)
+            # Cheap pre-check before building O(L^2/page) prefix keys.
+            if goal - (Lc - 1) // self._page > self.pool.available():
+                break
+            matched = self._match_prefix(ctx)
+            need = goal - len(matched)
+            if need > self.pool.available():
+                for bid in matched:
+                    self.pool.decref(bid)
+                break
+            self.queue.popleft()
+            self.pool.reserve(need)
+            slot = self.slots.index(None)
+            row = np.zeros((self._mb,), np.int32)
+            row[:len(matched)] = matched
+            for j in range(len(matched), n_ctx):
+                row[j] = self.pool.alloc(reserved=True)
+            hit_len = len(matched) * self._page
+            self.table[slot] = row
+            self.lengths[slot] = hit_len
+            self.slots[slot] = _PagedSlot(req, next_prefill=hit_len,
+                                          blocks_reserved=goal - n_ctx,
+                                          ctx=ctx)
+            self._prefill_fifo.append(slot)
+            req.prefill_len = Lc
+            req.admitted_step = self._step
+            self.counters["prefix_hit_tokens"] += hit_len
+
+    def _prefill_tick(self) -> None:
+        """One bucket-padded chunk of the oldest admitted-but-unprefilled
+        request."""
+        if not self._prefill_fifo:
+            return
+        slot = self._prefill_fifo[0]
+        st = self.slots[slot]
+        req = st.req
+        L = len(st.ctx)
+        s = st.next_prefill
+        e = min(s + self._chunk, L)
+        n = e - s
+        Sp = min(self._chunk, -(-n // self.scfg.prefill_bucket)
+                 * self.scfg.prefill_bucket)
+        tokens = np.zeros((1, Sp), np.int32)
+        tokens[0, :n] = st.ctx[s:e]
+        positions = np.full((1, Sp), POS_SENTINEL, np.int32)
+        positions[0, :n] = np.arange(s, e, dtype=np.int32)
+        logits = self._forward(tokens, positions, slice(slot, slot + 1))
+        self.lengths[slot] += n
+        st.next_prefill = e
+        self.counters["prefill_tokens"] += n
+        self.counters["prefill_chunks"] += 1
+
+        # Publish newly completed full prompt blocks for prefix sharing.
+        bs = self._page
+        for j in range(s // bs, e // bs):
+            key = tuple(int(t) for t in st.ctx[:(j + 1) * bs])
+            self.pool.register(key, int(self.table[slot, j]))
+
+        if e == L:
+            self._prefill_fifo.popleft()
+            tok = int(torch.argmax(logits[0, n - 1]))
+            req.generated.append(tok)
+            self.last_token[slot] = tok
+            self._maybe_evict(slot, tok)
+
+    def _maybe_evict(self, slot: int, tok: int) -> None:
+        st = self.slots[slot]
+        req = st.req
+        done = len(req.generated) >= req.max_new_tokens
+        if self.scfg.eos_id is not None and tok == self.scfg.eos_id:
+            done = True
+        if not done:
+            return
+        req.finished_step = self._step
+        self.counters["requests_finished"] += 1
+        for j in range(self._mb):
+            bid = int(self.table[slot, j])
+            if bid:
+                self.pool.decref(bid)
+        self.pool.cancel_reservation(st.blocks_reserved)
+        self.table[slot] = 0
+        self.lengths[slot] = 0
+        self.last_token[slot] = 0
+        self.slots[slot] = None
+
+    def step(self) -> bool:
+        """One scheduler tick: admit, one prefill chunk, one decode step
+        over every prefilled slot.  Returns False when there is no work."""
+        self._admit()
+        self._prefill_tick()
+        active = [i for i, st in enumerate(self.slots)
+                  if st is not None and st.prefilled()]
+        if not active:
+            return self.pending()
+        self._step += 1
+        # Materialize the block behind each decoding row's next write.
+        for i in active:
+            j = int(self.lengths[i]) // self._page
+            if self.table[i, j] == 0:
+                st = self.slots[i]
+                self.table[i, j] = self.pool.alloc(reserved=True)
+                st.blocks_reserved -= 1
+        self._plain_decode_tick(active)
+        return True
+
+    def _plain_decode_tick(self, active: list[int]) -> None:
+        """One decode step over every prefilled slot; rows still
+        prefilling (or empty) decode at the pad sentinel and their cache
+        writes are dropped."""
+        positions = np.full((len(self.slots), 1), POS_SENTINEL, np.int32)
+        for i in active:
+            positions[i, 0] = self.lengths[i]
+        logits = self._forward(self.last_token[:, None], positions,
+                               slice(None))
+        toks = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        self.counters["decode_steps"] += 1
+        self.counters["decode_slot_steps"] += len(self.slots)
+        self.counters["decode_kv_tokens"] += sum(
+            int(self.lengths[i]) + 1 for i in active)
+        for i in active:
+            req = self.slots[i].req
+            req.generated.append(int(toks[i]))
+            self.counters["decode_tokens"] += 1
+            self.lengths[i] += 1
+            self.last_token[i] = toks[i]
+            self._maybe_evict(i, int(toks[i]))

@@ -1,0 +1,184 @@
+"""The port's PagedEngine held against the reference's on the CPU: reduced
+stablelm-1.6b with the reference's weights carried across, served greedy
+tick by tick beside the reference engine.  Token streams must be identical
+and the allocator state (free list, refcounts, prefix registry, LRU,
+reservations), block tables and fill levels equal after every tick."""
+
+import io
+from contextlib import redirect_stdout
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import reduced_config as jreduced
+from repro.core.besf import BitStopperConfig as JConfig
+from repro.models import transformer as JT
+from repro.serving import PagedEngine as JEngine
+from repro.serving import Request as JRequest
+from repro.serving import ServeConfig as JServe
+from repro_torch.configs import reduced_config
+from repro_torch.core.besf import BitStopperConfig as TConfig
+from repro_torch.launch import serve as tserve
+from repro_torch.models import transformer as TT
+from repro_torch.serving import PagedEngine, Request, ServeConfig
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = jreduced("stablelm-1.6b").replace(
+        attn_impl="bitstopper_xla", bitstopper=JConfig(alpha=0.8))
+    tcfg = reduced_config("stablelm-1.6b").replace(
+        attn_impl="bitstopper_xla", bitstopper=TConfig(alpha=0.8))
+    jparams = JT.init_model(jax.random.PRNGKey(0), jcfg)
+    tparams = TT.params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg)
+    return jcfg, tcfg, jparams, tparams
+
+
+# The reference's tests/test_serving.py paged engine geometry.
+_KW = dict(max_len=64, max_slots=2, prefill_bucket=8, page_size=8)
+
+
+def _prompts(lens, seed=0, prefix=None):
+    rng = np.random.default_rng(seed)
+    tails = [rng.integers(0, 256, L, dtype=np.int32) for L in lens]
+    if prefix is None:
+        return tails
+    return [np.concatenate([prefix, t]) for t in tails]
+
+
+def _lockstep(model, prompts, max_new, fused, device="cpu", **kw):
+    """Serve the same trace through both engines one tick at a time; the
+    reference runs its plain oracle (fused_decode=False), which its own
+    tests pin to its kernel."""
+    jcfg, tcfg, jparams, tparams = model
+    if device != "cpu":
+        tparams = TT.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                       tcfg, device)
+    jeng = JEngine(jcfg, jparams, JServe(fused_decode=False, **_KW, **kw))
+    teng = PagedEngine(tcfg, tparams, ServeConfig(fused_decode=fused, **_KW,
+                                                  **kw), device=device)
+    jreqs = [jeng.submit(JRequest(prompt=p.copy(), max_new_tokens=max_new))
+             for p in prompts]
+    treqs = [teng.submit(Request(prompt=p.copy(), max_new_tokens=max_new))
+             for p in prompts]
+    jeng.begin(0)
+    ticks = 0
+    while jeng.pending() or teng.pending():
+        jeng.step()
+        teng.step()
+        ticks += 1
+        assert teng.pool.snapshot() == jeng.pool.snapshot(), ticks
+        np.testing.assert_array_equal(teng.table, jeng.table)
+        np.testing.assert_array_equal(teng.lengths, jeng.lengths)
+        assert ([r.generated for r in treqs]
+                == [r.generated for r in jreqs]), ticks
+    for key, val in teng.counters.items():
+        assert jeng.counters[key] == val, key
+    return teng, [r.generated for r in treqs]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_engine_matches_reference_greedy(model, fused):
+    """The reference's trace (lengths 5, 11, 17, 9; alpha 0.8), through
+    the kernel's plain version (fused) and through the torch oracle."""
+    eng, toks = _lockstep(model, _prompts((5, 11, 17, 9)), 6, fused)
+    assert eng.cfg.fused_decode is fused
+    assert all(len(t) == 6 for t in toks)
+    assert eng.pool.live_blocks() == 0
+    assert eng.pool.available() == eng.pool.capacity
+
+
+def test_engine_matches_reference_shared_prefix_recycled(model):
+    """A common system prompt (prefix blocks mapped by several tables) on a
+    pool small enough that physical blocks recycle mid-trace."""
+    sys_prompt = np.random.default_rng(42).integers(0, 256, 16,
+                                                    dtype=np.int32)
+    eng, toks = _lockstep(model, _prompts((3, 7, 5, 9, 6), 9, sys_prompt),
+                          4, True, pool_blocks=10)
+    assert eng.counters["prefix_hit_tokens"] >= 16 * 2
+    assert eng.pool.alloc_count > eng.pool.capacity      # blocks recycled
+
+
+@pytest.mark.gpu
+def test_engine_on_card_matches_reference(model):
+    """On the card: the engine resolves to the CUDA kernel, launches it
+    once per layer per decode tick, and serves the reference's trace with
+    identical tokens and allocator state on every tick."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import paged_decode as pd
+    before = pd.LAUNCHES
+    eng, toks = _lockstep(model, _prompts((5, 11, 17, 9)), 6, None,
+                          device="cuda")
+    assert eng.cfg.fused_decode is True
+    assert (pd.LAUNCHES - before
+            == eng.counters["decode_steps"] * model[1].n_layers)
+
+
+def test_kv_bytes_resident(model):
+    """Resident bytes equal the reference's on the plain path; the kernel
+    path adds exactly the packed plane pool."""
+    jcfg, tcfg, jparams, tparams = model
+    jeng = JEngine(jcfg, jparams, JServe(fused_decode=False, **_KW))
+    jeng.generate([JRequest(prompt=p, max_new_tokens=3)
+                   for p in _prompts((9, 14))], seed=0)
+    engines = {}
+    for fused in (False, True):
+        engines[fused] = PagedEngine(tcfg, tparams,
+                                     ServeConfig(fused_decode=fused, **_KW),
+                                     device="cpu")
+        engines[fused].generate([Request(prompt=p, max_new_tokens=3)
+                                 for p in _prompts((9, 14))])
+    assert engines[False].kv_bytes_resident() == jeng.kv_bytes_resident()
+    blocks = engines[True].pool.peak_live_blocks
+    planes = tcfg.n_layers * 12 * tcfg.n_kv_heads * tcfg.head_dim // 8
+    assert (engines[True].kv_bytes_resident()
+            - engines[False].kv_bytes_resident()) == blocks * 8 * planes
+
+
+def test_serve_config_validation():
+    with pytest.raises(NotImplementedError, match="A5"):
+        ServeConfig(temperature=0.7)
+    with pytest.raises(ValueError):
+        ServeConfig(temperature=-1.0)
+    with pytest.raises(ValueError):
+        ServeConfig(page_size=12)
+    with pytest.raises(ValueError):
+        ServeConfig(prefill_chunk=20, prefill_bucket=16)
+    with pytest.raises(ValueError):
+        ServeConfig(pool_blocks=1)
+    with pytest.raises(NotImplementedError):
+        ServeConfig(cache_dtype="bfloat16")
+    assert ServeConfig().resolved_pool_blocks() == 1 + 4 * 32
+
+
+def test_device_and_kernel_resolution(model):
+    _, tcfg, _, tparams = model
+    scfg = ServeConfig(**_KW)
+    assert PagedEngine(tcfg, tparams, scfg, "cpu").cfg.fused_decode is False
+    on = PagedEngine(tcfg, tparams, ServeConfig(fused_decode=True, **_KW),
+                     "cpu")
+    assert on.cfg.fused_decode is True
+    assert "kq" in on.caches["seg0"][0]["b0"]
+    with pytest.raises(NotImplementedError):
+        PagedEngine(tcfg.replace(attn_impl="xla"), tparams, scfg, "cpu")
+    if torch.cuda.is_available():
+        assert PagedEngine(tcfg, tparams, scfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            PagedEngine(tcfg, tparams, scfg)
+    with pytest.raises(ValueError):
+        PagedEngine(tcfg, tparams, scfg, "cpu").submit(
+            Request(prompt=np.zeros(60, np.int32), max_new_tokens=200))
+
+
+def test_serve_cli_on_cpu():
+    out = io.StringIO()
+    with redirect_stdout(out):
+        tserve.main(["--device", "cpu", "--requests", "3", "--new-tokens",
+                     "3", "--max-prompt", "20", "--fused-decode", "on"])
+    text = out.getvalue()
+    assert "9 new tokens" in text and "fused_decode=True" in text
+    assert "'requests_finished': 3" in text
