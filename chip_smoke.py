@@ -3,22 +3,30 @@
 
 ``python3 chip_smoke.py`` from the root of a checkout.  It builds the
 port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
-``build/``), then:
+``build/``, one ``nvcc`` per source, all started together), then:
 
 1. device: requires CUDA, prints the card and its power limit, turns TF32
    off for matmuls and convolutions;
-2. kernels: runs every kernel of the main path against its plain PyTorch
-   version at the main path's shapes (integer observables exactly equal,
-   float output within a stated tolerance) and times both;
+2. kernels: runs every kernel of the served paths against its plain
+   PyTorch version at their shapes (integer observables exactly equal,
+   float output within a stated tolerance), each real query of the verify
+   kernel against the decode kernel at its position, and times them;
 3. main path: serves greedy requests with full-width ``stablelm-1.6b``
-   (seeded random weights) through ``repro_torch.serving.PagedEngine``,
-   checks that every decode tick launched the kernel once per layer, and
-   that a short trace gives the same tokens with the kernel and with the
-   plain oracle;
-4. prints one JSON line describing each kernel, then the device line last.
+   (seeded random weights, built once) through
+   ``repro_torch.serving.PagedEngine``, checks that every decode tick
+   launched the decode kernel once per layer, and that a short trace gives
+   the same tokens with the kernel and with the plain oracle;
+4. speculative path: serves the main path's trace again with speculative
+   decoding (a drafter that replays the recorded tokens) and a
+   repeated-pattern trace with the n-gram drafter; both must give the
+   plain run's tokens, and every verify forward must launch the verify
+   kernel once per layer.  A short trace at cut depth gives the same tokens
+   with the kernels and with the plain oracles;
+5. prints one JSON line describing each kernel, then the device line last.
 
 Any failed check exits non-zero.  Without a card it exits non-zero and
-prints no result.
+prints no result.  ``--profile`` instead profiles decode ticks, a prefill
+chunk and verify ticks (device time by kernel, busy share).
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ INT8_OPS_PER_S = 1.979e15        # H100 SXM dense int8 tensor-core peak
 OUT_TOL = 1e-5                   # kernel vs plain output: expf and the sum
                                  # order differ, integers are exact
 L2_FLUSH_BYTES = 128 * 2**20     # written before each timed call (L2: 50 MB)
+SPEC_K = 4                       # drafts per slot and tick
+KERNELS = ("paged_decode", "paged_verify")
 
 
 def phase(name):
@@ -88,10 +98,20 @@ def device_phase(torch):
     return name, smi.splitlines()[0]
 
 
-def decode_case(torch, seed, B, Hq, Hkv, D, bs, MB, P, bits=12,
+@phase("build")
+def build_phase():
+    from repro_torch.kernels import runtime
+    runtime.build_libraries(KERNELS)
+    print(f"[chip_smoke] built {', '.join(KERNELS)} with "
+          f"{' '.join(runtime.NVCC_FLAGS)}")
+
+
+def decode_case(torch, seed, B, Hq, Hkv, D, bs, MB, P, Sq=1, bits=12,
                 dev="cuda"):
-    """A pool and block tables with mixed fill levels, a prefix page shared
-    by two slots, an inactive slot and recycled pages holding stale data."""
+    """A pool and block tables with mixed fill levels (one ending mid-page),
+    a prefix page shared by two slots, an inactive slot and recycled pages
+    holding stale data.  ``Sq`` > 1 gives verify operands: a draft block of
+    Sq queries per slot, padding queries included."""
     import numpy as np
     from repro_torch.core import quantization as qlib
     rng = np.random.default_rng(seed)
@@ -102,23 +122,34 @@ def decode_case(torch, seed, B, Hq, Hkv, D, bs, MB, P, bits=12,
     k.reshape(P * bs, Hkv, D)[idx] += hot[rng.integers(0, 8, size=idx.size)]
     v = rng.normal(size=(P, bs, Hkv, D)).astype(np.float32)
     perm = rng.permutation(np.arange(1, P))
-    lengths = np.array([MB * bs - 12, 7 * bs + 3, 0, 77][:B], np.int32)
+    lengths = np.array([MB * bs - 11 - Sq, 7 * bs + 3, 0, 77][:B], np.int32)
     table = np.zeros((B, MB), np.int32)
     used = 0
     for b in range(B):
-        n = -(-int(lengths[b]) // bs)
+        n = -(-(int(lengths[b]) + Sq - 1) // bs)
         table[b, :n] = perm[used:used + n]
         used += n
     table[1, :3] = table[0, :3]                    # shared prefix pages
-    q = rng.normal(size=(B, Hq, D)).astype(np.float32)
-    q[:, :, :] += hot[0].repeat(Hq // Hkv, axis=0)[None] * 0.5
+    q = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
+    q += hot[0].repeat(Hq // Hkv, axis=0)[None, None] * 0.5
     k_amax = np.abs(k).max(axis=(0, 1, 3)) * 1.25
     v_amax = np.abs(v).max(axis=(0, 1, 3)) * 1.25
     t = lambda a: torch.as_tensor(a, device=dev)
     kt = t(k)
     kq = qlib.pack_pool_planes(kt, t(k_amax), bits)
-    q_pos = np.maximum(lengths - 1, 0).astype(np.int32)
-    return (t(q), kq, t(v), t(table), t(lengths), t(q_pos), t(k_amax),
+    if Sq == 1:
+        q_pos = np.maximum(lengths - 1, 0).astype(np.int32)
+        return (t(q[:, 0]), kq, t(v), t(table), t(lengths), t(q_pos),
+                t(k_amax), t(v_amax))
+    # Draft block: query s at fill level + s; slot 1 drafted 2 tokens only
+    # (the rest are padding queries), slot 2 is idle (all padding).
+    q_pos = lengths[:, None] + np.arange(Sq, dtype=np.int32)[None]
+    real = np.ones((B, Sq), bool)
+    real[1, 3:] = False
+    real[2] = False
+    q_pos = np.where(real, q_pos, 0).astype(np.int32)
+    q_len = np.where(real, q_pos + 1, 0).astype(np.int32)
+    return (t(q), kq, t(v), t(table), t(q_len), t(q_pos), t(k_amax),
             t(v_amax))
 
 
@@ -196,6 +227,105 @@ def kernel_phase(torch):
             "library_ms": None}
 
 
+def verify_bytes_ops(args, rounds_h, surv):
+    """Bytes and integer ops one verify call needs on this data: per (slot,
+    KV head, page) the planes of the query that kept the page alive longest
+    (one load serves the whole draft block) and the V page when any query
+    has a survivor, the small operands once, the outputs once; the ops are
+    the dots of every live query.  Also returns the plane loads the block
+    shares and the sum of the per-query counts (Sq separate decodes)."""
+    q, kq, v, table = args[:4]
+    B, Sq, Hq, D = q.shape
+    P, bits, bs8, Hkv, _ = kq.shape
+    bs, MB, Dv = bs8 * 8, table.shape[1], v.shape[-1]
+    G = Hq // Hkv
+    union = int(rounds_h.amax(2).sum())          # rounds_h [B, Hkv, Sq, MB]
+    per_query = int(rounds_h.sum())
+    sv = surv.reshape(B, Sq, Hkv, G, MB, bs).any(5).any(3)   # [B,Sq,Hkv,MB]
+    v_union, v_per_query = int(sv.any(1).sum()), int(sv.sum())
+    small = (B * Sq * Hq * D * 4 + 2 * bits * B * Sq * Hq * 4
+             + 2 * B * Sq * Hq * 4 + Hkv * 4 + B * MB * 4 + 2 * B * Sq * 4)
+    outs = B * Sq * Hq * Dv * 4 + B * Sq * MB * 4
+    nbytes = union * bs8 * D + v_union * bs * Dv * 4 + small + outs
+    ops = per_query * G * bs * D * 2 + v_per_query * G * bs * Dv * 2
+    return nbytes, ops, union, per_query
+
+
+@phase("verify kernel")
+def verify_kernel_phase(torch):
+    """paged_verify against its plain version on draft blocks (padding
+    queries, a row ending mid-page, an idle slot) and, query by query,
+    against the paged_decode kernel at the query's position."""
+    from repro_torch.core.besf import BitStopperConfig
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_verify as pv
+    shapes = dict(B=4, Sq=SPEC_K + 1, Hq=32, D=64, bs=16, MB=32, P=129)
+    cases = [("mha a=0.6", 0.6, 32, None), ("gqa Hkv=8", 0.6, 8, None),
+             ("window 100", 0.8, 32, 100)]
+    worst = 0.0
+    for i, (label, alpha, hkv, window) in enumerate(cases):
+        cfg = BitStopperConfig(alpha=alpha)
+        args = decode_case(torch, 200 + i, Hkv=hkv, **shapes)
+        ker = pv.paged_bitstopper_verify(*args, cfg=cfg, window=window)
+        ref = pv.paged_bitstopper_verify_plain(*args, cfg=cfg, window=window)
+        torch.cuda.synchronize()
+        for field in ("rounds", "survivors", "v_fetched"):
+            a, b = getattr(ker, field), getattr(ref, field)
+            if not torch.equal(a, b):
+                n = int((a != b).sum())
+                raise SystemExit(f"[chip_smoke] paged_verify {label}: "
+                                 f"{field} differs in {n} entries")
+        err = float((ker.out - ref.out).abs().max())
+        worst = max(worst, err)
+        if not err <= OUT_TOL:
+            raise SystemExit(f"[chip_smoke] paged_verify {label}: out "
+                             f"differs by {err} > {OUT_TOL}")
+        q, kq, v, table, lengths, q_pos, k_amax, v_amax = args
+        for s in range(shapes["Sq"]):
+            dec = pd.paged_bitstopper_decode(
+                q[:, s], kq, v, table, lengths[:, s].contiguous(),
+                q_pos[:, s].contiguous(), k_amax, v_amax, cfg=cfg,
+                window=window)
+            real = lengths[:, s] > 0
+            for field in ("out", "rounds", "survivors", "v_fetched"):
+                a = getattr(dec, field)[real]
+                b = getattr(ker, field)[:, s][real]
+                if not torch.equal(a, b):
+                    raise SystemExit(
+                        f"[chip_smoke] paged_verify {label}: query {s} "
+                        f"{field} differs from paged_decode at its position")
+        _, rounds_h, surv = pv.launch_kernel(*args, cfg=cfg, window=window)
+        _, _, union, per_query = verify_bytes_ops(args, rounds_h, surv)
+        print(f"[chip_smoke] paged_verify {label}: rounds/survivors/"
+              f"v_fetched equal to plain; max|out diff| {err:.3e}; every "
+              f"real query equal to paged_decode at its position; plane "
+              f"loads {union} for the block vs {per_query} for "
+              f"{int((lengths > 0).sum())} separate decodes; survivors "
+              f"{int(ker.survivors.sum())}")
+
+    cfg = BitStopperConfig(alpha=0.6)
+    args = decode_case(torch, 200, Hkv=32, **shapes)
+    _, rounds_h, surv = pv.launch_kernel(*args, cfg=cfg)
+    nbytes, ops, _, _ = verify_bytes_ops(args, rounds_h, surv)
+    ms = cuda_ms(torch, lambda: pv.paged_bitstopper_verify(
+        *args, cfg=cfg, stats=False), iters=50, warmup=5)
+    plain_ms = cuda_ms(torch, lambda: pv.paged_bitstopper_verify_plain(
+        *args, cfg=cfg, stats=False), iters=3, warmup=1)
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = ops / INT8_OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes, bound_ops)
+    print(f"[chip_smoke] paged_verify timing (B=4, Sq={shapes['Sq']}, H=32, "
+          f"D=64, bs=16, MB=32): kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+          f"ms, bound {bound_ms:.5f} ms ({nbytes} bytes, {ops} ops)")
+    return {"name": "paged_verify", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_verify.cu",
+            "replaces": "src/repro/kernels/paged_verify.py:335",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "library_ms": None}
+
+
 def make_requests(np, Request, seed, n, new_tokens, vocab):
     rng = np.random.default_rng(seed)
     return [Request(prompt=rng.integers(0, vocab, int(rng.integers(64, 385)),
@@ -222,15 +352,60 @@ def build_model(torch):
     return cfg, params
 
 
+class LaunchTimer:
+    """CUDA events around every launch of a kernel module's ``launch_c``
+    while the context is open."""
+
+    def __init__(self, torch, module):
+        self.torch, self.module, self.events = torch, module, []
+        self.real = module.launch_c
+
+    def _timed(self, *a):
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.real(*a)
+        end.record()
+        self.events.append((start, end))
+
+    def __enter__(self):
+        self.module.launch_c = self._timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.launch_c = self.real
+
+    def ms(self) -> float:
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+class ReplayDrafter:
+    """Drafts the tokens a recorded plain run generated after the same
+    context: a perfect draft model of the greedy target."""
+
+    def __init__(self, np, reqs):
+        self.np = np
+        self.runs = [(np.asarray(r.prompt), list(r.generated)) for r in reqs]
+
+    def propose(self, context, k):
+        for prompt, gen in self.runs:
+            n = len(context) - len(prompt)
+            if (0 < n <= len(gen)
+                    and self.np.array_equal(context[:len(prompt)], prompt)
+                    and list(context[len(prompt):]) == gen[:n]):
+                return gen[n:n + k]
+        return []
+
+
 @phase("main path")
-def main_path_phase(torch):
+def main_path_phase(torch, cfg, params):
     """Full-width stablelm-1.6b served greedily through the port's
-    PagedEngine; returns the kernel launch count of the main run."""
+    PagedEngine; returns the decode kernel's launch count of the main run
+    and its requests (the recorded plain tokens)."""
     import numpy as np
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.serving import PagedEngine, Request, ServeConfig
 
-    cfg, params = build_model(torch)
     scfg = ServeConfig(max_slots=4, page_size=16, max_len=512)
 
     # Warm-up (cuBLAS handles, allocator) on a throwaway engine.
@@ -242,17 +417,6 @@ def main_path_phase(torch):
     if not eng.cfg.fused_decode:
         raise SystemExit("[chip_smoke] fused_decode did not resolve to the "
                          "kernel on the card")
-    kernel_events = []
-    real_launch = pd.launch_c
-
-    def timed_launch(*a):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        real_launch(*a)
-        end.record()
-        kernel_events.append((start, end))
-
     tick_ms = {"prefill": [], "decode": []}
     real_tick = eng.step
 
@@ -283,18 +447,17 @@ def main_path_phase(torch):
     qlib.pack_pool_planes = counted_pack
     reqs = make_requests(np, Request, 0, 8, 32, cfg.vocab)
     torch.cuda.reset_peak_memory_stats()
-    pd.launch_c = timed_launch
-    pd.LAUNCHES = 0
-    t = time.perf_counter()
-    eng.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = pd.LAUNCHES
-    pd.launch_c = real_launch
+    with LaunchTimer(torch, pd) as timer:
+        pd.LAUNCHES = 0
+        t = time.perf_counter()
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = pd.LAUNCHES
     qlib.pack_pool_planes = real_pack
     ticks = eng.counters["decode_steps"]
     n_tok = sum(len(r.generated) for r in reqs)
-    kernel_ms = sum(s.elapsed_time(e) for s, e in kernel_events)
+    kernel_ms = timer.ms()
     print(f"[chip_smoke] main path: {len(reqs)} requests, prompts "
           f"{[len(r.prompt) for r in reqs]}, {n_tok} new tokens in "
           f"{wall:.3f} s ({n_tok / wall:.2f} tok/s)")
@@ -337,20 +500,193 @@ def main_path_phase(torch):
                          f"{streams[0]} vs {streams[1]}")
     print(f"[chip_smoke] fused and plain decode give identical tokens on "
           f"{len(streams[0])} requests")
-    return launches
+    return launches, reqs
+
+
+def serve_speculative(torch, np, cfg, params, prompts, new_tokens,
+                      drafter=None, label="", **kw):
+    """Serve ``prompts`` speculatively (k = SPEC_K) and check the launch
+    counts: with the kernels, one verify launch per layer per verify forward
+    (bailouts included) and one decode launch per layer per plain decode
+    forward; with the plain oracles, none.
+    Returns the engine, the token streams and the verify launches."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_verify as pv
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
+    eng = PagedEngine(cfg, params, ServeConfig(
+        max_slots=4, page_size=16, max_len=512, draft_k=SPEC_K, **kw),
+        drafter=drafter)
+    reqs = [Request(prompt=p.copy(), max_new_tokens=new_tokens)
+            for p in prompts]
+    tick_ms = {"verify": [], "bailout": [], "decode": []}
+    real_tick = eng.step
+
+    def timed_step():
+        before = dict(eng.counters)
+        t = time.perf_counter()
+        out = real_tick()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        d = {k: eng.counters[k] - before[k] for k in before}
+        if not d["prefill_chunks"] and d["decode_steps"]:
+            kind = ("bailout" if d["spec_bailouts"] else
+                    "verify" if d["spec_ticks"] else "decode")
+            tick_ms[kind].append(dt)
+        return out
+
+    eng.step = timed_step
+    growth = []                # per bailout: layers whose K / V scale grew
+    real_verify = eng._verify_forward
+
+    def probed_verify(*a):
+        from repro_torch.serving.engine import _layers
+        old = _layers(eng.caches)
+        out = real_verify(*a)
+        if out[2]:
+            grew = {"k_amax": 0, "v_amax": 0}
+            ratio = 0.0
+            for co, cn in zip(old, _layers(out[1])):
+                for key in grew:
+                    up = cn[key] > co[key]
+                    if bool(up.any()):
+                        grew[key] += 1
+                        # new max |x| over the old scale (growth stores
+                        # the new max times 1.25)
+                        r = (cn[key][up] / 1.25 / co[key][up]).max()
+                        ratio = max(ratio, float(r))
+            growth.append((grew["k_amax"], grew["v_amax"], ratio))
+        return out
+
+    eng._verify_forward = probed_verify
+    with LaunchTimer(torch, pv) as timer:
+        pd.LAUNCHES = pv.LAUNCHES = 0
+        t = time.perf_counter()
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = (pd.LAUNCHES, pv.LAUNCHES)
+    c = eng.counters
+    n_tok = sum(len(r.generated) for r in reqs)
+    verify_fw = c["spec_ticks"]
+    decode_fw = c["decode_steps"] - (c["spec_ticks"] - c["spec_bailouts"])
+    mean = lambda xs: f"{np.mean(xs):.2f} ms ({len(xs)})" if xs else "none"
+    print(f"[chip_smoke] {label}: {len(reqs)} requests, {n_tok} new tokens "
+          f"in {wall:.3f} s ({n_tok / wall:.2f} tok/s); speculative "
+          f"counters: spec_ticks {c['spec_ticks']}, accepted "
+          f"{c['spec_accepted']}/{c['spec_proposed']}, bailouts "
+          f"{c['spec_bailouts']}, drafter_failures {c['drafter_failures']},"
+          f" {c['decode_tokens']}/{c['decode_steps']} tokens per decode "
+          f"forward")
+    print(f"[chip_smoke] {label}: mean tick without prefill: verify "
+          f"{mean(tick_ms['verify'])}, bailout {mean(tick_ms['bailout'])}, "
+          f"plain decode {mean(tick_ms['decode'])}; paged_verify launches "
+          f"{launches[1]} ({timer.ms() / max(launches[1], 1):.4f} ms per "
+          f"launch, CUDA events), paged_decode launches {launches[0]}")
+    if growth:
+        g = np.array(growth)
+        print(f"[chip_smoke] {label}: growth bailouts {len(growth)}: layers "
+              f"whose K scale grew {g[:, 0].mean():.2f} and V scale "
+              f"{g[:, 1].mean():.2f} per bailout (of {cfg.n_layers}); new "
+              f"max over old scale: median {np.median(g[:, 2]):.4f}, max "
+              f"{g[:, 2].max():.4f}")
+    want = ((cfg.n_layers * decode_fw, cfg.n_layers * verify_fw)
+            if eng.cfg.fused_decode else (0, 0))
+    if launches != want:
+        raise SystemExit(f"[chip_smoke] {label}: launches {launches} for "
+                         f"{decode_fw} decode and {verify_fw} verify "
+                         f"forwards x {cfg.n_layers} layers")
+    return eng, [r.generated for r in reqs], launches[1]
+
+
+def rows_depend_on_batch(torch, params, B=4, Sq=SPEC_K + 1):
+    """Does a [B*Sq, d] product give other bits than the same rows as Sq
+    products of [B, d] (the decode's shape)?  The reason the verify forward
+    runs its dense layers position by position."""
+    w = params["unembed"]["w"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(B, Sq, w.shape[0], device="cuda", generator=gen)
+    whole = (x.reshape(-1, w.shape[0]) @ w).reshape(B, Sq, -1)
+    cols = torch.stack([x[:, s].contiguous() @ w for s in range(Sq)], 1)
+    return float((whole - cols).abs().max())
+
+
+@phase("speculative path")
+def speculative_phase(torch, cfg, params, plain_reqs):
+    """(a) the main path's trace with a drafter replaying its tokens, (b) a
+    repeated-pattern trace with the n-gram drafter against its plain run,
+    (c) at cut depth, the kernels against the plain oracles.  Returns the
+    verify kernel's launches in (a)."""
+    import numpy as np
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
+    diff = rows_depend_on_batch(torch, params)
+    print(f"[chip_smoke] unembedding rows of one [{4 * (SPEC_K + 1)}, "
+          f"{cfg.d_model}] product vs {SPEC_K + 1} products of [4, "
+          f"{cfg.d_model}]: max |diff| {diff:.3e} (the verify forward runs "
+          f"its dense layers per position)")
+    want = [r.generated for r in plain_reqs]
+    eng, got, verify_launches = serve_speculative(
+        torch, np, cfg, params, [r.prompt for r in plain_reqs],
+        len(want[0]), ReplayDrafter(np, plain_reqs), "speculative (a) replay",
+        speculative="draft")
+    if got != want:
+        raise SystemExit(f"[chip_smoke] speculative (a) serves other tokens "
+                         f"than plain greedy: {got} vs {want}")
+    if eng.counters["spec_accepted"] == 0:
+        raise SystemExit("[chip_smoke] speculative (a) accepted no draft")
+
+    rng = np.random.default_rng(5)
+    prompts = [np.resize(rng.integers(0, cfg.vocab, 6 + 5 * i,
+                                      dtype=np.int32), 96 + 32 * i)
+               for i in range(4)]
+    plain = [Request(prompt=p.copy(), max_new_tokens=16) for p in prompts]
+    PagedEngine(cfg, params, ServeConfig(max_slots=4, page_size=16,
+                                         max_len=512)).generate(plain)
+    _, got, _ = serve_speculative(torch, np, cfg, params, prompts, 16,
+                                  label="speculative (b) ngram",
+                                  speculative="ngram")
+    if got != [r.generated for r in plain]:
+        raise SystemExit("[chip_smoke] speculative (b) serves other tokens "
+                         "than plain greedy")
+    print("[chip_smoke] speculative (a) and (b) serve the plain greedy "
+          "tokens")
+
+    # (c) Kernels vs plain oracles, speculative, at cut depth (width kept).
+    depth = min(4, cfg.n_layers)
+    cut = cfg.replace(segments=((cfg.segments[0][0], depth),))
+    cut_params = dict(params, seg0=params["seg0"][:depth])
+    short = make_requests(np, Request, 2, 2, 6, cfg.vocab)
+    PagedEngine(cut, cut_params, ServeConfig(
+        max_slots=4, page_size=16, max_len=512)).generate(short)
+    streams = [[r.generated for r in short]]
+    for fused in (True, False):
+        t = time.perf_counter()
+        streams.append(serve_speculative(
+            torch, np, cut, cut_params, [r.prompt for r in short], 6,
+            ReplayDrafter(np, short), f"cut depth {depth}, fused={fused}",
+            speculative="draft", fused_decode=fused)[1])
+        print(f"[chip_smoke] cut depth {depth} speculative fused_decode="
+              f"{fused}: {time.perf_counter() - t:.3f} s")
+    if not streams[0] == streams[1] == streams[2]:
+        raise SystemExit(f"[chip_smoke] at cut depth plain greedy, "
+                         f"speculative kernels and speculative plain oracles "
+                         f"disagree: {streams}")
+    print(f"[chip_smoke] at depth {depth}: speculative kernels, speculative "
+          f"plain oracles and plain greedy give identical tokens")
+    return verify_launches
 
 
 @phase("profile")
-def profile_phase(torch, decode_ticks=8):
-    """torch.profiler over steady decode ticks and one prefill chunk of the
-    main path: device time by kernel, and the device's busy share."""
+def profile_phase(torch, cfg, params, decode_ticks=8, verify_ticks=3):
+    """torch.profiler over steady decode ticks, one prefill chunk and
+    speculative verify ticks of the served paths: device time by kernel,
+    and the device's busy share."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import PagedEngine, Request, ServeConfig
-    cfg, params = build_model(torch)
     scfg = ServeConfig(max_slots=4, page_size=16, max_len=512)
     eng = PagedEngine(cfg, params, scfg)
-    for r in make_requests(np, Request, 0, 4, 48, cfg.vocab):
+    reqs = make_requests(np, Request, 0, 4, 48, cfg.vocab)
+    for r in reqs:
         eng.submit(r)
     eng.step()                      # admit all four, first prefill chunk
     torch.cuda.synchronize()
@@ -360,6 +696,25 @@ def profile_phase(torch, decode_ticks=8):
         eng.step()
     report_profile(torch, ProfilerActivity, profile, "decode tick",
                    eng.step, decode_ticks)
+    eng.run()
+
+    # Verify ticks: the same requests, drafts replaying the plain tokens.
+    spec = PagedEngine(cfg, params, ServeConfig(
+        max_slots=4, page_size=16, max_len=512, speculative="draft",
+        draft_k=SPEC_K), drafter=ReplayDrafter(np, reqs))
+    for r in reqs:
+        spec.submit(Request(prompt=r.prompt.copy(), max_new_tokens=48))
+    while spec._prefill_fifo or not spec.counters["spec_ticks"]:
+        spec.step()
+    spec.step()
+    before = dict(spec.counters)
+    report_profile(torch, ProfilerActivity, profile, "verify tick",
+                   spec.step, verify_ticks)
+    d = {k: spec.counters[k] - before[k]
+         for k in ("spec_ticks", "spec_bailouts", "decode_tokens")}
+    print(f"[chip_smoke] profile verify window: {d['spec_ticks']} verify "
+          f"ticks, {d['spec_bailouts']} bailouts, {d['decode_tokens']} "
+          f"tokens")
 
 
 def report_profile(torch, ProfilerActivity, profile, name, fn, n):
@@ -412,19 +767,23 @@ def _leaves(tree):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="only profile decode ticks and a prefill chunk of "
-                         "the main path (prints no result line)")
+                    help="only profile decode ticks, a prefill chunk and "
+                         "verify ticks of the served paths (prints no "
+                         "result line)")
     args = ap.parse_args(argv)
     import torch
     name, smi = device_phase(torch)
+    build_phase()
     if args.profile:
         print(smi)
-        profile_phase(torch)
+        profile_phase(torch, *build_model(torch))
         return
-    row = kernel_phase(torch)
-    row["launches"] = main_path_phase(torch)
+    rows = [kernel_phase(torch), verify_kernel_phase(torch)]
+    cfg, params = build_model(torch)
+    rows[0]["launches"], plain_reqs = main_path_phase(torch, cfg, params)
+    rows[1]["launches"] = speculative_phase(torch, cfg, params, plain_reqs)
     print(smi)
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""Bit-serial Enabled Stage Fusion (BESF): the paged decode oracle.
+"""Bit-serial Enabled Stage Fusion (BESF): the paged decode and verify
+oracles.
 
 Counterpart of ``repro/core/besf.py`` for the paged serving decode.  Keys
 are INT12-quantized under the pool-wide running scales and consumed one bit
@@ -10,6 +11,8 @@ every round carry their exact integer score into an online softmax.
 ``fused_decode=False`` path of the engine; the CUDA kernel in
 ``repro_torch/kernels/paged_decode.py`` must match its integer observables
 (``rounds``, survivors, ``v_fetched``) exactly.
+:func:`besf_attention_verify_paged` is the same for a speculative draft
+block, held against ``repro_torch/kernels/paged_verify.py``.
 """
 
 from __future__ import annotations
@@ -220,3 +223,46 @@ def besf_attention_decode_paged(
         q_positions, page_planes, v_pool, v_scale, cfg, window)
     return PagedDecodeOutput(out=out, rounds=rounds, survivors=survivors,
                              v_fetched=v_fetched)
+
+
+class PagedVerifyOutput(NamedTuple):
+    out: torch.Tensor        # [B, Sq, Hq, dv] attention output per query
+    rounds: torch.Tensor     # [B, Sq, n_blocks] int32 planes fetched per page
+    survivors: torch.Tensor | None  # [B, Sq, Hq, n_blocks*page_size] bool
+    v_fetched: torch.Tensor | None  # [B, Sq, n_blocks] bool
+
+
+def besf_attention_verify_paged(
+    q: torch.Tensor,            # [B, Sq, Hq, d]: the draft block per slot
+    k_pool: torch.Tensor,       # [P, page_size, Hkv, d] f32 pool
+    v_pool: torch.Tensor,       # [P, page_size, Hkv, dv] f32 pool
+    table: torch.Tensor,        # [B, MB] int32 block tables
+    lengths: torch.Tensor,      # [B, Sq] int32 per-query fill levels
+    q_positions: torch.Tensor,  # [B, Sq] int32 absolute query positions
+    k_amax: torch.Tensor,       # [Hkv] pool-wide running max|K|
+    v_amax: torch.Tensor,       # [Hkv] pool-wide running max|V|
+    cfg: BitStopperConfig = BitStopperConfig(),
+    window: int | None = None,
+) -> PagedVerifyOutput:
+    """Multi-query paged BESF verify oracle (speculative decoding).
+
+    Every (slot, query) pair is an independent row of the Sq=1 paged
+    decode: its own position, its own fill level (query i at position p
+    sees cached tokens ``t_pos <= p``: earlier draft tokens, never later
+    ones) and its own quantization and LATS thresholds.  The rows go
+    through :func:`paged_decode_rows` with each slot's table broadcast to
+    its queries, so a real draft query equals the Sq=1 decode at that
+    position bit for bit.  A padding query has fill level 0 and touches
+    no page."""
+    B, Sq, Hq, d = q.shape
+    MB = table.shape[1]
+    flat = besf_attention_decode_paged(
+        q.reshape(B * Sq, Hq, d), k_pool, v_pool,
+        table[:, None].expand(B, Sq, MB).reshape(B * Sq, MB),
+        lengths.reshape(B * Sq), q_positions.reshape(B * Sq), k_amax,
+        v_amax, cfg, window)
+    return PagedVerifyOutput(
+        out=flat.out.reshape(B, Sq, Hq, -1),
+        rounds=flat.rounds.reshape(B, Sq, MB),
+        survivors=flat.survivors.reshape(B, Sq, Hq, -1),
+        v_fetched=flat.v_fetched.reshape(B, Sq, MB))

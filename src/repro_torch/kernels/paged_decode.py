@@ -62,6 +62,23 @@ def _check(q, kq_pool, v_pool, table, lengths, q_positions, cfg):
                          f"{tuple(lengths.shape)}, {tuple(q_positions.shape)}")
 
 
+def check_kernel_operands(q, kq_pool, v_pool, table, lengths, q_positions,
+                          cfg):
+    """Shapes, plus what the CUDA kernels (decode and verify) take: a
+    contiguous uint8 plane pool copied in 4-byte pieces and an f32 V pool."""
+    _check(q, kq_pool, v_pool, table, lengths, q_positions, cfg)
+    D = q.shape[-1]
+    if kq_pool.dtype != torch.uint8 or v_pool.dtype != torch.float32:
+        raise TypeError(f"kernel takes a uint8 plane pool and an f32 V pool, "
+                        f"got {kq_pool.dtype} and {v_pool.dtype}")
+    if not (kq_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("kq and V pools must be contiguous")
+    if D % 4 or kq_pool.data_ptr() % 4:
+        raise ValueError(f"the kernel copies plane rows in 4-byte pieces: "
+                         f"head_dim {D} must be a multiple of 4 and the kq "
+                         f"pool 4-byte aligned")
+
+
 def paged_bitstopper_decode_plain(q, kq_pool, v_pool, table, lengths,
                                   q_positions, k_amax, v_amax,
                                   cfg: BitStopperConfig = BitStopperConfig(),
@@ -89,21 +106,13 @@ def launch_kernel(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
     """Launch the CUDA kernel once.  Returns ``(out [B,Hq,Dv] f32,
     rounds_h [B,Hkv,MB] int32, survivors int8 [B,Hq,MB*bs] or None)`` with
     per-KV-head plane counts."""
-    _check(q, kq_pool, v_pool, table, lengths, q_positions, cfg)
+    check_kernel_operands(q, kq_pool, v_pool, table, lengths, q_positions,
+                          cfg)
     B, Hq, D = q.shape
     P, bits, bs8, Hkv, _ = kq_pool.shape
     bs = bs8 * 8
     MB = table.shape[1]
     Dv = v_pool.shape[-1]
-    if kq_pool.dtype != torch.uint8 or v_pool.dtype != torch.float32:
-        raise TypeError(f"kernel takes a uint8 plane pool and an f32 V pool, "
-                        f"got {kq_pool.dtype} and {v_pool.dtype}")
-    if not (kq_pool.is_contiguous() and v_pool.is_contiguous()):
-        raise ValueError("kq and V pools must be contiguous")
-    if D % 4 or kq_pool.data_ptr() % 4:
-        raise ValueError(f"the kernel copies plane rows in 4-byte pieces: "
-                         f"head_dim {D} must be a multiple of 4 and the kq "
-                         f"pool 4-byte aligned")
     dev = q.device
     q_int, m_min, m_max, scale_total, alpha_radius, _, v_scale = \
         paged_decode_prep(q, k_amax, v_amax, Hkv, cfg)

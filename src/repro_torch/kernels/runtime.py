@@ -66,23 +66,47 @@ def nvcc_path() -> str:
                        "the port's kernels")
 
 
+def _library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_libraries(names) -> None:
+    """Build every ``csrc/<name>.cu`` not built yet, one ``nvcc`` per
+    source, all started together, and load them."""
+    jobs = []
+    for name in names:
+        out = _library_path(name)
+        if name in _LIBS or out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed for {name}.cu:\n{err}")
+        else:
+            os.replace(tmp, out)        # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        load_library(name)
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` (once per content hash) and load it."""
     if name in _LIBS:
         return _LIBS[name]
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    out = _library_path(name)
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{res.stderr}")
-        os.replace(tmp, out)            # atomic: concurrent builds agree
+        build_libraries([name])
     _LIBS[name] = ctypes.CDLL(str(out))
     return _LIBS[name]

@@ -2,9 +2,10 @@
 over a mixed-length request trace.
 
 ``python -m repro_torch.launch.serve --arch stablelm-1.6b`` (on the card;
-``--device cpu`` runs the plain PyTorch path).  Mirror of
-``repro/launch/serve.py`` for what this port serves: the paged engine,
-greedy, reduced-width configs with seeded random weights.
+``--device cpu`` runs the plain PyTorch path; ``--speculative ngram|draft
+--draft-k 4`` serves speculatively).  Mirror of ``repro/launch/serve.py``
+for what this port serves: the paged engine, greedy, reduced-width configs
+with seeded random weights.
 """
 
 from __future__ import annotations
@@ -60,6 +61,15 @@ def main(argv=None):
                     choices=["auto", "on", "off"],
                     help="BitStopper decode through the CUDA kernel (on), "
                          "the plain oracle (off), or kernel iff on CUDA")
+    ap.add_argument("--speculative", default="off",
+                    choices=["off", "ngram", "draft"],
+                    help="speculative decoding with the n-gram prompt-lookup "
+                         "self-drafter (ngram) or a draft transformer "
+                         "(draft; self-drafts with the target model).  "
+                         "Lossless: served tokens never change, only how "
+                         "many verify forwards they take")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="draft tokens proposed per speculative tick")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--seed", type=int, default=0)
@@ -76,7 +86,8 @@ def main(argv=None):
         max_slots=args.slots, page_size=args.page_size,
         pool_blocks=args.pool_blocks, prefill_chunk=args.prefill_chunk,
         fused_decode={"auto": None, "on": True, "off": False}[
-            args.fused_decode])
+            args.fused_decode],
+        speculative=args.speculative, draft_k=args.draft_k)
     engine = PagedEngine(cfg, params, scfg, device=device)
     rng = np.random.default_rng(args.seed)
     reqs = make_trace(rng, cfg.vocab, args.requests, args.min_prompt,
@@ -92,6 +103,15 @@ def main(argv=None):
           f"({n_tok / dt:.1f} tok/s, device={device}, "
           f"fused_decode={engine.cfg.fused_decode})")
     print(f"[serve] counters: {engine.counters}")
+    if args.speculative != "off":
+        c = engine.counters
+        acc = (c["spec_accepted"] / c["spec_proposed"]
+               if c["spec_proposed"] else 0.0)
+        print(f"[serve] speculative({args.speculative}, k={args.draft_k}): "
+              f"{c['spec_ticks']} verify ticks, "
+              f"{c['spec_accepted']}/{c['spec_proposed']} drafts accepted "
+              f"({acc:.0%}), {c['spec_bailouts']} scale-growth bailouts, "
+              f"{c['decode_tokens']}/{c['decode_steps']} tokens/tick")
     print(f"[serve] kv pool: page_size={engine.layout.page_size} "
           f"blocks={engine.layout.pool_blocks} "
           f"peak_live={engine.pool.peak_live_blocks} "

@@ -7,14 +7,18 @@ runs:
   running quant scales and the packed bit-plane pool (``_update_plane_pool``);
 * the decode read (``_paged_cached_attention``): one query per slot through
   the paged BESF decode, the CUDA kernel when ``fused_decode`` is set, else
-  the plain torch oracle;
+  the plain torch oracle; with ``spec_verify``, a speculative draft block
+  per slot through the paged BESF verify in the same way;
 * prefill chunks, which gather the slot's logical view and run block
   BitStopper (``_bitstopper_full``);
 * the cache-free forward with the BitStopper score path.
 
 The reference's immutable cache updates become in-place writes into the
 pool tensors (the returned dict holds the same tensors): a decode tick then
-moves only the written rows instead of copying every pool.
+moves only the written rows instead of copying every pool.  Where the
+reference keeps an old cache by reference (the speculative growth
+bailout), the port records what a write overwrites and puts it back
+(``undo_paged_write``).
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from typing import Any
 import torch
 
 from repro_torch.core import quantization as qlib
-from repro_torch.core.besf import BitStopperConfig, besf_attention_decode_paged
+from repro_torch.core.besf import (BitStopperConfig,
+                                   besf_attention_decode_paged,
+                                   besf_attention_verify_paged)
 from repro_torch.models import layers as L
 
 POS_SENTINEL = 2 ** 30
@@ -209,6 +215,7 @@ def _update_plane_pool(cache, kc, vc, real, phys, p_safe, ok):
     ``t // 8``.  Pages fill front to back, so a write at bit ``b`` keeps
     the bits below ``b`` (earlier tokens) and clears those above."""
     k_amax, v_amax = cache["k_amax"], cache["v_amax"]
+    undo = cache.get("undo")
     realm = real[..., None, None]
     k_hi = (kc.float().abs() * realm).amax(dim=(0, 1, 3))
     v_hi = (vc.float().abs() * realm).amax(dim=(0, 1, 3))
@@ -220,6 +227,8 @@ def _update_plane_pool(cache, kc, vc, real, phys, p_safe, ok):
     nb, bits, bs8, H, D = kq.shape
     bs = bs8 * 8
     if bool((k_amax_new > k_amax).any()):
+        if undo is not None:
+            undo[-1]["kq"] = kq.clone()
         kq.copy_(qlib.pack_pool_planes(cache["k"], k_amax_new, bits))
         return dict(kq=kq, k_amax=k_amax_new, v_amax=v_amax_new)
     k_scale = qlib.scale_from_amax(k_amax_new, bits)
@@ -231,6 +240,8 @@ def _update_plane_pool(cache, kc, vc, real, phys, p_safe, ok):
     off = p_safe % bs
     byte, bitpos = (off // 8).long(), off % 8
     row = torch.where(ok, phys, torch.zeros_like(phys)).long()
+    if undo is not None:
+        undo[-1]["kq_at"] = (row, byte, kq[row, :, byte].clone())
     # One token at a time: tokens of one chunk share bytes, and each write
     # must see the bits its predecessors left.
     for s in range(real.shape[1]):
@@ -248,7 +259,13 @@ def _update_paged_cache(cache, k, v, positions):
 
     A token at absolute position p lives in logical block p // bs at offset
     p % bs.  Writes never target physical block 0, and pad-sentinel tokens
-    are dropped."""
+    are dropped.
+
+    The pools are written in place.  A cache that carries an ``undo`` list
+    (a speculative verify write) gets a record appended of everything the
+    write overwrites in them, which :func:`undo_paged_write` puts back.
+    The returned ``length`` and amax leaves are new tensors, so keeping
+    the old ones undoes the rest."""
     nb, bs = cache["pos"].shape
     B, S = k.shape[:2]
     kc = k.to(cache["k"].dtype)
@@ -264,6 +281,11 @@ def _update_paged_cache(cache, k, v, positions):
     flat = (phys * bs + p_safe % bs).long().reshape(-1)
     okf = ok.reshape(-1)
     H, D = kc.shape[2], kc.shape[3]
+    if "undo" in cache:
+        at = torch.where(okf, flat, torch.zeros_like(flat))
+        cache["undo"].append({"rows": at, **{
+            key: cache[key].view((nb * bs,) + cache[key].shape[2:])[at].clone()
+            for key in ("k", "v", "pos")}})
     _put_rows(cache["k"].view(nb * bs, H, D), flat, okf, kc.reshape(-1, H, D))
     _put_rows(cache["v"].view(nb * bs, H, vc.shape[3]), flat, okf,
               vc.reshape(-1, H, vc.shape[3]))
@@ -273,6 +295,21 @@ def _update_paged_cache(cache, k, v, positions):
     if "k_amax" in cache:
         new.update(_update_plane_pool(cache, kc, vc, real, phys, p_safe, ok))
     return new
+
+
+def undo_paged_write(cache, record) -> None:
+    """Put back, in place, what one recorded ``_update_paged_cache`` wrote
+    into the pools of ``cache``: the K/V/pos rows and the plane-pool bytes
+    (the whole ``kq`` when the write requantized it)."""
+    nb, bs = cache["pos"].shape
+    for key in ("k", "v", "pos"):
+        flat = cache[key].view((nb * bs,) + cache[key].shape[2:])
+        flat.index_put_((record["rows"],), record[key])
+    if "kq" in record:
+        cache["kq"].copy_(record["kq"])
+    elif "kq_at" in record:
+        row, byte, old = record["kq_at"]
+        cache["kq"][row, :, byte] = old
 
 
 def gather_paged_view(cache, active=None):
@@ -303,14 +340,33 @@ def gather_paged_view(cache, active=None):
 def _paged_cached_attention(q, cache, positions, cfg: AttnConfig):
     """Attention against the (already updated) paged cache.
 
-    One query per slot with BitStopper goes straight at the pool: the CUDA
-    kernel when ``cfg.fused_decode``, else the plain oracle.  Prefill
-    chunks gather the logical view of the active rows."""
+    A verify draft block or one query per slot with BitStopper goes
+    straight at the pool: the CUDA kernel when ``cfg.fused_decode``, else
+    the plain oracle.  Prefill chunks gather the logical view of the
+    active rows."""
     B, S = q.shape[:2]
     active = (positions != POS_SENTINEL).any(1)
-    if cfg.spec_verify:
-        raise NotImplementedError("speculative verify is not ported yet "
-                                  "(ROADMAP A6)")
+    if cfg.spec_verify and cfg.impl in _BITSTOPPER and "k_amax" in cache:
+        # Speculative verify: the whole draft block in one paged pass.  The
+        # write has already placed the draft tokens, so query i with fill
+        # level position + 1 sees exactly what the Sq=1 decode at that
+        # position sees.  Padding queries get fill level 0.
+        real = positions != POS_SENTINEL
+        q_pos = torch.where(real, positions, torch.zeros_like(positions))
+        lengths = torch.where(real, q_pos + 1, torch.zeros_like(q_pos))
+        if cfg.fused_decode:
+            from repro_torch.kernels.paged_verify import \
+                paged_bitstopper_verify
+            res = paged_bitstopper_verify(
+                q, cache["kq"], cache["v"], cache["table"], lengths, q_pos,
+                cache["k_amax"], cache["v_amax"], cfg=cfg.bitstopper,
+                window=cfg.window, stats=False)
+        else:
+            res = besf_attention_verify_paged(
+                q, cache["k"], cache["v"], cache["table"], lengths, q_pos,
+                cache["k_amax"], cache["v_amax"], cfg=cfg.bitstopper,
+                window=cfg.window)
+        return res.out.to(q.dtype)                            # [B,S,Hq,Dv]
     if cfg.impl in _BITSTOPPER and S == 1 and "k_amax" in cache:
         qt = q[:, 0]
         q_pos = positions[:, 0]
@@ -360,16 +416,19 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
     """Returns (out [B,S,d_model], new_cache).
 
     ``positions`` is [S] or, with a paged cache, [B, S] (each slot at its
-    own absolute position; pad rows at ``POS_SENTINEL``)."""
+    own absolute position; pad rows at ``POS_SENTINEL``).  A speculative
+    verify (``cfg.spec_verify``) runs the projections position by position
+    (``layers.by_column``)."""
     B, S, _ = x.shape
     if cfg.impl not in _BITSTOPPER:
         raise NotImplementedError(f"attention impl {cfg.impl!r} is not "
                                   f"ported yet (ROADMAP A10)")
     if cache is not None and positions.ndim == 1:
         positions = positions[None].expand(B, S)
-    q = L.linear(p["wq"], x)                         # [B, S, Hq, D]
-    k = L.linear(p["wk"], x)                         # [B, S, Hkv, D]
-    v = L.linear(p["wv"], x)
+    split = cfg.spec_verify and cache is not None
+    q = L.by_column(lambda t: L.linear(p["wq"], t), x, split)  # [B,S,Hq,D]
+    k = L.by_column(lambda t: L.linear(p["wk"], t), x, split)  # [B,S,Hkv,D]
+    v = L.by_column(lambda t: L.linear(p["wv"], t), x, split)
     rope_pos = positions if positions.ndim == 2 else positions[None, :]
     q = L.rope(q, rope_pos, cfg.rope_theta)
     k = L.rope(k, rope_pos, cfg.rope_theta)
@@ -395,4 +454,4 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
         raise NotImplementedError("contiguous KV caches are not ported yet "
                                   "(ROADMAP A10)")
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return L.linear(p["wo"], out), new_cache
+    return L.by_column(lambda t: L.linear(p["wo"], t), out, split), new_cache

@@ -36,6 +36,21 @@ def init_linear(generator, d_in: int, d_out, bias: bool = False,
     return p
 
 
+def by_column(fn, x: torch.Tensor, split: bool) -> torch.Tensor:
+    """``fn(x)`` for x [B, S, ...]; with ``split``, one call per position
+    ``x[:, s:s+1]``, each as an S=1 forward makes it.
+
+    A speculative verify must give every draft query the bits the Sq=1
+    decode at its position would give it.  On the card the kernels that
+    cuBLAS and torch's reductions pick depend on the row count, and rows of
+    a [B*S, d] product differ in the last bits from the same rows of a
+    [B, d] product; calls of the decode's shape give identical rows."""
+    if not split or x.shape[1] == 1:
+        return fn(x)
+    return torch.cat([fn(x[:, s:s + 1].contiguous())
+                      for s in range(x.shape[1])], 1)
+
+
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     w = p["w"]
     y = (x.reshape(-1, x.shape[-1]) @ w.reshape(w.shape[0], -1)).reshape(

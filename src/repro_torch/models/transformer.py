@@ -50,14 +50,18 @@ def init_block(generator, spec: BlockSpec, cfg: ModelConfig, device=None):
 
 def block_forward(p, x, positions, spec: BlockSpec, cfg: ModelConfig,
                   cache=None):
-    """Returns (x, new_cache)."""
-    h = L.norm(p["norm1"], x)
+    """Returns (x, new_cache).  A speculative verify runs the per-token
+    layers position by position (``layers.by_column``)."""
+    split = cfg.spec_verify and cache is not None
+    h = L.by_column(lambda t: L.norm(p["norm1"], t), x, split)
     out, new_cache = attention(
         p["attn"], h, positions, cfg.attn_config(spec.mixer == "local_attn"),
         cache)
     x = x + out
     if spec.ffn != "none":
-        x = x + L.mlp(p["ffn"], L.norm(p["norm2"], x), cfg.act)
+        x = x + L.by_column(
+            lambda t: L.mlp(p["ffn"], L.norm(p["norm2"], t), cfg.act), x,
+            split)
     return x.to(cfg.activation_dtype), new_cache
 
 
@@ -109,11 +113,14 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, caches=None,
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     x, new_caches = run_segments(params, x, positions, cfg, caches)
-    h = L.norm(params["final_norm"], x)
-    if cfg.tie_embeddings:
-        logits = L.unembed(params["embed"], h)
-    else:
-        logits = L.linear(params["unembed"], h).float()
+
+    def head(t):
+        h = L.norm(params["final_norm"], t)
+        if cfg.tie_embeddings:
+            return L.unembed(params["embed"], h)
+        return L.linear(params["unembed"], h).float()
+
+    logits = L.by_column(head, x, cfg.spec_verify and caches is not None)
     return logits, new_caches, torch.zeros((), device=logits.device)
 
 

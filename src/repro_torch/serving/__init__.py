@@ -1,4 +1,5 @@
-"""Serving: the paged continuous-batching engine with BitStopper decode."""
+"""Serving: the paged continuous-batching engine with BitStopper decode and
+speculative decoding."""
 
 from repro_torch.serving.engine import (  # noqa: F401
     PagedEngine,
@@ -6,3 +7,9 @@ from repro_torch.serving.engine import (  # noqa: F401
     ServeConfig,
 )
 from repro_torch.serving.kv_pool import KVBlockPool  # noqa: F401
+from repro_torch.serving.speculative import (  # noqa: F401
+    DraftModelDrafter,
+    Drafter,
+    NGramDrafter,
+    make_drafter,
+)

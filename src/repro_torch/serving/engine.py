@@ -11,11 +11,20 @@ Decode runs the paged BESF decode once per layer per tick: the CUDA kernel
 default on a CUDA device), else the plain torch oracle.  Both compute the
 same integer observables, so the switch does not change served tokens.
 
+Speculative decoding (``ServeConfig.speculative``): a drafter proposes up
+to ``draft_k`` tokens per slot, one Sq=k+1 verify forward scores the draft
+blocks (per layer the paged BESF verify, the CUDA kernel
+``kernels/csrc/paged_verify.cu`` when ``fused_decode``), the longest
+prefix of drafts equal to the greedy tokens is accepted and the rejected
+tail's blocks are rolled back.  A draft write that grows a pool-wide quant
+scale is undone and the tick replayed plain, so traces equal
+non-speculative serving.
+
 Not ported yet (each is a queue A item in ROADMAP.md): seeded sampling,
-speculative decoding, oversubscription and preemption, deadlines and
-shedding, chaos/snapshot/restore and the fused-kernel circuit breaker, the
-swap and prefix-store tiers, the engine API, mesh sharding, and the
-contiguous and static engines.
+oversubscription and preemption, deadlines and shedding,
+chaos/snapshot/restore and the fused-kernel circuit breaker, the swap and
+prefix-store tiers, the engine API, mesh sharding, and the contiguous and
+static engines.
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ import torch
 
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.models.attention import POS_SENTINEL, PagedLayout
+from repro_torch.models.attention import (POS_SENTINEL, PagedLayout,
+                                          undo_paged_write)
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.kv_pool import KVBlockPool
 
@@ -53,6 +63,10 @@ class ServeConfig:
                                       # kernel (True), the plain oracle
                                       # (False), or auto: kernel iff the
                                       # engine runs on a CUDA device
+    speculative: str = "off"          # "off" | "ngram" (prompt-lookup
+                                      # self-drafter) | "draft" (draft
+                                      # transformer; defaults to self-draft)
+    draft_k: int = 4                  # draft tokens proposed per tick
 
     def __post_init__(self):
         for name in ("max_len", "max_slots", "prefill_bucket", "page_size"):
@@ -88,6 +102,12 @@ class ServeConfig:
             raise ValueError(
                 f"page_size must be a multiple of 8 (bit planes pack 8 "
                 f"tokens/byte along the page axis), got {self.page_size}")
+        if self.speculative not in ("off", "ngram", "draft"):
+            raise ValueError(
+                f"speculative must be off|ngram|draft, got "
+                f"{self.speculative!r}")
+        if self.draft_k < 1:
+            raise ValueError(f"draft_k must be >= 1, got {self.draft_k}")
 
     def resolved_max_blocks(self) -> int:
         return self.max_blocks_per_req or -(-self.max_len // self.page_size)
@@ -131,6 +151,19 @@ def _attach_tables(caches, table: torch.Tensor, length: torch.Tensor):
             for seg, units in caches.items()}
 
 
+def _layers(caches) -> list[dict]:
+    """Every layer's cache dict, in a fixed order."""
+    return [unit[b] for seg in sorted(caches) for unit in caches[seg]
+            for b in sorted(unit)]
+
+
+def _amax_leaves(caches) -> list[torch.Tensor]:
+    """Every ``k_amax``/``v_amax`` leaf, in a fixed order (the growth probe
+    of a speculative draft-block write)."""
+    return [c[key] for c in _layers(caches) for key in ("k_amax", "v_amax")
+            if key in c]
+
+
 def _kv_bytes_per_token(cfg: ModelConfig) -> int:
     """f32 K/V bytes plus, with the fused kernel, packed plane bytes that
     one cached token costs across all attention layers."""
@@ -152,7 +185,8 @@ class PagedEngine:
     tests pass ``device="cpu"``."""
 
     def __init__(self, cfg: ModelConfig, params,
-                 scfg: ServeConfig = ServeConfig(), device=None):
+                 scfg: ServeConfig = ServeConfig(), device=None,
+                 drafter=None):
         mixers = {spec.mixer for unit, _ in cfg.segments for spec in unit}
         if mixers - {"attn", "local_attn"}:
             raise ValueError(f"paged serving needs attention mixers, got "
@@ -168,6 +202,14 @@ class PagedEngine:
         self.cfg = cfg.replace(fused_decode=bool(fused))
         self.params = params
         self.scfg = scfg
+        self._drafter = None
+        if scfg.speculative != "off":
+            from repro_torch.serving.speculative import make_drafter
+            self._drafter = (drafter if drafter is not None else
+                             make_drafter(scfg.speculative, cfg, params))
+        elif drafter is not None:
+            raise ValueError(
+                "drafter passed but ServeConfig.speculative == 'off'")
         self._page = scfg.page_size
         self._mb = scfg.resolved_max_blocks()
         self._chunk = scfg.resolved_chunk()
@@ -190,7 +232,10 @@ class PagedEngine:
         self.counters = {"prefill_tokens": 0, "prefix_hit_tokens": 0,
                          "prefill_chunks": 0, "decode_tokens": 0,
                          "decode_steps": 0, "decode_slot_steps": 0,
-                         "decode_kv_tokens": 0, "requests_finished": 0}
+                         "decode_kv_tokens": 0, "requests_finished": 0,
+                         "spec_ticks": 0, "spec_proposed": 0,
+                         "spec_accepted": 0, "spec_bailouts": 0,
+                         "drafter_failures": 0}
 
     # ------------------------------------------------------------------
     # tick loop
@@ -224,6 +269,34 @@ class PagedEngine:
                                       positions=self._tensor(positions))
         self.caches = caches
         return logits
+
+    @torch.no_grad()
+    def _verify_forward(self, tokens: np.ndarray, positions: np.ndarray):
+        """The Sq=k+1 verify forward over every slot.  Returns ``(logits,
+        new_caches, grew, undo)``: ``grew`` says whether the draft-block
+        write grew any pool-wide quant scale (K or V), and ``undo`` puts the
+        pools back as they were before the write.  ``self.caches`` is left
+        to the caller."""
+        caches = _attach_tables(self.caches, self._tensor(self.table),
+                                self._tensor(self.lengths))
+        for c in _layers(caches):
+            c["undo"] = []              # the write's undo records
+        logits, new, _ = T.forward(self.params, self._tensor(tokens),
+                                   self.cfg.replace(spec_verify=True),
+                                   caches=caches,
+                                   positions=self._tensor(positions))
+        for c in _layers(new):
+            del c["undo"]
+        grew = bool(torch.stack([
+            (n > o).any() for o, n in zip(_amax_leaves(self.caches),
+                                          _amax_leaves(new))]).any())
+
+        def undo():
+            for c in _layers(caches):
+                for record in reversed(c["undo"]):
+                    undo_paged_write(c, record)
+
+        return logits, new, grew, undo
 
     # ------------------------------------------------------------------
     # capacity accounting
@@ -387,11 +460,20 @@ class PagedEngine:
         for i in active:
             j = int(self.lengths[i]) // self._page
             if self.table[i, j] == 0:
-                st = self.slots[i]
-                self.table[i, j] = self.pool.alloc(reserved=True)
-                st.blocks_reserved -= 1
-        self._plain_decode_tick(active)
+                self._claim_block(i, j)
+        if self._drafter is not None:
+            self._spec_decode_tick(active)
+        else:
+            self._plain_decode_tick(active)
         return True
+
+    def _claim_block(self, slot: int, j: int) -> int:
+        """Materialize table entry j out of the slot's admission
+        reservation."""
+        bid = self.pool.alloc(reserved=True)
+        self.slots[slot].blocks_reserved -= 1
+        self.table[slot, j] = bid
+        return bid
 
     def _plain_decode_tick(self, active: list[int]) -> None:
         """One decode step over every prefilled slot; rows still
@@ -414,3 +496,119 @@ class PagedEngine:
             self.lengths[i] += 1
             self.last_token[i] = toks[i]
             self._maybe_evict(i, int(toks[i]))
+
+    def _return_draft_blocks(self, slot: int,
+                             blocks: list[tuple[int, int]]) -> None:
+        """Roll unused speculative blocks ``(table index, block)`` back to
+        the pool with their reservation units restored to the slot.  (Every
+        draft block comes out of the reservation: blocks claimed from spare
+        capacity come with oversubscription, ROADMAP A7.)"""
+        if blocks:
+            self.pool.rollback([bid for _, bid in blocks])
+            self.slots[slot].blocks_reserved += len(blocks)
+
+    def _spec_decode_tick(self, active: list[int]) -> None:
+        """One speculative decode step: draft, verify, accept, roll back.
+
+        Query i of slot b runs at position ``lengths[b] + i`` against
+        exactly the KV set and quant scales the non-speculative engine
+        would have there (a write that grows a scale bails out), and token
+        i+1 is kept only if draft i+1 equals the greedy token just computed,
+        i.e. iff plain decoding would have fed the same input.  So the
+        first divergence ends acceptance and the rest is rolled back."""
+        k = self.scfg.draft_k
+        drafts: dict[int, list[int]] = {}
+        for i in active:
+            req = self.slots[i].req
+            # Stay within the admission reservation's worst case.
+            cap = min(k, req.max_new_tokens - len(req.generated) - 1)
+            if cap <= 0:
+                drafts[i] = []
+                continue
+            ctx = np.concatenate([np.asarray(req.prompt, np.int32),
+                                  np.asarray(req.generated, np.int32)])
+            try:
+                drafts[i] = [int(t)
+                             for t in self._drafter.propose(ctx, cap)][:cap]
+            except Exception:
+                # A failing drafter costs this slot its drafts for the tick,
+                # never the engine.
+                self.counters["drafter_failures"] += 1
+                drafts[i] = []
+        if not any(drafts[i] for i in active):
+            self._plain_decode_tick(active)
+            return
+        self.counters["spec_ticks"] += 1
+        table_snap = self.table.copy()
+
+        Sq = k + 1
+        B = len(self.slots)
+        tokens = np.zeros((B, Sq), np.int32)
+        positions = np.full((B, Sq), POS_SENTINEL, np.int32)
+        new_blocks: dict[int, list[tuple[int, int]]] = {}
+        for i in active:
+            st = self.slots[i]
+            row = [int(self.last_token[i])] + drafts[i]
+            base = int(self.lengths[i])
+            new_blocks[i] = []
+            # Blocks past the row's first only hold draft tokens: claim them
+            # from the reservation, and truncate the draft when none is left.
+            for j in range(base // self._page + 1,
+                           (base + len(row) - 1) // self._page + 1):
+                if self.table[i, j] != 0:
+                    continue
+                if st.blocks_reserved > 0:
+                    new_blocks[i].append((j, self._claim_block(i, j)))
+                else:
+                    keep = j * self._page - base
+                    row = row[:keep]
+                    drafts[i] = drafts[i][:keep - 1]
+                    break
+            tokens[i, :len(row)] = row
+            positions[i, :len(row)] = base + np.arange(len(row))
+
+        logits, new_caches, grew, undo = self._verify_forward(tokens,
+                                                              positions)
+        if grew:
+            # A draft token grew a pool-wide quant scale: earlier queries
+            # were scored under a scale plain decoding would not have had
+            # yet.  Put the pools back and replay the tick plain.
+            undo()
+            self.table = table_snap
+            for i in active:
+                self._return_draft_blocks(i, new_blocks[i])
+            self.counters["spec_bailouts"] += 1
+            self._plain_decode_tick(active)
+            return
+
+        self.caches = new_caches
+        toks = torch.argmax(logits, dim=-1).cpu().numpy()      # [B, Sq]
+        self.counters["decode_steps"] += 1
+        self.counters["decode_slot_steps"] += len(self.slots)
+        self.counters["decode_kv_tokens"] += sum(
+            int(self.lengths[i]) + 1 + len(drafts[i]) for i in active)
+        for i in active:
+            req = self.slots[i].req
+            d, t = drafts[i], toks[i]
+            a = 0
+            while a < len(d) and d[a] == int(t[a]):
+                a += 1
+            emitted = [int(t[x]) for x in range(a + 1)]
+            if self.scfg.eos_id is not None and self.scfg.eos_id in emitted:
+                emitted = emitted[:emitted.index(self.scfg.eos_id) + 1]
+            emitted = emitted[:req.max_new_tokens - len(req.generated)]
+            req.generated.extend(emitted)
+            self.counters["decode_tokens"] += len(emitted)
+            self.counters["spec_proposed"] += len(d)
+            self.counters["spec_accepted"] += a
+            self.lengths[i] += len(emitted)
+            self.last_token[i] = emitted[-1]
+            # Blocks wholly past the new fill level hold no live token.
+            # Only this tick's claims can lie there, so prompt and shared
+            # prefix blocks are out of reach (kv_pool.rollback checks it).
+            last_j = (int(self.lengths[i]) - 1) // self._page
+            stale = [blk for blk in new_blocks[i] if blk[0] > last_j]
+            for j, _ in stale:
+                self.table[i, j] = 0
+            self._return_draft_blocks(i, stale)
+            self._maybe_evict(i, emitted[-1])
