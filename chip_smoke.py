@@ -22,11 +22,21 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    plain run's tokens, and every verify forward must launch the verify
    kernel once per layer.  A short trace at cut depth gives the same tokens
    with the kernels and with the plain oracles;
-5. prints one JSON line describing each kernel, then the device line last.
+5. uncached kernels: ``bitstopper_qk`` and ``flash_attention`` against
+   their plain versions at one layer's shapes of the cache-free forward
+   (B=2 x 32 heads, S=1024, d=64), timed beside their bounds and, for
+   flash, beside ``scaled_dot_product_attention``;
+6. forward path: full-width, full-depth ``stablelm-1.6b``
+   ``transformer.forward`` with no caches over 2 prompts of 1024 tokens at
+   every attention impl; each kernel impl must launch its kernel once per
+   layer, and its logits must agree with the plain impl's (same argmax at
+   every position);
+7. prints one JSON line describing each kernel, then the device line last.
 
 Any failed check exits non-zero.  Without a card it exits non-zero and
 prints no result.  ``--profile`` instead profiles decode ticks, a prefill
-chunk and verify ticks (device time by kernel, busy share).
+chunk, verify ticks and one cache-free forward with each attention kernel
+(device time by kernel, busy share).
 """
 
 from __future__ import annotations
@@ -42,11 +52,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 INT8_OPS_PER_S = 1.979e15        # H100 SXM dense int8 tensor-core peak
+FP16_OPS_PER_S = 9.89e14         # dense fp16 tensor cores: the cheapest
+                                 # type that keeps an INT12 x 1-bit dot exact
+F32_OPS_PER_S = 6.7e13           # f32 CUDA cores (TF32 would break the
+                                 # reference's f32 tolerance)
 OUT_TOL = 1e-5                   # kernel vs plain output: expf and the sum
                                  # order differ, integers are exact
 L2_FLUSH_BYTES = 128 * 2**20     # written before each timed call (L2: 50 MB)
 SPEC_K = 4                       # drafts per slot and tick
-KERNELS = ("paged_decode", "paged_verify")
+UNCACHED_TOL = 2e-5              # bitstopper_qk / flash vs plain output
+FWD_B, FWD_S = 2, 1024           # the forward path's prompts
+KERNELS = ("paged_decode", "paged_verify", "bitstopper_qk",
+           "flash_attention")
 
 
 def phase(name):
@@ -324,6 +341,214 @@ def verify_kernel_phase(torch):
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": None}
+
+
+def uncached_case(torch, seed, N=FWD_B * 32, S=FWD_S, d=64, blk=128):
+    """q, k, v [N, S, d] on the card.  Every query of a slice leans on the
+    slice's hot direction, and so do the keys of every other kv block
+    (blocks 0, 2, ...): a hot pair scores about 8 logits above a cold one,
+    so LATS ends the cold blocks early, as in the reference's
+    ``test_bitstopper_kernel_skips_planes``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    hot = rng.normal(size=(N, 1, d)).astype(np.float32)
+    hot *= 8.0 / np.linalg.norm(hot, axis=-1, keepdims=True)
+    q = hot + 0.5 * rng.normal(size=(N, S, d)).astype(np.float32)
+    k = 0.5 * rng.normal(size=(N, S, d)).astype(np.float32)
+    k += hot * ((np.arange(S) // blk) % 2 == 0)[None, :, None]
+    v = rng.normal(size=(N, S, d)).astype(np.float32)
+    return tuple(torch.as_tensor(x, device="cuda") for x in (q, k, v))
+
+
+def qk_bytes_ops(ops, res, bq, bk):
+    """Bytes and operations one ``bitstopper_qk`` launch needs on this
+    data: q_int, margins and scalars once, the planes of every live round,
+    V of every block with a survivor, the outputs once; the plane dots of
+    every live round (fp16 tensor-core rate) and P x V of every surviving
+    block (f32)."""
+    N, S, d = ops.q_int.shape
+    bits = ops.k_packed.shape[1]
+    dv = ops.v_eff.shape[-1]
+    n_qt, n_kb = res.rounds.shape[1:]
+    planes = int(res.rounds.sum())
+    live_v = int(res.survivors.reshape(N, n_qt, bq, n_kb, bk)
+                 .any(4).any(2).sum())
+    nbytes = (N * S * d * 4 + 2 * N * bits * S * 4 + N * 8
+              + planes * (bk // 8) * d + live_v * bk * dv * 4
+              + N * S * dv * 4 + res.rounds.numel() * 4
+              + res.survivors.numel())
+    plane_ops = planes * 2 * bq * bk * d
+    pv_ops = live_v * 2 * bq * bk * dv
+    return nbytes, plane_ops, pv_ops, planes
+
+
+@phase("qk kernel")
+def qk_kernel_phase(torch):
+    """bitstopper_qk against its plain version at one layer's shapes of the
+    forward path, causal and not: rounds and survivors exactly equal, out
+    within UNCACHED_TOL."""
+    from repro_torch.core.besf import BitStopperConfig
+    from repro_torch.kernels import bitstopper_qk as bq
+    cfg = BitStopperConfig(alpha=0.6)
+    q, k, v = uncached_case(torch, 300)
+    N, S, d = q.shape
+    blk = min(128, S)
+    ops = bq.prep(q, k, v, cfg)
+    worst, timed = 0.0, {}
+    for causal in (False, True):
+        ker = bq.launch_kernel(ops, cfg, blk, blk, causal)
+        ref = bq.bitstopper_qk_plain(ops, cfg, blk, blk, causal)
+        torch.cuda.synchronize()
+        for field in ("rounds", "survivors"):
+            a, b = getattr(ker, field), getattr(ref, field)
+            if not torch.equal(a, b):
+                raise SystemExit(f"[chip_smoke] bitstopper_qk causal="
+                                 f"{causal}: {field} differs in "
+                                 f"{int((a != b).sum())} entries")
+        err = float((ker.out - ref.out).abs().max())
+        worst = max(worst, err)
+        if not err <= UNCACHED_TOL:
+            raise SystemExit(f"[chip_smoke] bitstopper_qk causal={causal}: "
+                             f"out differs by {err} > {UNCACHED_TOL}")
+        n_blk = S // blk
+        reach = n_blk * (n_blk + 1) // 2 if causal else n_blk * n_blk
+        print(f"[chip_smoke] bitstopper_qk causal={causal} (N={N}, S={S}, "
+              f"d={d}, blocks {blk}, alpha 0.6): rounds/survivors equal; "
+              f"max|out diff| {err:.3e}; rounds {int(ker.rounds.sum())} vs "
+              f"dense {N * reach * cfg.bits} (12 per reachable block); "
+              f"survivors {int(ker.survivors.sum())}")
+        timed[causal] = ker
+    # The forward path runs causal: time and bound that launch.
+    nbytes, plane_ops, pv_ops, planes = qk_bytes_ops(ops, timed[True], blk,
+                                                     blk)
+    ms = cuda_ms(torch, lambda: bq.bitstopper_attention_kernel(
+        q, k, v, cfg, causal=True), iters=10, warmup=2)
+    kernel_ms = cuda_ms(torch, lambda: bq.launch_kernel(
+        ops, cfg, blk, blk, True), iters=10, warmup=2)
+    plain_ms = cuda_ms(torch, lambda: bq.bitstopper_qk_plain(
+        ops, cfg, blk, blk, True), iters=2, warmup=1)
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = (plane_ops / FP16_OPS_PER_S + pv_ops / F32_OPS_PER_S) * 1e3
+    bound_ms = max(bound_bytes, bound_ops)
+    print(f"[chip_smoke] bitstopper_qk timing (causal, N={N}, S={S}, d={d}):"
+          f" wrapper {ms:.4f} ms, kernel {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({nbytes} bytes, "
+          f"{plane_ops} plane-dot ops over {planes} live rounds, {pv_ops} "
+          f"P x V ops)")
+    return {"name": "bitstopper_qk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bitstopper_qk.cu",
+            "replaces": "src/repro/kernels/bitstopper_qk.py:257",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "library_ms": None}
+
+
+@phase("flash kernel")
+def flash_kernel_phase(torch):
+    """flash_attention against its plain version (dense softmax) at the
+    same shapes, causal, within UNCACHED_TOL; timed beside one call of
+    scaled_dot_product_attention on the same f32 inputs, the library
+    yardstick the port never calls."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = uncached_case(torch, 301)
+    N, S, d = q.shape
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not err <= UNCACHED_TOL:
+        raise SystemExit(f"[chip_smoke] flash_attention: out differs by "
+                         f"{err} > {UNCACHED_TOL}")
+    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True),
+                 iters=10, warmup=2)
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, causal=True), iters=3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True),
+                         iters=10, warmup=2)
+    lib_err = float((sdpa(q, k, v, is_causal=True) - want).abs().max())
+    nbytes = 4 * N * S * d * 4                 # q, k, v read, out written
+    ops = N * S * (S + 1) // 2 * 2 * (d + d)   # QK^T and P V, visible pairs
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = ops / F32_OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes, bound_ops)
+    print(f"[chip_smoke] flash_attention causal (N={N}, S={S}, d={d}, "
+          f"blocks 128): max|out diff| {err:.3e} vs plain; kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+          f"{library_ms:.4f} ms (max|diff| {lib_err:.3e}), bound "
+          f"{bound_ms:.5f} ms ({nbytes} bytes, {ops} f32 ops)")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:114",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "library_ms": library_ms}
+
+
+@phase("forward path")
+def forward_path_phase(torch, cfg, params):
+    """transformer.forward with no caches over FWD_B prompts of FWD_S
+    tokens at full width and depth, for every attention impl.  Returns the
+    launches of bitstopper_qk and flash_attention in their impls' runs."""
+    import numpy as np
+    from repro_torch.kernels import bitstopper_qk as bq
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    rng = np.random.default_rng(7)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (FWD_B, FWD_S)),
+                             device="cuda")
+    logits, launches = {}, {}
+    for impl in ("bitstopper", "bitstopper_xla", "flash", "xla"):
+        c = cfg.replace(attn_impl=impl)
+        torch.cuda.synchronize()
+        bq.LAUNCHES = fa.LAUNCHES = 0
+        t = time.perf_counter()
+        out, caches, _ = T.forward(params, tokens, c)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launches[impl] = (bq.LAUNCHES, fa.LAUNCHES)
+        if caches is not None or out.shape != (FWD_B, FWD_S, cfg.vocab) \
+                or not bool(torch.isfinite(out).all()):
+            raise SystemExit(f"[chip_smoke] forward {impl}: logits "
+                             f"{tuple(out.shape)} not finite or caches")
+        logits[impl] = out
+        print(f"[chip_smoke] forward {impl}: {dt * 1e3:.1f} ms, "
+              f"{FWD_B * FWD_S / dt:.1f} prompt tokens/s; launches "
+              f"bitstopper_qk {launches[impl][0]}, flash_attention "
+              f"{launches[impl][1]}")
+    n = cfg.n_layers
+    want = {"bitstopper": (n, 0), "bitstopper_xla": (0, 0), "flash": (0, n),
+            "xla": (0, 0)}
+    if launches != want:
+        raise SystemExit(f"[chip_smoke] forward launches {launches}, "
+                         f"expected {want} (one per layer)")
+    # Each kernel impl against the plain impl it is held to.  Tolerances,
+    # relative to the largest |logit|: bitstopper vs bitstopper_xla 1e-3,
+    # the CPU forward test's: the kernel equals its plain version in every
+    # integer per layer, but an ulp of an output can move an INT12 value of
+    # the next layer by one step; flash vs xla 1e-4: f32 sums in another
+    # order through 24 layers.
+    for ker, plain, rel in (("bitstopper", "bitstopper_xla", 1e-3),
+                            ("flash", "xla", 1e-4)):
+        a, b = logits[ker], logits[plain]
+        diff = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        same = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        print(f"[chip_smoke] forward {ker} vs {plain}: max|diff| "
+              f"{diff:.3e} (max|logit| {scale:.3f}, limit {rel:g} of it); "
+              f"argmax equal at {same * 100:.2f}% of positions")
+        if not diff <= rel * scale or same != 1.0:
+            raise SystemExit(f"[chip_smoke] forward {ker} disagrees with "
+                             f"{plain}")
+    gap = float((logits["bitstopper"] - logits["xla"]).abs().max())
+    agree = float((logits["bitstopper"].argmax(-1)
+                   == logits["xla"].argmax(-1)).float().mean())
+    print(f"[chip_smoke] forward bitstopper vs dense xla (INT12 quantization"
+          f" and pruning, reported only): max|diff| {gap:.3e}, argmax equal "
+          f"at {agree * 100:.2f}% of positions")
+    return launches["bitstopper"][0], launches["flash"][1]
 
 
 def make_requests(np, Request, seed, n, new_tokens, vocab):
@@ -677,9 +902,9 @@ def speculative_phase(torch, cfg, params, plain_reqs):
 
 @phase("profile")
 def profile_phase(torch, cfg, params, decode_ticks=8, verify_ticks=3):
-    """torch.profiler over steady decode ticks, one prefill chunk and
-    speculative verify ticks of the served paths: device time by kernel,
-    and the device's busy share."""
+    """torch.profiler over steady decode ticks, one prefill chunk,
+    speculative verify ticks and one cache-free forward per attention
+    kernel: device time by kernel, and the device's busy share."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import PagedEngine, Request, ServeConfig
@@ -715,6 +940,15 @@ def profile_phase(torch, cfg, params, decode_ticks=8, verify_ticks=3):
     print(f"[chip_smoke] profile verify window: {d['spec_ticks']} verify "
           f"ticks, {d['spec_bailouts']} bailouts, {d['decode_tokens']} "
           f"tokens")
+
+    from repro_torch.models import transformer as T
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (FWD_B, FWD_S)), device="cuda")
+    for impl in ("bitstopper", "flash"):
+        c = cfg.replace(attn_impl=impl)
+        T.forward(params, tokens, c)                  # warm-up
+        report_profile(torch, ProfilerActivity, profile, f"forward {impl}",
+                       lambda: T.forward(params, tokens, c), 1)
 
 
 def report_profile(torch, ProfilerActivity, profile, name, fn, n):
@@ -767,8 +1001,8 @@ def _leaves(tree):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="only profile decode ticks, a prefill chunk and "
-                         "verify ticks of the served paths (prints no "
+                    help="only profile decode ticks, a prefill chunk, "
+                         "verify ticks and cache-free forwards (prints no "
                          "result line)")
     args = ap.parse_args(argv)
     import torch
@@ -778,10 +1012,13 @@ def main(argv=None):
         print(smi)
         profile_phase(torch, *build_model(torch))
         return
-    rows = [kernel_phase(torch), verify_kernel_phase(torch)]
+    rows = [kernel_phase(torch), verify_kernel_phase(torch),
+            qk_kernel_phase(torch), flash_kernel_phase(torch)]
     cfg, params = build_model(torch)
     rows[0]["launches"], plain_reqs = main_path_phase(torch, cfg, params)
     rows[1]["launches"] = speculative_phase(torch, cfg, params, plain_reqs)
+    rows[2]["launches"], rows[3]["launches"] = forward_path_phase(
+        torch, cfg, params)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

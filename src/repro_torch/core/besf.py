@@ -1,11 +1,12 @@
-"""Bit-serial Enabled Stage Fusion (BESF): the paged decode and verify
-oracles.
+"""Bit-serial Enabled Stage Fusion (BESF): the per-token reference and the
+paged decode and verify oracles.
 
-Counterpart of ``repro/core/besf.py`` for the paged serving decode.  Keys
-are INT12-quantized under the pool-wide running scales and consumed one bit
-plane at a time (MSB first); after each round LATS prunes the candidates
-whose score interval can no longer reach the threshold, and survivors of
-every round carry their exact integer score into an online softmax.
+Counterpart of ``repro/core/besf.py``.  Keys are INT12-quantized (per
+slice, or under the pool-wide running scales on the paged paths) and
+consumed one bit plane at a time (MSB first); after each round LATS
+prunes the candidates whose score interval can no longer reach the
+threshold, and survivors of every round carry their exact integer score
+into the softmax.
 
 :func:`besf_attention_decode_paged` is the pure-torch oracle and the
 ``fused_decode=False`` path of the engine; the CUDA kernel in
@@ -13,6 +14,9 @@ every round carry their exact integer score into an online softmax.
 (``rounds``, survivors, ``v_fetched``) exactly.
 :func:`besf_attention_verify_paged` is the same for a speculative draft
 block, held against ``repro_torch/kernels/paged_verify.py``.
+:func:`besf_attention` is the paper-faithful per-token BESF with the global
+max LATS threshold: the algorithmic ground truth whose survivors the block
+variants' must contain.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 
 from repro_torch.core import margins as margins_lib
 from repro_torch.core import quantization as qlib
-from repro_torch.core.lats import NEG_INF
+from repro_torch.core.lats import NEG_INF, lats_keep, lats_threshold
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +43,85 @@ class BitStopperConfig:
 
     def replace(self, **kw) -> "BitStopperConfig":
         return dataclasses.replace(self, **kw)
+
+
+class BESFStats(NamedTuple):
+    planes_fetched: torch.Tensor  # [..., Sq, Sk] int32 planes per pair
+    survivors: torch.Tensor       # [..., Sq, Sk] bool alive after all rounds
+    valid: torch.Tensor           # [..., Sq, Sk] bool attention-mask validity
+
+
+class BESFOutput(NamedTuple):
+    out: torch.Tensor             # [..., Sq, dv]
+    probs: torch.Tensor           # [..., Sq, Sk] softmax over survivors
+    scores: torch.Tensor          # [..., Sq, Sk] logits (NEG_INF if pruned)
+    stats: BESFStats
+
+
+def _besf_rows(q, k, v, valid, cfg: BitStopperConfig) -> BESFOutput:
+    """Counterpart of the reference's ``_besf_single`` with the slices
+    written out: q [N, Sq, d], k [N, Sk, d], v [N, Sk, dv] float, valid
+    [N, Sq, Sk] bool.  Quantization is per slice."""
+    from repro_torch.core.block_adaptation import block_prep
+    bits = cfg.bits
+    ops = block_prep(q, k, v, cfg)
+    planes = qlib.to_bitplanes(ops.k_int, bits)              # [bits, N, Sk, d]
+    w = qlib.plane_weights_int(bits, q.device)
+    # Plane dots in float64, exact for these small integers on any device.
+    dots = torch.einsum("nqd,rnkd->rnqk", ops.q_int.double(),
+                        planes.double()).to(torch.int32)
+    radius_int = torch.full_like(ops.scale_total, cfg.radius) / ops.scale_total
+    partial = torch.zeros(dots.shape[1:], dtype=torch.int32, device=q.device)
+    alive = valid
+    fetched = torch.zeros_like(partial)
+    for r in range(bits):
+        fetched = fetched + alive.to(torch.int32)
+        partial = partial + torch.where(alive, w[r] * dots[r],
+                                        torch.zeros_like(partial))
+        lower = partial.float() + ops.m_min[r][..., None]
+        upper = partial.float() + ops.m_max[r][..., None]
+        eta = lats_threshold(lower, alive, cfg.alpha, radius_int[:, None])
+        keep = lats_keep(upper, eta, alive)
+        alive = alive if r < cfg.min_rounds - 1 else keep
+    neg = torch.full_like(lower, NEG_INF)
+    logits = torch.where(alive, partial.float()
+                         * ops.scale_total[:, None, None], neg)
+    logits = torch.where(valid, logits, neg)
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(alive & valid, probs, torch.zeros_like(probs))
+    out = probs @ ops.v_eff
+    return BESFOutput(out=out, probs=probs, scores=logits,
+                      stats=BESFStats(planes_fetched=fetched,
+                                      survivors=alive, valid=valid))
+
+
+def besf_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cfg: BitStopperConfig = BitStopperConfig(),
+                   mask: torch.Tensor | None = None,
+                   causal: bool = False) -> BESFOutput:
+    """BitStopper attention, the faithful per-token reference: q [..., Sq,
+    d], k/v [..., Sk, *]; ``mask`` [Sq, Sk] or broadcastable to [..., Sq,
+    Sk]."""
+    Sq, Sk = q.shape[-2], k.shape[-2]
+    lead = q.shape[:-2]
+    if causal:
+        cmask = torch.tril(torch.ones((Sq, Sk), dtype=torch.bool,
+                                      device=q.device), diagonal=Sk - Sq)
+        mask = cmask if mask is None else (mask & cmask)
+    if mask is None:
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    valid = torch.broadcast_to(mask.to(torch.bool), lead + (Sq, Sk))
+    res = _besf_rows(q.reshape((-1,) + q.shape[-2:]),
+                     k.reshape((-1,) + k.shape[-2:]),
+                     v.reshape((-1,) + v.shape[-2:]),
+                     valid.reshape(-1, Sq, Sk), cfg)
+
+    def unflat(x):
+        return x.reshape(lead + x.shape[1:])
+
+    return BESFOutput(out=unflat(res.out), probs=unflat(res.probs),
+                      scores=unflat(res.scores),
+                      stats=BESFStats(*(unflat(x) for x in res.stats)))
 
 
 class PagedDecodeOutput(NamedTuple):

@@ -43,43 +43,73 @@ def _quantize_rows(x: torch.Tensor, bits: int):
     return qlib.quantize_with_scale(x, scale[:, None, None], bits), scale
 
 
-def _block_single(q, k, v, mask, cfg: BitStopperConfig, block_q: int,
-                  block_k: int) -> BlockBESFOutput:
-    """q [N, Sq, d], k [N, Sk, d], v [N, Sk, dv], mask [Sq, Sk] bool shared
-    by every slice (or None)."""
-    N, Sq, d = q.shape
-    Sk, dv = v.shape[1], v.shape[2]
-    bits = cfg.bits
-    if Sq % block_q or Sk % block_k:
-        raise ValueError(f"({Sq}, {Sk}) not tiled by ({block_q}, {block_k})")
-    n_qt, n_kb = Sq // block_q, Sk // block_k
-    sm_scale = 1.0 / (d ** 0.5)
-    dev = q.device
+class BlockOperands(NamedTuple):
+    """What block BESF reads after quantization, per (batch, head) slice."""
+    q_int: torch.Tensor              # [N, Sq, d] int32
+    k_int: torch.Tensor              # [N, Sk, d] int32
+    v_eff: torch.Tensor              # [N, Sk, dv] f32
+    m_min: torch.Tensor              # [bits, N, Sq] f32
+    m_max: torch.Tensor              # [bits, N, Sq] f32
+    scale_total: torch.Tensor        # [N] f32: q_scale * k_scale * sm_scale
+    alpha_radius: torch.Tensor       # [N] f32: alpha * radius / scale_total
 
+
+def block_prep(q, k, v, cfg: BitStopperConfig) -> BlockOperands:
+    """Per-slice quantization, margins and LATS scalars of q [N, Sq, d],
+    k [N, Sk, d], v [N, Sk, dv], with the reference's float operations in
+    its order (``bitstopper_qk.py:319-338``, ``block_adaptation.py:53-69``).
+    """
+    bits = cfg.bits
+    sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     q_int, q_scale = _quantize_rows(q.float(), bits)
     k_int, k_scale = _quantize_rows(k.float(), bits)
-    planes = qlib.to_bitplanes(k_int, bits)                   # [bits, N, Sk, d]
-    w = qlib.plane_weights_int(bits, dev).double()
-    m_min, m_max = margins_lib.bit_margins(q_int, bits)       # [bits, N, Sq]
-
-    scale_total = q_scale * k_scale * sm_scale                # [N]
+    m_min, m_max = margins_lib.bit_margins(q_int, bits)
+    scale_total = q_scale * k_scale * sm_scale
+    # A true IEEE division (``python_float / tensor`` is not one in torch).
     radius_int = torch.full_like(scale_total, cfg.radius) / scale_total
-    alpha_radius = cfg.alpha * radius_int
-
-    valid = (torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
-             if mask is None else mask.to(torch.bool))
     if cfg.quantize_v:
         v_int, v_scale = _quantize_rows(v.float(), bits)
         v_eff = v_int.float() * v_scale[:, None, None]
     else:
         v_eff = v.float()
+    return BlockOperands(q_int, k_int, v_eff, m_min, m_max, scale_total,
+                         cfg.alpha * radius_int)
+
+
+def _block_single(q, k, v, mask, cfg: BitStopperConfig, block_q: int,
+                  block_k: int) -> BlockBESFOutput:
+    """q [N, Sq, d], k [N, Sk, d], v [N, Sk, dv], mask [Sq, Sk] bool shared
+    by every slice (or None)."""
+    ops = block_prep(q, k, v, cfg)
+    planes = qlib.to_bitplanes(ops.k_int, cfg.bits)          # [bits, N, Sk, d]
+    return block_rows(ops.q_int, planes, ops.v_eff, ops.m_min, ops.m_max,
+                      ops.scale_total, ops.alpha_radius, mask, cfg, block_q,
+                      block_k)
+
+
+def block_rows(q_int, planes, v_eff, m_min, m_max, scale_total,
+               alpha_radius, mask, cfg: BitStopperConfig, block_q: int,
+               block_k: int) -> BlockBESFOutput:
+    """Block BESF over prepared operands: q_int [N, Sq, d], planes uint8
+    [bits, N, Sk, d], v_eff [N, Sk, dv], m_min/m_max [bits, N, Sq],
+    scale_total/alpha_radius [N], mask [Sq, Sk] bool (or None)."""
+    N, Sq, d = q_int.shape
+    Sk, dv = v_eff.shape[1], v_eff.shape[2]
+    bits = cfg.bits
+    if Sq % block_q or Sk % block_k:
+        raise ValueError(f"({Sq}, {Sk}) not tiled by ({block_q}, {block_k})")
+    n_qt, n_kb = Sq // block_q, Sk // block_k
+    dev = q_int.device
+    w = qlib.plane_weights_int(bits, dev).double()
+    ar = alpha_radius[:, None, None]
+    valid = (torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+             if mask is None else mask.to(torch.bool))
 
     valid_b = valid.reshape(n_qt, block_q, n_kb, block_k)
     q_tiles = q_int.reshape(N, n_qt, block_q, d).double()
     mmin_t = m_min.reshape(bits, N, n_qt, block_q)
     mmax_t = m_max.reshape(bits, N, n_qt, block_q)
     planes_b = planes.reshape(bits, N, n_kb, block_k, d)
-    ar = alpha_radius[:, None, None]
     st = scale_total[:, None, None, None]
     neg = torch.full((N, n_qt, block_q, block_k), NEG_INF,
                      dtype=torch.float32, device=dev)
@@ -123,13 +153,19 @@ def _block_single(q, k, v, mask, cfg: BitStopperConfig, block_q: int,
         survived = tok_alive & (rounds == bits)[..., None, None]
         logits = torch.where(survived, partials[bits - 1].float() * st, neg)
         m_new = torch.maximum(m_run, logits.amax(-1))
-        p = torch.exp(logits - m_new[..., None])
-        p = torch.where(survived, p, torch.zeros_like(p))
-        corr = torch.where(m_run == NEG_INF, torch.zeros_like(m_run),
-                           torch.exp(m_run - m_new))
-        l_run = l_run * corr + p.sum(-1)
+        # The weights come from a float64 exp rounded to f32, and the sums
+        # run in float64, rounded to f32 once per state update: the CUDA
+        # kernel sums in another order, and this keeps the two equal but
+        # in rare roundings (the reference sums in f32; within 2e-5).
+        p = torch.exp((logits - m_new[..., None]).double()).float()
+        p = torch.where(survived, p, torch.zeros_like(p)).double()
+        corr = torch.where(m_run == NEG_INF,
+                           torch.zeros_like(m_run, dtype=torch.float64),
+                           torch.exp((m_run - m_new).double()))
+        l_run = (l_run.double() * corr + p.sum(-1)).float()
         v_blk = v_eff[:, kb * block_k:(kb + 1) * block_k]     # [N, Bk, dv]
-        acc = acc * corr[..., None] + torch.einsum("ntqk,nkd->ntqd", p, v_blk)
+        acc = (acc.double() * corr[..., None]
+               + torch.einsum("ntqk,nkd->ntqd", p, v_blk.double())).float()
         m_run = m_new
         rounds_all.append(rounds)
         alive_all.append(survived.any(3).any(2))

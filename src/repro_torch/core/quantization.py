@@ -65,23 +65,23 @@ def from_bitplanes(planes: torch.Tensor) -> torch.Tensor:
 
 
 def pack_planes_seq(planes: torch.Tensor) -> torch.Tensor:
-    """Pack ``uint8[bits, S, d]`` planes -> ``uint8[bits, S//8, d]``: token
+    """Pack ``uint8[..., S, d]`` planes -> ``uint8[..., S//8, d]``: token
     s owns bit ``s % 8`` of byte ``s // 8`` (LSB first)."""
-    bits, S, d = planes.shape
+    *lead, S, d = planes.shape
     if S % 8:
         raise ValueError(f"sequence length {S} not a multiple of 8")
-    p = planes.reshape(bits, S // 8, 8, d).to(torch.int32)
+    p = planes.reshape(*lead, S // 8, 8, d).to(torch.int32)
     w = (1 << torch.arange(8, dtype=torch.int32, device=planes.device))
-    return (p * w.reshape(1, 1, 8, 1)).sum(2).to(torch.uint8)
+    return (p * w.reshape(8, 1)).sum(-2).to(torch.uint8)
 
 
 def unpack_planes_seq(packed: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`pack_planes_seq` -> ``uint8[bits, S, d]``."""
-    bits, S8, d = packed.shape
+    """Inverse of :func:`pack_planes_seq` -> ``uint8[..., S, d]``."""
+    *lead, S8, d = packed.shape
     shifts = torch.arange(8, dtype=torch.int32,
-                          device=packed.device).reshape(1, 1, 8, 1)
-    u = (packed.to(torch.int32)[:, :, None, :] >> shifts) & 1
-    return u.reshape(bits, S8 * 8, d).to(torch.uint8)
+                          device=packed.device).reshape(8, 1)
+    u = (packed.to(torch.int32)[..., None, :] >> shifts) & 1
+    return u.reshape(*lead, S8 * 8, d).to(torch.uint8)
 
 
 def pack_pool_planes(pool: torch.Tensor, amax: torch.Tensor,

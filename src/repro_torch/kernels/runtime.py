@@ -8,7 +8,10 @@ missing card, a missing ``nvcc`` or a failed build raises.
 
 Kernels are compiled at first use with ``nvcc`` into a shared library with
 a plain C interface (loaded through ``ctypes``), under ``build/kernels/`` at
-the root of the checkout, keyed by a hash of the source and flags.
+the root of the checkout, keyed by a hash of the source and flags.  There
+are four, one library each: ``paged_decode`` and ``paged_verify`` (the
+serving reads), ``bitstopper_qk`` and ``flash_attention`` (the cache-free
+forward).
 """
 
 from __future__ import annotations

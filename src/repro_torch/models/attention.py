@@ -1,7 +1,16 @@
-"""Multi-head attention with the paged BitStopper KV cache.
+"""Multi-head attention: the cache-free forward and the paged BitStopper
+KV cache.
 
-Counterpart of ``repro/models/attention.py`` for the paths paged serving
-runs:
+Counterpart of ``repro/models/attention.py`` for the cache-free forward
+and the paths paged serving runs:
+
+* the cache-free forward (``cache=None``) for every score path: ``xla``,
+  chunked online-softmax attention in plain torch (``chunked_attention``,
+  forward only; grouped GQA, no KV repetition); ``flash``, the dense CUDA
+  kernel ``kernels/flash_attention``; ``bitstopper``, the fused BESF CUDA
+  kernel ``kernels/bitstopper_qk``; ``bitstopper_xla``, the block oracle
+  in plain torch.  The two kernel paths run their plain versions for CPU
+  tensors;
 
 * the cache write (``_update_paged_cache``), which also keeps the pool-wide
   running quant scales and the packed bit-plane pool (``_update_plane_pool``);
@@ -10,8 +19,11 @@ runs:
   the plain torch oracle; with ``spec_verify``, a speculative draft block
   per slot through the paged BESF verify in the same way;
 * prefill chunks, which gather the slot's logical view and run block
-  BitStopper (``_bitstopper_full``);
-* the cache-free forward with the BitStopper score path.
+  BitStopper (``_bitstopper_full``).
+
+Four CUDA kernels sit under this module: ``flash_attention`` and
+``bitstopper_qk`` on the cache-free forward, ``paged_decode`` and
+``paged_verify`` on the serving reads.
 
 The reference's immutable cache updates become in-place writes into the
 pool tensors (the returned dict holds the same tensors): a decode tick then
@@ -32,6 +44,8 @@ from repro_torch.core import quantization as qlib
 from repro_torch.core.besf import (BitStopperConfig,
                                    besf_attention_decode_paged,
                                    besf_attention_verify_paged)
+from repro_torch.core.lats import NEG_INF
+from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
 POS_SENTINEL = 2 ** 30
@@ -56,6 +70,8 @@ class AttnConfig:
     causal: bool = True
     impl: str = "xla"
     bitstopper: BitStopperConfig = BitStopperConfig()
+    chunk_q: int = 512                 # chunked_attention tiles
+    chunk_k: int = 512
     fused_decode: bool = False         # paged decode through the CUDA kernel
     spec_verify: bool = False
 
@@ -88,6 +104,74 @@ def _mask_block(q_pos, k_pos, causal: bool, window: int | None):
 
 
 # ---------------------------------------------------------------------------
+# Chunked online-softmax attention (the "xla" impl), grouped GQA
+# ---------------------------------------------------------------------------
+
+
+def _chunked_fwd(q, k, v, q_pos, k_pos, causal, window, cq, ck):
+    """Forward of the reference's ``_fwd_impl`` at padded shapes: q
+    [B, Sq, Hkv, G, D] grouped, k/v [B, Sk, Hkv, D] -> out [B, Sq, Hkv, G,
+    Dv].  (The log-sum-exp it also returns there feeds the manual
+    backward, which comes with training.)"""
+    B, Sq, Hkv, G, D = q.shape
+    Sk = k.shape[1]
+    sm_scale = 1.0 / D ** 0.5
+    outs = []
+    for q0 in range(0, Sq, cq):
+        qc = q[:, q0:q0 + cq].float()
+        m_run = torch.full((B, Hkv, G, cq), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros_like(m_run)
+        acc = torch.zeros((B, Hkv, G, cq, v.shape[-1]), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, Sk, ck):
+            kc, vc = k[:, k0:k0 + ck].float(), v[:, k0:k0 + ck].float()
+            logits = torch.einsum("bqhgd,bkhd->bhgqk", qc, kc) * sm_scale
+            mask = _mask_block(q_pos[q0:q0 + cq], k_pos[k0:k0 + ck], causal,
+                               window)
+            neg = torch.full_like(logits, NEG_INF)
+            logits = torch.where(mask, logits, neg)
+            m_new = torch.maximum(m_run, logits.amax(-1))
+            p = torch.exp(logits - m_new[..., None])
+            p = torch.where(mask, p, torch.zeros_like(p))
+            corr = torch.where(m_run == NEG_INF, torch.zeros_like(m_run),
+                               torch.exp(m_run - m_new))
+            l_run = l_run * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
+                                                       p, vc)
+            m_run = m_new
+        out = acc / torch.clamp(l_run, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))            # [B,cq,Hkv,G,Dv]
+    return torch.cat(outs, 1)
+
+
+def chunked_attention(q, k, v, q_positions, k_positions, causal: bool,
+                      window: int | None, chunk_q: int, chunk_k: int):
+    """q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], positions [Sq] / [Sk] ->
+    [B, Sq, Hq, Dv] in ``q.dtype``.  Sequences pad up to whole chunks; pad
+    queries sit at position -1 and pad keys at ``POS_SENTINEL``, which
+    every mask rejects."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    cq, ck = min(chunk_q, Sq), min(chunk_k, Sk)
+    pad_q, pad_k = (-Sq) % cq, (-Sk) % ck
+    F = torch.nn.functional
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_positions = F.pad(q_positions, (0, pad_q), value=-1)
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+        k_positions = F.pad(k_positions, (0, pad_k), value=POS_SENTINEL)
+    qg = q.reshape(B, q.shape[1], Hkv, G, D)
+    out = _chunked_fwd(qg, k, v, q_positions, k_positions, causal, window,
+                       cq, ck)
+    out = out.reshape(B, q.shape[1], Hq, v.shape[-1])
+    return out[:, :Sq].to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
 # BitStopper score path
 # ---------------------------------------------------------------------------
 
@@ -106,14 +190,19 @@ def _expand_gqa(q, k, v, G):
 
 
 def _bitstopper_full(q, k, v, cfg: AttnConfig, mask2d):
-    """q [B,S,Hq,D], k/v [B,T,Hkv,D], mask2d [S,T] or None -> [B,S,Hq,D]."""
+    """q [B,S,Hq,D], k/v [B,T,Hkv,D], mask2d [S,T] or None -> [B,S,Hq,D].
+
+    Unmasked ``impl="bitstopper"`` runs the fused kernel over all (batch,
+    head) slices unpadded, as the reference does: a length that its tiles
+    do not fit raises ``ValueError``.  Everything else runs the block
+    oracle with the sequence padded to whole tiles."""
     from repro_torch.core.block_adaptation import block_bitstopper_attention
-    if not (cfg.impl == "bitstopper_xla" or mask2d is not None):
-        raise NotImplementedError(
-            "the unmasked impl='bitstopper' forward runs the bitstopper_qk "
-            "kernel, not ported yet (ROADMAP queue B)")
     qt, kr, vr = _expand_gqa(q, k, v, cfg.n_heads // cfg.n_kv_heads)
     Sq, Sk = qt.shape[2], kr.shape[2]
+    if cfg.impl == "bitstopper" and mask2d is None:
+        out = kops.attention(qt, kr, vr, impl="bitstopper",
+                             causal=cfg.causal, cfg=cfg.bitstopper)
+        return out.transpose(1, 2).to(q.dtype)
     dev = q.device
     if mask2d is None and cfg.causal:
         mask2d = torch.tril(torch.ones((Sq, Sk), dtype=torch.bool,
@@ -420,9 +509,9 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
     verify (``cfg.spec_verify``) runs the projections position by position
     (``layers.by_column``)."""
     B, S, _ = x.shape
-    if cfg.impl not in _BITSTOPPER:
-        raise NotImplementedError(f"attention impl {cfg.impl!r} is not "
-                                  f"ported yet (ROADMAP A10)")
+    if cache is not None and cfg.impl not in _BITSTOPPER:
+        raise NotImplementedError(f"cached attention with impl {cfg.impl!r}"
+                                  f" is not ported yet (ROADMAP A10)")
     if cache is not None and positions.ndim == 1:
         positions = positions[None].expand(B, S)
     split = cfg.spec_verify and cache is not None
@@ -441,11 +530,21 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
     if cache is None:
         if positions.ndim == 2:
             positions = positions[0]
-        mask2d = None
-        if cfg.window is not None:
-            mask2d = _mask_block(positions, positions, cfg.causal,
-                                 cfg.window)
-        out = _bitstopper_full(q, k, v, cfg, mask2d)
+        if cfg.impl in _BITSTOPPER:
+            mask2d = None
+            if cfg.window is not None:
+                mask2d = _mask_block(positions, positions, cfg.causal,
+                                     cfg.window)
+            out = _bitstopper_full(q, k, v, cfg, mask2d)
+        elif cfg.impl == "flash" and cfg.window is None:
+            qt, kr, vr = _expand_gqa(q, k, v, cfg.n_heads // cfg.n_kv_heads)
+            out = kops.attention(qt, kr, vr, impl="flash",
+                                 causal=cfg.causal).transpose(1, 2)
+        else:
+            out = chunked_attention(q, k, v, positions, positions,
+                                    causal=cfg.causal, window=cfg.window,
+                                    chunk_q=cfg.chunk_q,
+                                    chunk_k=cfg.chunk_k)
         new_cache = None
     elif cache_is_paged(cache):
         new_cache = _update_paged_cache(cache, k, v, positions)

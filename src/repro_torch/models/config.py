@@ -100,6 +100,7 @@ class ModelConfig:
             qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
             window=self.window if local else None,
             impl=self.attn_impl, bitstopper=self.bitstopper,
+            chunk_q=self.attn_chunk, chunk_k=self.attn_chunk,
             fused_decode=self.fused_decode, spec_verify=self.spec_verify,
         )
 
