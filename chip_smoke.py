@@ -10,7 +10,9 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
 2. kernels: runs every kernel of the served paths against its plain
    PyTorch version at their shapes (integer observables exactly equal,
    float output within a stated tolerance), each real query of the verify
-   kernel against the decode kernel at its position, and times them;
+   kernel against the decode kernel at its position, and times them (the
+   decode kernel also alone, on operands prepared once, beside its logical
+   and physical plane bytes);
 3. main path: serves greedy requests with full-width ``stablelm-1.6b``
    (seeded random weights, built once) through
    ``repro_torch.serving.PagedEngine``, checks that every decode tick
@@ -189,6 +191,24 @@ def decode_bytes_ops(args, rounds_h, surv, stats):
     return nbytes, ops
 
 
+def decode_plane_bytes(args, rounds_h, window):
+    """Logical and physical plane bytes of one decode call: the planes LATS
+    kept alive (per KV head and page, from ``rounds_h``) and every plane of
+    every reachable page, which the kernel copies ahead whatever LATS
+    decides."""
+    q, kq, v, table, lengths, q_pos = args[:6]
+    P, bits, bs8, Hkv, D = kq.shape
+    bs, MB = bs8 * 8, table.shape[1]
+    pages = 0
+    for length, qp in zip(lengths.tolist(), q_pos.tolist()):
+        lo = max(0, qp - window + 1) if window is not None else 0
+        hi = min(qp, length - 1)
+        if hi >= lo:
+            pages += min(hi // bs, MB - 1) - lo // bs + 1
+    return (int(rounds_h.sum()) * bs8 * D,
+            pages * Hkv * bits * bs8 * D)
+
+
 @phase("kernels")
 def kernel_phase(torch):
     from repro_torch.core.besf import BitStopperConfig
@@ -225,23 +245,29 @@ def kernel_phase(torch):
     args = decode_case(torch, 100, Hkv=32, **shapes)
     _, rounds_h, surv = pd.launch_kernel(*args, cfg=cfg, stats=True)
     nbytes, ops = decode_bytes_ops(args, rounds_h, surv, stats=False)
+    logical, physical = decode_plane_bytes(args, rounds_h, None)
     ms = cuda_ms(torch, lambda: pd.paged_bitstopper_decode(
         *args, cfg=cfg, stats=False), iters=50, warmup=5)
+    kargs, *held = pd.kernel_args(*args, cfg=cfg, stats=False)
+    kernel_ms = cuda_ms(torch, lambda: pd.launch_c(*kargs), iters=50,
+                        warmup=5)
     plain_ms = cuda_ms(torch, lambda: pd.paged_bitstopper_decode_plain(
         *args, cfg=cfg, stats=False), iters=3, warmup=1)
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = ops / INT8_OPS_PER_S * 1e3
     bound_ms = max(bound_bytes, bound_ops)
     print(f"[chip_smoke] paged_decode timing (B=4, H=32, D=64, bs=16, "
-          f"MB=32): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.5f} ms ({nbytes} bytes, {ops} ops)")
+          f"MB=32): wrapper {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({nbytes} "
+          f"bytes, {ops} ops); plane bytes logical {logical}, physical "
+          f"{physical}")
     return {"name": "paged_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
             "replaces": "src/repro/kernels/paged_decode.py:314",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
+            "max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            "library_ms": None}
+            "library_ms": None, "physical_bytes": physical}
 
 
 def verify_bytes_ops(args, rounds_h, surv):

@@ -14,10 +14,18 @@ Counterpart of ``repro/kernels/paged_decode.py`` (the Pallas TPU kernel
 * ``LAUNCHES``, the number of kernel launches, so a run can show that its
   decode went through the kernel.
 
-The kernel runs one thread block per (slot, KV head) and writes per-head
-plane counts; the slot-wide ``rounds`` of the reference is their max over
-KV heads (``tests/test_torch_paged_decode.py`` proves the rule on the plain
-version).
+The kernel runs one thread block per (slot, KV head).  Walk warps, one
+per query head, run the LATS rounds on planes already in shared memory
+(all planes of a page, copied two pages ahead) and synchronise only within
+the warp; epilogue warps copy V for pages with a survivor and run the
+softmax one page behind.  What bounds it is the latency of one slot's
+serial page walk, with B x Hkv blocks in the grid (128 at B=4).  Plane
+counts are per query head: a KV head's is their max, and the slot-wide
+``rounds`` of the reference is the max over KV heads
+(``tests/test_torch_paged_decode.py`` proves both rules on the plain
+version).  Its epilogue's floating-point order is a contract with
+``csrc/paged_verify.cu``: every real verify query equals this kernel at its
+position bit for bit.
 """
 
 from __future__ import annotations
@@ -100,12 +108,15 @@ def paged_bitstopper_decode_plain(q, kq_pool, v_pool, table, lengths,
                              v_fetched=v_fetched)
 
 
-def launch_kernel(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
-                  v_amax, cfg: BitStopperConfig = BitStopperConfig(),
-                  window: int | None = None, stats: bool = True):
-    """Launch the CUDA kernel once.  Returns ``(out [B,Hq,Dv] f32,
-    rounds_h [B,Hkv,MB] int32, survivors int8 [B,Hq,MB*bs] or None)`` with
-    per-KV-head plane counts."""
+def kernel_args(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
+                v_amax, cfg: BitStopperConfig = BitStopperConfig(),
+                window: int | None = None, stats: bool = True):
+    """Prepare the kernel's operands and outputs once.  Returns ``(args,
+    keep, out, rounds_h, surv)``: ``launch_c(*args)`` fills ``out
+    [B,Hq,Dv]`` f32, ``rounds_h [B,Hkv,MB]`` int32 per-KV-head plane counts
+    and ``surv`` int8 [B,Hq,MB*bs] (None when ``stats`` is False); ``keep``
+    holds the prepared tensors that ``args`` points into, and must outlive
+    every launch."""
     check_kernel_operands(q, kq_pool, v_pool, table, lengths, q_positions,
                           cfg)
     B, Hq, D = q.shape
@@ -113,6 +124,15 @@ def launch_kernel(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
     bs = bs8 * 8
     MB = table.shape[1]
     Dv = v_pool.shape[-1]
+    if bs > 32 or D > 256 or D % 16 or Dv % 4 or not 2 <= bits <= 16:
+        raise ValueError(f"the decode kernel takes pages of at most 32 "
+                         f"tokens, head_dim <= 256 and a multiple of 16, a "
+                         f"V width that is a multiple of 4 and 2..16 bits, "
+                         f"got page {bs}, head_dim {D}, V width {Dv}, bits "
+                         f"{bits}")
+    if (kq_pool.data_ptr() | v_pool.data_ptr()) % 16:
+        raise ValueError("the decode kernel copies pool rows in 16-byte "
+                         "pieces: the kq and V pools must be 16-byte aligned")
     dev = q.device
     q_int, m_min, m_max, scale_total, alpha_radius, _, v_scale = \
         paged_decode_prep(q, k_amax, v_amax, Hkv, cfg)
@@ -125,16 +145,27 @@ def launch_kernel(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
     rounds_h = torch.empty((B, Hkv, MB), dtype=torch.int32, device=dev)
     surv = (torch.zeros((B, Hq, MB * bs), dtype=torch.int8, device=dev)
             if stats else None)
-    with torch.cuda.device(dev):
-        launch_c(q_int.data_ptr(), floats[0].data_ptr(),
-                 floats[1].data_ptr(), floats[2].data_ptr(),
-                 floats[3].data_ptr(), floats[4].data_ptr(),
-                 kq_pool.data_ptr(), v_pool.data_ptr(), ints[0].data_ptr(),
-                 ints[1].data_ptr(), ints[2].data_ptr(), out.data_ptr(),
-                 rounds_h.data_ptr(), surv.data_ptr() if stats else None,
-                 B, Hq, Hkv, D, Dv, bits, bs, MB, cfg.min_rounds,
-                 int(cfg.quantize_v), int(window is not None),
-                 int(window or 0), torch.cuda.current_stream(dev).cuda_stream)
+    args = (q_int.data_ptr(), *(f.data_ptr() for f in floats),
+            kq_pool.data_ptr(), v_pool.data_ptr(),
+            *(t.data_ptr() for t in ints), out.data_ptr(),
+            rounds_h.data_ptr(), surv.data_ptr() if stats else None,
+            B, Hq, Hkv, D, Dv, bits, bs, MB, cfg.min_rounds,
+            int(cfg.quantize_v), int(window is not None), int(window or 0),
+            torch.cuda.current_stream(dev).cuda_stream)
+    return args, (q_int, floats, ints), out, rounds_h, surv
+
+
+def launch_kernel(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
+                  v_amax, cfg: BitStopperConfig = BitStopperConfig(),
+                  window: int | None = None, stats: bool = True):
+    """Launch the CUDA kernel once.  Returns ``(out [B,Hq,Dv] f32,
+    rounds_h [B,Hkv,MB] int32, survivors int8 [B,Hq,MB*bs] or None)`` with
+    per-KV-head plane counts."""
+    args, _keep, out, rounds_h, surv = kernel_args(
+        q, kq_pool, v_pool, table, lengths, q_positions, k_amax, v_amax,
+        cfg=cfg, window=window, stats=stats)
+    with torch.cuda.device(q.device):
+        launch_c(*args)
     return out, rounds_h, surv
 
 

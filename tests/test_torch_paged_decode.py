@@ -44,10 +44,10 @@ _TABLE = np.array([[1, 2, 3, 4], [1, 5, 6, 0], [7, 3, 0, 0], [2, 0, 0, 0]],
 _LENGTHS = np.array([64, 40, 19, 0], np.int32)
 
 
-def _inputs(seed, G, hot_heads=()):
+def _inputs(seed, G, hot_heads=(), D=16):
     """Kernel operands; query heads of a hot KV head point at its hot
     page."""
-    k, v, k_amax, v_amax, hot = _pool(seed, hot_heads=hot_heads)
+    k, v, k_amax, v_amax, hot = _pool(seed, hot_heads=hot_heads, D=D)
     rng = np.random.default_rng(seed + 10)
     q = (rng.normal(size=(4, k.shape[2] * G, k.shape[3])) * 2).astype(
         np.float32)
@@ -142,6 +142,48 @@ def test_rounds_is_max_over_kv_heads(G):
     assert (per_head[:, 0] != per_head[:, 1]).any()       # the max matters
 
 
+@pytest.mark.parametrize("G", [2, 4])
+def test_rounds_is_max_over_query_heads(G):
+    """The CUDA kernel walks each query head in a warp of its own and
+    writes, per KV head, the max of its query heads' plane counts.  Run the
+    plain version on each query head alone, with its KV head's pool:
+    survivors and output are unchanged, and each KV head's rounds is the max
+    over its G query heads.  Only the first query head of KV head 0 points
+    at the hot page, so siblings prune differently."""
+    k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _inputs(
+        5, G, hot_heads=(0,))
+    q[:, 1:G] = np.random.default_rng(15).normal(size=q[:, 1:G].shape) * 2
+    cfg = TConfig(alpha=0.4)
+    args = tuple(map(_t, (q, kq, v, table, lengths, q_pos, k_amax, v_amax)))
+    whole = pd.paged_bitstopper_decode(*args, cfg=cfg)
+    Hkv = kq.shape[3]
+    per_kv = []
+    for h in range(Hkv):
+        pool = (args[1][:, :, :, h:h + 1].contiguous(),
+                args[2][:, :, h:h + 1].contiguous())
+        amax = (args[6][h:h + 1], args[7][h:h + 1])
+        kv_alone = pd.paged_bitstopper_decode(
+            args[0][:, h * G:(h + 1) * G], *pool, *args[3:6], *amax, cfg=cfg)
+        heads = []
+        for hq in range(h * G, (h + 1) * G):
+            one = pd.paged_bitstopper_decode(
+                args[0][:, hq:hq + 1], *pool, *args[3:6], *amax, cfg=cfg)
+            np.testing.assert_array_equal(one.survivors.numpy(),
+                                          whole.survivors[:, hq:hq + 1].numpy())
+            np.testing.assert_allclose(one.out.numpy(),
+                                       whole.out[:, hq:hq + 1].numpy(),
+                                       atol=1e-6, rtol=1e-6)
+            heads.append(one.rounds)
+        heads = torch.stack(heads, 1)                        # [B, G, MB]
+        np.testing.assert_array_equal(heads.amax(1).numpy(),
+                                      kv_alone.rounds.numpy())
+        if h == 0:
+            assert (heads[:, 0] != heads[:, 1]).any()    # the max matters
+        per_kv.append(kv_alone.rounds)
+    np.testing.assert_array_equal(torch.stack(per_kv, 1).amax(1).numpy(),
+                                  whole.rounds.numpy())
+
+
 def test_plain_early_termination_and_stats_off():
     """A hot page completes all planes and is read; cold pages stop early
     and some V pages are never read.  ``stats=False`` drops the stats."""
@@ -173,15 +215,18 @@ def test_cpu_tensors_take_the_plain_path():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("alpha,window,G,min_rounds,quantize_v", _CASES)
+@pytest.mark.parametrize("alpha,window,G,min_rounds,quantize_v,D",
+                         [c + (16,) for c in _CASES]
+                         + [(0.6, None, 2, 1, True, 128)])
 def test_cuda_kernel_matches_plain(alpha, window, G, min_rounds,
-                                   quantize_v):
+                                   quantize_v, D):
     """On the card: the CUDA kernel against the plain version on the same
     CUDA tensors.  Integer observables exact, out within 1e-5 (the kernel's
-    expf and summation order differ from the plain version's)."""
+    expf and summation order differ from the plain version's).  D = Dv = 128
+    gives each lane several plane words and V columns."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _inputs(3, G)
+    k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _inputs(3, G, D=D)
     args = tuple(torch.as_tensor(np.array(a), device="cuda")
                  for a in (q, kq, v, table, lengths, q_pos, k_amax, v_amax))
     cfg = TConfig(alpha=alpha, min_rounds=min_rounds, quantize_v=quantize_v)
@@ -196,6 +241,41 @@ def test_cuda_kernel_matches_plain(alpha, window, G, min_rounds,
     lean = pd.paged_bitstopper_decode(*args, cfg=cfg, window=window,
                                       stats=False)
     assert torch.equal(lean.rounds, ker.rounds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,window", [(1, None), (2, 24)])
+def test_cuda_kernel_equals_verify_kernel(G, window):
+    """On the card: the decode kernel's output equals, bit for bit, the
+    verify kernel's for each real query of a draft block, as lossless
+    speculative serving needs (the two share the epilogue's order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import paged_verify as pv
+    k, kq, v, table, _, _, k_amax, v_amax, _ = _inputs(6, G, hot_heads=(0,))
+    Sq = 3
+    rng = np.random.default_rng(16)
+    q = (rng.normal(size=(4, Sq, kq.shape[3] * G, kq.shape[4])) * 2).astype(
+        np.float32)
+    fill = np.array([58, 37, 16, 0], np.int32)
+    q_pos = fill[:, None] + np.arange(Sq, dtype=np.int32)[None]
+    lengths = np.where(fill[:, None] > 0, q_pos + 1, 0).astype(np.int32)
+    q_pos = np.where(fill[:, None] > 0, q_pos, 0).astype(np.int32)
+    dev = lambda a: torch.as_tensor(np.array(a), device="cuda")
+    pool = tuple(map(dev, (kq, v, table)))
+    amax = (dev(k_amax), dev(v_amax))
+    cfg = TConfig(alpha=0.4)
+    ver = pv.paged_bitstopper_verify(dev(q), *pool, dev(lengths),
+                                     dev(q_pos), *amax, cfg=cfg,
+                                     window=window)
+    real = dev(lengths[:, 0] > 0)
+    for s in range(Sq):
+        dec = pd.paged_bitstopper_decode(
+            dev(q[:, s]), *pool, dev(lengths[:, s]), dev(q_pos[:, s]), *amax,
+            cfg=cfg, window=window)
+        for field in ("out", "rounds", "survivors", "v_fetched"):
+            assert torch.equal(getattr(dec, field)[real],
+                               getattr(ver, field)[:, s][real]), (s, field)
 
 
 def test_runtime_resolution(monkeypatch):
