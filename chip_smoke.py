@@ -12,7 +12,7 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    float output within a stated tolerance), each real query of the verify
    kernel against the decode kernel at its position, and times them (the
    decode kernel also alone, on operands prepared once, beside its logical
-   and physical plane bytes);
+   plane bytes and the plane and V bytes it counts as requested);
 3. main path: serves greedy requests with full-width ``stablelm-1.6b``
    (seeded random weights, built once) through
    ``repro_torch.serving.PagedEngine``, checks that every decode tick
@@ -192,10 +192,9 @@ def decode_bytes_ops(args, rounds_h, surv, stats):
 
 
 def decode_plane_bytes(args, rounds_h, window):
-    """Logical and physical plane bytes of one decode call: the planes LATS
-    kept alive (per KV head and page, from ``rounds_h``) and every plane of
-    every reachable page, which the kernel copies ahead whatever LATS
-    decides."""
+    """Logical plane bytes of one decode call, the planes LATS kept alive
+    (per KV head and page, from ``rounds_h``), and the plane bytes the
+    design copies: every plane of every reachable page, ahead of LATS."""
     q, kq, v, table, lengths, q_pos = args[:6]
     P, bits, bs8, Hkv, D = kq.shape
     bs, MB = bs8 * 8, table.shape[1]
@@ -240,12 +239,23 @@ def kernel_phase(torch):
             raise SystemExit(f"[chip_smoke] paged_decode {label}: out "
                              f"differs by {err} > {OUT_TOL}")
 
-    # Time the serving shape (stats=False) on the first case.
+    # Time the serving shape (stats=False) on the first case.  One launch
+    # with stats counts the bytes the kernel requested: the planes of every
+    # reachable page and V only of pages with a survivor.
     cfg = BitStopperConfig(alpha=0.6)
     args = decode_case(torch, 100, Hkv=32, **shapes)
+    pd.copied_bytes()
     _, rounds_h, surv = pd.launch_kernel(*args, cfg=cfg, stats=True)
+    physical, v_copied = pd.copied_bytes()
     nbytes, ops = decode_bytes_ops(args, rounds_h, surv, stats=False)
-    logical, physical = decode_plane_bytes(args, rounds_h, None)
+    logical, design = decode_plane_bytes(args, rounds_h, None)
+    B, Hq, D = args[0].shape
+    bs, Hkv, Dv = shapes["bs"], args[1].shape[3], args[2].shape[-1]
+    live_v = int(surv.reshape(B, Hkv, Hq // Hkv, -1, bs).any(4).any(2).sum())
+    if physical != design or v_copied != live_v * bs * Dv * 4:
+        raise SystemExit(f"[chip_smoke] paged_decode copied {physical} plane "
+                         f"bytes and {v_copied} V bytes; the design copies "
+                         f"{design} and {live_v * bs * Dv * 4}")
     ms = cuda_ms(torch, lambda: pd.paged_bitstopper_decode(
         *args, cfg=cfg, stats=False), iters=50, warmup=5)
     kargs, *held = pd.kernel_args(*args, cfg=cfg, stats=False)
@@ -260,7 +270,7 @@ def kernel_phase(torch):
           f"MB=32): wrapper {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, "
           f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({nbytes} "
           f"bytes, {ops} ops); plane bytes logical {logical}, physical "
-          f"{physical}")
+          f"{physical} (measured); V bytes physical {v_copied} (measured)")
     return {"name": "paged_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
             "replaces": "src/repro/kernels/paged_decode.py:314",

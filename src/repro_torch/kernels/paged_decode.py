@@ -12,7 +12,8 @@ Counterpart of ``repro/kernels/paged_decode.py`` (the Pallas TPU kernel
   over the packed ``kq`` pool: unpack a page's planes, then the oracle's
   page walk op for op.
 * ``LAUNCHES``, the number of kernel launches, so a run can show that its
-  decode went through the kernel.
+  decode went through the kernel, and :func:`copied_bytes`, the plane and
+  V bytes the kernel requested, so a run measures what it copied.
 
 The kernel runs one thread block per (slot, KV head).  Walk warps, one
 per query head, run the LATS rounds on planes already in shared memory
@@ -39,6 +40,7 @@ from repro_torch.core.besf import (BitStopperConfig, PagedDecodeOutput,
 from repro_torch.kernels.runtime import load_library, on_card
 
 LAUNCHES = 0
+MAX_PAGE = 256          # tokens a page may hold in the kernel
 
 _ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 12
              + [ctypes.c_void_p])
@@ -124,12 +126,12 @@ def kernel_args(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
     bs = bs8 * 8
     MB = table.shape[1]
     Dv = v_pool.shape[-1]
-    if bs > 32 or D > 256 or D % 16 or Dv % 4 or not 2 <= bits <= 16:
-        raise ValueError(f"the decode kernel takes pages of at most 32 "
-                         f"tokens, head_dim <= 256 and a multiple of 16, a "
-                         f"V width that is a multiple of 4 and 2..16 bits, "
-                         f"got page {bs}, head_dim {D}, V width {Dv}, bits "
-                         f"{bits}")
+    if bs > MAX_PAGE or D > 256 or D % 16 or Dv % 4 or not 2 <= bits <= 16:
+        raise ValueError(f"the decode kernel takes pages of at most "
+                         f"{MAX_PAGE} tokens, head_dim <= 256 and a multiple "
+                         f"of 16, a V width that is a multiple of 4 and "
+                         f"2..16 bits, got page {bs}, head_dim {D}, V width "
+                         f"{Dv}, bits {bits}")
     if (kq_pool.data_ptr() | v_pool.data_ptr()) % 16:
         raise ValueError("the decode kernel copies pool rows in 16-byte "
                          "pieces: the kq and V pools must be 16-byte aligned")
@@ -169,19 +171,41 @@ def launch_kernel(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
     return out, rounds_h, surv
 
 
+def entry_point(lib: ctypes.CDLL):
+    """``paged_decode_launch`` of a library built from
+    ``csrc/paged_decode.cu``, with its C signature."""
+    fn = lib.paged_decode_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def launch_c(*args) -> None:
     """The C entry point ``paged_decode_launch`` (argument order of
     ``csrc/paged_decode.cu``); raises on a launch error and counts the
     launch."""
     global LAUNCHES
-    fn = load_library("paged_decode").paged_decode_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(*args)
+    err = entry_point(load_library("paged_decode"))(*args)
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed with CUDA "
                            f"error {err}")
     LAUNCHES += 1
+
+
+def copied_bytes() -> tuple[int, int]:
+    """(plane bytes, V bytes) that the kernel requested from device memory,
+    summed over its launches with ``stats`` on since the last call; the
+    call zeroes both counts.  Synchronizes the card."""
+    torch.cuda.synchronize()
+    fn = load_library("paged_decode").paged_decode_copied_bytes
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    counts = (ctypes.c_ulonglong * 2)()
+    err = fn(counts)
+    if err != 0:
+        raise RuntimeError(f"reading the paged_decode copy counts failed "
+                           f"with CUDA error {err}")
+    return int(counts[0]), int(counts[1])
 
 
 def paged_bitstopper_decode(

@@ -35,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels import paged_decode
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import (POS_SENTINEL, PagedLayout,
@@ -199,6 +200,11 @@ class PagedEngine:
         fused = scfg.fused_decode
         if fused is None:
             fused = self.device.type == "cuda"
+        if fused and scfg.page_size > paged_decode.MAX_PAGE:
+            raise ValueError(
+                f"page_size {scfg.page_size}: the fused decode kernel takes "
+                f"pages of at most {paged_decode.MAX_PAGE} tokens; serve "
+                f"with fused_decode=False or smaller pages")
         self.cfg = cfg.replace(fused_decode=bool(fused))
         self.params = params
         self.scfg = scfg

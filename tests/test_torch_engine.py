@@ -174,6 +174,20 @@ def test_device_and_kernel_resolution(model):
             Request(prompt=np.zeros(60, np.int32), max_new_tokens=200))
 
 
+def test_fused_decode_refuses_pages_over_the_kernel_limit(model):
+    """The decode kernel takes pages of at most 256 tokens: an engine that
+    would hand it larger ones fails when it is built, not at its first
+    decode tick.  The plain oracle serves such pages."""
+    _, tcfg, _, tparams = model
+    big = dict(_KW, page_size=264, max_len=528)
+    with pytest.raises(ValueError, match="at most 256"):
+        PagedEngine(tcfg, tparams, ServeConfig(fused_decode=True, **big),
+                    "cpu")
+    plain = PagedEngine(tcfg, tparams, ServeConfig(fused_decode=False, **big),
+                        "cpu")
+    assert plain.cfg.fused_decode is False and plain.layout.page_size == 264
+
+
 def test_serve_cli_on_cpu():
     out = io.StringIO()
     with redirect_stdout(out):

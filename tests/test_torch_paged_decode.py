@@ -44,18 +44,19 @@ _TABLE = np.array([[1, 2, 3, 4], [1, 5, 6, 0], [7, 3, 0, 0], [2, 0, 0, 0]],
 _LENGTHS = np.array([64, 40, 19, 0], np.int32)
 
 
-def _inputs(seed, G, hot_heads=(), D=16):
+def _inputs(seed, G, hot_heads=(), D=16, bs=16):
     """Kernel operands; query heads of a hot KV head point at its hot
-    page."""
-    k, v, k_amax, v_amax, hot = _pool(seed, hot_heads=hot_heads, D=D)
+    page.  Fill levels scale with the page size ``bs``."""
+    k, v, k_amax, v_amax, hot = _pool(seed, bs=bs, hot_heads=hot_heads, D=D)
     rng = np.random.default_rng(seed + 10)
     q = (rng.normal(size=(4, k.shape[2] * G, k.shape[3])) * 2).astype(
         np.float32)
     for h, u in hot.items():
         q[:, h * G:(h + 1) * G] = 8.0 * u + 0.05 * q[:, h * G:(h + 1) * G]
-    q_pos = np.maximum(_LENGTHS - 1, 0).astype(np.int32)
+    lengths = (_LENGTHS * bs // 16).astype(np.int32)
+    q_pos = np.maximum(lengths - 1, 0).astype(np.int32)
     kq = np.asarray(jq.pack_pool_planes(jnp.asarray(k), jnp.asarray(k_amax)))
-    return k, kq, v, _TABLE, _LENGTHS, q_pos, k_amax, v_amax, q
+    return k, kq, v, _TABLE, lengths, q_pos, k_amax, v_amax, q
 
 
 def _t(a):
@@ -93,6 +94,27 @@ def test_plain_matches_jax_oracle(alpha, window, G, min_rounds, quantize_v):
     rounds = plain.rounds.numpy()
     assert rounds[1, 3] == 0 and (rounds[2, 2:] == 0).all()
     assert (rounds[3] == 0).all() and not plain.survivors[3].any()
+
+
+@pytest.mark.parametrize("bs,G,window", [(48, 2, None), (64, 1, 40)])
+def test_plain_matches_jax_oracle_large_pages(bs, G, window):
+    """Pages of more than 32 tokens, which the CUDA kernel walks with
+    several tokens a lane: the plain version it is held to equals the JAX
+    oracle there too."""
+    k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _inputs(2, G,
+                                                                  bs=bs)
+    want = joracle(*map(jnp.asarray, (q, k, v, table, lengths, q_pos,
+                                      k_amax, v_amax)),
+                   cfg=JConfig(alpha=0.6), window=window)
+    got = pd.paged_bitstopper_decode(
+        *map(_t, (q, kq, v, table, lengths, q_pos, k_amax, v_amax)),
+        cfg=TConfig(alpha=0.6), window=window)
+    for field in ("rounds", "survivors", "v_fetched"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)))
+    np.testing.assert_allclose(got.out.numpy(), np.asarray(want.out),
+                               atol=1e-6, rtol=1e-6)
+    assert got.survivors.shape[-1] == 4 * bs
 
 
 @pytest.mark.parametrize("alpha,window,G", [(0.6, None, 2), (0.8, 24, 1)])
@@ -215,18 +237,27 @@ def test_cpu_tensors_take_the_plain_path():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("alpha,window,G,min_rounds,quantize_v,D",
-                         [c + (16,) for c in _CASES]
-                         + [(0.6, None, 2, 1, True, 128)])
+@pytest.mark.parametrize("alpha,window,G,min_rounds,quantize_v,D,bs",
+                         [c + (16, 16) for c in _CASES]
+                         + [(0.6, None, 2, 1, True, 128, 16),
+                            (0.6, None, 3, 1, True, 16, 16),
+                            (0.8, 24, 5, 2, False, 16, 16),
+                            (0.6, None, 8, 1, True, 64, 16),
+                            (0.6, None, 2, 1, True, 16, 64),
+                            (0.8, 40, 1, 1, True, 16, 48)])
 def test_cuda_kernel_matches_plain(alpha, window, G, min_rounds,
-                                   quantize_v, D):
+                                   quantize_v, D, bs):
     """On the card: the CUDA kernel against the plain version on the same
     CUDA tensors.  Integer observables exact, out within 1e-5 (the kernel's
     expf and summation order differ from the plain version's).  D = Dv = 128
-    gives each lane several plane words and V columns."""
+    gives each lane several plane words and V columns; G = 3, 5 and 8 give
+    other splits of walk and epilogue warps, beyond four walk warps a warp
+    walks several heads; pages of 48 and 64 tokens give a lane several
+    tokens."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _inputs(3, G, D=D)
+    k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _inputs(3, G, D=D,
+                                                                  bs=bs)
     args = tuple(torch.as_tensor(np.array(a), device="cuda")
                  for a in (q, kq, v, table, lengths, q_pos, k_amax, v_amax))
     cfg = TConfig(alpha=alpha, min_rounds=min_rounds, quantize_v=quantize_v)
@@ -244,20 +275,23 @@ def test_cuda_kernel_matches_plain(alpha, window, G, min_rounds,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G,window", [(1, None), (2, 24)])
-def test_cuda_kernel_equals_verify_kernel(G, window):
+@pytest.mark.parametrize("G,window,bs", [(1, None, 16), (2, 24, 16),
+                                         (5, None, 16), (8, 24, 16),
+                                         (2, None, 64)])
+def test_cuda_kernel_equals_verify_kernel(G, window, bs):
     """On the card: the decode kernel's output equals, bit for bit, the
     verify kernel's for each real query of a draft block, as lossless
     speculative serving needs (the two share the epilogue's order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.kernels import paged_verify as pv
-    k, kq, v, table, _, _, k_amax, v_amax, _ = _inputs(6, G, hot_heads=(0,))
+    k, kq, v, table, _, _, k_amax, v_amax, _ = _inputs(6, G, hot_heads=(0,),
+                                                       bs=bs)
     Sq = 3
     rng = np.random.default_rng(16)
     q = (rng.normal(size=(4, Sq, kq.shape[3] * G, kq.shape[4])) * 2).astype(
         np.float32)
-    fill = np.array([58, 37, 16, 0], np.int32)
+    fill = np.array([58, 37, 16, 0], np.int32) * (bs // 16)
     q_pos = fill[:, None] + np.arange(Sq, dtype=np.int32)[None]
     lengths = np.where(fill[:, None] > 0, q_pos + 1, 0).astype(np.int32)
     q_pos = np.where(fill[:, None] > 0, q_pos, 0).astype(np.int32)
@@ -276,6 +310,33 @@ def test_cuda_kernel_equals_verify_kernel(G, window):
         for field in ("out", "rounds", "survivors", "v_fetched"):
             assert torch.equal(getattr(dec, field)[real],
                                getattr(ver, field)[:, s][real]), (s, field)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [16, 64])
+def test_cuda_kernel_copies_reachable_planes(bs):
+    """On the card: the kernel's own count of the bytes it requested is
+    every plane of every reachable page and V only of pages where some
+    query head of the KV head has a survivor; a launch without stats adds
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _inputs(
+        7, 2, hot_heads=(0,), bs=bs)
+    args = tuple(torch.as_tensor(np.array(a), device="cuda")
+                 for a in (q, kq, v, table, lengths, q_pos, k_amax, v_amax))
+    cfg = TConfig(alpha=0.4)
+    pd.copied_bytes()
+    res = pd.paged_bitstopper_decode(*args, cfg=cfg)
+    pd.paged_bitstopper_decode(*args, cfg=cfg, stats=False)
+    planes, v_bytes = pd.copied_bytes()
+    P, bits, bs8, Hkv, D = kq.shape
+    pages = int(sum(-(-int(n) // bs) for n in lengths))
+    assert planes == pages * Hkv * bits * bs8 * D
+    B, Hq, _ = q.shape
+    live = res.survivors.reshape(B, Hkv, Hq // Hkv, -1, bs).any(4).any(2)
+    assert 0 < int(live.sum()) < pages * Hkv
+    assert v_bytes == int(live.sum()) * bs * v.shape[-1] * 4
 
 
 def test_runtime_resolution(monkeypatch):
