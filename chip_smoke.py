@@ -11,8 +11,8 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    PyTorch version at their shapes (integer observables exactly equal,
    float output within a stated tolerance), each real query of the verify
    kernel against the decode kernel at its position, and times them (the
-   decode kernel also alone, on operands prepared once, beside its logical
-   plane bytes and the plane and V bytes it counts as requested);
+   decode and verify kernels also alone, on operands prepared once; the
+   plane and V bytes each counts as requested are held to its design);
 3. main path: serves greedy requests with full-width ``stablelm-1.6b``
    (seeded random weights, built once) through
    ``repro_torch.serving.PagedEngine``, checks that every decode tick
@@ -304,21 +304,52 @@ def verify_bytes_ops(args, rounds_h, surv):
     return nbytes, ops, union, per_query
 
 
+def verify_copy_bytes(args, surv, window):
+    """The plane and V bytes the verify kernel's design copies: per (slot,
+    KV head, group of max(1, 4 // G) queries) block, every plane of every
+    page some query of the group reaches, and V of each (block, page) where
+    some row of the block has a survivor."""
+    q, kq, v, table, lengths, q_pos = args[:6]
+    B, Sq, Hq, D = q.shape
+    P, bits, bs8, Hkv, _ = kq.shape
+    bs, MB, Dv = bs8 * 8, table.shape[1], v.shape[-1]
+    G = Hq // Hkv
+    QG = max(1, 4 // G)
+    sv = surv.reshape(B, Sq, Hkv, G, MB, bs).any(5).any(3).cpu()
+    fill, pos = lengths.tolist(), q_pos.tolist()
+    pages = live = 0
+    for b in range(B):
+        for s0 in range(0, Sq, QG):
+            reach = set()
+            for s in range(s0, min(s0 + QG, Sq)):
+                lo = max(0, pos[b][s] - window + 1) if window else 0
+                hi = min(pos[b][s], fill[b][s] - 1)
+                if hi >= lo:
+                    reach.update(range(lo // bs, min(hi // bs, MB - 1) + 1))
+            pages += len(reach)
+            if reach:
+                live += int(sv[b, s0:s0 + QG][:, :, sorted(reach)]
+                            .any(0).sum())
+    return pages * Hkv * bits * bs8 * D, live * bs * Dv * 4
+
+
 @phase("verify kernel")
 def verify_kernel_phase(torch):
     """paged_verify against its plain version on draft blocks (padding
-    queries, a row ending mid-page, an idle slot) and, query by query,
-    against the paged_decode kernel at the query's position."""
+    queries, a row ending mid-page, an idle slot) at G = 1, 3, 4, 5 and 8,
+    query by query against the paged_decode kernel at the query's position,
+    and its own count of the bytes it copied against the design's."""
     from repro_torch.core.besf import BitStopperConfig
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import paged_verify as pv
-    shapes = dict(B=4, Sq=SPEC_K + 1, Hq=32, D=64, bs=16, MB=32, P=129)
-    cases = [("mha a=0.6", 0.6, 32, None), ("gqa Hkv=8", 0.6, 8, None),
-             ("window 100", 0.8, 32, 100)]
-    worst = 0.0
-    for i, (label, alpha, hkv, window) in enumerate(cases):
+    shapes = dict(B=4, Sq=SPEC_K + 1, D=64, bs=16, MB=32, P=129)
+    cases = [("mha a=0.6", 0.6, 32, 32, None), ("gqa Hkv=8", 0.6, 32, 8, None),
+             ("window 100", 0.8, 32, 32, 100), ("G=3", 0.6, 24, 8, None),
+             ("G=5", 0.6, 40, 8, None), ("G=8", 0.6, 32, 4, None)]
+    worst, physical = 0.0, None
+    for i, (label, alpha, hq, hkv, window) in enumerate(cases):
         cfg = BitStopperConfig(alpha=alpha)
-        args = decode_case(torch, 200 + i, Hkv=hkv, **shapes)
+        args = decode_case(torch, 200 + i, Hq=hq, Hkv=hkv, **shapes)
         ker = pv.paged_bitstopper_verify(*args, cfg=cfg, window=window)
         ref = pv.paged_bitstopper_verify_plain(*args, cfg=cfg, window=window)
         torch.cuda.synchronize()
@@ -347,36 +378,51 @@ def verify_kernel_phase(torch):
                     raise SystemExit(
                         f"[chip_smoke] paged_verify {label}: query {s} "
                         f"{field} differs from paged_decode at its position")
+        # One launch with stats counts the bytes the kernel requested.
+        pv.copied_bytes()
         _, rounds_h, surv = pv.launch_kernel(*args, cfg=cfg, window=window)
+        planes, v_copied = pv.copied_bytes()
+        design = verify_copy_bytes(args, surv, window)
+        if (planes, v_copied) != design:
+            raise SystemExit(f"[chip_smoke] paged_verify {label} copied "
+                             f"{planes} plane bytes and {v_copied} V bytes; "
+                             f"the design copies {design[0]} and {design[1]}")
+        physical = planes if physical is None else physical
         _, _, union, per_query = verify_bytes_ops(args, rounds_h, surv)
-        print(f"[chip_smoke] paged_verify {label}: rounds/survivors/"
-              f"v_fetched equal to plain; max|out diff| {err:.3e}; every "
-              f"real query equal to paged_decode at its position; plane "
-              f"loads {union} for the block vs {per_query} for "
-              f"{int((lengths > 0).sum())} separate decodes; survivors "
-              f"{int(ker.survivors.sum())}")
+        print(f"[chip_smoke] paged_verify {label} (Hq={hq}, Hkv={hkv}): "
+              f"rounds/survivors/v_fetched equal to plain; max|out diff| "
+              f"{err:.3e}; every real query equal to paged_decode at its "
+              f"position; plane loads {union} for the block vs {per_query} "
+              f"for {int((lengths > 0).sum())} separate decodes; copied "
+              f"{planes} plane and {v_copied} V bytes (measured, as "
+              f"designed); survivors {int(ker.survivors.sum())}")
 
     cfg = BitStopperConfig(alpha=0.6)
-    args = decode_case(torch, 200, Hkv=32, **shapes)
+    args = decode_case(torch, 200, Hq=32, Hkv=32, **shapes)
     _, rounds_h, surv = pv.launch_kernel(*args, cfg=cfg)
     nbytes, ops, _, _ = verify_bytes_ops(args, rounds_h, surv)
     ms = cuda_ms(torch, lambda: pv.paged_bitstopper_verify(
         *args, cfg=cfg, stats=False), iters=50, warmup=5)
+    kargs, *held = pv.kernel_args(*args, cfg=cfg, stats=False)
+    kernel_ms = cuda_ms(torch, lambda: pv.launch_c(*kargs), iters=50,
+                        warmup=5)
     plain_ms = cuda_ms(torch, lambda: pv.paged_bitstopper_verify_plain(
         *args, cfg=cfg, stats=False), iters=3, warmup=1)
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = ops / INT8_OPS_PER_S * 1e3
     bound_ms = max(bound_bytes, bound_ops)
     print(f"[chip_smoke] paged_verify timing (B=4, Sq={shapes['Sq']}, H=32, "
-          f"D=64, bs=16, MB=32): kernel {ms:.4f} ms, plain {plain_ms:.3f} "
-          f"ms, bound {bound_ms:.5f} ms ({nbytes} bytes, {ops} ops)")
+          f"D=64, bs=16, MB=32): wrapper {ms:.4f} ms, kernel alone "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.5f} ms ({nbytes} bytes, {ops} ops); plane bytes "
+          f"physical {physical} (measured)")
     return {"name": "paged_verify", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_verify.cu",
             "replaces": "src/repro/kernels/paged_verify.py:335",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
+            "max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            "library_ms": None}
+            "library_ms": None, "physical_bytes": physical}
 
 
 def uncached_case(torch, seed, N=FWD_B * 32, S=FWD_S, d=64, blk=128):

@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""The paged kernels of this checkout against another version of them, on
+one CUDA card, in turns.
+
+``python3 compare_paged.py OTHER_CSRC`` from the root of a checkout (a
+development script beside ``chip_smoke.py``).  OTHER_CSRC holds another
+``paged_decode.cu`` and ``paged_verify.cu`` with the same C entry points
+(for example ``src/repro_torch/kernels/csrc`` of a parent commit unpacked
+with ``git archive`` under the git-ignored ``build/``).  It builds them
+with the port's flags into ``build/compare/`` beside this checkout's, and
+at ``chip_smoke.py``'s kernel shapes (B=4, 32 heads, D=64, bs=16, MB=32,
+alpha 0.6; the verify with Sq=5 draft blocks) it:
+
+* checks that the two versions of each kernel give the same bits: out,
+  per-KV-head rounds and survivors;
+* times each kernel alone on operands prepared once (``stats`` off, as
+  served), 50 launches with a cold L2, in the order other, this, this,
+  other.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+KERNELS = ("paged_decode", "paged_verify")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", type=Path,
+                    help="directory with the other paged_decode.cu and "
+                         "paged_verify.cu")
+    args = ap.parse_args(argv)
+    import torch
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    import chip_smoke as cs
+    from repro_torch.core.besf import BitStopperConfig
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_verify as pv
+    from repro_torch.kernels import runtime
+
+    if not torch.cuda.is_available():
+        raise SystemExit("the comparison needs a CUDA card")
+    out_dir = root / "build" / "compare"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    other_libs = {name: out_dir / f"lib{name}_other.so" for name in KERNELS}
+    builds = [subprocess.Popen([runtime.nvcc_path(), *runtime.NVCC_FLAGS,
+                                "-o", str(other_libs[name]),
+                                str(args.other / f"{name}.cu")])
+              for name in KERNELS]
+    runtime.build_libraries(KERNELS)
+    if any(p.wait() for p in builds):
+        raise SystemExit("building the other kernels failed")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"[compare] {smi}; other: {args.other}")
+
+    cfg = BitStopperConfig(alpha=0.6)
+    shapes = dict(B=4, Hq=32, Hkv=32, D=64, bs=16, MB=32, P=129)
+    failed = []
+    for name, mod, Sq, seed in (("paged_decode", pd, 1, 100),
+                                ("paged_verify", pv, cs.SPEC_K + 1, 200)):
+        case = cs.decode_case(torch, seed, Sq=Sq, **shapes)
+        fns = {"other": mod.entry_point(ctypes.CDLL(str(other_libs[name]))),
+               "this": mod.entry_point(runtime.load_library(name))}
+        got = {}
+        for who, fn in fns.items():
+            kargs, _keep, out, rounds_h, surv = mod.kernel_args(*case,
+                                                                cfg=cfg)
+            if fn(*kargs) != 0:
+                raise SystemExit(f"{name} ({who}) failed to launch")
+            torch.cuda.synchronize()
+            got[who] = (out, rounds_h, surv)
+        same = all(torch.equal(a, b)
+                   for a, b in zip(got["other"], got["this"]))
+        if not same:
+            failed.append(name)
+        kargs, _keep, *_ = mod.kernel_args(*case, cfg=cfg, stats=False)
+        times = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            times[who].append(cs.cuda_ms(
+                torch, lambda: fns[who](*kargs), iters=50, warmup=5))
+        print(f"[compare] {name} (Sq={Sq}): out, rounds and survivors "
+              f"{'bit-identical' if same else 'DIFFER'}; kernel alone ms: "
+              f"other {times['other'][0]:.4f} and {times['other'][1]:.4f}, "
+              f"this {times['this'][0]:.4f} and {times['this'][1]:.4f}; "
+              f"this / other {sum(times['this']) / sum(times['other']):.3f}")
+    if failed:
+        raise SystemExit(f"[compare] the two versions disagree: {failed}")
+
+
+if __name__ == "__main__":
+    main()

@@ -32,7 +32,9 @@ from repro_torch.kernels.runtime import load_library, on_card
 LAUNCHES = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-KERNEL_DV = (16, 32, 64, 128)   # value widths the kernel is compiled for
+KERNEL_DV = (16, 32, 64, 128, 160)   # value widths the kernel is built for
+MAX_HEAD = 160              # widest q/k head whose tiles fit the card's
+                            # 227 KB of shared memory at 128-row tiles
 MAX_BLOCK = 128             # largest q or kv tile the kernel takes
 
 
@@ -102,10 +104,13 @@ def launch_kernel(ops: Operands, cfg: BitStopperConfig, bq: int, bk: int,
     """One launch over every slice of ``ops`` on the card."""
     N, Sq, D = ops.q_int.shape
     Sk, Dv = ops.v_eff.shape[1], ops.v_eff.shape[2]
-    if Dv not in KERNEL_DV or bq > MAX_BLOCK or bk > MAX_BLOCK:
+    if Dv not in KERNEL_DV or D > MAX_HEAD or bq > MAX_BLOCK or \
+            bk > MAX_BLOCK:
         raise ValueError(f"the bitstopper_qk kernel takes value widths "
-                         f"{KERNEL_DV} and blocks up to {MAX_BLOCK}, got "
-                         f"Dv={Dv}, blocks ({bq}, {bk})")
+                         f"{KERNEL_DV}, head widths up to {MAX_HEAD} (wider "
+                         f"tiles exceed the card's shared memory) and blocks "
+                         f"up to {MAX_BLOCK}, got D={D}, Dv={Dv}, blocks "
+                         f"({bq}, {bk})")
     dev = ops.q_int.device
     out = torch.empty((N, Sq, Dv), dtype=torch.float32, device=dev)
     rounds = torch.empty((N, Sq // bq, Sk // bk), dtype=torch.int32,

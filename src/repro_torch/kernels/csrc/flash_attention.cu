@@ -19,7 +19,11 @@
 //  * Shared memory: the q tile, the K tile (then the V tile, in the same
 //    space), and the probability tile P, which the P x V product reads.
 //    Rows of q and K are padded to D + 1 words so that neither the loads nor
-//    the dot products conflict on banks.
+//    the dot products conflict on banks.  Widths over 128 (stablelm-12b's
+//    160) would not fit the card's 227 KB: the K tile then comes in two
+//    halves of head_dim and the V tile in two halves of its columns, one
+//    after the other in the same space (the sums over d and over kv tokens
+//    keep their order).
 //  * The reference's float steps, in its order: s = dot * sm_scale, masked
 //    entries set to the finite NEG_INF = -1e30, m_new = max(m_prev, max s),
 //    p = exp(s - m_new) (masked entries included, as in the reference),
@@ -48,6 +52,7 @@ constexpr int kThreads = 256;
 constexpr int kGrid = 16;    // threads per row group and row groups
 constexpr int kMicro = 8;    // rows (and columns) of the tile per thread
 constexpr int kMaxTile = kGrid * kMicro;   // 128
+constexpr int kMaxD = 160;   // head widths the tiles fit in shared memory
 
 __device__ __forceinline__ float row_max(float x) {
   for (int off = kGrid / 2; off > 0; off >>= 1)
@@ -61,7 +66,8 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <int DV>
+// KCH: chunks of the K tile, 1 (head_dim up to 128) or 2 (its halves).
+template <int DV, int KCH>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const float* __restrict__ q,    // [N, Sq, D]
              const float* __restrict__ k,    // [N, Sk, D]
@@ -70,19 +76,24 @@ flash_kernel(const float* __restrict__ q,    // [N, Sq, D]
              int Sq, int Sk, int D, int bq, int bk, int causal, int q_offset,
              float sm_scale) {
   constexpr int kCols = DV / kGrid;
+  // V columns of a thread per V-tile chunk: all, or half beyond 128.
+  constexpr int kVc = DV <= 128 ? kCols : kCols / 2;
+  constexpr int kVw = kVc * kGrid;          // V-tile chunk width
   const int qi = blockIdx.x;
   const int n = blockIdx.y;
   const int tid = threadIdx.x;
   const int tx = tid % kGrid, ty = tid / kGrid;
   const int ld = D + 1;
+  const int kc = KCH == 1 ? D : (D + 1) / 2;   // K-tile chunk width
+  const int ldk = kc + 1;    // K-tile rows, padded like q's
   const int ldp = bk + 16;   // rows ty, ty + 1 of P land 16 banks apart
   const int n_kb = Sk / bk;
   const int q_start = qi * bq + q_offset;
 
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                                  // [bq, ld]
-  float* kv_s = q_s + bq * ld;                        // [bk, ld] / [bk, DV]
-  float* p_s = kv_s + bk * (ld > DV ? ld : DV);       // [bq, ldp]
+  float* kv_s = q_s + bq * ld;              // [bk, ldk] / [bk, kVw]
+  float* p_s = kv_s + bk * (ldk > kVw ? ldk : kVw);   // [bq, ldp]
 
   const float* qn = q + ((size_t)n * Sq + (size_t)qi * bq) * D;
   for (int i = tid; i < bq * D; i += kThreads)
@@ -111,28 +122,37 @@ flash_kernel(const float* __restrict__ q,    // [N, Sq, D]
     // Causal: a tile is live iff its first column is visible to its last
     // row; later tiles start further right, so none of them is.
     if (causal && k_start > q_start + bq - 1) break;
-    __syncthreads();   // the previous tile's V reads are done
     const float* kt = k + ((size_t)n * Sk + k_start) * D;
-    for (int i = tid; i < bk * D; i += kThreads)
-      kv_s[(i / D) * ld + i % D] = kt[i];
-    __syncthreads();
-
     float s[kMicro][kMicro];
 #pragma unroll
     for (int i = 0; i < kMicro; ++i)
 #pragma unroll
       for (int j = 0; j < kMicro; ++j) s[i][j] = 0.f;
-    for (int dd = 0; dd < D; ++dd) {
-      float a[kMicro], b[kMicro];
 #pragma unroll
-      for (int i = 0; i < kMicro; ++i) {
-        a[i] = q_s[rr[i] * ld + dd];
-        b[i] = kv_s[cc[i] * ld + dd];
+    for (int ch = 0; ch < KCH; ++ch) {
+      const int d0 = ch * kc, w = KCH == 1 ? D : min(kc, D - d0);
+      __syncthreads();   // the previous chunk's or tile's reads are done
+      if constexpr (KCH == 1) {
+        for (int i = tid; i < bk * D; i += kThreads)
+          kv_s[(i / D) * ld + i % D] = kt[i];
+      } else {
+        for (int i = tid; i < bk * w; i += kThreads)
+          kv_s[(i / w) * ldk + i % w] = kt[(size_t)(i / w) * D + d0 + i % w];
       }
+      __syncthreads();
+      for (int dd = 0; dd < w; ++dd) {
+        float a[kMicro], b[kMicro];
 #pragma unroll
-      for (int i = 0; i < kMicro; ++i)
+        for (int i = 0; i < kMicro; ++i) {
+          a[i] = q_s[rr[i] * ld + d0 + dd];
+          b[i] = kv_s[cc[i] * ldk + dd];
+        }
 #pragma unroll
-        for (int j = 0; j < kMicro; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+        for (int i = 0; i < kMicro; ++i)
+#pragma unroll
+          for (int j = 0; j < kMicro; ++j)
+            s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      }
     }
 
 #pragma unroll
@@ -163,21 +183,29 @@ flash_kernel(const float* __restrict__ q,    // [N, Sq, D]
 #pragma unroll
       for (int c = 0; c < kCols; ++c) acc[i][c] = __fmul_rn(acc[i][c], corr);
     }
-    __syncthreads();   // K reads done, P written
-
     const float* vt = v + ((size_t)n * Sk + k_start) * DV;
-    for (int i = tid; i < bk * DV; i += kThreads) kv_s[i] = vt[i];
-    __syncthreads();
-    for (int kk = 0; kk < bk; ++kk) {
-      float a[kMicro], b[kCols];
 #pragma unroll
-      for (int i = 0; i < kMicro; ++i) a[i] = p_s[rr[i] * ldp + kk];
+    for (int c0 = 0; c0 < kCols; c0 += kVc) {
+      __syncthreads();   // K (or the previous V chunk) reads done, P written
+      if constexpr (kVc == kCols) {
+        for (int i = tid; i < bk * DV; i += kThreads) kv_s[i] = vt[i];
+      } else {
+        for (int i = tid; i < bk * kVw; i += kThreads)
+          kv_s[i] = vt[(size_t)(i / kVw) * DV + c0 * kGrid + i % kVw];
+      }
+      __syncthreads();
+      for (int kk = 0; kk < bk; ++kk) {
+        float a[kMicro], b[kVc];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) b[c] = kv_s[kk * DV + tx + kGrid * c];
+        for (int i = 0; i < kMicro; ++i) a[i] = p_s[rr[i] * ldp + kk];
 #pragma unroll
-      for (int i = 0; i < kMicro; ++i)
+        for (int c = 0; c < kVc; ++c) b[c] = kv_s[kk * kVw + tx + kGrid * c];
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
+        for (int i = 0; i < kMicro; ++i)
+#pragma unroll
+          for (int c = 0; c < kVc; ++c)
+            acc[i][c0 + c] = fmaf(a[i], b[c], acc[i][c0 + c]);
+      }
     }
   }
 
@@ -194,8 +222,9 @@ flash_kernel(const float* __restrict__ q,    // [N, Sq, D]
 }
 
 size_t smem_bytes(int D, int Dv, int bq, int bk) {
-  const int ld = D + 1;
-  return ((size_t)bq * ld + (size_t)bk * (ld > Dv ? ld : Dv) +
+  const int ldk = (D <= 128 ? D : (D + 1) / 2) + 1;
+  const int vw = Dv <= 128 ? Dv : Dv / 2;
+  return ((size_t)bq * (D + 1) + (size_t)bk * (ldk > vw ? ldk : vw) +
           (size_t)bq * (bk + 16)) * sizeof(float);
 }
 
@@ -203,13 +232,13 @@ template <int DV>
 int launch(const float* q, const float* k, const float* v, float* out, int N,
            int Sq, int Sk, int D, int bq, int bk, int causal, float sm_scale,
            cudaStream_t stream) {
+  const auto kernel = D <= 128 ? flash_kernel<DV, 1> : flash_kernel<DV, 2>;
   const size_t smem = smem_bytes(D, DV, bq, bk);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(Sq / bq, N);
-  flash_kernel<DV><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       q, k, v, out, Sq, Sk, D, bq, bk, causal, causal ? Sk - Sq : 0,
       sm_scale);
   return (int)cudaGetLastError();
@@ -219,8 +248,9 @@ int launch(const float* q, const float* k, const float* v, float* out, int N,
 
 // Plain C entry point (loaded with ctypes).  q [N, Sq, D], k [N, Sk, D],
 // v [N, Sk, Dv], out [N, Sq, Dv], all contiguous f32; bq | Sq, bk | Sk,
-// both at most 128; Dv one of 16, 32, 64, 128.  Returns the CUDA error code of
-// the launch (0 on success); the caller raises on anything else.
+// both at most 128; D at most 160; Dv one of 16, 32, 64, 128, 160.
+// Returns the CUDA error code of the launch (0 on success); the caller
+// raises on anything else.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int N, int Sq,
                                       int Sk, int D, int Dv, int bq, int bk,
@@ -228,7 +258,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* stream) {
   if (N == 0 || Sq == 0) return 0;
   if (bq < 1 || bk < 1 || bq > kMaxTile || bk > kMaxTile || Sq % bq ||
-      Sk % bk || N > 65535)
+      Sk % bk || N > 65535 || D < 1 || D > kMaxD)
     return (int)cudaErrorInvalidValue;
   const float *qf = (const float*)q, *kf = (const float*)k,
               *vf = (const float*)v;
@@ -241,6 +271,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 32: FLASH_LAUNCH(32);
     case 64: FLASH_LAUNCH(64);
     case 128: FLASH_LAUNCH(128);
+    case 160: FLASH_LAUNCH(160);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_LAUNCH

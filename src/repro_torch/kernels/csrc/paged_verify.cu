@@ -9,88 +9,67 @@
 // is src/repro/core/besf.py:besf_attention_verify_paged, which routes every
 // (slot, query) row through the Sq=1 paged decode.
 //
-// Design.
-//  * One thread block per (slot, KV head), holding that head's Sq x G query
-//    rows.  Pages are walked in logical order: LATS carries each row's
-//    prefix-max lower bound across pages, so one (slot, head) is never split
-//    over blocks.  The structure is paged_decode.cu's: LATS margins and
-//    scales in shared memory, integer partial scores, plane 0 of the next
-//    reachable page copied ahead with cp.async.
-//  * Union liveness.  Liveness is tracked per (query, KV head), but a
-//    page's plane r is loaded once for the whole block while ANY query of
-//    the block still has a live candidate on the page, and its V page once
-//    when any query has a survivor.  Dots, LATS updates and the softmax
-//    update run only for the queries that are still live (a dead query's
-//    state stays frozen, as in the oracle).  A page no query can reach
-//    (past every fill level, after every position, outside every window) is
-//    not touched; a padding query (fill level 0) reaches no page.
-//  * Causal masking inside the draft comes from per-query fill levels and
-//    positions: query s sees tokens t <= q_pos[s] and t < lengths[s].
-//  * Rounds are counted per (query, KV head) and written as rounds_h
-//    [B, Hkv, Sq, MB]; the slot-wide count per query of the Pallas kernel is
-//    their max over KV heads, taken by the wrapper (per head the live rounds
-//    form a prefix; tests/test_torch_paged_verify.py proves the rule).
-//  * Exactness: int32 partial scores, separate IEEE adds and multiplies
-//    (__fadd_rn/__fmul_rn, built with -fmad=false), the finite NEG_INF of
-//    -1e30, V quantized as rintf after a true division.  Every row runs the
-//    very float operations of paged_decode.cu in the same order, so a real
-//    query's output equals the Sq=1 decode kernel's at its position.
+// Design: the decode kernel's page walk (paged_walk.cuh), one walk warp per
+// row.
+//  * A row is a (draft query, query head) pair with its own fill level,
+//    position and page range.  One thread block per (KV head, slot, query
+//    group); a group holds whole queries, at most max(1, 4 / G) of them, so
+//    a block has at most four rows at G <= 4 and one query's G rows
+//    beyond.  Walk warps (min(rows, 4), looping over rows beyond that) run
+//    each row's page exactly as the decode kernel runs a query head: the
+//    same dots, LATS passes, verdict and epilogue, from the same header, so
+//    a real query equals the decode at its position bit for bit by
+//    construction.  Keeping a query's heads in one block keeps the max over
+//    them (rounds_h) inside one block.
+//  * The block walks the union of its rows' page ranges in logical order,
+//    from a list of the pages some row reaches (a page no row reaches
+//    issues no copy).  All planes of a listed page are copied with cp.async
+//    two pages ahead onto mbarriers, as in the decode.  On a listed page
+//    outside a row's range the row is skipped: its LATS bound, softmax
+//    state and accumulator stay untouched, its round count there is 0 and
+//    it has no survivors.  A padding query (fill level 0) reaches no page.
+//  * Union V: a page's V is copied when any row of the block has a
+//    survivor there.  The epilogue warps run, one page behind the walk, the
+//    softmax of every row whose query has a survivor on the page: the rows
+//    the decode at that query's position would run.
+//  * Rounds are per row; a query's count per KV head is the max over its G
+//    rows, written as rounds_h [B, Hkv, Sq, MB]; the wrapper takes the max
+//    over KV heads (per head the live rounds form a prefix;
+//    tests/test_torch_paged_verify.py proves the rule).
+//  * Launches given a survivors output add the plane and V bytes they
+//    request to a device counter (paged_verify_copied_bytes).  Physical
+//    plane bytes are every plane of every page some row of a block
+//    reaches, once per block: a (slot, KV head) with two query groups reads
+//    its pages twice.
 //
-// What bounds it on the H100: bytes.  Per call it must read, per (slot, KV
-// head, page), the planes that the most persistent query of the draft block
-// keeps alive (the union over the block, bs/8 * D bytes per plane) and the V
-// page when any query has a survivor (bs * Dv * 4 bytes).  Under union
-// liveness that is about the bytes of ONE Sq=1 decode, not Sq times them;
-// the arithmetic (one int dot per live query, plane and token) is far below
-// the tensor-core line.  What the design does about it: each plane and V
-// page is loaded once into shared memory and consumed there by every live
-// query of the block, so the draft block costs the slot one walk over its
-// pages instead of Sq walks.  Like paged_decode.cu it does not hide the
-// latency of the dependent per-round plane loads (only plane 0 of the next
-// page is fetched ahead); that is the next step for both kernels.
+// What bounds it on the H100: as for the decode, the latency of a row's
+// serial page walk, far above the bytes one call needs (the planes the most
+// persistent query keeps alive and the V pages with a survivor, once per
+// slot and KV head).  The design gives each row of a draft block its own
+// walk warp, so a block's page costs about one decode page whatever Sq is
+// at G = 1, and adds blocks (query groups) rather than serial work.
+//
+// Limits, those of the decode: bs <= 256, bits <= 16, D <= 256 and a
+// multiple of 16, Dv a multiple of 4, pools 16-byte aligned, the block's
+// shared memory within the card's 227 KB; the wrapper raises on anything
+// else (on the last through the launch's error).
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "paged_walk.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-constexpr int kLanesPerDot = 8;   // threads that share one (row, token) dot
+using namespace walk;
 
-__device__ __forceinline__ bool token_valid(int tpos, int qp, int len,
-                                            int has_window, int window) {
-  bool v = (tpos <= qp) && (tpos < len);
-  if (has_window) v = v && (tpos > qp - window);
-  return v;
+// Queries of a block's group, and the rows a block is laid out for.
+__host__ __device__ inline int group_queries(int G) {
+  return G < 4 ? 4 / G : 1;
 }
 
-// Asynchronous copy of one head's plane r of a page, bs/8 rows of D bytes at
-// stride Hkv * D, into dst [bs/8, D] (4-byte pieces: D % 4 == 0).
-__device__ __forceinline__ void copy_plane(uint8_t* dst, const uint8_t* kq,
-                                           int phys, int r, int h, int bits,
-                                           int bs8, int Hkv, int D) {
-  const uint8_t* src = kq + (((size_t)phys * bits + r) * bs8 * Hkv + h) * D;
-  const int words = D / 4;
-  for (int i = threadIdx.x; i < bs8 * words; i += blockDim.x) {
-    const int row = i / words, w = 4 * (i % words);
-    __pipeline_memcpy_async(dst + row * D + w,
-                            src + (size_t)row * Hkv * D + w, 4);
-  }
-  __pipeline_commit();
-}
-
-// Does some query of the block have a valid token on page j?  plo/phi hold
-// each query's first and last reachable page (phi < plo: none).
-__device__ __forceinline__ bool page_reached(const int* plo, const int* phi,
-                                             int Sq, int j) {
-  for (int s = 0; s < Sq; ++s)
-    if (plo[s] <= j && j <= phi[s]) return true;
-  return false;
-}
-
-__global__ void __launch_bounds__(kThreads)
+// NB: planes rounded up to a multiple of 4 (4, 8, 12 or 16).  KT: token
+// chunks of 32 a walk lane may hold (1 for pages of up to 32 tokens, 8 for
+// up to 256).
+template <int NB, int KT>
+__global__ void __launch_bounds__(kMaxThreads, 1)
 paged_verify_kernel(const int32_t* __restrict__ q_int,  // [B*Sq, Hq, D]
                     const float* __restrict__ m_min,    // [bits, B*Sq, Hq]
                     const float* __restrict__ m_max,    // [bits, B*Sq, Hq]
@@ -111,276 +90,282 @@ paged_verify_kernel(const int32_t* __restrict__ q_int,  // [B*Sq, Hq, D]
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int G = Hq / Hkv;
-  const int R = Sq * G;                  // query rows of this block
+  const int QG = group_queries(G);
+  const int s0 = blockIdx.z * QG;        // the group's first query
+  const int nq = min(QG, Sq - s0);       // its queries
+  const int RL = QG * G;                 // rows the block is laid out for
+  const int R = nq * G;                  // its rows: row r = (s0 + r/G, r%G)
   const int bs8 = bs / 8;
+  const int W = D / 4;                   // plane words per byte row
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int nwk = walk_warps(RL);        // warps 0 .. nwk-1 walk the pages
+  const int eph = epilogue_share(RL);    // epilogue warps per walk warp
+  const int nep = nwk * eph;             // warps nwk .. nwk+nep-1
   const int hq0 = h * G;                 // first query head of this KV head
-  const int RB = R * bs;
-  const int GB = G * bs;
+  const int RB = RL * bs;
+  const int plane_bytes = bits * bs8 * D;   // one page; D % 16 == 0
 
   extern __shared__ __align__(16) unsigned char smem[];
-  int32_t* q_s = reinterpret_cast<int32_t*>(smem);   // [R, D]
-  int32_t* part_s = q_s + R * D;                      // [R, bs]
-  int32_t* alive_s = part_s + RB;                     // [R, bs] 0/1
-  int32_t* qp_s = alive_s + RB;                       // [Sq] position
-  int32_t* len_s = qp_s + Sq;                         // [Sq] fill level
-  int32_t* plo_s = len_s + Sq;                        // [Sq] first page
-  int32_t* phi_s = plo_s + Sq;                        // [Sq] last page
-  int32_t* live_s = phi_s + Sq;                       // [Sq] page still live
-  int32_t* rnd_s = live_s + Sq;                       // [Sq] planes this page
-  float* mlow_s = reinterpret_cast<float*>(rnd_s + Sq);  // [R]
-  float* mrun_s = mlow_s + R;                         // [R]
-  float* lrun_s = mrun_s + R;                         // [R]
-  float* corr_s = lrun_s + R;                         // [R]
-  float* eta_s = corr_s + R;                          // [R]
-  float* ar_s = eta_s + R;                            // [R] alpha * radius
-  float* st_s = ar_s + R;                             // [R] scale_total
-  float* mmin_s = st_s + R;                           // [bits, R]
-  float* mmax_s = mmin_s + bits * R;                  // [bits, R]
-  float* p_s = mmax_s + bits * R;                     // [R, bs]
-  float* acc_s = p_s + RB;                            // [R, Dv]
-  float* v_s = acc_s + R * Dv;                        // [bs, Dv]
-  uint8_t* plane_s = reinterpret_cast<uint8_t*>(v_s + bs * Dv);  // [bs8, D]
-  uint8_t* plane0_s = plane_s + bs8 * D;  // [bs8, D]: a page's plane 0
+  uint64_t* pbar = reinterpret_cast<uint64_t*>(smem);      // [2] planes
+  uint64_t* vbar = pbar + 2;                               // [2] V
+  uint8_t* pbuf = smem + 32;                               // [2, bits, bs8, D]
+  float* vbuf = reinterpret_cast<float*>(pbuf + 2 * plane_bytes);  // [2,bs,Dv]
+  float* acc_s = vbuf + 2 * bs * Dv;                       // [RL, Dv]
+  uint32_t* qlo_s = reinterpret_cast<uint32_t*>(acc_s + RL * Dv);  // [RL, W]
+  uint32_t* qhi_s = qlo_s + RL * W;                        // [RL, W]
+  // A page's final partials and survivors, written by the walk warps in
+  // its iteration and read by the epilogue warps in the next: three buffers.
+  int32_t* fin_s = reinterpret_cast<int32_t*>(qhi_s + RL * W);  // [3, RL, bs]
+  int32_t* sv_s = fin_s + 3 * RB;                          // [3, RL, bs] 0/1
+  int32_t* rounds_s = sv_s + 3 * RB;                       // [2, RL]
+  int32_t* live_s = rounds_s + 2 * RL;                     // [2, RL]
+  int32_t* tab_s = live_s + 2 * RL;                        // [MB]
+  int32_t* pg_s = tab_s + MB;                              // [MB] pages walked
+  int32_t* qry_s = pg_s + MB;          // [4, QG]: position, fill, plo, phi
+  int32_t* npg_s = qry_s + 4 * QG;                         // [1] pages walked
+  float* mmin_s = reinterpret_cast<float*>(npg_s + 1);     // [bits, RL]
+  float* mmax_s = mmin_s + bits * RL;                      // [bits, RL]
+  float* mlow_s = mmax_s + bits * RL;                      // [RL]
+  float* ar_s = mlow_s + RL;                               // [RL]
+  float* st_s = ar_s + RL;                                 // [RL]
+  float* mrun_s = st_s + RL;                               // [eph, RL]
+  float* lrun_s = mrun_s + eph * RL;                       // [eph, RL]
+  float* p_s = lrun_s + eph * RL;                          // [nep, bs]
 
-  // Global flat row of (query s, local head g): (b*Sq + s)*Hq + hq0 + g.
-  auto grow = [&](int i) -> size_t {
-    return ((size_t)b * Sq + i / G) * Hq + hq0 + i % G;
+  // Global row of block row r: (b*Sq + s0 + r/G)*Hq + hq0 + r%G.
+  auto grow = [&](int r) -> size_t {
+    return ((size_t)b * Sq + s0 + r / G) * Hq + hq0 + r % G;
   };
 
-  for (int s = tid; s < Sq; s += nt) {
-    const int len = lengths[(size_t)b * Sq + s];
-    const int qp = q_pos[(size_t)b * Sq + s];
-    // Valid tokens [lo, hi] are contiguous: the reachable pages of query s
-    // are [lo / bs, min(hi / bs, MB - 1)], empty when hi < lo.
-    const int lo = has_window ? max(0, qp - window + 1) : 0;
-    const int hi = min(qp, len - 1);
-    qp_s[s] = qp;
-    len_s[s] = len;
-    plo_s[s] = lo / bs;
-    phi_s[s] = (hi < lo) ? -1 : min(hi / bs, MB - 1);
+  // The planes come from one warp, V from every epilogue warp.
+  if (tid < 4) mbar_init(pbar + tid, tid < 2 ? 32 : nep * 32);
+  if (warp == 0) {
+    // Every lane takes the group's page ranges; lane s < nq keeps query
+    // s's.  Then the list of pages some query reaches, in logical order;
+    // the rounds of every other page are 0.
+    int plo[4], phi[4];
+    for (int s = 0; s < nq; ++s) {
+      const int qp = q_pos[(size_t)b * Sq + s0 + s];
+      const int len = lengths[(size_t)b * Sq + s0 + s];
+      page_range(qp, len, has_window, window, bs, MB, plo + s, phi + s);
+      if (lane == s) {
+        qry_s[s] = qp;
+        qry_s[QG + s] = len;
+        qry_s[2 * QG + s] = plo[s];
+        qry_s[3 * QG + s] = phi[s];
+      }
+    }
+    int n = 0;
+    for (int j0 = 0; j0 < MB; j0 += 32) {
+      const int j = j0 + lane;
+      bool reached = false;
+      for (int s = 0; s < nq; ++s)
+        reached |= plo[s] <= j && j <= phi[s];
+      reached &= j < MB;
+      const unsigned m = __ballot_sync(kFull, reached);
+      if (reached) pg_s[n + __popc(m & ((1u << lane) - 1))] = j;
+      else if (j < MB)
+        for (int s = 0; s < nq; ++s)
+          rounds_h[(((size_t)b * Hkv + h) * Sq + s0 + s) * MB + j] = 0;
+      n += __popc(m);
+    }
+    if (lane == 0) *npg_s = n;
   }
-  for (int i = tid; i < R * D; i += nt)
-    q_s[i] = q_int[grow(i / D) * D + i % D];
-  for (int i = tid; i < bits * R; i += nt) {
+  for (int i = tid; i < MB; i += blockDim.x)
+    tab_s[i] = table[(size_t)b * MB + i];
+  for (int i = tid; i < R * W; i += blockDim.x) {
+    const int32_t* qs = q_int + grow(i / W) * D + 4 * (i % W);
+    uint32_t l = 0, u = 0;
+    for (int c = 0; c < 4; ++c) {
+      l |= (uint32_t)(qs[c] & 255) << (8 * c);
+      u |= (uint32_t)((qs[c] >> 8) & 255) << (8 * c);
+    }
+    qlo_s[i] = l;
+    qhi_s[i] = u;
+  }
+  for (int i = tid; i < bits * R; i += blockDim.x) {
     const size_t src = (size_t)(i / R) * B * Sq * Hq + grow(i % R);
-    mmin_s[i] = m_min[src];
-    mmax_s[i] = m_max[src];
+    mmin_s[(i / R) * RL + i % R] = m_min[src];
+    mmax_s[(i / R) * RL + i % R] = m_max[src];
   }
-  for (int i = tid; i < R; i += nt) {
-    mlow_s[i] = kNegInf;
+  for (int r = tid; r < R; r += blockDim.x) {
+    mlow_s[r] = kNegInf;
+    ar_s[r] = alpha_radius[grow(r)];
+    st_s[r] = scale_total[grow(r)];
+  }
+  for (int i = tid; i < eph * RL; i += blockDim.x) {
     mrun_s[i] = kNegInf;
     lrun_s[i] = 0.f;
-    ar_s[i] = alpha_radius[grow(i)];
-    st_s[i] = scale_total[grow(i)];
   }
-  for (int i = tid; i < R * Dv; i += nt) acc_s[i] = 0.f;
+  for (int i = tid; i < R * Dv; i += blockDim.x) acc_s[i] = 0.f;
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   __syncthreads();
+  const int npg = *npg_s;
+  // The planes of the first two pages; the epilogue warps request every
+  // later page two pages ahead.
+  const bool count = surv != nullptr;       // count the requested bytes
+  if (warp == 0 && npg > 0)
+    copy_planes(pbuf, kq, tab_s[pg_s[0]], h, bits, bs8, Hkv, D, pbar, lane,
+                count);
+  if (warp == 0 && npg > 1)
+    copy_planes(pbuf + plane_bytes, kq, tab_s[pg_s[1]], h, bits, bs8, Hkv, D,
+                pbar + 1, lane, count);
 
-  int j_first = MB, j_last = -1;
-  for (int s = 0; s < Sq; ++s)
-    if (plo_s[s] <= phi_s[s]) {
-      j_first = min(j_first, plo_s[s]);
-      j_last = max(j_last, phi_s[s]);
-    }
-  int32_t* rounds_b = rounds_h + ((size_t)b * Hkv + h) * Sq * MB;
-  for (int i = tid; i < Sq * MB; i += nt)
-    if (i % MB < j_first || i % MB > j_last) rounds_b[i] = 0;
-  if (j_first <= j_last)
-    copy_plane(plane0_s, kq, table[(size_t)b * MB + j_first], 0, h, bits,
-               bs8, Hkv, D);
+  const WalkLane wl(bs, lane);
+  // An epilogue warp's row slot and its share of the V columns.
+  const int ew = warp - nwk;
+  const int hs = ew / eph, cpart = ew % eph;
 
   const int qmax = (1 << (bits - 1)) - 1;
   const float vs = v_scale[h];
-  const int lane = tid % kLanesPerDot;
-  const int pairs_per_pass = nt / kLanesPerDot;
+  const float vs_recip = recip(vs);
+  const bool vs_fast = vs >= 0x1p-32f && vs <= 0x1p32f;
+  unsigned prev_live = 0;     // bit s: query s had a survivor on the last page
+  uint32_t vloads = 0;        // bit k: parity of the next V load into buffer k
 
-  for (int j = j_first; j <= j_last; ++j) {
-    __syncthreads();   // the previous page's epilogue is done with live_s
-    if (!page_reached(plo_s, phi_s, Sq, j)) {
-      for (int s = tid; s < Sq; s += nt) rounds_b[s * MB + j] = 0;
-      continue;
-    }
-    const int phys = table[(size_t)b * MB + j];
-    for (int i = tid; i < RB; i += nt) {
-      const int s = i / GB;
-      part_s[i] = 0;
-      alive_s[i] = token_valid(j * bs + i % bs, qp_s[s], len_s[s],
-                               has_window, window);
-    }
-    for (int s = tid; s < Sq; s += nt) {
-      live_s[s] = plo_s[s] <= j && j <= phi_s[s];
-      rnd_s[s] = 0;
-    }
-    __syncthreads();
+  for (int i = 0; i <= npg; ++i) {
+    const int cur = i & 1;
+    const int fb = i % 3;                    // this page's fin_s/sv_s
+    const bool page = i < npg;
+    const int j = page ? pg_s[i] : -1;
 
-    int any_live = 1;
-    for (int r = 0; r < bits && any_live; ++r) {
-      for (int s = tid; s < Sq; s += nt) rnd_s[s] += live_s[s];
-      if (r > 0)
-        copy_plane(plane_s, kq, phys, r, h, bits, bs8, Hkv, D);
-      __pipeline_wait_prior(0);
-      __syncthreads();
-      const uint8_t* plane = (r == 0) ? plane0_s : plane_s;
-
-      // Integer partial scores of the live queries: kLanesPerDot threads
-      // per (row, token).  The plane in shared memory serves every query.
-      const int wr = (r == 0) ? -(1 << (bits - 1)) : (1 << (bits - 1 - r));
-      for (int base = 0; base < RB; base += pairs_per_pass) {
-        const int pair = base + tid / kLanesPerDot;
-        const bool mine = pair < RB && live_s[pair / GB];
-        int dot = 0;
-        if (mine) {
-          const int i = pair / bs, t = pair % bs;
-          const int32_t* qrow = q_s + i * D;
-          const uint8_t* prow = plane + (t >> 3) * D;
-          const int sh = t & 7;
-          for (int d = lane; d < D; d += kLanesPerDot)
-            dot += ((prow[d] >> sh) & 1) ? qrow[d] : 0;
-        }
-        for (int off = kLanesPerDot / 2; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        if (mine && lane == 0) part_s[pair] += wr * dot;
-      }
-      __syncthreads();
-      // Plane 0 of this page has been consumed: fetch the next reachable
-      // page's (read whatever LATS decides, every reachable page runs round
-      // 0 for the queries that reach it).
-      if (r == 0) {
-        int jn = j + 1;
-        while (jn <= j_last && !page_reached(plo_s, phi_s, Sq, jn)) ++jn;
-        if (jn <= j_last)
-          copy_plane(plane0_s, kq, table[(size_t)b * MB + jn], 0, h, bits,
-                     bs8, Hkv, D);
-      }
-
-      // LATS threshold per live row: prefix max of the live lower bounds.
-      for (int i = tid; i < R; i += nt) {
-        if (!live_s[i / G]) continue;
-        const float mmin = mmin_s[r * R + i];
-        float low_here = kNegInf;
-        for (int t = 0; t < bs; ++t)
-          if (alive_s[i * bs + t])
-            low_here = fmaxf(low_here,
-                             __fadd_rn(__int2float_rn(part_s[i * bs + t]),
-                                       mmin));
-        const float mlow_new = fmaxf(mlow_s[i], low_here);
-        mlow_s[i] = mlow_new;
-        eta_s[i] = __fsub_rn(mlow_new, ar_s[i]);
-      }
-      __syncthreads();
-
-      if (r >= min_rounds - 1)
-        for (int k = tid; k < RB; k += nt) {
-          const int i = k / bs;
-          if (alive_s[k] && live_s[i / G]) {
-            const float upper = __fadd_rn(__int2float_rn(part_s[k]),
-                                          mmax_s[r * R + i]);
-            alive_s[k] = upper >= eta_s[i];
+    if (warp < nwk) {
+      // ---- Walk warps: the rounds of page j, one warp per row.
+      if (page) {
+        mbar_wait(pbar + cur, (i >> 1) & 1);
+        const uint32_t* pw = reinterpret_cast<const uint32_t*>(
+            pbuf + cur * plane_bytes);
+        for (int r = warp; r < R; r += nwk) {
+          const int s = r / G;
+          if (j < qry_s[2 * QG + s] || j > qry_s[3 * QG + s]) {
+            // Outside the row's range: untouched, 0 rounds, no survivors.
+            if (lane == 0) {
+              rounds_s[cur * RL + r] = 0;
+              live_s[cur * RL + r] = 0;
+            }
+            continue;
+          }
+          unsigned alive = page_alive<KT>(wl, j, bs, qry_s[s], qry_s[QG + s],
+                                          has_window, window);
+          int prt[KT][NB];
+          plane_dots<NB, KT>(prt, wl, pw, qlo_s + r * W, qhi_s + r * W, bits,
+                             bs, bs8, W);
+          float mlow = mlow_s[r];
+          const int rounds = lats_passes<NB, KT>(
+              prt, alive, mlow, ar_s[r], mmin_s + r, mmax_s + r, RL, bits,
+              min_rounds);
+          const bool any = page_verdict<NB, KT>(
+              prt, alive, wl, bs, fin_s + (fb * RL + r) * bs,
+              sv_s + (fb * RL + r) * bs,
+              surv == nullptr ? nullptr : surv + grow(r) * MB * bs + j * bs);
+          if (lane == 0) {
+            mlow_s[r] = mlow;
+            rounds_s[cur * RL + r] = rounds;
+            live_s[cur * RL + r] = any;
           }
         }
-      __syncthreads();
-      int still = 0;
-      for (int s = tid; s < Sq; s += nt) {
-        if (live_s[s]) {
-          int a = 0;
-          for (int k = s * GB; k < (s + 1) * GB && !a; ++k) a = alive_s[k];
-          live_s[s] = a;
-        }
-        still |= live_s[s];
       }
-      any_live = __syncthreads_or(still);
     }
-    // A query's page dies only when none of its tokens is alive, so after
-    // the loop its survivors are exactly its alive tokens and live_s says
-    // whether it has any.
-    for (int s = tid; s < Sq; s += nt) rounds_b[s * MB + j] = rnd_s[s];
-    if (surv != nullptr)
-      for (int k = tid; k < RB; k += nt)
-        surv[grow(k / bs) * MB * bs + j * bs + k % bs] = (int8_t)alive_s[k];
-    if (!any_live) continue;
-
-    // Epilogue: online softmax over each live query's survivors, then S x V
-    // with the V page read once for the whole block.
-    for (int i = tid; i < R; i += nt) {
-      if (!live_s[i / G]) continue;
-      const float st = st_s[i];
-      float mx = kNegInf;
-      for (int t = 0; t < bs; ++t)
-        if (alive_s[i * bs + t])
-          mx = fmaxf(mx, __fmul_rn(__int2float_rn(part_s[i * bs + t]), st));
-      const float m_prev = mrun_s[i];
-      const float m_new = fmaxf(m_prev, mx);
-      float lsum = 0.f;
-      for (int t = 0; t < bs; ++t) {
-        float p = 0.f;
-        if (alive_s[i * bs + t])
-          p = expf(__fsub_rn(
-              __fmul_rn(__int2float_rn(part_s[i * bs + t]), st), m_new));
-        p_s[i * bs + t] = p;
-        lsum = __fadd_rn(lsum, p);
-      }
-      const float corr = (m_prev == kNegInf) ? 0.f : expf(m_prev - m_new);
-      lrun_s[i] = __fadd_rn(__fmul_rn(lrun_s[i], corr), lsum);
-      corr_s[i] = corr;
-      mrun_s[i] = m_new;
-    }
-    for (int i = tid; i < bs * Dv; i += nt) {
-      const int t = i / Dv, dv = i % Dv;
-      float x = v[(((size_t)phys * bs + t) * Hkv + h) * Dv + dv];
-      if (quantize_v) {
-        float qv = rintf(__fdiv_rn(x, vs));
-        qv = fminf(fmaxf(qv, (float)(-qmax - 1)), (float)qmax);
-        x = __fmul_rn(qv, vs);
-      }
-      v_s[i] = x;
-    }
+    // The page barrier: every row's verdict on page j is in; the walk warps
+    // are done with the previous page's planes and the epilogue warps with
+    // V of the page before.
     __syncthreads();
-    for (int k = tid; k < R * Dv; k += nt) {
-      const int i = k / Dv, dv = k % Dv;
-      if (!live_s[i / G]) continue;
-      float sum = 0.f;
-      for (int t = 0; t < bs; ++t)
-        sum = __fadd_rn(sum, __fmul_rn(p_s[i * bs + t], v_s[t * Dv + dv]));
-      acc_s[k] = __fadd_rn(__fmul_rn(acc_s[k], corr_s[i]), sum);
+    if (warp < nwk) continue;
+
+    // ---- Epilogue warps: the planes of page i+2 (into the buffer of page
+    // i, whose rounds are over), page i's verdict and V request, then page
+    // i-1's online softmax over its survivors and S x V.
+    if (ew == nep - 1 && i + 2 < npg)
+      copy_planes(pbuf + cur * plane_bytes, kq, tab_s[pg_s[i + 2]], h, bits,
+                  bs8, Hkv, D, pbar + cur, lane, count);
+    unsigned live = 0;
+    if (page) {
+      for (int s = 0; s < nq; ++s) {
+        int rmax = 0;
+        for (int g = 0; g < G; ++g) {
+          rmax = max(rmax, rounds_s[cur * RL + s * G + g]);
+          live |= (unsigned)(live_s[cur * RL + s * G + g] != 0) << s;
+        }
+        if (ew == 0 && lane == 0)
+          rounds_h[(((size_t)b * Hkv + h) * Sq + s0 + s) * MB + j] = rmax;
+      }
+      if (live)
+        copy_v(vbuf + cur * bs * Dv, v, tab_s[j], h, bs, Hkv, Dv, vbar + cur,
+               ew * 32 + lane, nep * 32, count);
     }
+    if (prev_live) {
+      const int pc = cur ^ 1;
+      mbar_wait(vbar + pc, (vloads >> pc) & 1);
+      vloads ^= 1u << pc;
+      float* vp = vbuf + pc * bs * Dv;
+      if (quantize_v)
+        quantize_v_page(vp,
+                        v + ((size_t)tab_s[pg_s[i - 1]] * bs * Hkv + h) * Dv,
+                        bs, Dv, Hkv, ew * 32 + lane, nep * 32, vs, vs_recip,
+                        vs_fast, qmax);
+      const int pfb = (fb + 2) % 3;         // page i-1's fin_s/sv_s
+      for (int r = hs; r < R; r += nwk)
+        if ((prev_live >> (r / G)) & 1)
+          softmax_row<KT>(fin_s + (pfb * RL + r) * bs,
+                          sv_s + (pfb * RL + r) * bs, st_s[r], p_s + ew * bs,
+                          vp, mrun_s + cpart * RL + r, lrun_s + cpart * RL + r,
+                          acc_s + r * Dv, bs, Dv, cpart, eph, lane);
+    }
+    prev_live = live;
   }
 
-  __syncthreads();
-  for (int k = tid; k < R * Dv; k += nt)
-    out[grow(k / Dv) * Dv + k % Dv] =
-        __fdiv_rn(acc_s[k], fmaxf(lrun_s[k / Dv], 1e-30f));
+  // Each epilogue lane writes the columns it accumulated.
+  if (warp >= nwk)
+    for (int r = hs; r < R; r += nwk)
+      for (int dv = cpart * 32 + lane; dv < Dv; dv += eph * 32)
+        out[grow(r) * Dv + dv] = __fdiv_rn(
+            acc_s[r * Dv + dv], fmaxf(lrun_s[cpart * RL + r], 1e-30f));
 }
 
-size_t smem_bytes(int Sq, int G, int D, int Dv, int bs, int bits) {
-  const size_t R = (size_t)Sq * G;
-  const size_t words = R * D + 3 * R * bs + 6 * (size_t)Sq + 7 * R +
-                       2 * (size_t)bits * R + R * Dv + (size_t)bs * Dv;
-  return words * 4 + 2 * (size_t)(bs / 8) * D;
+int block_threads(int G) {
+  const int RL = group_queries(G) * G;
+  return 32 * walk_warps(RL) * (1 + epilogue_share(RL));
 }
 
-}  // namespace
+size_t smem_bytes(int G, int D, int Dv, int bs, int bits, int MB) {
+  const size_t QG = group_queries(G), RL = QG * G;
+  const size_t eph = epilogue_share((int)RL);
+  const size_t nep = walk_warps((int)RL) * eph;
+  const size_t words = 2 * (size_t)bs * Dv + RL * Dv + 2 * RL * (D / 4) +
+                       6 * RL * bs + 4 * RL + 2 * (size_t)MB + 4 * QG + 1 +
+                       2 * (size_t)bits * RL + 3 * RL + 2 * eph * RL +
+                       nep * bs;
+  return 32 + 2 * (size_t)bits * (bs / 8) * D + words * 4;
+}
 
-// Plain C entry point (loaded with ctypes).  Returns the CUDA error code of
-// the launch (0 on success); the caller raises on anything else.
-extern "C" int paged_verify_launch(
-    const void* q_int, const void* m_min, const void* m_max,
-    const void* scale_total, const void* alpha_radius, const void* v_scale,
-    const void* kq, const void* v, const void* table, const void* lengths,
-    const void* q_pos, void* out, void* rounds_h, void* surv, int B, int Sq,
-    int Hq, int Hkv, int D, int Dv, int bits, int bs, int MB, int min_rounds,
-    int quantize_v, int has_window, int window, void* stream) {
-  if (B == 0 || Sq == 0 || Hkv == 0) return 0;
-  const size_t smem = smem_bytes(Sq, Hq / Hkv, D, Dv, bs, bits);
+#define PV_PARAMS                                                             \
+  const void *q_int, const void *m_min, const void *m_max,                    \
+      const void *scale_total, const void *alpha_radius,                      \
+      const void *v_scale, const void *kq, const void *v, const void *table,  \
+      const void *lengths, const void *q_pos, void *out, void *rounds_h,      \
+      void *surv, int B, int Sq, int Hq, int Hkv, int D, int Dv, int bits,    \
+      int bs, int MB, int min_rounds, int quantize_v, int has_window,         \
+      int window, void *stream
+#define PV_ARGS                                                              \
+  q_int, m_min, m_max, scale_total, alpha_radius, v_scale, kq, v, table,     \
+      lengths, q_pos, out, rounds_h, surv, B, Sq, Hq, Hkv, D, Dv, bits, bs,  \
+      MB, min_rounds, quantize_v, has_window, window, stream
+
+template <int NB, int KT>
+int launch(PV_PARAMS) {
+  const int G = Hq / Hkv;
+  const size_t smem = smem_bytes(G, D, Dv, bs, bits, MB);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_verify_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        paged_verify_kernel<NB, KT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(Hkv, B);
-  paged_verify_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const int QG = group_queries(G);
+  dim3 grid(Hkv, B, (Sq + QG - 1) / QG);
+  paged_verify_kernel<NB, KT><<<grid, block_threads(G), smem,
+                                (cudaStream_t)stream>>>(
       (const int32_t*)q_int, (const float*)m_min, (const float*)m_max,
       (const float*)scale_total, (const float*)alpha_radius,
       (const float*)v_scale, (const uint8_t*)kq, (const float*)v,
@@ -388,4 +373,33 @@ extern "C" int paged_verify_launch(
       (float*)out, (int32_t*)rounds_h, (int8_t*)surv, B, Sq, Hq, Hkv, D, Dv,
       bits, bs, MB, min_rounds, quantize_v, has_window, window);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes).  Returns the CUDA error code of
+// the launch (0 on success); the caller raises on anything else.
+extern "C" int paged_verify_launch(PV_PARAMS) {
+  if (B == 0 || Sq == 0 || Hkv == 0) return 0;
+  if (bs % 8 || bs > kMaxBs || bits < 2 || bits > kMaxBits || D % 16 ||
+      D > kMaxD || Dv % 4 ||
+      (reinterpret_cast<uintptr_t>(kq) | reinterpret_cast<uintptr_t>(v)) & 15)
+    return (int)cudaErrorInvalidValue;
+  if (bs > 32) {
+    if (bits <= 4) return launch<4, 8>(PV_ARGS);
+    if (bits <= 8) return launch<8, 8>(PV_ARGS);
+    if (bits <= 12) return launch<12, 8>(PV_ARGS);
+    return launch<16, 8>(PV_ARGS);
+  }
+  if (bits <= 4) return launch<4, 1>(PV_ARGS);
+  if (bits <= 8) return launch<8, 1>(PV_ARGS);
+  if (bits <= 12) return launch<12, 1>(PV_ARGS);
+  return launch<16, 1>(PV_ARGS);
+}
+
+// The bytes the kernel has requested with cp.async, planes in host[0] and V
+// in host[1], summed over the launches given a survivors output since the
+// last call, which zeroes them.  Returns the CUDA error code.
+extern "C" int paged_verify_copied_bytes(unsigned long long* host) {
+  return walk::take_copied(host);
 }

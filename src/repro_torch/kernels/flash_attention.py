@@ -28,7 +28,9 @@ LAUNCHES = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
              + [ctypes.c_void_p])
-KERNEL_DV = (16, 32, 64, 128)   # value widths the kernel is compiled for
+KERNEL_DV = (16, 32, 64, 128, 160)   # value widths the kernel is built for
+MAX_HEAD = 160              # widest q/k head whose tiles fit the card's
+                            # 227 KB of shared memory at 128-row tiles
 MAX_BLOCK = 128             # largest q or kv tile the kernel takes
 
 
@@ -58,10 +60,13 @@ def launch_kernel(q, k, v, causal: bool, sm_scale: float, bq: int,
     if k.shape != (N, Sk, D) or v.shape[:2] != (N, Sk):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} do not match")
-    if Dv not in KERNEL_DV or bq > MAX_BLOCK or bk > MAX_BLOCK:
-        raise ValueError(f"the flash kernel takes value widths {KERNEL_DV} "
-                         f"and blocks up to {MAX_BLOCK}, got Dv={Dv}, "
-                         f"blocks ({bq}, {bk})")
+    if Dv not in KERNEL_DV or D > MAX_HEAD or bq > MAX_BLOCK or \
+            bk > MAX_BLOCK:
+        raise ValueError(f"the flash kernel takes value widths {KERNEL_DV}, "
+                         f"head widths up to {MAX_HEAD} (wider tiles exceed "
+                         f"the card's shared memory) and blocks up to "
+                         f"{MAX_BLOCK}, got D={D}, Dv={Dv}, blocks ({bq}, "
+                         f"{bk})")
     qf, kf, vf = (x.float().contiguous() for x in (q, k, v))
     out = torch.empty((N, Sq, Dv), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):

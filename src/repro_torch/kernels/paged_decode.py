@@ -24,9 +24,9 @@ serial page walk, with B x Hkv blocks in the grid (128 at B=4).  Plane
 counts are per query head: a KV head's is their max, and the slot-wide
 ``rounds`` of the reference is the max over KV heads
 (``tests/test_torch_paged_decode.py`` proves both rules on the plain
-version).  Its epilogue's floating-point order is a contract with
-``csrc/paged_verify.cu``: every real verify query equals this kernel at its
-position bit for bit.
+version).  The walk and epilogue live in ``csrc/paged_walk.cuh``, which
+``csrc/paged_verify.cu`` runs too: every real verify query equals this
+kernel at its position bit for bit.
 """
 
 from __future__ import annotations
@@ -72,21 +72,40 @@ def _check(q, kq_pool, v_pool, table, lengths, q_positions, cfg):
                          f"{tuple(lengths.shape)}, {tuple(q_positions.shape)}")
 
 
+def kernel_refusal(page: int, head_dim: int, v_width: int,
+                   bits: int) -> str | None:
+    """Why the CUDA kernels (decode and verify) refuse these widths, or
+    None if they take them."""
+    if page > MAX_PAGE or page % 8:
+        return (f"pages of a multiple of 8 tokens, at most {MAX_PAGE}, got "
+                f"{page}")
+    if head_dim > 256 or head_dim % 16:
+        return f"head_dim at most 256 and a multiple of 16, got {head_dim}"
+    if v_width % 4:
+        return f"a V width that is a multiple of 4, got {v_width}"
+    if not 2 <= bits <= 16:
+        return f"2..16 bits, got {bits}"
+    return None
+
+
 def check_kernel_operands(q, kq_pool, v_pool, table, lengths, q_positions,
                           cfg):
-    """Shapes, plus what the CUDA kernels (decode and verify) take: a
-    contiguous uint8 plane pool copied in 4-byte pieces and an f32 V pool."""
+    """Shapes, plus what the CUDA kernels (decode and verify) take: the
+    widths of :func:`kernel_refusal` and contiguous uint8 plane and f32 V
+    pools, 16-byte aligned (they are copied in 16-byte pieces)."""
     _check(q, kq_pool, v_pool, table, lengths, q_positions, cfg)
-    D = q.shape[-1]
     if kq_pool.dtype != torch.uint8 or v_pool.dtype != torch.float32:
         raise TypeError(f"kernel takes a uint8 plane pool and an f32 V pool, "
                         f"got {kq_pool.dtype} and {v_pool.dtype}")
     if not (kq_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("kq and V pools must be contiguous")
-    if D % 4 or kq_pool.data_ptr() % 4:
-        raise ValueError(f"the kernel copies plane rows in 4-byte pieces: "
-                         f"head_dim {D} must be a multiple of 4 and the kq "
-                         f"pool 4-byte aligned")
+    _, bits, bs8, _, D = kq_pool.shape
+    reason = kernel_refusal(bs8 * 8, D, v_pool.shape[-1], bits)
+    if reason is not None:
+        raise ValueError(f"the paged kernels take {reason}")
+    if (kq_pool.data_ptr() | v_pool.data_ptr()) % 16:
+        raise ValueError("the paged kernels copy pool rows in 16-byte "
+                         "pieces: the kq and V pools must be 16-byte aligned")
 
 
 def paged_bitstopper_decode_plain(q, kq_pool, v_pool, table, lengths,
@@ -126,15 +145,6 @@ def kernel_args(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
     bs = bs8 * 8
     MB = table.shape[1]
     Dv = v_pool.shape[-1]
-    if bs > MAX_PAGE or D > 256 or D % 16 or Dv % 4 or not 2 <= bits <= 16:
-        raise ValueError(f"the decode kernel takes pages of at most "
-                         f"{MAX_PAGE} tokens, head_dim <= 256 and a multiple "
-                         f"of 16, a V width that is a multiple of 4 and "
-                         f"2..16 bits, got page {bs}, head_dim {D}, V width "
-                         f"{Dv}, bits {bits}")
-    if (kq_pool.data_ptr() | v_pool.data_ptr()) % 16:
-        raise ValueError("the decode kernel copies pool rows in 16-byte "
-                         "pieces: the kq and V pools must be 16-byte aligned")
     dev = q.device
     q_int, m_min, m_max, scale_total, alpha_radius, _, v_scale = \
         paged_decode_prep(q, k_amax, v_amax, Hkv, cfg)

@@ -15,11 +15,16 @@ its position.  Three pieces live here:
   over the packed ``kq`` pool: the ``(slot, query)`` rows flattened to
   ``B*Sq`` decode rows, each slot's table broadcast to its queries, then
   the plain paged decode (page unpacking and the oracle's walk).
-* ``LAUNCHES``, the number of kernel launches.
+* ``LAUNCHES``, the number of kernel launches, and :func:`copied_bytes`,
+  the plane and V bytes the kernel requested.
 
-The kernel loads each page's planes and V once for the whole draft block
-(union liveness over its queries) and writes per-(KV head, query) plane
-counts; the reference's per-query ``rounds`` is their max over KV heads.
+The kernel runs the decode kernel's page walk (``csrc/paged_walk.cuh``)
+with one walk warp per (draft query, query head) row: one thread block
+per (KV head, slot, group of queries), a group being at most
+``max(1, 4 // G)`` whole queries.  A block copies the planes of every page
+some row reaches once, and V of a page once when some row has a survivor.
+It writes per-(KV head, query) plane counts; the reference's per-query
+``rounds`` is their max over KV heads.
 """
 
 from __future__ import annotations
@@ -81,12 +86,16 @@ def paged_bitstopper_verify_plain(q, kq_pool, v_pool, table, lengths,
                              v_fetched=res.v_fetched.reshape(B, Sq, MB))
 
 
-def launch_kernel(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
-                  v_amax, cfg: BitStopperConfig = BitStopperConfig(),
-                  window: int | None = None, stats: bool = True):
-    """Launch the CUDA kernel once.  Returns ``(out [B,Sq,Hq,Dv] f32,
-    rounds_h [B,Hkv,Sq,MB] int32, survivors int8 [B,Sq*Hq,MB*bs] or
-    None)`` with per-KV-head plane counts."""
+def kernel_args(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
+                v_amax, cfg: BitStopperConfig = BitStopperConfig(),
+                window: int | None = None, stats: bool = True):
+    """Prepare the kernel's operands and outputs once.  Returns ``(args,
+    keep, out, rounds_h, surv)``: ``launch_c(*args)`` fills ``out
+    [B,Sq,Hq,Dv]`` f32, ``rounds_h [B,Hkv,Sq,MB]`` int32 per-(KV head,
+    query) plane counts and ``surv`` int8 [B,Sq*Hq,MB*bs] (None when
+    ``stats`` is False); ``keep`` holds the prepared tensors that ``args``
+    points into, and must outlive every launch.  Raises ``ValueError`` on
+    widths the kernel does not take (those of the decode kernel)."""
     _check(q, table, lengths, q_positions)
     B, Sq, Hq, D = q.shape
     P, bits, bs8, Hkv, _ = kq_pool.shape
@@ -107,17 +116,37 @@ def launch_kernel(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
     rounds_h = torch.empty((B, Hkv, Sq, MB), dtype=torch.int32, device=dev)
     surv = (torch.zeros((B, Sq * Hq, MB * bs), dtype=torch.int8, device=dev)
             if stats else None)
-    with torch.cuda.device(dev):
-        launch_c(q_int.data_ptr(), floats[0].data_ptr(),
-                 floats[1].data_ptr(), floats[2].data_ptr(),
-                 floats[3].data_ptr(), floats[4].data_ptr(),
-                 kq_pool.data_ptr(), v_pool.data_ptr(), ints[0].data_ptr(),
-                 ints[1].data_ptr(), ints[2].data_ptr(), out.data_ptr(),
-                 rounds_h.data_ptr(), surv.data_ptr() if stats else None,
-                 B, Sq, Hq, Hkv, D, Dv, bits, bs, MB, cfg.min_rounds,
-                 int(cfg.quantize_v), int(window is not None),
-                 int(window or 0), torch.cuda.current_stream(dev).cuda_stream)
+    args = (q_int.data_ptr(), *(f.data_ptr() for f in floats),
+            kq_pool.data_ptr(), v_pool.data_ptr(),
+            *(t.data_ptr() for t in ints), out.data_ptr(),
+            rounds_h.data_ptr(), surv.data_ptr() if stats else None,
+            B, Sq, Hq, Hkv, D, Dv, bits, bs, MB, cfg.min_rounds,
+            int(cfg.quantize_v), int(window is not None), int(window or 0),
+            torch.cuda.current_stream(dev).cuda_stream)
+    return args, (q_int, floats, ints), out, rounds_h, surv
+
+
+def launch_kernel(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
+                  v_amax, cfg: BitStopperConfig = BitStopperConfig(),
+                  window: int | None = None, stats: bool = True):
+    """Launch the CUDA kernel once.  Returns ``(out [B,Sq,Hq,Dv] f32,
+    rounds_h [B,Hkv,Sq,MB] int32, survivors int8 [B,Sq*Hq,MB*bs] or
+    None)`` with per-(KV head, query) plane counts."""
+    args, _keep, out, rounds_h, surv = kernel_args(
+        q, kq_pool, v_pool, table, lengths, q_positions, k_amax, v_amax,
+        cfg=cfg, window=window, stats=stats)
+    with torch.cuda.device(q.device):
+        launch_c(*args)
     return out, rounds_h, surv
+
+
+def entry_point(lib: ctypes.CDLL):
+    """``paged_verify_launch`` of a library built from
+    ``csrc/paged_verify.cu``, with its C signature."""
+    fn = lib.paged_verify_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def launch_c(*args) -> None:
@@ -125,14 +154,27 @@ def launch_c(*args) -> None:
     ``csrc/paged_verify.cu``); raises on a launch error and counts the
     launch."""
     global LAUNCHES
-    fn = load_library("paged_verify").paged_verify_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(*args)
+    err = entry_point(load_library("paged_verify"))(*args)
     if err != 0:
         raise RuntimeError(f"paged_verify kernel launch failed with CUDA "
                            f"error {err}")
     LAUNCHES += 1
+
+
+def copied_bytes() -> tuple[int, int]:
+    """(plane bytes, V bytes) that the kernel requested from device memory,
+    summed over its launches with ``stats`` on since the last call; the
+    call zeroes both counts.  Synchronizes the card."""
+    torch.cuda.synchronize()
+    fn = load_library("paged_verify").paged_verify_copied_bytes
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    counts = (ctypes.c_ulonglong * 2)()
+    err = fn(counts)
+    if err != 0:
+        raise RuntimeError(f"reading the paged_verify copy counts failed "
+                           f"with CUDA error {err}")
+    return int(counts[0]), int(counts[1])
 
 
 def paged_bitstopper_verify(

@@ -8,10 +8,11 @@ missing card, a missing ``nvcc`` or a failed build raises.
 
 Kernels are compiled at first use with ``nvcc`` into a shared library with
 a plain C interface (loaded through ``ctypes``), under ``build/kernels/`` at
-the root of the checkout, keyed by a hash of the source and flags.  There
-are four, one library each: ``paged_decode`` and ``paged_verify`` (the
-serving reads), ``bitstopper_qk`` and ``flash_attention`` (the cache-free
-forward).
+the root of the checkout, keyed by a hash of the source, the headers in
+``csrc/`` and the flags.  There are four, one library each:
+``paged_decode`` and ``paged_verify`` (the serving reads, which share their
+page walk through ``csrc/paged_walk.cuh``), ``bitstopper_qk`` and
+``flash_attention`` (the cache-free forward).
 """
 
 from __future__ import annotations
@@ -70,10 +71,14 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Where ``csrc/<name>.cu`` is built: named by a hash of the source,
+    of every header in ``csrc/`` (a source may include any of them) and of
+    the flags, so that editing a shared header rebuilds its kernels."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build_libraries(names) -> None:

@@ -200,11 +200,15 @@ class PagedEngine:
         fused = scfg.fused_decode
         if fused is None:
             fused = self.device.type == "cuda"
-        if fused and scfg.page_size > paged_decode.MAX_PAGE:
-            raise ValueError(
-                f"page_size {scfg.page_size}: the fused decode kernel takes "
-                f"pages of at most {paged_decode.MAX_PAGE} tokens; serve "
-                f"with fused_decode=False or smaller pages")
+        if fused:
+            # The pool's V width is head_dim (models/attention.py).
+            reason = paged_decode.kernel_refusal(
+                scfg.page_size, cfg.head_dim, cfg.head_dim,
+                cfg.bitstopper.bits)
+            if reason is not None:
+                raise ValueError(
+                    f"fused_decode: the decode and verify kernels take "
+                    f"{reason}; serve with fused_decode=False")
         self.cfg = cfg.replace(fused_decode=bool(fused))
         self.params = params
         self.scfg = scfg

@@ -199,13 +199,15 @@ def test_besf_attention_matches_reference(mask_kind):
 @pytest.mark.gpu
 def test_bitstopper_kernel_matches_plain_on_card():
     """The CUDA kernel against its plain version on the same operands,
-    causal and not, at the forward's tile (128) and at small tiles: rounds
-    and survivors exact, out within 2e-5, one launch per call."""
+    causal and not, at the forward's tile (128) and at small tiles, and at
+    head width 160 (stablelm-12b: planes and V in two chunks): rounds and
+    survivors exact, out within 2e-5, one launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     cases = [((2, 4), 256, 256, 64, 64, 128, 0.6), ((3,), 64, 128, 64, 64,
              64, 0.2), ((2,), 32, 256, 64, 32, 32, 0.6),
-             ((2, 2), 64, 64, 16, 16, 128, 0.8)]
+             ((2, 2), 64, 64, 16, 16, 128, 0.8),
+             ((2,), 256, 256, 160, 160, 128, 0.6)]
     for i, (lead, Sq, Sk, d, dv, blk, alpha) in enumerate(cases):
         q, k, v = (torch.as_tensor(x, device="cuda")
                    for x in _inputs(30 + i, Sq, Sk, d, dv, lead))
@@ -226,3 +228,17 @@ def test_bitstopper_kernel_matches_plain_on_card():
                                want.survivors)
             torch.testing.assert_close(got.out.reshape(want.out.shape),
                                        want.out, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("d,dv", [(256, 256), (64, 48), (192, 64)])
+def test_kernel_refuses_widths_it_does_not_take(d, dv):
+    """Value widths outside KERNEL_DV, and heads wider than 160 (whose
+    128-row tiles exceed the card's shared memory, as recurrentgemma-2b's
+    256 does), raise before any launch."""
+    q, k, v = map(torch.as_tensor, _inputs(41, 128, 128, d, dv, (1,)))
+    cfg = TConfig(alpha=0.6)
+    ops = BQ.prep(q, k, v, cfg)
+    before = BQ.LAUNCHES
+    with pytest.raises(ValueError, match="value widths"):
+        BQ.launch_kernel(ops, cfg, 128, 128, True)
+    assert BQ.LAUNCHES == before

@@ -196,3 +196,26 @@ def test_serve_cli_on_cpu():
     text = out.getvalue()
     assert "9 new tokens" in text and "fused_decode=True" in text
     assert "'requests_finished': 3" in text
+
+
+@pytest.mark.parametrize("head_dim", [8, 24, 272])
+def test_fused_decode_refuses_head_widths_over_the_kernel_limits(head_dim):
+    """The decode and verify kernels take head_dim at most 256 and a
+    multiple of 16 (the V width, here head_dim, a multiple of 4): an engine
+    that would hand them another width fails when it is built, with the
+    reason.  The plain oracle serves that width."""
+    cfg = reduced_config("stablelm-1.6b").replace(
+        attn_impl="bitstopper_xla", head_dim=head_dim)
+    params = TT.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="head_dim at most 256 and a "
+                                         "multiple of 16"):
+        PagedEngine(cfg, params, ServeConfig(fused_decode=True, **_KW),
+                    "cpu")
+    plain = PagedEngine(cfg, params, ServeConfig(fused_decode=False, **_KW),
+                        "cpu")
+    reqs = [Request(prompt=p, max_new_tokens=3) for p in _prompts((5, 9))]
+    plain.generate(reqs)
+    assert plain.cfg.fused_decode is False
+    assert all(len(r.generated) == 3 and all(0 <= t < cfg.vocab
+                                             for t in r.generated)
+               for r in reqs)

@@ -96,13 +96,15 @@ def test_flash_batched_equals_slices(causal):
 @pytest.mark.gpu
 def test_flash_kernel_matches_plain_on_card():
     """The CUDA kernel against its plain version at the forward's tile (128)
-    and at small tiles, causal and not, one launch per call; a value width
-    the kernel is not built for raises."""
+    and at small tiles, causal and not, one launch per call; head width 160
+    (stablelm-12b: K and V tiles in two chunks); a value width the kernel
+    is not built for raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = [((4, 2), 256, 256, 64, 64, 128), ((3,), 128, 256, 64, 128, 64),
-             ((2,), 64, 128, 32, 32, 64), ((2, 2), 64, 64, 16, 16, 128)]
+             ((2,), 64, 128, 32, 32, 64), ((2, 2), 64, 64, 16, 16, 128),
+             ((2,), 256, 256, 160, 160, 128)]
     for i, (lead, Sq, Sk, d, dv, blk) in enumerate(cases):
         q, k, v = (torch.as_tensor(x, device="cuda")
                    for x in _inputs(10 + i, Sq, Sk, d, dv, lead))
@@ -118,3 +120,15 @@ def test_flash_kernel_matches_plain_on_card():
                for x in _inputs(20, 64, 64, 48, 48))
     with pytest.raises(ValueError, match="value widths"):
         FA.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("d,dv", [(256, 256), (64, 48), (192, 64)])
+def test_flash_kernel_refuses_widths_it_does_not_take(d, dv):
+    """Value widths outside KERNEL_DV, and heads wider than 160 (whose
+    128-row tiles exceed the card's shared memory, as recurrentgemma-2b's
+    256 does), raise before any launch."""
+    q, k, v = map(torch.as_tensor, _inputs(21, 128, 128, d, dv))
+    before = FA.LAUNCHES
+    with pytest.raises(ValueError, match="value widths"):
+        FA.launch_kernel(q[None], k[None], v[None], True, 0.125, 128, 128)
+    assert FA.LAUNCHES == before

@@ -60,6 +60,26 @@ def _inputs(seed, G, hot_heads=()):
     return k, kq, v, _TABLE, _LENGTHS, _QPOS, k_amax, v_amax, q
 
 
+def _draft_inputs(seed, G, bs=16, D=16, Sq=3):
+    """Draft blocks of Sq consecutive queries on the reference's tables
+    with pages of ``bs`` tokens (KV head 0 hot): slot 0's block ends its
+    last page; slot 1's crosses from page 1 into page 2, so its first
+    queries reach one page fewer than its last; slot 2 has two real queries
+    ending mid-page 1, then padding queries (fill level 0)."""
+    k, v, k_amax, v_amax, hot = _pool(seed, bs=bs, D=D, hot_heads=(0,))
+    rng = np.random.default_rng(seed + 1)
+    q = (rng.normal(size=(3, Sq, 2 * G, D)) * 2).astype(np.float32)
+    q[:, :, :G] = 8.0 * hot[0] + 0.05 * q[:, :, :G]
+    first = np.array([4 * bs - Sq, 2 * bs - 2, bs + 1], np.int32)
+    q_pos = first[:, None] + np.arange(Sq, dtype=np.int32)[None]
+    real = np.ones((3, Sq), bool)
+    real[2, 2:] = False
+    q_pos = np.where(real, q_pos, 0).astype(np.int32)
+    lengths = np.where(real, q_pos + 1, 0).astype(np.int32)
+    kq = np.asarray(jq.pack_pool_planes(jnp.asarray(k), jnp.asarray(k_amax)))
+    return k, kq, v, _TABLE, lengths, q_pos, k_amax, v_amax, q
+
+
 def _t(a):
     return torch.as_tensor(np.array(a))
 
@@ -164,6 +184,38 @@ def test_rounds_is_max_over_kv_heads(G):
     assert (per_head[:, 0] != per_head[:, 1]).any()       # the max matters
 
 
+@pytest.mark.parametrize("window,G", [(None, 1), (None, 2), (20, 1),
+                                      (20, 2)])
+def test_plain_pages_outside_a_query_range_stay_empty(window, G):
+    """The rule the kernel's union walk keeps: a page outside a query's
+    range (after its position, or before its window) gets 0 rounds and no
+    survivors for that query, though another query of the draft block
+    reaches it, and a padding query reaches no page.  The plain version
+    equals the JAX oracle on these draft blocks."""
+    k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _draft_inputs(8, G)
+    cfg = TConfig(alpha=0.4)
+    got = pv.paged_bitstopper_verify(
+        *map(_t, (q, kq, v, table, lengths, q_pos, k_amax, v_amax)),
+        cfg=cfg, window=window)
+    want = joracle(*map(jnp.asarray, (q, k, v, table, lengths, q_pos,
+                                      k_amax, v_amax)),
+                   cfg=JConfig(alpha=0.4), window=window)
+    _assert_same(got, want)
+    rounds = got.rounds.numpy()                            # [B, Sq, MB]
+    surv = got.survivors.numpy().reshape(3, 3, 2 * G, 4, 16)
+    # Slot 1: queries 0 and 1 end on page 1; query 2 reaches page 2.
+    assert rounds[1, 2, 2] > 0 and (rounds[1, :2, 2] == 0).all()
+    assert not surv[1, :2, :, 2].any()
+    # Slot 2: query 2 is padding.
+    assert (rounds[2, 2] == 0).all() and not surv[2, 2].any()
+    assert (got.out[2, 2] == 0).all()
+    if window is not None:
+        # Slot 0 (positions 61..63, window 20): pages 0 and 1 lie before
+        # every query's window; page 2 (32..47) holds the window start.
+        assert (rounds[0, :, :2] == 0).all() and not surv[0, :, :, :2].any()
+        assert (rounds[0, :, 2] > 0).all()
+
+
 def test_cpu_tensors_take_the_plain_path():
     k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _inputs(0, 1)
     args = tuple(map(_t, (q, kq, v, table, lengths, q_pos, k_amax, v_amax)))
@@ -181,20 +233,46 @@ def test_cpu_tensors_take_the_plain_path():
         pv.paged_bitstopper_verify(args[0][:, 0], *args[1:])
 
 
+# Card cases: (alpha, window, G, min_rounds, quantize_v, tables, bs, D, Sq).
+# "reference" runs the reference's tables (_inputs), "draft" the draft
+# blocks of _draft_inputs: a block crossing a page boundary, one ending
+# mid-page with padding queries.  G = 3, 5 and 8 give other row layouts
+# (beyond four rows a walk warp walks several); G = 1 with Sq = 5 gives two
+# query groups per (slot, KV head); pages of 48 and 64 tokens give a lane
+# several tokens; windows give each query another first page.
+_GPU_CASES = [
+    (0.2, None, 1, 1, True, "reference", 16, 16, 3),
+    (0.6, None, 2, 1, True, "reference", 16, 16, 3),
+    (0.8, 24, 2, 1, False, "reference", 16, 16, 3),
+    (1.0, 16, 1, 3, True, "reference", 16, 16, 3),
+    (0.4, None, 1, 1, True, "reference", 16, 16, 3),
+    (0.6, None, 3, 1, True, "draft", 16, 16, 3),
+    (0.8, 24, 5, 2, False, "draft", 16, 16, 3),
+    (0.6, None, 8, 1, True, "draft", 16, 64, 3),
+    (0.6, None, 1, 1, True, "draft", 16, 16, 5),
+    (0.4, 20, 1, 1, True, "draft", 16, 16, 5),
+    (0.6, None, 1, 1, True, "draft", 48, 16, 5),
+    (0.8, 40, 2, 1, True, "draft", 64, 16, 3),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("alpha,window,G,min_rounds,quantize_v", [
-    (0.2, None, 1, 1, True), (0.6, None, 2, 1, True), (0.8, 24, 2, 1, False),
-    (1.0, 16, 1, 3, True), (0.4, None, 1, 1, True)])
+@pytest.mark.parametrize(
+    "alpha,window,G,min_rounds,quantize_v,tables,bs,D,Sq", _GPU_CASES)
 def test_cuda_kernel_matches_plain_and_decode(alpha, window, G, min_rounds,
-                                              quantize_v):
+                                              quantize_v, tables, bs, D, Sq):
     """On the card: the CUDA kernel against the plain version on the same
     CUDA tensors (integer observables exact, out within 1e-5: expf and the
     summation order differ), and each real query against the decode
     kernel at its position (exact: the same float operations)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _inputs(
-        3, G, hot_heads=(0,))
+    if tables == "reference":
+        k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _inputs(
+            3, G, hot_heads=(0,))
+    else:
+        k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _draft_inputs(
+            3, G, bs=bs, D=D, Sq=Sq)
     args = tuple(torch.as_tensor(np.array(a), device="cuda")
                  for a in (q, kq, v, table, lengths, q_pos, k_amax, v_amax))
     cfg = TConfig(alpha=alpha, min_rounds=min_rounds, quantize_v=quantize_v)
@@ -214,6 +292,58 @@ def test_cuda_kernel_matches_plain_and_decode(alpha, window, G, min_rounds,
         assert torch.equal(dec.out[real], ker.out[:, s][real])
         assert torch.equal(dec.rounds[real], ker.rounds[:, s][real])
         assert torch.equal(dec.survivors[real], ker.survivors[:, s][real])
+        assert torch.equal(dec.v_fetched[real], ker.v_fetched[:, s][real])
     lean = pv.paged_bitstopper_verify(*args, cfg=cfg, window=window,
                                       stats=False)
     assert torch.equal(lean.rounds, ker.rounds)
+    assert torch.equal(lean.out, ker.out)
+
+
+def _block_pages(lengths, q_pos, bs, MB, G, window):
+    """Per (slot, query group) block of the kernel: the pages some query of
+    the group reaches (groups of max(1, 4 // G) queries)."""
+    QG = max(1, 4 // G)
+    pages = []
+    for b in range(lengths.shape[0]):
+        for s0 in range(0, lengths.shape[1], QG):
+            reach = set()
+            for s in range(s0, min(s0 + QG, lengths.shape[1])):
+                qp, n = int(q_pos[b, s]), int(lengths[b, s])
+                lo = max(0, qp - window + 1) if window is not None else 0
+                hi = min(qp, n - 1)
+                if hi >= lo:
+                    reach |= set(range(lo // bs, min(hi // bs, MB - 1) + 1))
+            pages.append((b, s0, QG, sorted(reach)))
+    return pages
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,window,bs,Sq", [(1, None, 16, 5), (2, 20, 16, 3),
+                                            (1, None, 64, 5)])
+def test_cuda_kernel_copies_reachable_planes(G, window, bs, Sq):
+    """On the card: the kernel's own count of the bytes it requested is
+    every plane of every page some query of a block reaches, once per
+    (slot, KV head, query group) block, and V only of the (block, page)
+    pairs where some row of the block has a survivor; a launch without
+    stats adds nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _draft_inputs(
+        7, G, bs=bs, Sq=Sq)
+    args = tuple(torch.as_tensor(np.array(a), device="cuda")
+                 for a in (q, kq, v, table, lengths, q_pos, k_amax, v_amax))
+    cfg = TConfig(alpha=0.4)
+    pv.copied_bytes()
+    res = pv.paged_bitstopper_verify(*args, cfg=cfg, window=window)
+    pv.paged_bitstopper_verify(*args, cfg=cfg, window=window, stats=False)
+    planes, v_bytes = pv.copied_bytes()
+    P, bits, bs8, Hkv, D = kq.shape
+    MB = table.shape[1]
+    blocks = _block_pages(lengths, q_pos, bs, MB, G, window)
+    assert planes == sum(len(p) for *_, p in blocks) * Hkv * bits * bs8 * D
+    B, _, Hq, _ = q.shape
+    sv = res.survivors.reshape(B, Sq, Hkv, G, MB, bs).any(5).any(3).cpu()
+    live = sum(int(sv[b, s0:s0 + QG, :, pages].any(0).sum())
+               for b, s0, QG, pages in blocks)
+    assert 0 < live < sum(len(p) for *_, p in blocks) * Hkv
+    assert v_bytes == live * bs * v.shape[-1] * 4
