@@ -27,7 +27,9 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
 5. uncached kernels: ``bitstopper_qk`` and ``flash_attention`` against
    their plain versions at one layer's shapes of the cache-free forward
    (B=2 x 32 heads, S=1024, d=64), timed beside their bounds and, for
-   flash, beside ``scaled_dot_product_attention``;
+   flash, beside ``scaled_dot_product_attention``; ``bitstopper_qk`` on
+   hot inputs (LATS prunes) and unpruned ones, with the plane and V bytes
+   it counted as requested held to its design's figure;
 6. forward path: full-width, full-depth ``stablelm-1.6b``
    ``transformer.forward`` with no caches over 2 prompts of 1024 tokens at
    every attention impl; each kernel impl must launch its kernel once per
@@ -425,14 +427,22 @@ def verify_kernel_phase(torch):
             "library_ms": None, "physical_bytes": physical}
 
 
-def uncached_case(torch, seed, N=FWD_B * 32, S=FWD_S, d=64, blk=128):
-    """q, k, v [N, S, d] on the card.  Every query of a slice leans on the
-    slice's hot direction, and so do the keys of every other kv block
-    (blocks 0, 2, ...): a hot pair scores about 8 logits above a cold one,
-    so LATS ends the cold blocks early, as in the reference's
-    ``test_bitstopper_kernel_skips_planes``."""
+def uncached_case(torch, seed, N=FWD_B * 32, S=FWD_S, d=64, blk=128,
+                  hot=True):
+    """q, k, v [N, S, d] on the card.  Hot (the default): every query of a
+    slice leans on the slice's hot direction, and so do the keys of every
+    other kv block (blocks 0, 2, ...): a hot pair scores about 8 logits
+    above a cold one, so LATS ends the cold blocks early, as in the
+    reference's ``test_bitstopper_kernel_skips_planes``.  Not hot: q and k
+    are small and random, their logits within about one of each other, so
+    LATS prunes as little as it does on random weights."""
     import numpy as np
     rng = np.random.default_rng(seed)
+    if not hot:
+        q, k, v = (rng.normal(size=(N, S, d)).astype(np.float32)
+                   for _ in range(3))
+        return tuple(torch.as_tensor(x, device="cuda")
+                     for x in (0.5 * q, 0.5 * k, v))
     hot = rng.normal(size=(N, 1, d)).astype(np.float32)
     hot *= 8.0 / np.linalg.norm(hot, axis=-1, keepdims=True)
     q = hot + 0.5 * rng.normal(size=(N, S, d)).astype(np.float32)
@@ -467,63 +477,100 @@ def qk_bytes_ops(ops, res, bq, bk):
 @phase("qk kernel")
 def qk_kernel_phase(torch):
     """bitstopper_qk against its plain version at one layer's shapes of the
-    forward path, causal and not: rounds and survivors exactly equal, out
-    within UNCACHED_TOL."""
+    forward path, on hot inputs (LATS prunes) and unpruned ones, causal and
+    not: rounds and survivors exactly equal, out within UNCACHED_TOL; the
+    plane and V bytes the kernel counted as requested equal its design's
+    figure; the kernel timed alone on both inputs."""
     from repro_torch.core.besf import BitStopperConfig
     from repro_torch.kernels import bitstopper_qk as bq
     cfg = BitStopperConfig(alpha=0.6)
-    q, k, v = uncached_case(torch, 300)
+    worst, timed, copied = 0.0, {}, {}
+    for label, seed, hot in (("hot", 300, True), ("unpruned", 302, False)):
+        q, k, v = uncached_case(torch, seed, hot=hot)
+        N, S, d = q.shape
+        dv = v.shape[-1]
+        blk = min(128, S)
+        ops = bq.prep(q, k, v, cfg)
+        for causal in (False, True):
+            bq.count_copies(True)
+            try:
+                bq.copied_bytes()
+                ker = bq.launch_kernel(ops, cfg, blk, blk, causal)
+                planes, v_bytes = bq.copied_bytes()
+            finally:
+                bq.count_copies(False)
+            ref = bq.bitstopper_qk_plain(ops, cfg, blk, blk, causal)
+            torch.cuda.synchronize()
+            for field in ("rounds", "survivors"):
+                a, b = getattr(ker, field), getattr(ref, field)
+                if not torch.equal(a, b):
+                    raise SystemExit(f"[chip_smoke] bitstopper_qk {label} "
+                                     f"causal={causal}: {field} differs in "
+                                     f"{int((a != b).sum())} entries")
+            err = float((ker.out - ref.out).abs().max())
+            worst = max(worst, err)
+            if not err <= UNCACHED_TOL:
+                raise SystemExit(f"[chip_smoke] bitstopper_qk {label} "
+                                 f"causal={causal}: out differs by {err} > "
+                                 f"{UNCACHED_TOL}")
+            n_qt, n_kb = ker.rounds.shape[1:]
+            live_v = int(ker.survivors.reshape(N, n_qt, blk, n_kb, blk)
+                         .any(4).any(2).sum())
+            design = bq.design_plane_bytes(ker.rounds, cfg.bits, blk, d)
+            if planes != design or v_bytes != live_v * blk * dv * 4:
+                raise SystemExit(f"[chip_smoke] bitstopper_qk {label} "
+                                 f"causal={causal} copied {planes} plane "
+                                 f"bytes and {v_bytes} V bytes; the design "
+                                 f"copies {design} and "
+                                 f"{live_v * blk * dv * 4}")
+            reach = n_kb * (n_kb + 1) // 2 if causal else n_kb * n_kb
+            print(f"[chip_smoke] bitstopper_qk {label} causal={causal} "
+                  f"(N={N}, S={S}, d={d}, blocks {blk}, alpha 0.6): "
+                  f"rounds/survivors equal; max|out diff| {err:.3e}; rounds "
+                  f"{int(ker.rounds.sum())} vs dense {N * reach * cfg.bits} "
+                  f"(12 per reachable block); survivors "
+                  f"{int(ker.survivors.sum())}; copied {planes} plane bytes "
+                  f"and {v_bytes} V bytes (measured, as designed)")
+        # The forward path runs causal: time and bound that launch.
+        kargs, held = bq.kernel_args(ops, cfg, blk, blk, True)
+        kernel_ms = cuda_ms(torch, lambda: bq.launch_c(*kargs), iters=10,
+                            warmup=2)
+        timed[label] = (q, k, v, ops, ker, kernel_ms)
+        copied[label] = planes
+    q, k, v, ops, ker, kernel_ms = timed["hot"]
     N, S, d = q.shape
     blk = min(128, S)
-    ops = bq.prep(q, k, v, cfg)
-    worst, timed = 0.0, {}
-    for causal in (False, True):
-        ker = bq.launch_kernel(ops, cfg, blk, blk, causal)
-        ref = bq.bitstopper_qk_plain(ops, cfg, blk, blk, causal)
-        torch.cuda.synchronize()
-        for field in ("rounds", "survivors"):
-            a, b = getattr(ker, field), getattr(ref, field)
-            if not torch.equal(a, b):
-                raise SystemExit(f"[chip_smoke] bitstopper_qk causal="
-                                 f"{causal}: {field} differs in "
-                                 f"{int((a != b).sum())} entries")
-        err = float((ker.out - ref.out).abs().max())
-        worst = max(worst, err)
-        if not err <= UNCACHED_TOL:
-            raise SystemExit(f"[chip_smoke] bitstopper_qk causal={causal}: "
-                             f"out differs by {err} > {UNCACHED_TOL}")
-        n_blk = S // blk
-        reach = n_blk * (n_blk + 1) // 2 if causal else n_blk * n_blk
-        print(f"[chip_smoke] bitstopper_qk causal={causal} (N={N}, S={S}, "
-              f"d={d}, blocks {blk}, alpha 0.6): rounds/survivors equal; "
-              f"max|out diff| {err:.3e}; rounds {int(ker.rounds.sum())} vs "
-              f"dense {N * reach * cfg.bits} (12 per reachable block); "
-              f"survivors {int(ker.survivors.sum())}")
-        timed[causal] = ker
-    # The forward path runs causal: time and bound that launch.
-    nbytes, plane_ops, pv_ops, planes = qk_bytes_ops(ops, timed[True], blk,
-                                                     blk)
+    nbytes, plane_ops, pv_ops, planes = qk_bytes_ops(ops, ker, blk, blk)
     ms = cuda_ms(torch, lambda: bq.bitstopper_attention_kernel(
         q, k, v, cfg, causal=True), iters=10, warmup=2)
-    kernel_ms = cuda_ms(torch, lambda: bq.launch_kernel(
-        ops, cfg, blk, blk, True), iters=10, warmup=2)
+    prep_ms = cuda_ms(torch, lambda: bq.prep(q, k, v, cfg), iters=10,
+                      warmup=2)
     plain_ms = cuda_ms(torch, lambda: bq.bitstopper_qk_plain(
         ops, cfg, blk, blk, True), iters=2, warmup=1)
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = (plane_ops / FP16_OPS_PER_S + pv_ops / F32_OPS_PER_S) * 1e3
     bound_ms = max(bound_bytes, bound_ops)
+    un_ms = timed["unpruned"][5]
+    un_bytes, un_plane_ops, un_pv_ops, un_planes = qk_bytes_ops(
+        timed["unpruned"][3], timed["unpruned"][4], blk, blk)
+    un_bound = max(un_bytes / HBM_BYTES_PER_S,
+                   un_plane_ops / FP16_OPS_PER_S + un_pv_ops / F32_OPS_PER_S
+                   ) * 1e3
     print(f"[chip_smoke] bitstopper_qk timing (causal, N={N}, S={S}, d={d}):"
-          f" wrapper {ms:.4f} ms, kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({nbytes} bytes, "
-          f"{plane_ops} plane-dot ops over {planes} live rounds, {pv_ops} "
-          f"P x V ops)")
+          f" hot: wrapper {ms:.4f} ms (prep {prep_ms:.4f} ms), kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f}"
+          f" ms ({nbytes} bytes, {plane_ops} plane-dot ops over {planes} "
+          f"live rounds, {pv_ops} P x V ops); unpruned: kernel {un_ms:.4f} "
+          f"ms, bound {un_bound:.5f} ms ({un_planes} live rounds, "
+          f"{un_pv_ops} P x V ops)")
     return {"name": "bitstopper_qk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/bitstopper_qk.cu",
             "replaces": "src/repro/kernels/bitstopper_qk.py:257",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
+            "max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms,
+            "kernel_ms_unpruned": un_ms, "prep_ms": prep_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            "library_ms": None}
+            "library_ms": None, "physical_bytes": copied["hot"]}
 
 
 @phase("flash kernel")

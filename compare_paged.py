@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""The paged kernels of this checkout against another version of them, on
-one CUDA card, in turns.
+"""The paged kernels and ``bitstopper_qk`` of this checkout against
+another version of them, on one CUDA card, in turns.
 
 ``python3 compare_paged.py OTHER_CSRC`` from the root of a checkout (a
 development script beside ``chip_smoke.py``).  OTHER_CSRC holds another
-``paged_decode.cu`` and ``paged_verify.cu`` with the same C entry points
-(for example ``src/repro_torch/kernels/csrc`` of a parent commit unpacked
-with ``git archive`` under the git-ignored ``build/``).  It builds them
-with the port's flags into ``build/compare/`` beside this checkout's, and
-at ``chip_smoke.py``'s kernel shapes (B=4, 32 heads, D=64, bs=16, MB=32,
-alpha 0.6; the verify with Sq=5 draft blocks) it:
+``paged_decode.cu``, ``paged_verify.cu`` and ``bitstopper_qk.cu`` with the
+same C entry points (for example ``src/repro_torch/kernels/csrc`` of a
+parent commit unpacked with ``git archive`` under the git-ignored
+``build/``).  It builds them with the port's flags into ``build/compare/``
+beside this checkout's, and at ``chip_smoke.py``'s kernel shapes it:
 
-* checks that the two versions of each kernel give the same bits: out,
-  per-KV-head rounds and survivors;
-* times each kernel alone on operands prepared once (``stats`` off, as
-  served), 50 launches with a cold L2, in the order other, this, this,
-  other.
+* paged kernels (B=4, 32 heads, D=64, bs=16, MB=32, alpha 0.6; the verify
+  with Sq=5 draft blocks): checks that the two versions give the same
+  bits (out, per-KV-head rounds and survivors) and times each alone on
+  operands prepared once (``stats`` off, as served), 50 launches;
+* ``bitstopper_qk`` (N=64 slices, S=1024, d=64, blocks 128, alpha 0.6, on
+  the hot and the unpruned inputs, causal and not): checks that rounds
+  and survivors are identical, counts the out elements that differ and
+  the largest difference, and times each alone (causal, as the forward
+  runs it), 10 launches;
+
+each timing with a cold L2, in the order other, this, this, other.
 """
 
 from __future__ import annotations
@@ -26,20 +31,21 @@ import subprocess
 import sys
 from pathlib import Path
 
-KERNELS = ("paged_decode", "paged_verify")
+KERNELS = ("paged_decode", "paged_verify", "bitstopper_qk")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path,
-                    help="directory with the other paged_decode.cu and "
-                         "paged_verify.cu")
+                    help="directory with the other paged_decode.cu, "
+                         "paged_verify.cu and bitstopper_qk.cu")
     args = ap.parse_args(argv)
     import torch
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root / "src"))
     import chip_smoke as cs
     from repro_torch.core.besf import BitStopperConfig
+    from repro_torch.kernels import bitstopper_qk as bq
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import paged_verify as pv
     from repro_torch.kernels import runtime
@@ -91,6 +97,43 @@ def main(argv=None) -> None:
               f"other {times['other'][0]:.4f} and {times['other'][1]:.4f}, "
               f"this {times['this'][0]:.4f} and {times['this'][1]:.4f}; "
               f"this / other {sum(times['this']) / sum(times['other']):.3f}")
+
+    fns = {"other": bq.entry_point(ctypes.CDLL(str(
+        other_libs["bitstopper_qk"]))),
+           "this": bq.entry_point(runtime.load_library("bitstopper_qk"))}
+    for label, seed, hot in (("hot", 300, True), ("unpruned", 302, False)):
+        q, k, v = cs.uncached_case(torch, seed, hot=hot)
+        blk = min(128, q.shape[1])
+        ops = bq.prep(q, k, v, cfg)
+        for causal in (False, True):
+            got = {}
+            for who, fn in fns.items():
+                kargs, res = bq.kernel_args(ops, cfg, blk, blk, causal)
+                if fn(*kargs) != 0:
+                    raise SystemExit(f"bitstopper_qk ({who}) failed to "
+                                     f"launch")
+                torch.cuda.synchronize()
+                got[who] = res
+            a, b = got["other"], got["this"]
+            same = (torch.equal(a.rounds, b.rounds)
+                    and torch.equal(a.survivors, b.survivors))
+            if not same:
+                failed.append(f"bitstopper_qk {label} causal={causal}")
+            diff = (a.out - b.out).abs()
+            print(f"[compare] bitstopper_qk {label} causal={causal}: rounds "
+                  f"and survivors {'identical' if same else 'DIFFER'}; out "
+                  f"differs in {int((diff > 0).sum())} of {diff.numel()} "
+                  f"elements, max |diff| {float(diff.max()):.3e}")
+        kargs, _res = bq.kernel_args(ops, cfg, blk, blk, True)
+        times = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            times[who].append(cs.cuda_ms(
+                torch, lambda: fns[who](*kargs), iters=10, warmup=2))
+        print(f"[compare] bitstopper_qk {label} causal (N={q.shape[0]}, "
+              f"S={q.shape[1]}): kernel alone ms: other "
+              f"{times['other'][0]:.4f} and {times['other'][1]:.4f}, this "
+              f"{times['this'][0]:.4f} and {times['this'][1]:.4f}; this / "
+              f"other {sum(times['this']) / sum(times['other']):.3f}")
     if failed:
         raise SystemExit(f"[compare] the two versions disagree: {failed}")
 

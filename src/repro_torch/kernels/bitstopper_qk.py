@@ -15,6 +15,11 @@ Counterpart of ``repro/kernels/bitstopper_qk.py`` (the Pallas TPU kernel
   operands: the planes unpacked, then the block oracle
   (``core/block_adaptation.block_rows``).
 * ``LAUNCHES``, the number of kernel launches.
+
+The kernel copies packed planes ``LOOKAHEAD`` planes ahead of the one in
+use; :func:`design_plane_bytes` is what that design requests for a launch's
+``rounds``, and :func:`count_copies` / :func:`copied_bytes` read what the
+kernel itself counted.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ KERNEL_DV = (16, 32, 64, 128, 160)   # value widths the kernel is built for
 MAX_HEAD = 160              # widest q/k head whose tiles fit the card's
                             # 227 KB of shared memory at 128-row tiles
 MAX_BLOCK = 128             # largest q or kv tile the kernel takes
+LOOKAHEAD = 2               # planes requested ahead (kLook in the source)
 
 
 class KernelOutput(NamedTuple):
@@ -99,9 +105,11 @@ def bitstopper_qk_plain(ops: Operands, cfg: BitStopperConfig, bq: int,
                         survivors=res.stats.survivors.to(torch.int8))
 
 
-def launch_kernel(ops: Operands, cfg: BitStopperConfig, bq: int, bk: int,
-                  causal: bool) -> KernelOutput:
-    """One launch over every slice of ``ops`` on the card."""
+def kernel_args(ops: Operands, cfg: BitStopperConfig, bq: int, bk: int,
+                causal: bool):
+    """The C entry point's arguments for one launch over every slice of
+    ``ops`` on the card, and its freshly allocated outputs.  Returns
+    ``(args, KernelOutput)``."""
     N, Sq, D = ops.q_int.shape
     Sk, Dv = ops.v_eff.shape[1], ops.v_eff.shape[2]
     if Dv not in KERNEL_DV or D > MAX_HEAD or bq > MAX_BLOCK or \
@@ -116,14 +124,31 @@ def launch_kernel(ops: Operands, cfg: BitStopperConfig, bq: int, bk: int,
     rounds = torch.empty((N, Sq // bq, Sk // bk), dtype=torch.int32,
                          device=dev)
     surv = torch.empty((N, Sq, Sk), dtype=torch.int8, device=dev)
-    with torch.cuda.device(dev):
-        launch_c(ops.q_int.data_ptr(), ops.k_packed.data_ptr(),
-                 ops.v_eff.data_ptr(), ops.m_min.data_ptr(),
-                 ops.m_max.data_ptr(), ops.scalars.data_ptr(),
-                 out.data_ptr(), rounds.data_ptr(), surv.data_ptr(), N, Sq,
-                 Sk, D, Dv, cfg.bits, bq, bk, cfg.min_rounds, int(causal),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    return KernelOutput(out=out, rounds=rounds, survivors=surv)
+    args = (ops.q_int.data_ptr(), ops.k_packed.data_ptr(),
+            ops.v_eff.data_ptr(), ops.m_min.data_ptr(), ops.m_max.data_ptr(),
+            ops.scalars.data_ptr(), out.data_ptr(), rounds.data_ptr(),
+            surv.data_ptr(), N, Sq, Sk, D, Dv, cfg.bits, bq, bk,
+            cfg.min_rounds, int(causal),
+            torch.cuda.current_stream(dev).cuda_stream)
+    return args, KernelOutput(out=out, rounds=rounds, survivors=surv)
+
+
+def launch_kernel(ops: Operands, cfg: BitStopperConfig, bq: int, bk: int,
+                  causal: bool) -> KernelOutput:
+    """One launch over every slice of ``ops`` on the card."""
+    args, res = kernel_args(ops, cfg, bq, bk, causal)
+    with torch.cuda.device(ops.q_int.device):
+        launch_c(*args)
+    return res
+
+
+def entry_point(lib: ctypes.CDLL):
+    """``bitstopper_qk_launch`` of a library built from
+    ``csrc/bitstopper_qk.cu``, with its C signature."""
+    fn = lib.bitstopper_qk_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def launch_c(*args) -> None:
@@ -131,14 +156,47 @@ def launch_c(*args) -> None:
     ``csrc/bitstopper_qk.cu``); raises on a launch error and counts the
     launch."""
     global LAUNCHES
-    fn = load_library("bitstopper_qk").bitstopper_qk_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(*args)
+    err = entry_point(load_library("bitstopper_qk"))(*args)
     if err != 0:
         raise RuntimeError(f"bitstopper_qk kernel launch failed with CUDA "
                            f"error {err}")
     LAUNCHES += 1
+
+
+def count_copies(on: bool) -> None:
+    """Whether later launches add the plane and V bytes they request to
+    the kernel's device counters (off by default, as the forward runs)."""
+    lib = load_library("bitstopper_qk")
+    lib.bitstopper_qk_count_copies.argtypes = [ctypes.c_int]
+    lib.bitstopper_qk_count_copies(int(on))
+
+
+def copied_bytes() -> tuple[int, int]:
+    """(plane bytes, V bytes) that the kernel requested from device memory,
+    summed over its launches with counting on since the last call; the
+    call zeroes both counts.  Synchronizes the card."""
+    torch.cuda.synchronize()
+    fn = load_library("bitstopper_qk").bitstopper_qk_copied_bytes
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    counts = (ctypes.c_ulonglong * 2)()
+    err = fn(ctypes.addressof(counts))
+    if err != 0:
+        raise RuntimeError(f"reading the bitstopper_qk copy counters failed "
+                           f"with CUDA error {err}")
+    return int(counts[0]), int(counts[1])
+
+
+def design_plane_bytes(rounds: torch.Tensor, bits: int, bk: int,
+                       d: int) -> int:
+    """Plane bytes the kernel's design requests for a launch whose plane
+    counts are ``rounds`` [..., n_qt, n_kb]: a reachable tile (rounds > 0)
+    requests its planes up to ``LOOKAHEAD`` past the last one it used, at
+    most ``bits``; an unreachable one requests none.  A plane of a tile is
+    bk / 8 x d bytes."""
+    planes = torch.where(rounds > 0,
+                         torch.clamp(rounds.long() + LOOKAHEAD, max=bits), 0)
+    return int(planes.sum()) * (bk // 8) * d
 
 
 def bitstopper_attention_kernel(

@@ -196,38 +196,282 @@ def test_besf_attention_matches_reference(mask_kind):
         assert bool((block.stats.survivors | ~ref.stats.survivors).all())
 
 
+# (lead, Sq, Sk, d, dv, block_q, block_k, cfg, input seed, input scale):
+# the forward's tile (128) and small tiles; head widths below and between
+# the tensor-core depth of 32 bytes (16, 48, 96) and 160 (stablelm-12b),
+# and widths whose planes are not copied in 16-byte pieces (40: 4-byte
+# pieces, 18: through registers); q tiles of 8 and 24 rows (not a multiple
+# of 16); kv blocks of 8; a causal grid of eight q tiles with 1 to 8 kv
+# blocks each; 14-bit planes (LATS by the float operations alone); and an
+# input where tiles die at round min_rounds - 1 and one dies at its last
+# round.
+CARD_CASES = {
+    "blk128": ((2, 4), 256, 256, 64, 64, 128, 128, dict(alpha=0.6), 30, 2.0),
+    "blk64": ((3,), 64, 128, 64, 64, 64, 64, dict(alpha=0.2), 31, 2.0),
+    "blk32": ((2,), 32, 256, 64, 32, 32, 32, dict(alpha=0.6), 32, 2.0),
+    "d16": ((2, 2), 64, 64, 16, 16, 128, 128, dict(alpha=0.8), 33, 2.0),
+    "d160": ((2,), 256, 256, 160, 160, 128, 128, dict(alpha=0.6), 34, 2.0),
+    "d16_dv32": ((2,), 128, 128, 16, 32, 64, 64, dict(alpha=0.6), 35, 2.0),
+    "d48": ((2,), 128, 128, 48, 64, 64, 64, dict(alpha=0.6), 36, 2.0),
+    "d96": ((2,), 128, 128, 96, 128, 64, 64, dict(alpha=0.6), 37, 2.0),
+    "sq8": ((3,), 8, 64, 64, 64, 128, 128, dict(alpha=0.6), 38, 2.0),
+    "sq24": ((2,), 24, 48, 32, 32, 128, 128, dict(alpha=0.4), 39, 2.0),
+    "bk8": ((2,), 32, 64, 64, 64, 16, 8, dict(alpha=0.6), 40, 2.0),
+    "uneven_causal": ((2,), 512, 512, 64, 64, 64, 64, dict(alpha=0.6), 41,
+                      1.0),
+    "deaths": ((4,), 64, 256, 32, 32, 16, 16, dict(alpha=0.0, min_rounds=6),
+               0, 2.0),
+    "d40": ((2,), 64, 128, 40, 32, 64, 64, dict(alpha=0.6), 42, 2.0),
+    "d18": ((2,), 64, 128, 18, 16, 64, 64, dict(alpha=0.6), 43, 2.0),
+    "bits14": ((2,), 128, 128, 64, 64, 64, 64, dict(alpha=0.6, bits=14), 44,
+               2.0),
+}
+
+
+def _card_case(name):
+    lead, Sq, Sk, d, dv, blk_q, blk_k, cfg, seed, scale = CARD_CASES[name]
+    q, k, v = (torch.as_tensor(x, device="cuda")
+               for x in _inputs(seed, Sq, Sk, d, dv, lead, scale=scale))
+    return q, k, v, blk_q, blk_k, TConfig(**cfg)
+
+
 @pytest.mark.gpu
-def test_bitstopper_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("case", sorted(CARD_CASES))
+def test_bitstopper_kernel_matches_plain_on_card(case):
     """The CUDA kernel against its plain version on the same operands,
-    causal and not, at the forward's tile (128) and at small tiles, and at
-    head width 160 (stablelm-12b: planes and V in two chunks): rounds and
-    survivors exact, out within 2e-5, one launch per call."""
+    causal and not: rounds and survivors exact, out within 2e-5, one launch
+    per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    cases = [((2, 4), 256, 256, 64, 64, 128, 0.6), ((3,), 64, 128, 64, 64,
-             64, 0.2), ((2,), 32, 256, 64, 32, 32, 0.6),
-             ((2, 2), 64, 64, 16, 16, 128, 0.8),
-             ((2,), 256, 256, 160, 160, 128, 0.6)]
-    for i, (lead, Sq, Sk, d, dv, blk, alpha) in enumerate(cases):
-        q, k, v = (torch.as_tensor(x, device="cuda")
-                   for x in _inputs(30 + i, Sq, Sk, d, dv, lead))
-        cfg = TConfig(alpha=alpha)
-        for causal in (False, True):
-            flat = lambda x: x.reshape((-1,) + x.shape[-2:])
-            ops = BQ.prep(flat(q), flat(k), flat(v), cfg)
-            bq, bk = BQ._blocks(Sq, Sk, blk, blk)
-            before = BQ.LAUNCHES
-            got = BQ.bitstopper_attention_kernel(q, k, v, cfg, blk, blk,
-                                                 causal)
-            assert BQ.LAUNCHES == before + 1
-            want = BQ.bitstopper_qk_plain(ops, cfg, bq, bk, causal)
-            torch.cuda.synchronize()
-            assert torch.equal(got.rounds.reshape(want.rounds.shape),
-                               want.rounds)
-            assert torch.equal(got.survivors.reshape(want.survivors.shape),
-                               want.survivors)
-            torch.testing.assert_close(got.out.reshape(want.out.shape),
-                                       want.out, atol=TOL, rtol=TOL)
+    q, k, v, blk_q, blk_k, cfg = _card_case(case)
+    Sq, Sk = q.shape[-2], k.shape[-2]
+    flat = lambda x: x.reshape((-1,) + x.shape[-2:])
+    ops = BQ.prep(flat(q), flat(k), flat(v), cfg)
+    bq, bk = BQ._blocks(Sq, Sk, blk_q, blk_k)
+    for causal in (False, True):
+        before = BQ.LAUNCHES
+        got = BQ.bitstopper_attention_kernel(q, k, v, cfg, blk_q, blk_k,
+                                             causal)
+        assert BQ.LAUNCHES == before + 1
+        want = BQ.bitstopper_qk_plain(ops, cfg, bq, bk, causal)
+        torch.cuda.synchronize()
+        assert torch.equal(got.rounds.reshape(want.rounds.shape),
+                           want.rounds)
+        assert torch.equal(got.survivors.reshape(want.survivors.shape),
+                           want.survivors)
+        torch.testing.assert_close(got.out.reshape(want.out.shape),
+                                   want.out, atol=TOL, rtol=TOL)
+        if case == "deaths" and not causal:
+            n_qt, n_kb = want.rounds.shape[1:]
+            surv = want.survivors.reshape(-1, n_qt, bq, n_kb, bk).any(4) \
+                .any(2)
+            assert bool((want.rounds == cfg.min_rounds).any())
+            assert bool(((want.rounds == cfg.bits) & ~surv).any())
+        if case == "uneven_causal" and causal:
+            live = (want.rounds > 0).sum(-1)[0]
+            assert live.tolist() == list(range(1, Sq // bq + 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["blk128", "deaths", "sq24", "d40", "d18"])
+def test_kernel_copy_counter_matches_design(case):
+    """The plane and V bytes the kernel requested, by its own counter: every
+    reachable tile min(bits, rounds + LOOKAHEAD) planes, V only for a tile
+    with a survivor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v, blk_q, blk_k, cfg = _card_case(case)
+    flat = lambda x: x.reshape((-1,) + x.shape[-2:])
+    ops = BQ.prep(flat(q), flat(k), flat(v), cfg)
+    bq, bk = BQ._blocks(q.shape[-2], k.shape[-2], blk_q, blk_k)
+    d, dv = q.shape[-1], v.shape[-1]
+    for causal in (False, True):
+        BQ.count_copies(True)
+        try:
+            BQ.copied_bytes()
+            got = BQ.launch_kernel(ops, cfg, bq, bk, causal)
+            planes, v_bytes = BQ.copied_bytes()
+        finally:
+            BQ.count_copies(False)
+        n_qt, n_kb = got.rounds.shape[1:]
+        live_v = int(got.survivors.reshape(-1, n_qt, bq, n_kb, bk).any(4)
+                     .any(2).sum())
+        assert planes == BQ.design_plane_bytes(got.rounds, cfg.bits, bk, d)
+        assert v_bytes == live_v * bk * dv * 4
+
+
+def _stream_requests(tile_rounds, bits, look=BQ.LOOKAHEAD):
+    """The kernel's plane stream (``refill`` and the kv loop of
+    ``csrc/bitstopper_qk.cu``) over reachable tiles that run
+    ``tile_rounds`` rounds: planes requested per tile.  After each live
+    vote the stream runs look + 1 planes ahead of the consumers; a tile that
+    dies waits for the planes requested past its verdict.  Asserts that a
+    ring slot is refilled only after every thread used its plane before the
+    last vote (a block barrier)."""
+    slots = 2 * look + 1
+    st = dict(pkb=0, pr=0, pseq=0, cseq=0)
+    req = [0] * len(tile_rounds)
+    used_by_all = -1          # items every thread has used
+
+    def refill():
+        while st["pseq"] < st["cseq"] + look + 1 and \
+                st["pkb"] < len(tile_rounds):
+            assert st["pseq"] - slots <= used_by_all
+            req[st["pkb"]] += 1
+            st["pseq"] += 1
+            st["pr"] += 1
+            if st["pr"] == bits:
+                st["pr"], st["pkb"] = 0, st["pkb"] + 1
+
+    refill()
+    for kb, R in enumerate(tile_rounds):
+        for r in range(R):
+            assert st["cseq"] < st["pseq"]         # the plane was requested
+            st["cseq"] += 1
+            used_by_all = st["cseq"] - 1           # the vote
+            if r == R - 1 and R < bits:            # dead
+                st["cseq"] += min(bits - R, look)  # dropped, waited for
+                if st["pkb"] == kb:
+                    st["pkb"], st["pr"] = kb + 1, 0
+                refill()
+                break
+            refill()
+    assert st["cseq"] == st["pseq"]               # nothing left in flight
+    return req
+
+
+@pytest.mark.parametrize("pattern", ["dense", "early", "mixed", "random"])
+def test_plane_stream_requests_design_figure(pattern):
+    """The design's plane bytes (``design_plane_bytes``, what the card test
+    holds the kernel's own counter to) are what the kernel's plane stream
+    requests: min(bits, rounds + LOOKAHEAD) planes per reachable tile, none
+    for an unreachable one."""
+    bits = 12
+    rng = np.random.default_rng(5)
+    tiles = {"dense": [bits] * 6, "early": [1] * 6,
+             "mixed": [1, bits, 2, bits - 1, bits - 2, 3, bits],
+             "random": rng.integers(1, bits + 1, 40).tolist()}[pattern]
+    req = _stream_requests(tiles, bits)
+    assert req == [min(bits, r + BQ.LOOKAHEAD) for r in tiles]
+    rounds = torch.tensor([tiles + [0, 0]], dtype=torch.int32)[None]
+    assert BQ.design_plane_bytes(rounds, bits, 64, 48) == \
+        sum(req) * 8 * 48
+
+
+def _mma_s8(a_regs, b_regs, signed_a):
+    """mma.sync.m16n8k32 with 8-bit operands, from per-lane registers in
+    the PTX ISA's fragment layout: A (16 x 32, row) a[lane][4], B (32 x 8,
+    col) b[lane][2] (s8); C (16 x 8) as c[lane][4]."""
+    A = np.zeros((16, 32), np.int64)
+    B = np.zeros((32, 8), np.int64)
+    for lane in range(32):
+        g, c = lane >> 2, lane & 3
+        for reg in range(4):
+            for j in range(4):
+                x = (int(a_regs[lane][reg]) >> (8 * j)) & 255
+                if signed_a and x > 127:
+                    x -= 256
+                A[g + 8 * (reg & 1), 4 * c + j + 16 * (reg >> 1)] = x
+        for reg in range(2):
+            for j in range(4):
+                x = (int(b_regs[lane][reg]) >> (8 * j)) & 255
+                B[4 * c + j + 16 * reg, g] = x - 256 if x > 127 else x
+    C = A @ B
+    return [[C[(lane >> 2) + 8 * (i >> 1), 2 * (lane & 3) + (i & 1)]
+             for i in range(4)] for lane in range(32)]
+
+
+@pytest.mark.parametrize("bits", [12, 16])
+def test_q_bytes_recompose_every_value(bits):
+    """The kernel's split of q_int into the A operands of its two MMAs: a
+    signed high byte q >> 8 (s8) and an unsigned low byte q & 255 (u8), with
+    256 * hi + lo == q for every value of the quantizer's range."""
+    q = np.arange(-2 ** (bits - 1), 2 ** (bits - 1), dtype=np.int64)
+    hi, lo = q >> 8, q & 255
+    assert hi.min() >= -128 and hi.max() <= 127
+    assert lo.min() >= 0 and lo.max() <= 255
+    np.testing.assert_array_equal(256 * hi + lo, q)
+    # as the packed register bytes the fragments hold
+    hi_u8 = (hi & 255).astype(np.uint8)
+    np.testing.assert_array_equal(hi_u8.view(np.int8).astype(np.int64) * 256
+                                  + lo.astype(np.uint8), q)
+
+
+@pytest.mark.parametrize("d", [16, 48, 64, 96, 160])
+@pytest.mark.parametrize("bits", [12, 16])
+def test_plane_dot_fragments_are_exact(d, bits):
+    """The kernel's plane dots, emulated lane by lane: q's hi/lo byte
+    fragments in the permuted k order, B words of a packed plane row
+    shifted by the lane's token and masked (bytes past d are arbitrary),
+    and dot = 256 * hi + lo give q_int . plane exactly for 16 rows x 8
+    tokens."""
+    rng = np.random.default_rng(d + bits)
+    KS = (d + 31) // 32
+    q = rng.integers(-2 ** (bits - 1), 2 ** (bits - 1), (16, d))
+    q[0, :] = -2 ** (bits - 1)                    # the extremes
+    q[1, :] = 2 ** (bits - 1) - 1
+    plane = rng.integers(0, 2, (8, d))
+    packed = rng.integers(0, 256, KS * 32)        # the ring row, padded
+    packed[:d] = (plane << np.arange(8)[:, None]).sum(0)
+
+    def word(off):
+        return sum(int(packed[off + j]) << (8 * j) for j in range(4))
+
+    th = np.zeros((32, 4), np.int64)
+    tl = np.zeros((32, 4), np.int64)
+    for ks in range(KS):
+        pair = (ks & 1) or ks + 1 < KS
+        a_hi, a_lo, b = [], [], []
+        for lane in range(32):
+            g, c = lane >> 2, lane & 3
+            base = (32 * (ks & ~1) + 16 * c + 8 * (ks & 1) if pair
+                    else 32 * ks + 8 * c)
+            hi, lo = [0] * 4, [0] * 4
+            for h in range(2):
+                for half in range(2):
+                    for j in range(4):
+                        dd = base + 4 * half + j
+                        v = int(q[g + 8 * h, dd]) if dd < d else 0
+                        hi[h + 2 * half] |= ((v >> 8) & 255) << (8 * j)
+                        lo[h + 2 * half] |= (v & 255) << (8 * j)
+            a_hi.append(hi)
+            a_lo.append(lo)
+            # the B words: one 16-byte load per lane for a pair of k-steps
+            off = (32 * (ks & ~1) + 16 * c + 8 * (ks & 1) if pair
+                   else 32 * ks + 8 * c)
+            b.append([(word(off + 4 * i) >> g) & 0x01010101
+                      for i in range(2)])
+        th += np.array(_mma_s8(a_hi, b, True))
+        tl += np.array(_mma_s8(a_lo, b, False))
+    want = q @ plane.T
+    for lane in range(32):
+        g, c = lane >> 2, lane & 3
+        for i in range(4):
+            got = th[lane, i] * 256 + tl[lane, i]
+            assert got == want[g + 8 * (i >> 1), 2 * c + (i & 1)]
+
+
+def test_fp64_fragments_sum_every_token():
+    """P x V's fragments (mma.sync.m16n8k8.f64): lane (g, c) gives A its own
+    accumulator weights, rows g and g + 8 of tokens 2c (k = c) and 2c + 1
+    (k = c + 4) of an 8-token n-tile, and B V[token][column g] of the same
+    tokens; C (rows g and g + 8, columns 2c and 2c + 1) is the sum over the
+    n-tile's tokens."""
+    rng = np.random.default_rng(9)
+    p = rng.random((16, 8))
+    v = rng.normal(size=(8, 8))
+    A = np.zeros((16, 8))
+    B = np.zeros((8, 8))
+    for lane in range(32):
+        g, c = lane >> 2, lane & 3
+        a = (p[g, 2 * c], p[g + 8, 2 * c], p[g, 2 * c + 1],
+             p[g + 8, 2 * c + 1])
+        for e, (row, k) in enumerate(((g, c), (g + 8, c), (g, c + 4),
+                                      (g + 8, c + 4))):
+            A[row, k] = a[e]
+        B[c, g] = v[2 * c, g]
+        B[c + 4, g] = v[2 * c + 1, g]
+    np.testing.assert_allclose(A @ B, p @ v, rtol=1e-15, atol=1e-15)
 
 
 @pytest.mark.parametrize("d,dv", [(256, 256), (64, 48), (192, 64)])
