@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""The paged kernels and ``bitstopper_qk`` of this checkout against
-another version of them, on one CUDA card, in turns.
+"""The paged kernels, ``bitstopper_qk`` and ``flash_attention`` of this
+checkout against another version of them, on one CUDA card, in turns.
 
 ``python3 compare_paged.py OTHER_CSRC`` from the root of a checkout (a
 development script beside ``chip_smoke.py``).  OTHER_CSRC holds another
-``paged_decode.cu``, ``paged_verify.cu`` and ``bitstopper_qk.cu`` with the
-same C entry points (for example ``src/repro_torch/kernels/csrc`` of a
+``paged_decode.cu``, ``paged_verify.cu``, ``bitstopper_qk.cu`` and
+``flash_attention.cu`` with the same C entry points (for example
+``src/repro_torch/kernels/csrc`` of a
 parent commit unpacked with ``git archive`` under the git-ignored
 ``build/``).  It builds them with the port's flags into ``build/compare/``
 beside this checkout's, and at ``chip_smoke.py``'s kernel shapes it:
@@ -19,6 +20,10 @@ beside this checkout's, and at ``chip_smoke.py``'s kernel shapes it:
   and survivors are identical, counts the out elements that differ and
   the largest difference, and times each alone (causal, as the forward
   runs it), 10 launches;
+* ``flash_attention`` (the same shape, blocks 128, causal and not): the
+  largest difference between the two versions' out and each version's
+  largest difference from the plain version (both must stay within
+  ``chip_smoke.UNCACHED_TOL``), and each alone (causal), 10 launches;
 
 each timing with a cold L2, in the order other, this, this, other.
 """
@@ -31,14 +36,16 @@ import subprocess
 import sys
 from pathlib import Path
 
-KERNELS = ("paged_decode", "paged_verify", "bitstopper_qk")
+KERNELS = ("paged_decode", "paged_verify", "bitstopper_qk",
+           "flash_attention")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path,
                     help="directory with the other paged_decode.cu, "
-                         "paged_verify.cu and bitstopper_qk.cu")
+                         "paged_verify.cu, bitstopper_qk.cu and "
+                         "flash_attention.cu")
     args = ap.parse_args(argv)
     import torch
     root = Path(__file__).resolve().parent
@@ -46,6 +53,7 @@ def main(argv=None) -> None:
     import chip_smoke as cs
     from repro_torch.core.besf import BitStopperConfig
     from repro_torch.kernels import bitstopper_qk as bq
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import paged_verify as pv
     from repro_torch.kernels import runtime
@@ -134,8 +142,50 @@ def main(argv=None) -> None:
               f"{times['other'][0]:.4f} and {times['other'][1]:.4f}, this "
               f"{times['this'][0]:.4f} and {times['this'][1]:.4f}; this / "
               f"other {sum(times['this']) / sum(times['other']):.3f}")
+
+    fns = {}
+    for who, lib in (("other", ctypes.CDLL(str(other_libs[
+            "flash_attention"]))),
+                     ("this", runtime.load_library("flash_attention"))):
+        fns[who] = lib.flash_attention_launch
+        fns[who].argtypes = fa._ARGTYPES
+        fns[who].restype = ctypes.c_int
+    q, k, v = cs.uncached_case(torch, 301)
+    N, S, d = q.shape
+    blk = min(128, S)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def flash(fn, out, causal):
+        if fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), N, S,
+              S, d, d, blk, blk, int(causal), 1.0 / d ** 0.5, stream) != 0:
+            raise SystemExit("flash_attention failed to launch")
+
+    for causal in (False, True):
+        got = {}
+        for who, fn in fns.items():
+            got[who] = torch.empty_like(q)
+            flash(fn, got[who], causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = {who: float((o - want).abs().max()) for who, o in got.items()}
+        if max(err.values()) > cs.UNCACHED_TOL:
+            failed.append(f"flash_attention causal={causal} vs plain")
+        print(f"[compare] flash_attention causal={causal}: max|this - "
+              f"other| {float((got['this'] - got['other']).abs().max()):.3e};"
+              f" max|out - plain| other {err['other']:.3e}, this "
+              f"{err['this']:.3e} (limit {cs.UNCACHED_TOL:g})")
+    out = torch.empty_like(q)
+    times = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        times[who].append(cs.cuda_ms(
+            torch, lambda: flash(fns[who], out, True), iters=10, warmup=2))
+    print(f"[compare] flash_attention causal (N={N}, S={S}, d={d}): kernel "
+          f"alone ms: other {times['other'][0]:.4f} and "
+          f"{times['other'][1]:.4f}, this {times['this'][0]:.4f} and "
+          f"{times['this'][1]:.4f}; this / other "
+          f"{sum(times['this']) / sum(times['other']):.3f}")
     if failed:
-        raise SystemExit(f"[compare] the two versions disagree: {failed}")
+        raise SystemExit(f"[compare] checks failed: {failed}")
 
 
 if __name__ == "__main__":

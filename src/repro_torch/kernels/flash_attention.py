@@ -29,8 +29,9 @@ LAUNCHES = 0
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
              + [ctypes.c_void_p])
 KERNEL_DV = (16, 32, 64, 128, 160)   # value widths the kernel is built for
-MAX_HEAD = 160              # widest q/k head whose tiles fit the card's
-                            # 227 KB of shared memory at 128-row tiles
+MAX_HEAD = 160              # widest q/k head the kernel takes (at 256 q's
+                            # split operands and two K/V stages exceed the
+                            # card's 227 KB of shared memory)
 MAX_BLOCK = 128             # largest q or kv tile the kernel takes
 
 
