@@ -35,7 +35,18 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    every attention impl; each kernel impl must launch its kernel once per
    layer, and its logits must agree with the plain impl's (same argmax at
    every position);
-7. prints one JSON line describing each kernel, then the device line last.
+7. sampled path: (a) the seeded sampler on the card against the CPU on
+   [20, 100352] logits (key words, random bits and uniforms bit-equal,
+   tokens equal); (b) the main path's trace sampled at temperature 0.7,
+   uncontended and oversubscribed on a pool too small for the worst-case
+   reservations: at least one preemption, the uncontended run's tokens,
+   one decode launch per layer per decode tick in both runs; (c)
+   speculative serving at temperature 0.7 with drafts replaying (b)'s
+   tokens, and with the n-gram drafter on the speculative phase's
+   repeated-pattern trace, gives the plain sampled tokens.  Prints tokens/s, the sampled and greedy decode
+   ticks, preemptions and recomputed tokens, and the sampler's ms and
+   launches per tick;
+8. prints one JSON line describing each kernel, then the device line last.
 
 Any failed check exits non-zero.  Without a card it exits non-zero and
 prints no result.  ``--profile`` instead profiles decode ticks, a prefill
@@ -71,6 +82,13 @@ UNCACHED_TOL = 2e-5              # bitstopper_qk / flash vs plain output
 FWD_B, FWD_S = 2, 1024           # the forward path's prompts
 KERNELS = ("paged_decode", "paged_verify", "bitstopper_qk",
            "flash_attention")
+TEMPERATURE, SAMPLE_SEED = 0.7, 7  # the sampled path's
+# Physical blocks of the sampled path's oversubscribed run (null block
+# included).  The schedule depends only on the prompt lengths (no eos), so
+# it was sized on the CPU with the reduced model: the main trace's four
+# largest worst-case footprints need 100 blocks, and at 92 one decoding
+# request (13 tokens generated) is preempted and recomputes 16 tokens.
+OVERSUB_POOL_BLOCKS = 92
 
 
 def phase(name):
@@ -864,11 +882,11 @@ def main_path_phase(torch, cfg, params):
                          f"{streams[0]} vs {streams[1]}")
     print(f"[chip_smoke] fused and plain decode give identical tokens on "
           f"{len(streams[0])} requests")
-    return launches, reqs
+    return launches, reqs, float(np.mean(tick_ms["decode"]))
 
 
 def serve_speculative(torch, np, cfg, params, prompts, new_tokens,
-                      drafter=None, label="", **kw):
+                      drafter=None, label="", seed=0, **kw):
     """Serve ``prompts`` speculatively (k = SPEC_K) and check the launch
     counts: with the kernels, one verify launch per layer per verify forward
     (bailouts included) and one decode launch per layer per plain decode
@@ -925,7 +943,7 @@ def serve_speculative(torch, np, cfg, params, prompts, new_tokens,
     with LaunchTimer(torch, pv) as timer:
         pd.LAUNCHES = pv.LAUNCHES = 0
         t = time.perf_counter()
-        eng.generate(reqs)
+        eng.generate(reqs, seed)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = (pd.LAUNCHES, pv.LAUNCHES)
@@ -1037,6 +1055,256 @@ def speculative_phase(torch, cfg, params, plain_reqs):
     print(f"[chip_smoke] at depth {depth}: speculative kernels, speculative "
           f"plain oracles and plain greedy give identical tokens")
     return verify_launches
+
+
+def count_ops(torch, fn):
+    """Device operations ``fn`` issues: the CUDA kernels and copies
+    torch.profiler records, and the aten operators it dispatches (one
+    kernel each, bar views)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    torch.cuda.synchronize()
+    with Count():
+        fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            if "memcpy" in ev.key.lower() or "memset" in ev.key.lower():
+                copies += ev.count
+            else:
+                kernels += ev.count
+    return kernels, copies, Count.n
+
+
+class SamplerTimer:
+    """CUDA events around every call of the engine's sampler while the
+    context is open: the device span from the sampler's first kernel to its
+    last, idle gaps between launches included."""
+
+    def __init__(self, torch):
+        from repro_torch.serving import engine
+        self.torch, self.engine, self.events = torch, engine, []
+        self.real = engine.sample_tokens
+
+    def _timed(self, *a):
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.real(*a)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def __enter__(self):
+        self.engine.sample_tokens = self._timed
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.sample_tokens = self.real
+
+    def ms(self) -> float:
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def sampler_card_vs_cpu(torch, vocab):
+    """(a) The seeded sampler on [20, vocab] logits made from a seed: key
+    words, random bits and uniforms bit-equal between the card and the
+    CPU, tokens equal at both temperatures.  Returns the kernels and
+    copies of one call at a decode tick's shape."""
+    import numpy as np
+    from repro_torch.serving import sampling as S
+    rng = np.random.default_rng(11)
+    R = 4 * (SPEC_K + 1)
+    logits = torch.as_tensor(rng.normal(size=(R, vocab)).astype(np.float32))
+    rids = rng.integers(0, 2**31 - 1, R).astype(np.int32)
+    counts = rng.integers(0, 4096, R).astype(np.int32)
+    keys = {}
+    for dev in ("cuda", "cpu"):
+        k = S.fold_in(S.fold_in(S.prng_key(SAMPLE_SEED, dev), rids), counts)
+        keys[dev] = (k, S.random_bits(k, vocab),
+                     S.uniform(k, vocab, float(np.finfo(np.float32).tiny)))
+    for name, a, b in zip(("key words", "random bits", "uniforms"),
+                          keys["cuda"], keys["cpu"]):
+        a = a.cpu()
+        if name == "uniforms":
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise SystemExit(f"[chip_smoke] sampler: {name} differ between "
+                             f"the card and the CPU in "
+                             f"{int((a != b).sum())} entries")
+    noise = (S.gumbel(keys["cuda"][0], vocab).cpu()
+             - S.gumbel(keys["cpu"][0], vocab)).abs().max()
+    card = logits.cuda()
+    for t in (TEMPERATURE, 1.0):
+        a = S.sample_tokens(S.prng_key(SAMPLE_SEED), card, rids, counts, t)
+        b = S.sample_tokens(S.prng_key(SAMPLE_SEED), logits, rids, counts, t)
+        if a.device.type != "cuda" or not torch.equal(a.cpu(), b):
+            raise SystemExit(f"[chip_smoke] sampler at temperature {t}: "
+                             f"card tokens {a.tolist()} vs CPU {b.tolist()}")
+    # Timed and counted as the engine calls it: base key on the host.
+    host_key = S.prng_key(SAMPLE_SEED).numpy()
+    ms = {}
+    for rows in (4, R):
+        x = card[:rows].contiguous()
+        ms[rows] = cuda_ms(torch, lambda: S.sample_tokens(
+            host_key, x, rids[:rows], counts[:rows], TEMPERATURE),
+            iters=20, warmup=3)
+    kernels, copies, aten = count_ops(torch, lambda: S.sample_tokens(
+        host_key, card[:4].contiguous(), rids[:4], counts[:4], TEMPERATURE))
+    print(f"[chip_smoke] sampler [{R}, {vocab}] on the card vs the CPU: key "
+          f"words, random bits and uniforms bit-equal, tokens equal at "
+          f"temperatures {TEMPERATURE} and 1.0; max|gumbel diff| "
+          f"{float(noise):.3e}")
+    print(f"[chip_smoke] sampler alone (CUDA events): {ms[4]:.4f} ms at [4, "
+          f"{vocab}] (a decode tick), {ms[R]:.4f} ms at [{R}, {vocab}] (a "
+          f"verify tick); one call at [4, {vocab}]: {kernels} kernels and "
+          f"{copies} copies (torch.profiler), {aten} aten operators on "
+          f"both devices (keys folded on the host)")
+    return kernels, copies
+
+
+def serve_sampled(torch, np, cfg, params, label, **kw):
+    """The main path's trace at TEMPERATURE under SAMPLE_SEED.  Returns the
+    engine, the tokens, the decode launches, the mean pure decode tick and
+    the sampler's CUDA-event ms over the run."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
+    eng = PagedEngine(cfg, params, ServeConfig(
+        max_slots=4, page_size=16, max_len=512, temperature=TEMPERATURE,
+        **kw))
+    if not eng.cfg.fused_decode:
+        raise SystemExit(f"[chip_smoke] {label}: fused_decode did not "
+                         f"resolve to the kernel on the card")
+    decode_ms = []
+    real_tick = eng.step
+
+    def timed_step():
+        before = dict(eng.counters)
+        t = time.perf_counter()
+        out = real_tick()
+        torch.cuda.synchronize()
+        if (eng.counters["decode_steps"] > before["decode_steps"]
+                and eng.counters["prefill_chunks"] == before["prefill_chunks"]):
+            decode_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng.step = timed_step
+    reqs = make_requests(np, Request, 0, 8, 32, cfg.vocab)
+    with SamplerTimer(torch) as timer:
+        pd.LAUNCHES = 0
+        t = time.perf_counter()
+        eng.generate(reqs, SAMPLE_SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = pd.LAUNCHES
+    c = eng.counters
+    n_tok = sum(len(r.generated) for r in reqs)
+    print(f"[chip_smoke] {label}: {n_tok} new tokens in {wall:.3f} s "
+          f"({n_tok / wall:.2f} tok/s); {c['decode_steps']} decode ticks, "
+          f"pure decode ticks {len(decode_ms)} at mean "
+          f"{np.mean(decode_ms):.2f} ms; paged_decode launches {launches}; "
+          f"sampler {len(timer.events)} calls, {timer.ms():.3f} ms in all "
+          f"(CUDA events)")
+    if launches != cfg.n_layers * c["decode_steps"] or not c["decode_steps"]:
+        raise SystemExit(f"[chip_smoke] {label}: {launches} decode launches "
+                         f"for {c['decode_steps']} ticks x {cfg.n_layers} "
+                         f"layers")
+    for r in reqs:
+        if len(r.generated) != 32 or not all(0 <= x < cfg.vocab
+                                             for x in r.generated):
+            raise SystemExit(f"[chip_smoke] {label}: request {r.rid} "
+                             f"generated {r.generated}")
+    return (eng, [r.generated for r in reqs], launches,
+            float(np.mean(decode_ms)), timer)
+
+
+@phase("sampled path")
+def sampled_path_phase(torch, cfg, params, greedy_tick_ms):
+    """(a) the sampler on the card against the CPU, (b) the main trace
+    sampled, uncontended and oversubscribed, (c) sampled speculative
+    serving.  Returns the decode kernel's launches in (b) and the verify
+    kernel's in (c)'s replay run."""
+    import numpy as np
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
+    kernels, copies = sampler_card_vs_cpu(torch, cfg.vocab)
+
+    full, want, l_full, tick_ms, timer = serve_sampled(
+        torch, np, cfg, params, "sampled (b) uncontended")
+    worst = sum(sorted(-(-(len(p) + 31) // 16) for p in
+                       (r.prompt for r in full.requests.values()))[-4:])
+    print(f"[chip_smoke] sampled (b): oversubscribed pool {OVERSUB_POOL_BLOCKS}"
+          f" blocks (capacity {OVERSUB_POOL_BLOCKS - 1}) against {worst} for "
+          f"the four largest worst-case reservations; uncontended pool "
+          f"{full.layout.pool_blocks}")
+    over, got, l_over, _, _ = serve_sampled(
+        torch, np, cfg, params, "sampled (b) oversubscribed",
+        oversubscribe=True, pool_blocks=OVERSUB_POOL_BLOCKS)
+    c = over.counters
+    recomputed = c["prefill_tokens"] - full.counters["prefill_tokens"]
+    print(f"[chip_smoke] sampled (b) oversubscribed: {c['preemptions']} "
+          f"preemptions ({[r.preemptions for r in over.requests.values()]} "
+          f"by request), {c['preempt_freed_blocks']} blocks freed, "
+          f"{c['preempt_dropped_tokens']} cached tokens dropped, {recomputed} "
+          f"tokens recomputed on resume; peak live blocks "
+          f"{over.pool.peak_live_blocks} vs {full.pool.peak_live_blocks}")
+    if c["preemptions"] < 1:
+        raise SystemExit("[chip_smoke] sampled (b): the oversubscribed run "
+                         "preempted nothing")
+    if got != want:
+        raise SystemExit(f"[chip_smoke] sampled (b): oversubscribed tokens "
+                         f"differ from the uncontended run's: {got} vs {want}")
+    if over.pool.available() != over.pool.capacity:
+        raise SystemExit("[chip_smoke] sampled (b): the pool did not drain")
+    per_tick = timer.ms() / len(timer.events)
+    print(f"[chip_smoke] sampled (b): oversubscribed tokens equal to the "
+          f"uncontended run's; mean pure decode tick sampled {tick_ms:.2f} "
+          f"ms vs greedy {greedy_tick_ms:.2f} ms (main path, this call); "
+          f"sampler {per_tick:.4f} ms per call on the served path (CUDA "
+          f"events), {kernels} kernels + {copies} copies per decode tick")
+
+    # (c) Speculative serving at TEMPERATURE against the plain sampled
+    # runs: the main trace with drafts replaying (b)'s tokens, and the
+    # speculative phase's repeated-pattern trace with the n-gram drafter.
+    reqs = [full.requests[rid] for rid in sorted(full.requests)]
+    eng, got, verify_launches = serve_speculative(
+        torch, np, cfg, params, [r.prompt for r in reqs], 32,
+        ReplayDrafter(np, reqs), "sampled (c) replay", seed=SAMPLE_SEED,
+        speculative="draft", temperature=TEMPERATURE)
+    if got != want:
+        raise SystemExit("[chip_smoke] sampled (c): replay speculative "
+                         "tokens differ from plain sampled")
+    if eng.counters["spec_accepted"] == 0:
+        raise SystemExit("[chip_smoke] sampled (c) replay accepted no draft")
+    rng = np.random.default_rng(5)
+    prompts = [np.resize(rng.integers(0, cfg.vocab, 6 + 5 * i,
+                                      dtype=np.int32), 96 + 32 * i)
+               for i in range(4)]
+    plain = [Request(prompt=p.copy(), max_new_tokens=16) for p in prompts]
+    PagedEngine(cfg, params, ServeConfig(
+        max_slots=4, page_size=16, max_len=512,
+        temperature=TEMPERATURE)).generate(plain, SAMPLE_SEED)
+    want = [r.generated for r in plain]
+    _, got, _ = serve_speculative(
+        torch, np, cfg, params, prompts, 16, label="sampled (c) ngram",
+        seed=SAMPLE_SEED, speculative="ngram", temperature=TEMPERATURE)
+    if got != want:
+        raise SystemExit("[chip_smoke] sampled (c): n-gram speculative "
+                         "tokens differ from plain sampled")
+    print("[chip_smoke] sampled (c): replay and n-gram speculative serving "
+          "give the plain sampled tokens")
+    return l_full + l_over, verify_launches
 
 
 @phase("profile")
@@ -1154,10 +1422,14 @@ def main(argv=None):
     rows = [kernel_phase(torch), verify_kernel_phase(torch),
             qk_kernel_phase(torch), flash_kernel_phase(torch)]
     cfg, params = build_model(torch)
-    rows[0]["launches"], plain_reqs = main_path_phase(torch, cfg, params)
+    rows[0]["launches"], plain_reqs, greedy_tick_ms = main_path_phase(
+        torch, cfg, params)
     rows[1]["launches"] = speculative_phase(torch, cfg, params, plain_reqs)
     rows[2]["launches"], rows[3]["launches"] = forward_path_phase(
         torch, cfg, params)
+    (rows[0]["launches_sampled_path"],
+     rows[1]["launches_sampled_path"]) = sampled_path_phase(
+        torch, cfg, params, greedy_tick_ms)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,11 @@ over a mixed-length request trace.
 
 ``python -m repro_torch.launch.serve --arch stablelm-1.6b`` (on the card;
 ``--device cpu`` runs the plain PyTorch path; ``--speculative ngram|draft
---draft-k 4`` serves speculatively).  Mirror of ``repro/launch/serve.py``
-for what this port serves: the paged engine, greedy, reduced-width configs
-with seeded random weights.
+--draft-k 4`` serves speculatively; ``--temperature 0.7`` samples under
+``--seed``; ``--oversubscribe --pool-blocks N`` preempts when the pool runs
+dry).  Mirror of ``repro/launch/serve.py`` for what this port serves: the
+paged engine with deadlines, SLO classes and load shedding, reduced-width
+configs with seeded random weights.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ def make_trace(rng, vocab, n_requests, min_len, max_len, new_tokens,
 
 
 def main(argv=None):
+    """Serve the trace; returns its requests with their tokens."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--alpha", type=float, default=0.6)
@@ -50,6 +53,9 @@ def main(argv=None):
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend a common system prompt of this many "
                          "tokens to every request (prefix-sharing demo)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy); tokens are a "
+                         "pure function of (--seed, request, token index)")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV block (a multiple of 8)")
     ap.add_argument("--pool-blocks", type=int, default=None,
@@ -57,6 +63,16 @@ def main(argv=None):
                          "capacity for all slots)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="prompt tokens prefilled per scheduler tick")
+    ap.add_argument("--oversubscribe", action="store_true",
+                    help="admit against context-sized reservations instead "
+                         "of worst-case max-new-tokens; mid-decode pool "
+                         "exhaustion preempts a victim (freed + requeued; "
+                         "resume is lossless, tokens never change)")
+    ap.add_argument("--preempt-policy", default="fewest_tokens",
+                    choices=["fewest_tokens", "lifo"],
+                    help="victim choice under --oversubscribe: least "
+                         "generated output (cheapest recompute) or newest "
+                         "admission")
     ap.add_argument("--fused-decode", default="auto",
                     choices=["auto", "on", "off"],
                     help="BitStopper decode through the CUDA kernel (on), "
@@ -70,6 +86,19 @@ def main(argv=None):
                          "many verify forwards they take")
     ap.add_argument("--draft-k", type=int, default=4,
                     help="draft tokens proposed per speculative tick")
+    ap.add_argument("--deadline", type=int, default=None, metavar="TICKS",
+                    help="default per-request deadline in scheduler ticks "
+                         "from submission; expiry truncates started "
+                         "requests (emitted tokens stay a prefix of the "
+                         "undisturbed stream) and sheds never-started ones")
+    ap.add_argument("--shed-watermark", type=float, default=None,
+                    metavar="FRAC",
+                    help="shed queued besteffort requests while pool "
+                         "saturation exceeds this fraction (requires "
+                         "--oversubscribe)")
+    ap.add_argument("--besteffort-tail", type=int, default=0, metavar="N",
+                    help="mark the last N trace requests slo=besteffort "
+                         "(sheddable; preferred preemption victims)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--seed", type=int, default=0)
@@ -83,18 +112,25 @@ def main(argv=None):
     params = T.init_model(cfg, gen, device)
     scfg = ServeConfig(
         max_len=args.shared_prefix + args.max_prompt + args.new_tokens + 8,
-        max_slots=args.slots, page_size=args.page_size,
-        pool_blocks=args.pool_blocks, prefill_chunk=args.prefill_chunk,
+        max_slots=args.slots, temperature=args.temperature,
+        page_size=args.page_size, pool_blocks=args.pool_blocks,
+        prefill_chunk=args.prefill_chunk,
         fused_decode={"auto": None, "on": True, "off": False}[
             args.fused_decode],
-        speculative=args.speculative, draft_k=args.draft_k)
+        speculative=args.speculative, draft_k=args.draft_k,
+        oversubscribe=args.oversubscribe,
+        preempt_policy=args.preempt_policy, deadline_ticks=args.deadline,
+        shed_watermark=args.shed_watermark)
     engine = PagedEngine(cfg, params, scfg, device=device)
     rng = np.random.default_rng(args.seed)
     reqs = make_trace(rng, cfg.vocab, args.requests, args.min_prompt,
                       args.max_prompt, args.new_tokens,
                       shared_prefix=args.shared_prefix)
+    if args.besteffort_tail:
+        for r in reqs[len(reqs) - args.besteffort_tail:]:
+            r.slo = "besteffort"
     t0 = time.perf_counter()
-    engine.generate(reqs)
+    engine.generate(reqs, seed=args.seed)
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -112,10 +148,24 @@ def main(argv=None):
               f"{c['spec_accepted']}/{c['spec_proposed']} drafts accepted "
               f"({acc:.0%}), {c['spec_bailouts']} scale-growth bailouts, "
               f"{c['decode_tokens']}/{c['decode_steps']} tokens/tick")
+    if args.oversubscribe:
+        c = engine.counters
+        print(f"[serve] oversubscribed({args.preempt_policy}): "
+              f"{c['preemptions']} preemptions, "
+              f"{c['preempt_freed_blocks']} blocks reclaimed, "
+              f"{c['preempt_dropped_tokens']} cached tokens dropped "
+              f"(resume re-maps registered blocks, recomputes the "
+              f"unshared tail)")
+    if args.deadline is not None or args.shed_watermark is not None:
+        c = engine.counters
+        print(f"[serve] qos: {c['requests_shed']} shed (watermark "
+              f"{c['shed_watermark']} / deadline {c['shed_deadline']}), "
+              f"{c['deadline_truncated']} deadline-truncated")
     print(f"[serve] kv pool: page_size={engine.layout.page_size} "
           f"blocks={engine.layout.pool_blocks} "
           f"peak_live={engine.pool.peak_live_blocks} "
           f"resident={engine.kv_bytes_resident() / 1024:.1f} KiB")
+    return reqs
 
 
 if __name__ == "__main__":

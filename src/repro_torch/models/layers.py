@@ -138,7 +138,7 @@ def init_mlp(generator, d: int, d_ff: int, kind: str = "swiglu",
 
 
 def _gelu(x):
-    # jax.nn.gelu defaults to the tanh approximation.
+    # The reference's gelu defaults to the tanh approximation.
     return F.gelu(x, approximate="tanh")
 
 

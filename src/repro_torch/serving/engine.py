@@ -4,7 +4,24 @@ Counterpart of the ``PagedEngine`` core of ``repro/serving/engine.py``: a
 refcounted block-pool KV cache (``kv_pool.KVBlockPool`` owns the host-side
 allocation), admission bounded by pool capacity, copy-on-write sharing of
 full prompt-prefix blocks, chunked prefill interleaved with decode ticks,
-and greedy sampling.
+seeded schedule-invariant sampling, and oversubscribed admission with
+victim preemption, lossless resume, deadlines, SLO classes and load
+shedding.
+
+Sampling (``serving/sampling.py``): token n of request rid draws under
+``fold_in(fold_in(seed, rid), n)`` with the reference's threefry keys, so a
+sampled trace does not depend on slot assignment, prefill chunking,
+preemption or speculative acceptance.
+
+Oversubscription (``ServeConfig.oversubscribe``): admission reserves the
+context blocks plus one decode block instead of the worst case; a
+mid-decode claim that finds the pool dry preempts a victim (SLO class,
+then deadline slack, then ``preempt_policy``), frees its exclusive blocks,
+drops a reference on its shared ones and requeues it.  The victim resumes
+by prefilling its context (prompt plus generated tokens) and replays its
+last sampled token.  Deadlines (``deadline_ticks``, per request or by
+default) truncate a started request and shed a queued one that never
+started; past ``shed_watermark`` queued besteffort requests are shed.
 
 Decode runs the paged BESF decode once per layer per tick: the CUDA kernel
 ``kernels/csrc/paged_decode.cu`` when ``fused_decode`` resolves True (the
@@ -20,11 +37,10 @@ tail's blocks are rolled back.  A draft write that grows a pool-wide quant
 scale is undone and the tick replayed plain, so traces equal
 non-speculative serving.
 
-Not ported yet (each is a queue A item in ROADMAP.md): seeded sampling,
-oversubscription and preemption, deadlines and shedding,
-chaos/snapshot/restore and the fused-kernel circuit breaker, the swap and
-prefix-store tiers, the engine API, mesh sharding, and the contiguous and
-static engines.
+Not ported yet (each is a queue A item in ROADMAP.md): chaos, snapshot and
+restore and the fused-kernel circuit breaker, the swap and prefix-store
+tiers, ``memory_report``, the engine API, mesh sharding, the bf16 cache,
+and the contiguous and static engines.
 """
 
 from __future__ import annotations
@@ -42,6 +58,7 @@ from repro_torch.models.attention import (POS_SENTINEL, PagedLayout,
                                           undo_paged_write)
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.kv_pool import KVBlockPool
+from repro_torch.serving.sampling import prng_key, sample_tokens
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +66,7 @@ class ServeConfig:
     max_len: int = 512                # default sizing of the paged pool
     max_slots: int = 4                # concurrent decode batch width
     prefill_bucket: int = 16          # prefill chunks pad up to a multiple
-    temperature: float = 0.0          # 0 = greedy (the only mode ported)
+    temperature: float = 0.0          # 0 = greedy
     cache_dtype: str = "float32"
     eos_id: int | None = None         # optional early stop token
     page_size: int = 16               # tokens per KV block
@@ -60,6 +77,14 @@ class ServeConfig:
     prefill_chunk: int | None = None  # prompt tokens per prefill tick
                                       # (default 4 * prefill_bucket)
     prefix_sharing: bool = True       # share full prompt-prefix blocks
+    oversubscribe: bool = False       # admit against context-sized
+                                      # reservations instead of the worst
+                                      # case; a dry pool mid-decode preempts
+                                      # a victim (freed, requeued, resumed
+                                      # losslessly by prefill recompute)
+    preempt_policy: str = "fewest_tokens"  # victim choice: "fewest_tokens"
+                                      # (least generated) | "lifo" (newest
+                                      # admitted)
     fused_decode: bool | None = None  # BitStopper decode through the CUDA
                                       # kernel (True), the plain oracle
                                       # (False), or auto: kernel iff the
@@ -68,6 +93,14 @@ class ServeConfig:
                                       # self-drafter) | "draft" (draft
                                       # transformer; defaults to self-draft)
     draft_k: int = 4                  # draft tokens proposed per tick
+    deadline_ticks: int | None = None # default per-request deadline in
+                                      # scheduler ticks from submission
+                                      # (Request.deadline_ticks overrides);
+                                      # expiry truncates a started request
+                                      # and sheds a never-started one
+    shed_watermark: float | None = None  # pool saturation past which queued
+                                      # besteffort requests are shed
+                                      # (needs oversubscribe=True)
 
     def __post_init__(self):
         for name in ("max_len", "max_slots", "prefill_bucket", "page_size"):
@@ -77,14 +110,14 @@ class ServeConfig:
         if self.temperature < 0.0:
             raise ValueError(f"temperature must be >= 0, got "
                              f"{self.temperature}")
-        if self.temperature > 0.0:
-            raise NotImplementedError(
-                "seeded sampling (temperature > 0) is not ported yet "
-                "(ROADMAP A5); serve greedy with temperature=0")
+        if self.cache_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"cache_dtype must be float32|bfloat16, got "
+                             f"{self.cache_dtype!r}")
         if self.cache_dtype != "float32":
             raise NotImplementedError(
                 f"cache_dtype {self.cache_dtype!r}: the port's paged decode "
-                f"kernel takes an f32 V pool; only float32 is ported")
+                f"kernel takes an f32 V pool; only float32 is ported "
+                f"(ROADMAP A10)")
         if self.pool_blocks is not None and self.pool_blocks < 2:
             raise ValueError("pool_blocks must be >= 2 (block 0 is the "
                              f"null block), got {self.pool_blocks}")
@@ -103,12 +136,30 @@ class ServeConfig:
             raise ValueError(
                 f"page_size must be a multiple of 8 (bit planes pack 8 "
                 f"tokens/byte along the page axis), got {self.page_size}")
+        if self.preempt_policy not in ("fewest_tokens", "lifo"):
+            raise ValueError(
+                f"preempt_policy must be fewest_tokens|lifo, got "
+                f"{self.preempt_policy!r}")
         if self.speculative not in ("off", "ngram", "draft"):
             raise ValueError(
                 f"speculative must be off|ngram|draft, got "
                 f"{self.speculative!r}")
         if self.draft_k < 1:
             raise ValueError(f"draft_k must be >= 1, got {self.draft_k}")
+        if self.deadline_ticks is not None and self.deadline_ticks < 1:
+            raise ValueError(f"deadline_ticks must be >= 1, got "
+                             f"{self.deadline_ticks}")
+        if self.shed_watermark is not None:
+            if not 0.0 < self.shed_watermark < 1.0:
+                raise ValueError(
+                    f"shed_watermark must be in (0, 1), got "
+                    f"{self.shed_watermark}")
+            if not self.oversubscribe:
+                raise ValueError(
+                    "shed_watermark requires oversubscribe=True: worst-case"
+                    "-reserved admission blocks the head of line instead of "
+                    "overcommitting the pool, so saturation-based shedding "
+                    "could never relieve preemption pressure")
 
     def resolved_max_blocks(self) -> int:
         return self.max_blocks_per_req or -(-self.max_len // self.page_size)
@@ -127,18 +178,38 @@ class Request:
     max_new_tokens: int = 32
     generated: list = dataclasses.field(default_factory=list)
     rid: int = -1                     # assigned at submit()
+    deadline_ticks: int | None = None # per-request deadline in scheduler
+                                      # ticks from submission (overrides
+                                      # ServeConfig.deadline_ticks)
+    slo: str = "standard"             # "besteffort" (sheddable past the
+                                      # watermark, victimized first) |
+                                      # "standard" | "strict" (victimized
+                                      # last)
+    # per-request accounting, filled by the engine
     prefill_len: int = 0
     admitted_step: int = -1
     finished_step: int = -1
+    preemptions: int = 0              # times this request was victimized
+    submitted_tick: int = -1          # engine tick at submit()
+    shed_reason: str | None = None    # "watermark" | "deadline" when the
+                                      # engine rejected it (no tokens)
+    deadline_hit: bool = False        # finished by deadline truncation
+                                      # (generated is a prefix of the
+                                      # undisturbed stream)
 
 
 @dataclasses.dataclass
 class _PagedSlot:
     """Scheduler-side state of one occupied serving slot."""
     req: Request
-    next_prefill: int          # prompt tokens [0, next_prefill) are cached
+    next_prefill: int          # ctx tokens [0, next_prefill) are cached
     blocks_reserved: int       # reservation units not yet turned into allocs
-    ctx: np.ndarray            # the prompt
+    ctx: np.ndarray            # prefill tokens: the prompt, or on resume
+                               # the prompt plus every generated token but
+                               # the last (the next decode input)
+    resumed: bool = False      # resuming after preemption: the last
+                               # generated token is replayed, not re-sampled
+    seq: int = 0               # admission order (LIFO victim policy)
 
     def prefilled(self) -> bool:
         return self.next_prefill >= len(self.ctx)
@@ -237,7 +308,11 @@ class PagedEngine:
         self.last_token = np.zeros((B,), np.int32)
         self._prefill_fifo: collections.deque[int] = collections.deque()
         self._next_rid = 0
+        self._admit_seq = 0
         self._step = 0
+        self._base_key = prng_key(0).numpy()  # host words, like the rids
+        # The engine's only clock: deadlines key on it, never on wall time.
+        self.ticks = 0
         self.requests: dict[int, Request] = {}
         self.counters = {"prefill_tokens": 0, "prefix_hit_tokens": 0,
                          "prefill_chunks": 0, "decode_tokens": 0,
@@ -245,26 +320,46 @@ class PagedEngine:
                          "decode_kv_tokens": 0, "requests_finished": 0,
                          "spec_ticks": 0, "spec_proposed": 0,
                          "spec_accepted": 0, "spec_bailouts": 0,
+                         "preemptions": 0, "preempt_freed_blocks": 0,
+                         "preempt_dropped_tokens": 0,
+                         "requests_shed": 0, "shed_watermark": 0,
+                         "shed_deadline": 0, "deadline_truncated": 0,
                          "drafter_failures": 0}
 
     # ------------------------------------------------------------------
     # tick loop
     # ------------------------------------------------------------------
 
+    def begin(self, seed: int = 0) -> None:
+        """Fix the sampling seed for a serving run (split out of
+        :meth:`run` so a caller can own the tick loop)."""
+        self._base_key = prng_key(seed).numpy()
+
     def pending(self) -> bool:
         return bool(self.queue or any(r is not None for r in self.slots))
 
-    def run(self) -> None:
+    def run(self, seed: int = 0) -> None:
+        """Serve queue and slots to completion, deterministically under
+        ``seed``."""
+        self.begin(seed)
         while self.pending():
             self.step()
 
-    def generate(self, requests: list[Request]) -> list[Request]:
+    def generate(self, requests: list[Request],
+                 seed: int = 0) -> list[Request]:
         """Serve the requests to completion; returns them with
         ``generated`` filled."""
         for r in requests:
             self.submit(r)
-        self.run()
+        self.run(seed)
         return requests
+
+    def _sample_rows(self, logits: torch.Tensor, rids,
+                     counts) -> np.ndarray:
+        """Tokens for logits rows ``[R, V]`` under the rows' (rid, token
+        index) keys; the one host sync of a tick's sampling."""
+        return sample_tokens(self._base_key, logits, rids, counts,
+                             self.scfg.temperature).cpu().numpy()
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
@@ -332,7 +427,7 @@ class PagedEngine:
     # scheduling
     # ------------------------------------------------------------------
 
-    def submit(self, req: Request) -> Request:
+    def _validate_request(self, req: Request) -> None:
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         need = self._blocks_for(req)
@@ -344,20 +439,53 @@ class PagedEngine:
             raise ValueError(
                 f"request needs {need} KV blocks, pool has "
                 f"{self.pool.capacity} (raise pool_blocks)")
+        if req.slo not in ("besteffort", "standard", "strict"):
+            raise ValueError(
+                f"slo must be besteffort|standard|strict, got {req.slo!r}")
+        if req.deadline_ticks is not None and req.deadline_ticks < 1:
+            raise ValueError(
+                f"deadline_ticks must be >= 1, got {req.deadline_ticks}")
+
+    def _register(self, req: Request) -> None:
+        """Record the request under its rid, assigning one if unset.  A
+        pre-assigned rid fixes the request's sampling identity, so the
+        order of submission cannot change a served token."""
         if req.rid < 0:
             req.rid = self._next_rid
+        elif (req.rid in self.requests
+              and self.requests[req.rid] is not req):
+            raise ValueError(
+                f"rid {req.rid} already belongs to another request")
         self._next_rid = max(self._next_rid, req.rid + 1)
         self.requests[req.rid] = req
+
+    def submit(self, req: Request) -> Request:
+        self._validate_request(req)
+        self._register(req)
+        req.submitted_tick = self.ticks
         self.queue.append(req)
         return req
 
-    def _match_prefix(self, tokens: np.ndarray) -> list[int]:
+    def _deadline_of(self, req: Request) -> int | None:
+        """Effective deadline in ticks from submission: a request submitted
+        at tick t is expired once ``ticks > t + deadline``."""
+        return (req.deadline_ticks if req.deadline_ticks is not None
+                else self.scfg.deadline_ticks)
+
+    def _expired(self, req: Request) -> bool:
+        ddl = self._deadline_of(req)
+        return ddl is not None and self.ticks > req.submitted_tick + ddl
+
+    def _match_prefix(self, tokens: np.ndarray,
+                      keep_last: bool = True) -> list[int]:
         """Longest chain of already-cached full blocks of ``tokens`` (refs
-        taken), always leaving at least one token to prefill: its forward
-        gives the logits of the first new token."""
+        taken).  With ``keep_last`` at least one token is left to prefill:
+        its forward gives the logits of the first new token.  A resumed
+        request knows its next input (``generated[-1]``), so a fully cached
+        context needs no prefill."""
         bs = self._page
         matched: list[int] = []
-        for j in range((len(tokens) - 1) // bs):
+        for j in range((len(tokens) - (1 if keep_last else 0)) // bs):
             bid = self.pool.lookup(tuple(int(t) for t in
                                          tokens[:(j + 1) * bs]))
             if bid is None:
@@ -365,17 +493,59 @@ class PagedEngine:
             matched.append(bid)
         return matched
 
+    def _reserve_goal(self, total: int, n_ctx: int) -> int:
+        """Blocks admission must secure: the worst case, or oversubscribed
+        the context blocks plus one decode block."""
+        if not self.scfg.oversubscribe:
+            return total
+        return min(total, n_ctx + 1)
+
+    def _finish_queued(self, req: Request, shed_reason: str | None) -> None:
+        """Retire the head of the queue without serving it: shed with the
+        reason, or with ``None`` finish truncated (a preempted request
+        whose deadline lapsed in the queue)."""
+        self.queue.popleft()
+        req.finished_step = self._step
+        if shed_reason is None:
+            req.deadline_hit = True
+            self.counters["deadline_truncated"] += 1
+            self.counters["requests_finished"] += 1
+        else:
+            req.shed_reason = shed_reason
+            self.counters["requests_shed"] += 1
+            self.counters[f"shed_{shed_reason}"] += 1
+
     def _admit(self) -> None:
         while self.queue and None in self.slots:
             req = self.queue[0]
+            # Expired in the queue: a preempted request that already
+            # produced tokens finishes truncated (a prefix of its stream);
+            # one that never started is shed.
+            if self._expired(req):
+                self._finish_queued(req, None if req.generated
+                                    else "deadline")
+                continue
+            # Past the watermark, never-started besteffort requests are
+            # shed instead of admitted into a preemption storm.
+            if (self.scfg.shed_watermark is not None
+                    and req.slo == "besteffort" and not req.generated
+                    and self.pool.saturation() > self.scfg.shed_watermark):
+                self._finish_queued(req, "watermark")
+                continue
+            resumed = len(req.generated) > 0
             ctx = np.asarray(req.prompt, np.int32)
+            if resumed:
+                ctx = np.concatenate(
+                    [ctx, np.asarray(req.generated[:-1], np.int32)])
             Lc = len(ctx)
-            goal = self._blocks_for(req)
+            total = self._blocks_for(req)
             n_ctx = -(-Lc // self._page)
+            goal = self._reserve_goal(total, n_ctx)
             # Cheap pre-check before building O(L^2/page) prefix keys.
-            if goal - (Lc - 1) // self._page > self.pool.available():
+            max_match = (Lc - (0 if resumed else 1)) // self._page
+            if goal - max_match > self.pool.available():
                 break
-            matched = self._match_prefix(ctx)
+            matched = self._match_prefix(ctx, keep_last=not resumed)
             need = goal - len(matched)
             if need > self.pool.available():
                 for bid in matched:
@@ -388,20 +558,30 @@ class PagedEngine:
             row[:len(matched)] = matched
             for j in range(len(matched), n_ctx):
                 row[j] = self.pool.alloc(reserved=True)
+            # No swap or prefix-store tier is ported: the cached context is
+            # the prefix hit.
             hit_len = len(matched) * self._page
             self.table[slot] = row
             self.lengths[slot] = hit_len
             self.slots[slot] = _PagedSlot(req, next_prefill=hit_len,
                                           blocks_reserved=goal - n_ctx,
-                                          ctx=ctx)
-            self._prefill_fifo.append(slot)
-            req.prefill_len = Lc
-            req.admitted_step = self._step
+                                          ctx=ctx, resumed=resumed,
+                                          seq=self._admit_seq)
+            self._admit_seq += 1
+            if hit_len < Lc:
+                self._prefill_fifo.append(slot)
+            else:
+                # Fully cached resume: decode continues from the last
+                # sampled token.
+                self.last_token[slot] = int(req.generated[-1])
+            if not resumed:
+                req.prefill_len = Lc
+                req.admitted_step = self._step
             self.counters["prefix_hit_tokens"] += hit_len
 
     def _prefill_tick(self) -> None:
         """One bucket-padded chunk of the oldest admitted-but-unprefilled
-        request."""
+        request; a resumed request prefills its context the same way."""
         if not self._prefill_fifo:
             return
         slot = self._prefill_fifo[0]
@@ -423,7 +603,9 @@ class PagedEngine:
         self.counters["prefill_tokens"] += n
         self.counters["prefill_chunks"] += 1
 
-        # Publish newly completed full prompt blocks for prefix sharing.
+        # Publish newly completed full context blocks for prefix sharing
+        # (generated-region blocks of a resumed request share like prompt
+        # blocks).
         bs = self._page
         for j in range(s // bs, e // bs):
             key = tuple(int(t) for t in st.ctx[:(j + 1) * bs])
@@ -431,16 +613,29 @@ class PagedEngine:
 
         if e == L:
             self._prefill_fifo.popleft()
-            tok = int(torch.argmax(logits[0, n - 1]))
-            req.generated.append(tok)
-            self.last_token[slot] = tok
-            self._maybe_evict(slot, tok)
+            if st.resumed:
+                # The context's successor was sampled before the preemption:
+                # replay it as the next decode input.
+                self.last_token[slot] = int(req.generated[-1])
+            else:
+                tok = int(self._sample_rows(logits[0, n - 1:n], [req.rid],
+                                            [0])[0])
+                req.generated.append(tok)
+                self.last_token[slot] = tok
+                self._maybe_evict(slot, tok)
 
     def _maybe_evict(self, slot: int, tok: int) -> None:
         st = self.slots[slot]
+        if st is None:
+            return
         req = st.req
         done = len(req.generated) >= req.max_new_tokens
         if self.scfg.eos_id is not None and tok == self.scfg.eos_id:
+            done = True
+        # Mid-decode deadline: finish truncated after this tick's token.
+        if not done and self._expired(req):
+            req.deadline_hit = True
+            self.counters["deadline_truncated"] += 1
             done = True
         if not done:
             return
@@ -456,45 +651,165 @@ class PagedEngine:
         self.last_token[slot] = 0
         self.slots[slot] = None
 
+    def _decoding(self) -> list[int]:
+        return [i for i, st in enumerate(self.slots)
+                if st is not None and st.prefilled()]
+
     def step(self) -> bool:
         """One scheduler tick: admit, one prefill chunk, one decode step
         over every prefilled slot.  Returns False when there is no work."""
+        self.ticks += 1
         self._admit()
         self._prefill_tick()
-        active = [i for i, st in enumerate(self.slots)
-                  if st is not None and st.prefilled()]
+        active = self._decoding()
         if not active:
             return self.pending()
         self._step += 1
         # Materialize the block behind each decoding row's next write.
+        # Oversubscribed, a claim may preempt a victim, possibly a row of
+        # this tick, which then drops out (requeued, not lost).  Mandatory
+        # claims all happen here, so a speculative tick never preempts.
         for i in active:
+            if self.slots[i] is None:
+                continue
             j = int(self.lengths[i]) // self._page
             if self.table[i, j] == 0:
                 self._claim_block(i, j)
+        active = self._decoding()
+        if not active:
+            return True
         if self._drafter is not None:
             self._spec_decode_tick(active)
         else:
             self._plain_decode_tick(active)
         return True
 
-    def _claim_block(self, slot: int, j: int) -> int:
-        """Materialize table entry j out of the slot's admission
-        reservation."""
-        bid = self.pool.alloc(reserved=True)
-        self.slots[slot].blocks_reserved -= 1
+    # ------------------------------------------------------------------
+    # oversubscription: victim preemption and lossless requeue
+    # ------------------------------------------------------------------
+
+    def _freeable_blocks(self, slot: int) -> int:
+        """Capacity preempting this slot would release: its exclusively
+        held table entries plus its unclaimed reservation units."""
+        st = self.slots[slot]
+        n = st.blocks_reserved
+        for j in range(self._mb):
+            bid = int(self.table[slot, j])
+            if bid and self.pool.refcount(bid) == 1:
+                n += 1
+        return n
+
+    _SLO_RANK = {"besteffort": 0, "standard": 1, "strict": 2}
+
+    def _select_victim(self, needy: int) -> int | None:
+        """The slot to preempt so ``needy`` can claim a block: the lowest
+        SLO class, then the most deadline slack, then ``preempt_policy``
+        (fewest generated tokens, or the newest admission).  Slots whose
+        preemption would free nothing are never chosen."""
+        cands = [i for i, st in enumerate(self.slots)
+                 if st is not None and i != needy
+                 and self._freeable_blocks(i) > 0]
+        if not cands:
+            return None
+
+        def vkey(i):
+            st = self.slots[i]
+            req = st.req
+            ddl = self._deadline_of(req)
+            slack = (float("inf") if ddl is None
+                     else req.submitted_tick + ddl - self.ticks)
+            if self.scfg.preempt_policy == "lifo":
+                pol = (-st.seq,)
+            else:
+                pol = (len(req.generated), -st.seq)
+            return (self._SLO_RANK.get(req.slo, 1), -slack) + pol
+
+        return min(cands, key=vkey)
+
+    def _preempt(self, slot: int) -> None:
+        """Evict a running request and requeue it.  Exclusive blocks free
+        outright; shared or registered blocks drop a reference and stay
+        mapped or park in the LRU, so the resume re-maps them and
+        recomputes only the unshared tail.  ``generated`` is kept: its keys
+        are a pure function of (seed, rid, token index)."""
+        st = self.slots[slot]
+        req = st.req
+        L = int(self.lengths[slot])
+        exclusive, shared, dropped = [], [], 0
+        for j in range(self._mb):
+            bid = int(self.table[slot, j])
+            if not bid:
+                continue
+            if (self.pool.refcount(bid) == 1
+                    and not self.pool.is_registered(bid)):
+                exclusive.append(bid)
+                dropped += max(0, min(L - j * self._page, self._page))
+            else:
+                shared.append(bid)
+        self.pool.preempt(exclusive)
+        for bid in shared:
+            self.pool.decref(bid)
+        self.pool.cancel_reservation(st.blocks_reserved)
+        self.table[slot] = 0
+        self.counters["preempt_dropped_tokens"] += dropped
+        self.lengths[slot] = 0
+        self.last_token[slot] = 0
+        self.slots[slot] = None
+        if slot in self._prefill_fifo:
+            self._prefill_fifo.remove(slot)
+        req.preemptions += 1
+        self.counters["preemptions"] += 1
+        self.counters["preempt_freed_blocks"] += len(exclusive)
+        # Preempted requests resume ahead of never-admitted ones, in rid
+        # order among themselves.
+        pos = 0
+        for r in self.queue:
+            if r.preemptions > 0 and r.rid < req.rid:
+                pos += 1
+            else:
+                break
+        self.queue.insert(pos, req)
+
+    def _claim_block(self, slot: int, j: int, optional: bool = False) -> int:
+        """Materialize table entry j: out of the slot's reservation while
+        one remains, else (oversubscribed only) from spare capacity,
+        preempting victims until a block is free.  ``optional`` marks a
+        speculative draft-block claim; its caller has checked that a block
+        is free, so it never preempts."""
+        st = self.slots[slot]
+        if st.blocks_reserved > 0:
+            bid = self.pool.alloc(reserved=True)
+            st.blocks_reserved -= 1
+        else:
+            if not self.scfg.oversubscribe:
+                raise RuntimeError(
+                    "paged scheduler invariant violated: slot "
+                    f"{slot} needs a decode block but has no reservation")
+            while self.pool.available() < 1:
+                victim = self._select_victim(needy=slot)
+                if victim is None:
+                    raise RuntimeError(
+                        "oversubscribed pool wedged: no preemptable victim "
+                        f"can free a block for slot {slot}")
+                self._preempt(victim)
+            bid = self.pool.alloc()
         self.table[slot, j] = bid
         return bid
 
     def _plain_decode_tick(self, active: list[int]) -> None:
         """One decode step over every prefilled slot; rows still
         prefilling (or empty) decode at the pad sentinel and their cache
-        writes are dropped."""
+        writes are dropped.  Every active row's next-write block was
+        claimed in :meth:`step`."""
         positions = np.full((len(self.slots), 1), POS_SENTINEL, np.int32)
         for i in active:
             positions[i, 0] = self.lengths[i]
         logits = self._forward(self.last_token[:, None], positions,
                                slice(None))
-        toks = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        rids = [st.req.rid if st is not None else 0 for st in self.slots]
+        counts = [len(st.req.generated) if st is not None else 0
+                  for st in self.slots]
+        toks = self._sample_rows(logits[:, -1], rids, counts)
         self.counters["decode_steps"] += 1
         self.counters["decode_slot_steps"] += len(self.slots)
         self.counters["decode_kv_tokens"] += sum(
@@ -508,29 +823,34 @@ class PagedEngine:
             self._maybe_evict(i, int(toks[i]))
 
     def _return_draft_blocks(self, slot: int,
-                             blocks: list[tuple[int, int]]) -> None:
-        """Roll unused speculative blocks ``(table index, block)`` back to
-        the pool with their reservation units restored to the slot.  (Every
-        draft block comes out of the reservation: blocks claimed from spare
-        capacity come with oversubscription, ROADMAP A7.)"""
-        if blocks:
-            self.pool.rollback([bid for _, bid in blocks])
-            self.slots[slot].blocks_reserved += len(blocks)
+                             blocks: list[tuple[int, int, bool]]) -> None:
+        """Return unused speculative blocks ``(table index, block,
+        reserved)`` the way they came: one claimed from the slot's
+        reservation rolls back with its unit re-credited to the slot; one
+        claimed from oversubscribed spare capacity frees outright."""
+        reserved = [bid for _, bid, r in blocks if r]
+        spare = [bid for _, bid, r in blocks if not r]
+        if reserved:
+            self.pool.rollback(reserved)
+            self.slots[slot].blocks_reserved += len(reserved)
+        if spare:
+            self.pool.rollback(spare, reserve=False)
 
     def _spec_decode_tick(self, active: list[int]) -> None:
         """One speculative decode step: draft, verify, accept, roll back.
 
         Query i of slot b runs at position ``lengths[b] + i`` against
         exactly the KV set and quant scales the non-speculative engine
-        would have there (a write that grows a scale bails out), and token
-        i+1 is kept only if draft i+1 equals the greedy token just computed,
+        would have there (a write that grows a scale bails out), and its
+        token is sampled under the same (seed, rid, token index) key.
+        Token i+1 is kept only if draft i+1 equals the token just sampled,
         i.e. iff plain decoding would have fed the same input.  So the
         first divergence ends acceptance and the rest is rolled back."""
         k = self.scfg.draft_k
         drafts: dict[int, list[int]] = {}
         for i in active:
             req = self.slots[i].req
-            # Stay within the admission reservation's worst case.
+            # Stay within the request's worst-case footprint.
             cap = min(k, req.max_new_tokens - len(req.generated) - 1)
             if cap <= 0:
                 drafts[i] = []
@@ -555,20 +875,25 @@ class PagedEngine:
         B = len(self.slots)
         tokens = np.zeros((B, Sq), np.int32)
         positions = np.full((B, Sq), POS_SENTINEL, np.int32)
-        new_blocks: dict[int, list[tuple[int, int]]] = {}
+        new_blocks: dict[int, list[tuple[int, int, bool]]] = {}
         for i in active:
             st = self.slots[i]
             row = [int(self.last_token[i])] + drafts[i]
             base = int(self.lengths[i])
             new_blocks[i] = []
             # Blocks past the row's first only hold draft tokens: claim them
-            # from the reservation, and truncate the draft when none is left.
+            # from the reservation or, oversubscribed, from spare capacity,
+            # never by preemption; truncate the draft when none is left.
             for j in range(base // self._page + 1,
                            (base + len(row) - 1) // self._page + 1):
                 if self.table[i, j] != 0:
                     continue
-                if st.blocks_reserved > 0:
-                    new_blocks[i].append((j, self._claim_block(i, j)))
+                reserved = st.blocks_reserved > 0
+                if reserved or (self.scfg.oversubscribe
+                                and self.pool.available() >= 1):
+                    new_blocks[i].append(
+                        (j, self._claim_block(i, j, optional=True),
+                         reserved))
                 else:
                     keep = j * self._page - base
                     row = row[:keep]
@@ -592,7 +917,15 @@ class PagedEngine:
             return
 
         self.caches = new_caches
-        toks = torch.argmax(logits, dim=-1).cpu().numpy()      # [B, Sq]
+        # Row (i, x) samples under token index len(generated_i) + x.
+        rids = np.zeros((B, Sq), np.int32)
+        counts = np.zeros((B, Sq), np.int32)
+        for i in active:
+            rids[i, :] = self.slots[i].req.rid
+            counts[i, :] = len(self.slots[i].req.generated) + np.arange(Sq)
+        toks = self._sample_rows(logits.reshape(B * Sq, -1),
+                                 rids.reshape(-1),
+                                 counts.reshape(-1)).reshape(B, Sq)
         self.counters["decode_steps"] += 1
         self.counters["decode_slot_steps"] += len(self.slots)
         self.counters["decode_kv_tokens"] += sum(
@@ -618,7 +951,7 @@ class PagedEngine:
             # prefix blocks are out of reach (kv_pool.rollback checks it).
             last_j = (int(self.lengths[i]) - 1) // self._page
             stale = [blk for blk in new_blocks[i] if blk[0] > last_j]
-            for j, _ in stale:
+            for j, _, _ in stale:
                 self.table[i, j] = 0
             self._return_draft_blocks(i, stale)
             self._maybe_evict(i, emitted[-1])

@@ -139,18 +139,33 @@ def test_kv_bytes_resident(model):
 
 
 def test_serve_config_validation():
-    with pytest.raises(NotImplementedError, match="A5"):
-        ServeConfig(temperature=0.7)
-    with pytest.raises(ValueError):
-        ServeConfig(temperature=-1.0)
+    """The reference's validation cases raise ValueError with the
+    reference's message (or its first clause); sampling and the QoS fields
+    construct."""
+    bad = [dict(max_slots=0), dict(prefill_bucket=0), dict(max_len=-1),
+           dict(page_size=0), dict(pool_blocks=1), dict(max_blocks_per_req=0),
+           dict(prefill_chunk=0), dict(prefill_bucket=16, prefill_chunk=24),
+           dict(temperature=-0.5), dict(cache_dtype="float16"),
+           dict(preempt_policy="roulette"), dict(deadline_ticks=0),
+           dict(shed_watermark=0.5), dict(oversubscribe=True,
+                                          shed_watermark=1.0)]
+    for kw in bad:
+        with pytest.raises(ValueError) as want:
+            JServe(**kw)
+        with pytest.raises(ValueError) as got:
+            ServeConfig(**kw)
+        # (the port leaves out the reference's remarks on jit shapes)
+        assert str(want.value).startswith(str(got.value)), kw
     with pytest.raises(ValueError):
         ServeConfig(page_size=12)
-    with pytest.raises(ValueError):
-        ServeConfig(prefill_chunk=20, prefill_bucket=16)
-    with pytest.raises(ValueError):
-        ServeConfig(pool_blocks=1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A10"):
         ServeConfig(cache_dtype="bfloat16")
+    scfg = ServeConfig(temperature=0.7, oversubscribe=True,
+                       preempt_policy="lifo", deadline_ticks=5,
+                       shed_watermark=0.9, max_len=64, page_size=16)
+    assert scfg.resolved_max_blocks() == 4
+    assert scfg.resolved_pool_blocks() == 1 + 4 * 4
+    assert scfg.resolved_chunk() % scfg.prefill_bucket == 0
     assert ServeConfig().resolved_pool_blocks() == 1 + 4 * 32
 
 
@@ -196,6 +211,29 @@ def test_serve_cli_on_cpu():
     text = out.getvalue()
     assert "9 new tokens" in text and "fused_decode=True" in text
     assert "'requests_finished': 3" in text
+
+
+def test_serve_cli_sampled_oversubscribed_on_cpu():
+    """Sampled and oversubscribed: the pool of 10 blocks forces a
+    preemption, and a second run at the same seed serves the same
+    tokens."""
+    argv = ["--device", "cpu", "--requests", "4", "--new-tokens", "12",
+            "--max-prompt", "40", "--slots", "3", "--page-size", "8",
+            "--temperature", "0.7", "--oversubscribe", "--pool-blocks", "10",
+            "--seed", "0"]
+    runs = []
+    for _ in range(2):
+        out = io.StringIO()
+        with redirect_stdout(out):
+            reqs = tserve.main(argv)
+        text = out.getvalue()
+        line = next(x for x in text.splitlines() if "oversubscribed(" in x)
+        assert int(line.split(": ")[1].split()[0]) >= 1, line
+        assert "'preemptions': 0" not in text
+        runs.append(([r.generated for r in reqs],
+                     [x for x in text.splitlines() if "counters" in x]))
+    assert runs[0] == runs[1]
+    assert all(len(t) == 12 for t in runs[0][0])
 
 
 @pytest.mark.parametrize("head_dim", [8, 24, 272])
