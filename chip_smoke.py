@@ -46,7 +46,21 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    repeated-pattern trace, gives the plain sampled tokens.  Prints tokens/s, the sampled and greedy decode
    ticks, preemptions and recomputed tokens, and the sampler's ms and
    launches per tick;
-8. prints one JSON line describing each kernel, then the device line last.
+8. chaos path: (a) the main trace, greedy, through
+   ``serving.serve_with_chaos`` on an oversubscribed engine with a snapshot
+   every 8 ticks, under a crash mid-prefill, a forced pool-dry preemption,
+   an interrupted snapshot write, a kernel fault (the circuit breaker
+   switches that engine to the plain oracle) and a crash three ticks
+   later: the main path's tokens, the plan fired whole, one degradation,
+   decode launches 24 x the decode forwards of engines on the kernel;
+   (b) the speculative phase's n-gram trace at the cut depth (4) of its
+   fused-vs-plain check, drafted as there by replaying the plain tokens,
+   under a drafter failure and a crash among its verify ticks: its plain
+   tokens at that depth; (c) a short serve at
+   page_size=12, a planeless pool, with no paged kernel launched.  Prints
+   the wall time of each restore and what it recomputed, snapshot bytes
+   and ms per write, and degraded against fused tick times;
+9. prints one JSON line describing each kernel, then the device line last.
 
 Any failed check exits non-zero.  Without a card it exits non-zero and
 prints no result.  ``--profile`` instead profiles decode ticks, a prefill
@@ -89,6 +103,17 @@ TEMPERATURE, SAMPLE_SEED = 0.7, 7  # the sampled path's
 # largest worst-case footprints need 100 blocks, and at 92 one decoding
 # request (13 tokens generated) is preempted and recomputes 16 tokens.
 OVERSUB_POOL_BLOCKS = 92
+# The chaos path's plan on the main trace, against its schedule (which
+# depends on the prompt lengths alone, so it was read on the CPU with the
+# reduced model): ticks 1-5 only prefill; the first decode claim past a
+# reservation comes at tick 36; ticks 59-88 only decode.  So the first
+# crash lands mid-prefill and restores the initial snapshot, the pool-dry
+# fires at tick 36, the write of the tick-24 snapshot dies, and the kernel
+# fault at tick 62 degrades the engine, whose tick-64 snapshot (taken
+# degraded) the crash after tick 65 restores.
+CHAOS_SNAPSHOT_EVERY = 8
+CHAOS_PLAN = (("crash", 3), ("checkpoint_interrupt", 24), ("pool_dry", 30),
+              ("kernel_fail", 62), ("crash", 65))
 
 
 def phase(name):
@@ -891,7 +916,8 @@ def serve_speculative(torch, np, cfg, params, prompts, new_tokens,
     counts: with the kernels, one verify launch per layer per verify forward
     (bailouts included) and one decode launch per layer per plain decode
     forward; with the plain oracles, none.
-    Returns the engine, the token streams and the verify launches."""
+    Returns the engine, the token streams, the verify launches and the
+    ticks that ran a verify forward."""
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import paged_verify as pv
     from repro_torch.serving import PagedEngine, Request, ServeConfig
@@ -901,6 +927,7 @@ def serve_speculative(torch, np, cfg, params, prompts, new_tokens,
     reqs = [Request(prompt=p.copy(), max_new_tokens=new_tokens)
             for p in prompts]
     tick_ms = {"verify": [], "bailout": [], "decode": []}
+    verify_ticks = []
     real_tick = eng.step
 
     def timed_step():
@@ -910,6 +937,8 @@ def serve_speculative(torch, np, cfg, params, prompts, new_tokens,
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t) * 1e3
         d = {k: eng.counters[k] - before[k] for k in before}
+        if d["spec_ticks"]:
+            verify_ticks.append(eng.ticks)
         if not d["prefill_chunks"] and d["decode_steps"]:
             kind = ("bailout" if d["spec_bailouts"] else
                     "verify" if d["spec_ticks"] else "decode")
@@ -977,7 +1006,7 @@ def serve_speculative(torch, np, cfg, params, prompts, new_tokens,
         raise SystemExit(f"[chip_smoke] {label}: launches {launches} for "
                          f"{decode_fw} decode and {verify_fw} verify "
                          f"forwards x {cfg.n_layers} layers")
-    return eng, [r.generated for r in reqs], launches[1]
+    return eng, [r.generated for r in reqs], launches[1], verify_ticks
 
 
 def rows_depend_on_batch(torch, params, B=4, Sq=SPEC_K + 1):
@@ -997,7 +1026,8 @@ def speculative_phase(torch, cfg, params, plain_reqs):
     """(a) the main path's trace with a drafter replaying its tokens, (b) a
     repeated-pattern trace with the n-gram drafter against its plain run,
     (c) at cut depth, the kernels against the plain oracles.  Returns the
-    verify kernel's launches in (a)."""
+    verify kernel's launches in (a) and (b)'s prompts (for the chaos
+    path)."""
     import numpy as np
     from repro_torch.serving import PagedEngine, Request, ServeConfig
     diff = rows_depend_on_batch(torch, params)
@@ -1006,7 +1036,7 @@ def speculative_phase(torch, cfg, params, plain_reqs):
           f"{cfg.d_model}]: max |diff| {diff:.3e} (the verify forward runs "
           f"its dense layers per position)")
     want = [r.generated for r in plain_reqs]
-    eng, got, verify_launches = serve_speculative(
+    eng, got, verify_launches, _ = serve_speculative(
         torch, np, cfg, params, [r.prompt for r in plain_reqs],
         len(want[0]), ReplayDrafter(np, plain_reqs), "speculative (a) replay",
         speculative="draft")
@@ -1023,9 +1053,9 @@ def speculative_phase(torch, cfg, params, plain_reqs):
     plain = [Request(prompt=p.copy(), max_new_tokens=16) for p in prompts]
     PagedEngine(cfg, params, ServeConfig(max_slots=4, page_size=16,
                                          max_len=512)).generate(plain)
-    _, got, _ = serve_speculative(torch, np, cfg, params, prompts, 16,
-                                  label="speculative (b) ngram",
-                                  speculative="ngram")
+    _, got, _, _ = serve_speculative(
+        torch, np, cfg, params, prompts, 16, label="speculative (b) ngram",
+        speculative="ngram")
     if got != [r.generated for r in plain]:
         raise SystemExit("[chip_smoke] speculative (b) serves other tokens "
                          "than plain greedy")
@@ -1054,7 +1084,7 @@ def speculative_phase(torch, cfg, params, plain_reqs):
                          f"disagree: {streams}")
     print(f"[chip_smoke] at depth {depth}: speculative kernels, speculative "
           f"plain oracles and plain greedy give identical tokens")
-    return verify_launches
+    return verify_launches, prompts
 
 
 def count_ops(torch, fn):
@@ -1278,7 +1308,7 @@ def sampled_path_phase(torch, cfg, params, greedy_tick_ms):
     # runs: the main trace with drafts replaying (b)'s tokens, and the
     # speculative phase's repeated-pattern trace with the n-gram drafter.
     reqs = [full.requests[rid] for rid in sorted(full.requests)]
-    eng, got, verify_launches = serve_speculative(
+    eng, got, verify_launches, _ = serve_speculative(
         torch, np, cfg, params, [r.prompt for r in reqs], 32,
         ReplayDrafter(np, reqs), "sampled (c) replay", seed=SAMPLE_SEED,
         speculative="draft", temperature=TEMPERATURE)
@@ -1296,7 +1326,7 @@ def sampled_path_phase(torch, cfg, params, greedy_tick_ms):
         max_slots=4, page_size=16, max_len=512,
         temperature=TEMPERATURE)).generate(plain, SAMPLE_SEED)
     want = [r.generated for r in plain]
-    _, got, _ = serve_speculative(
+    _, got, _, _ = serve_speculative(
         torch, np, cfg, params, prompts, 16, label="sampled (c) ngram",
         seed=SAMPLE_SEED, speculative="ngram", temperature=TEMPERATURE)
     if got != want:
@@ -1305,6 +1335,298 @@ def sampled_path_phase(torch, cfg, params, greedy_tick_ms):
     print("[chip_smoke] sampled (c): replay and n-gram speculative serving "
           "give the plain sampled tokens")
     return l_full + l_over, verify_launches
+
+
+class ChaosProbe:
+    """Builds the chaos harness's engines and watches them across crashes:
+    decode and verify forwards run on the kernel (an engine's
+    ``fused_decode`` after the guarded call: a fault degrades before the
+    forward runs), decode-only tick times by the engine's state, each
+    restore's wall time (engine build and restore) and what it requeued,
+    and each snapshot's ``snapshot()`` time."""
+
+    def __init__(self, torch, cfg, params, scfg, drafter=None):
+        self.torch, self.cfg, self.params = torch, cfg, params
+        self.scfg, self.drafter = scfg, drafter
+        self.fused = {"decode": 0, "verify": 0}
+        self.tick_ms = {True: [], False: []}
+        self.restores, self.snapshot_ms = [], []
+        self.engine = None
+        self.verified_before_crash = False
+
+    def make(self):
+        from repro_torch.serving import PagedEngine
+        t0 = time.perf_counter()
+        crashed = self.engine
+        if crashed is not None and self.fused["verify"]:
+            self.verified_before_crash = True
+        eng = self.engine = PagedEngine(self.cfg, self.params, self.scfg,
+                                        drafter=self.drafter)
+
+        def counted(name):
+            real = getattr(eng, f"_guarded_{name}")
+
+            def call(*a):
+                out = real(*a)
+                self.fused[name] += bool(eng.cfg.fused_decode)
+                return out
+            setattr(eng, f"_guarded_{name}", call)
+
+        counted("decode")
+        counted("verify")
+        real_step, real_restore, real_snapshot = (eng.step, eng.restore,
+                                                  eng.snapshot)
+
+        def step():
+            before = dict(eng.counters)
+            t = time.perf_counter()
+            out = real_step()
+            self.torch.cuda.synchronize()
+            if (eng.counters["decode_steps"] > before["decode_steps"]
+                    and eng.counters["prefill_chunks"]
+                    == before["prefill_chunks"]):
+                self.tick_ms[bool(eng.cfg.fused_decode)].append(
+                    (time.perf_counter() - t) * 1e3)
+            return out
+
+        def restore(state):
+            real_restore(state)
+            self.torch.cuda.synchronize()
+            # Context prefilled again: every request that held a slot, and
+            # every queued one that had started (a preemption victim).
+            reqs = {d["rid"]: d for d in state["requests"]}
+            ctx = sum(len(reqs[rid]["prompt"])
+                      + max(len(reqs[rid]["generated"]) - 1, 0)
+                      for rid in state["active"] + state["queue"]
+                      if rid in state["active"] or reqs[rid]["generated"])
+            self.restores.append({
+                "s": time.perf_counter() - t0,
+                "crash_tick": crashed.ticks, "snapshot_tick": state["ticks"],
+                "requeued": len(state["active"]) + len(state["queue"]),
+                "context_tokens": ctx})
+
+        def snapshot():
+            t = time.perf_counter()
+            out = real_snapshot()
+            self.snapshot_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        eng.step, eng.restore, eng.snapshot = step, restore, snapshot
+        return eng
+
+    def report(self, np, label):
+        for r in self.restores:
+            print(f"[chip_smoke] {label}: restore after the crash at tick "
+                  f"{r['crash_tick']} from the tick-{r['snapshot_tick']} "
+                  f"snapshot: {r['s']:.3f} s (engine build and restore), "
+                  f"{r['crash_tick'] - r['snapshot_tick']} ticks replayed, "
+                  f"{r['requeued']} requests requeued, {r['context_tokens']} "
+                  f"context tokens to prefill again")
+        mean = lambda xs: f"{np.mean(xs):.2f} ms ({len(xs)})" if xs else "none"
+        print(f"[chip_smoke] {label}: decode-only ticks on the kernel "
+              f"{mean(self.tick_ms[True])}, degraded to the plain oracle "
+              f"{mean(self.tick_ms[False])}; engine.snapshot() "
+              f"{mean(self.snapshot_ms)}")
+
+
+@phase("chaos path")
+def chaos_path_phase(torch, cfg, params, plain_reqs, ngram_prompts):
+    """(a) the main trace under CHAOS_PLAN, (b) the n-gram trace under a
+    drafter failure and a crash, (c) a planeless pool.  Returns the decode
+    and verify kernels' launches in (a) and (b)."""
+    import os
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint import store
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_verify as pv
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
+
+    writes = []
+    real_save = store.save_snapshot
+
+    def timed_save(obj, directory, step, interrupt=None):
+        t = time.perf_counter()
+        final = real_save(obj, directory, step, interrupt)
+        writes.append(((time.perf_counter() - t) * 1e3, os.path.getsize(
+            os.path.join(final, "snapshot.json"))))
+        return final
+
+    store.save_snapshot = timed_save
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            launches = chaos_main_trace(torch, np, cfg, params, plain_reqs,
+                                        f"{tmp}/a", writes)
+            ms = [w[0] for w in writes]
+            print(f"[chip_smoke] chaos (a): {len(writes)} snapshot writes, "
+                  f"{np.mean([w[1] for w in writes]):.0f} bytes and "
+                  f"{np.mean(ms):.3f} ms per write on average (max "
+                  f"{max(w[1] for w in writes)} bytes, {max(ms):.3f} ms)")
+            launches_b = chaos_spec_trace(torch, np, cfg, params,
+                                          ngram_prompts, f"{tmp}/b")
+    finally:
+        store.save_snapshot = real_save
+
+    # (c) A planeless pool (page_size % 8 != 0): no kernel resolves, the
+    # decode gathers each slot's view for the single-query BESF.
+    pd.LAUNCHES = pv.LAUNCHES = 0
+    eng = PagedEngine(cfg, params, ServeConfig(max_slots=4, page_size=12,
+                                               max_len=512))
+    layer = eng.caches["seg0"][0]["b0"]
+    if eng.cfg.fused_decode or {"kq", "k_amax", "v_amax"} & set(layer):
+        raise SystemExit("[chip_smoke] chaos (c): page_size=12 resolved "
+                         "the kernel or built a plane pool")
+    reqs = make_requests(np, Request, 3, 2, 8, cfg.vocab)
+    tick_ms = []
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    while eng.pending():
+        steps = eng.counters["decode_steps"]
+        chunks = eng.counters["prefill_chunks"]
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        if (eng.counters["decode_steps"] > steps
+                and eng.counters["prefill_chunks"] == chunks):
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+    wall = time.perf_counter() - t0
+    if pd.LAUNCHES or pv.LAUNCHES:
+        raise SystemExit(f"[chip_smoke] chaos (c): paged kernels launched "
+                         f"({pd.LAUNCHES}, {pv.LAUNCHES}) on a planeless pool")
+    for r in reqs:
+        if len(r.generated) != 8 or not all(0 <= x < cfg.vocab
+                                            for x in r.generated):
+            raise SystemExit(f"[chip_smoke] chaos (c): request {r.rid} "
+                             f"generated {r.generated}")
+    print(f"[chip_smoke] chaos (c): page_size=12, prompts "
+          f"{[len(r.prompt) for r in reqs]}, 16 tokens in {wall:.3f} s; "
+          f"{len(tick_ms)} decode-only ticks at {np.mean(tick_ms):.2f} ms "
+          f"(dense gather and single-query BESF, no paged kernel launched)")
+    return launches[0] + launches_b[0], launches_b[1]
+
+
+def chaos_main_trace(torch, np, cfg, params, plain_reqs, snap_dir, writes):
+    """Chaos (a); returns the decode and verify kernels' launches."""
+    import collections
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_verify as pv
+    from repro_torch.serving import (FaultPlan, Request, ServeConfig,
+                                     serve_with_chaos)
+    probe = ChaosProbe(torch, cfg, params, ServeConfig(
+        max_slots=4, page_size=16, max_len=512, oversubscribe=True,
+        snapshot_every=CHAOS_SNAPSHOT_EVERY))
+    reqs = [Request(prompt=r.prompt.copy(), max_new_tokens=32)
+            for r in plain_reqs]
+    pd.LAUNCHES = pv.LAUNCHES = 0
+    t = time.perf_counter()
+    out, rep = serve_with_chaos(probe.make, reqs, seed=0,
+                                plan=FaultPlan.scripted(CHAOS_PLAN),
+                                snapshot_dir=snap_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = (pd.LAUNCHES, pv.LAUNCHES)
+    c = rep["engine_counters"]
+    n_tok = sum(len(r.generated) for r in out)
+    print(f"[chip_smoke] chaos (a): {n_tok} tokens in {wall:.3f} s "
+          f"({n_tok / wall:.2f} tok/s); {rep['crashes']} crashes, "
+          f"{rep['restores']} restores, {rep['snapshots_taken']} snapshots "
+          f"({rep['snapshots_interrupted']} interrupted, "
+          f"{rep['staging_reclaimed']} reclaimed); fired {rep['fired']}; "
+          f"degradations {c['degradations']}, forced preemptions "
+          f"{c['forced_preemptions']}, preemptions {c['preemptions']}")
+    print(f"[chip_smoke] chaos (a): decode forwards on the kernel "
+          f"{probe.fused['decode']} across {len(probe.restores) + 1} "
+          f"engines, paged_decode launches {launches[0]}")
+    probe.report(np, "chaos (a)")
+    want_kinds = dict(collections.Counter(k for k, _ in CHAOS_PLAN))
+    checks = {
+        "the main path's tokens": ([r.generated for r in out]
+                                   == [r.generated for r in plain_reqs]),
+        "one degradation": c["degradations"] == 1,
+        "the plan fired whole": (rep["fired_by_kind"] == want_kinds
+                                 and rep["unfired"] == []),
+        "two restores": rep["crashes"] == rep["restores"] == 2,
+        "one interrupted write": rep["snapshots_interrupted"] == 1,
+        "one forced preemption": c["forced_preemptions"] == 1,
+        "decode launches 24 x fused decode forwards": (
+            launches == (cfg.n_layers * probe.fused["decode"], 0)
+            and probe.fused["decode"] > 0),
+        "degraded ticks timed": (len(probe.tick_ms[False]) > 0
+                                 and len(probe.tick_ms[True]) > 0),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"[chip_smoke] chaos (a) failed: {failed}; report "
+                         f"{rep}")
+    print(f"[chip_smoke] chaos (a): {', '.join(checks)}: all hold")
+    return launches
+
+
+def chaos_spec_trace(torch, np, cfg, params, prompts, snap_dir):
+    """Chaos (b): the speculative phase's repeated-pattern trace at the cut
+    depth of its fused-vs-plain check, drafted as that check drafts, by
+    replaying the plain tokens (at this depth the n-gram drafter finds no
+    match on the trace, so it would verify nothing).  An undisturbed run
+    gives the verify ticks; the drafter then fails at the first and the
+    host crashes after the third.  Returns the decode and verify kernels'
+    launches."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_verify as pv
+    from repro_torch.serving import (FaultPlan, PagedEngine, Request,
+                                     ServeConfig, serve_with_chaos)
+    depth = min(4, cfg.n_layers)
+    cfg = cfg.replace(segments=((cfg.segments[0][0], depth),))
+    params = dict(params, seg0=params["seg0"][:depth])
+    plain = [Request(prompt=p.copy(), max_new_tokens=16) for p in prompts]
+    PagedEngine(cfg, params, ServeConfig(max_slots=4, page_size=16,
+                                         max_len=512)).generate(plain)
+    want = [r.generated for r in plain]
+    drafter = ReplayDrafter(np, plain)
+    _, got, _, verify_ticks = serve_speculative(
+        torch, np, cfg, params, prompts, 16, drafter,
+        f"chaos (b) undisturbed, depth {depth}", speculative="draft")
+    if got != want or len(verify_ticks) < 3:
+        raise SystemExit(f"[chip_smoke] chaos (b): the undisturbed run gave "
+                         f"{'other' if got != want else 'the plain'} tokens "
+                         f"and verified at ticks {verify_ticks}")
+    plan = (("drafter_fail", verify_ticks[0]), ("crash", verify_ticks[2]))
+    probe = ChaosProbe(torch, cfg, params, ServeConfig(
+        max_slots=4, page_size=16, max_len=512, speculative="draft",
+        draft_k=SPEC_K, snapshot_every=2), drafter)
+    pd.LAUNCHES = pv.LAUNCHES = 0
+    t = time.perf_counter()
+    out, rep = serve_with_chaos(
+        probe.make, [Request(prompt=p.copy(), max_new_tokens=16)
+                     for p in prompts],
+        seed=0, plan=FaultPlan.scripted(plan), snapshot_dir=snap_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = (pd.LAUNCHES, pv.LAUNCHES)
+    c = rep["engine_counters"]
+    print(f"[chip_smoke] chaos (b): depth {depth}, plan {plan} (verify "
+          f"ticks of the undisturbed run {verify_ticks}); {wall:.3f} s; "
+          f"fired {rep['fired']}; drafter_failures "
+          f"{c['drafter_failures']}, spec_ticks {c['spec_ticks']}; verify "
+          f"forwards on the kernel {probe.fused['verify']}, paged_verify "
+          f"launches {launches[1]}, decode forwards {probe.fused['decode']}, "
+          f"paged_decode launches {launches[0]}")
+    probe.report(np, "chaos (b)")
+    checks = {
+        "the plain tokens": [r.generated for r in out] == want,
+        "a drafter failure": c["drafter_failures"] >= 1,
+        "one restore": rep["crashes"] == rep["restores"] == 1,
+        "a verify forward before the crash": probe.verified_before_crash,
+        "the plan fired whole": rep["unfired"] == [],
+        "launches per layer per fused forward": launches == (
+            cfg.n_layers * probe.fused["decode"],
+            cfg.n_layers * probe.fused["verify"]),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"[chip_smoke] chaos (b) failed: {failed}")
+    print(f"[chip_smoke] chaos (b): {', '.join(checks)}: all hold")
+    return launches
 
 
 @phase("profile")
@@ -1424,12 +1746,16 @@ def main(argv=None):
     cfg, params = build_model(torch)
     rows[0]["launches"], plain_reqs, greedy_tick_ms = main_path_phase(
         torch, cfg, params)
-    rows[1]["launches"] = speculative_phase(torch, cfg, params, plain_reqs)
+    rows[1]["launches"], ngram_prompts = speculative_phase(
+        torch, cfg, params, plain_reqs)
     rows[2]["launches"], rows[3]["launches"] = forward_path_phase(
         torch, cfg, params)
     (rows[0]["launches_sampled_path"],
      rows[1]["launches_sampled_path"]) = sampled_path_phase(
         torch, cfg, params, greedy_tick_ms)
+    (rows[0]["launches_chaos_path"],
+     rows[1]["launches_chaos_path"]) = chaos_path_phase(
+        torch, cfg, params, plain_reqs, ngram_prompts)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

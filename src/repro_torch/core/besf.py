@@ -16,7 +16,9 @@ into the softmax.
 block, held against ``repro_torch/kernels/paged_verify.py``.
 :func:`besf_attention` is the paper-faithful per-token BESF with the global
 max LATS threshold: the algorithmic ground truth whose survivors the block
-variants' must contain.
+variants' must contain.  :func:`besf_attention_decode` is its single-query
+form, the decode of a paged pool with no plane pool (a page size that is
+not a multiple of 8).
 """
 
 from __future__ import annotations
@@ -122,6 +124,26 @@ def besf_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return BESFOutput(out=unflat(res.out), probs=unflat(res.probs),
                       scores=unflat(res.scores),
                       stats=BESFStats(*(unflat(x) for x in res.stats)))
+
+
+def besf_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          cfg: BitStopperConfig = BitStopperConfig(),
+                          mask: torch.Tensor | None = None) -> BESFOutput:
+    """Single-query BitStopper attention (the decode of a planeless paged
+    pool): q [..., 1, d], k [..., Sk, d], v [..., Sk, dv]; ``mask``
+    broadcastable to ``q.shape[:-2] + (1, Sk)``, so each serving slot has
+    its own.
+
+    The reference's ``_besf_decode_single`` takes every plane's dot in one
+    contraction and prefix-sums them instead of gating the partials round
+    by round; a candidate alive at round r has accumulated exactly planes
+    0..r either way, and pruned candidates reach neither the threshold nor
+    the output, so the per-token rows here give its survivors,
+    ``planes_fetched`` and scores."""
+    if q.shape[-2] != 1:
+        raise ValueError(f"decode path is single-query (got Sq="
+                         f"{q.shape[-2]}); use besf_attention")
+    return besf_attention(q, k, v, cfg=cfg, mask=mask)
 
 
 class PagedDecodeOutput(NamedTuple):

@@ -5,9 +5,11 @@ over a mixed-length request trace.
 ``--device cpu`` runs the plain PyTorch path; ``--speculative ngram|draft
 --draft-k 4`` serves speculatively; ``--temperature 0.7`` samples under
 ``--seed``; ``--oversubscribe --pool-blocks N`` preempts when the pool runs
-dry).  Mirror of ``repro/launch/serve.py`` for what this port serves: the
-paged engine with deadlines, SLO classes and load shedding, reduced-width
-configs with seeded random weights.
+dry; ``--fault-plan '[["crash", 3]]' --snapshot-dir DIR`` serves through the
+chaos harness with crash snapshots).  Mirror of ``repro/launch/serve.py``
+for what this port serves: the paged engine with deadlines, SLO classes,
+load shedding and crash recovery, reduced-width configs with seeded random
+weights.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from repro_torch.configs import reduced_config
 from repro_torch.core.besf import BitStopperConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.serving import PagedEngine, Request, ServeConfig
+from repro_torch.serving import (FaultPlan, PagedEngine, Request,
+                                 ServeConfig, serve_with_chaos)
 
 
 def make_trace(rng, vocab, n_requests, min_len, max_len, new_tokens,
@@ -57,7 +60,8 @@ def main(argv=None):
                     help="sampling temperature (0 = greedy); tokens are a "
                          "pure function of (--seed, request, token index)")
     ap.add_argument("--page-size", type=int, default=16,
-                    help="tokens per KV block (a multiple of 8)")
+                    help="tokens per KV block (a multiple of 8 for the "
+                         "decode kernel and speculative serving)")
     ap.add_argument("--pool-blocks", type=int, default=None,
                     help="physical KV blocks in the pool (default: full "
                          "capacity for all slots)")
@@ -76,7 +80,8 @@ def main(argv=None):
     ap.add_argument("--fused-decode", default="auto",
                     choices=["auto", "on", "off"],
                     help="BitStopper decode through the CUDA kernel (on), "
-                         "the plain oracle (off), or kernel iff on CUDA")
+                         "the plain oracle (off), or kernel iff on CUDA "
+                         "with a page size that is a multiple of 8")
     ap.add_argument("--speculative", default="off",
                     choices=["off", "ngram", "draft"],
                     help="speculative decoding with the n-gram prompt-lookup "
@@ -99,6 +104,17 @@ def main(argv=None):
     ap.add_argument("--besteffort-tail", type=int, default=0, metavar="N",
                     help="mark the last N trace requests slo=besteffort "
                          "(sheddable; preferred preemption victims)")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="persist crash snapshots (engine host state; "
+                         "atomic stage-then-promote) under this directory")
+    ap.add_argument("--snapshot-every", type=int, default=0, metavar="N",
+                    help="snapshot cadence in engine ticks (with "
+                         "--snapshot-dir; 0 = only the initial snapshot)")
+    ap.add_argument("--fault-plan", default=None, metavar="PLAN",
+                    help="drive the trace through the chaos harness under "
+                         "this fault plan: inline JSON [[kind, tick], ...] "
+                         "or @file.json.  Crashes need --snapshot-dir to "
+                         "restore from")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--seed", type=int, default=0)
@@ -120,8 +136,19 @@ def main(argv=None):
         speculative=args.speculative, draft_k=args.draft_k,
         oversubscribe=args.oversubscribe,
         preempt_policy=args.preempt_policy, deadline_ticks=args.deadline,
-        shed_watermark=args.shed_watermark)
-    engine = PagedEngine(cfg, params, scfg, device=device)
+        shed_watermark=args.shed_watermark,
+        snapshot_every=args.snapshot_every)
+    plan = None
+    if args.fault_plan is not None:
+        text = args.fault_plan
+        if text.startswith("@"):
+            with open(text[1:]) as f:
+                text = f.read()
+        plan = FaultPlan.from_json(text)
+
+    def make_engine():
+        return PagedEngine(cfg, params, scfg, device=device)
+
     rng = np.random.default_rng(args.seed)
     reqs = make_trace(rng, cfg.vocab, args.requests, args.min_prompt,
                       args.max_prompt, args.new_tokens,
@@ -129,6 +156,35 @@ def main(argv=None):
     if args.besteffort_tail:
         for r in reqs[len(reqs) - args.besteffort_tail:]:
             r.slo = "besteffort"
+
+    if args.fault_plan is not None or args.snapshot_dir is not None:
+        t0 = time.perf_counter()
+        reqs, rep = serve_with_chaos(make_engine, reqs, seed=args.seed,
+                                     plan=plan,
+                                     snapshot_dir=args.snapshot_dir)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_tok = sum(len(r.generated) for r in reqs)
+        c = rep["engine_counters"]
+        print(f"[serve] {len(reqs)} requests / {n_tok} new tokens in "
+              f"{dt:.2f}s ({n_tok / dt:.1f} tok/s, device={device}, chaos)")
+        print(f"[serve] chaos: {rep['crashes']} crashes / "
+              f"{rep['restores']} restores, "
+              f"{rep['snapshots_taken']} snapshots "
+              f"({rep['snapshots_interrupted']} interrupted, "
+              f"{rep['staging_reclaimed']} staging orphans reclaimed), "
+              f"fired={rep['fired_by_kind']}, unfired={rep['unfired']}")
+        print(f"[serve] chaos: {c['degradations']} kernel degradations, "
+              f"{c['drafter_failures']} drafter failures, "
+              f"{c['forced_preemptions']} forced preemptions, "
+              f"{c['requests_shed']} shed (watermark {c['shed_watermark']} "
+              f"/ deadline {c['shed_deadline']}), "
+              f"{c['deadline_truncated']} deadline-truncated")
+        print(f"[serve] counters: {c}")
+        return reqs
+
+    engine = make_engine()
     t0 = time.perf_counter()
     engine.generate(reqs, seed=args.seed)
     if device.type == "cuda":

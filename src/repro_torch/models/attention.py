@@ -19,7 +19,11 @@ and the paths paged serving runs:
   the plain torch oracle; with ``spec_verify``, a speculative draft block
   per slot through the paged BESF verify in the same way;
 * prefill chunks, which gather the slot's logical view and run block
-  BitStopper (``_bitstopper_full``).
+  BitStopper (``_bitstopper_full``), and every read of a planeless pool (a
+  page size that is not a multiple of 8 carries no scales and no planes),
+  which gathers each row's view for the single-query BESF
+  (``besf_attention_decode``) or, several queries per row, the per-token
+  BESF.
 
 Four CUDA kernels sit under this module: ``flash_attention`` and
 ``bitstopper_qk`` on the cache-free forward, ``paged_decode`` and
@@ -431,8 +435,8 @@ def _paged_cached_attention(q, cache, positions, cfg: AttnConfig):
 
     A verify draft block or one query per slot with BitStopper goes
     straight at the pool: the CUDA kernel when ``cfg.fused_decode``, else
-    the plain oracle.  Prefill chunks gather the logical view of the
-    active rows."""
+    the plain oracle.  Prefill chunks and every read of a planeless pool
+    gather the logical view of the active rows."""
     B, S = q.shape[:2]
     active = (positions != POS_SENTINEL).any(1)
     if cfg.spec_verify and cfg.impl in _BITSTOPPER and "k_amax" in cache:
@@ -482,17 +486,28 @@ def _paged_cached_attention(q, cache, positions, cfg: AttnConfig):
 
 def _cached_attention(q, k_all, v_all, q_positions, k_positions,
                       cfg: AttnConfig):
-    """One slot's prefill chunk against its gathered view, mask from the
-    slot positions.  The reference's other branches (Sq == 1 on a planeless
-    pool, multi-slot prefill, the dense impl) are not ported yet."""
+    """BitStopper attention of q [B, Sq, Hq, D] against each row's gathered
+    view, every row masked by its own positions ([B, Sq] and [B, T]).
+
+    One query per row (the decode of a planeless pool) runs the
+    single-query BESF; one row's prefill chunk runs block BitStopper; a
+    multi-query block per row (a verify forward on a planeless pool) runs
+    the per-token BESF.  The reference's dense ``xla``/``flash`` branch is
+    not ported yet."""
     B, Sq = q.shape[:2]
-    if cfg.impl not in _BITSTOPPER or Sq == 1 or B != 1:
+    if cfg.impl not in _BITSTOPPER:
         raise NotImplementedError(
-            f"cached attention ported for one BitStopper prefill slot only "
-            f"(impl={cfg.impl!r}, B={B}, Sq={Sq}; ROADMAP A10)")
-    mask = _mask_block(q_positions[0], k_positions[0], causal=True,
-                       window=cfg.window)
-    return _bitstopper_full(q, k_all, v_all, cfg, mask)
+            f"cached attention with impl {cfg.impl!r} is not ported yet "
+            f"(ROADMAP A10)")
+    mask = torch.stack([_mask_block(qp, kp, causal=True, window=cfg.window)
+                        for qp, kp in zip(q_positions, k_positions)])
+    if B == 1 and Sq > 1:
+        return _bitstopper_full(q, k_all, v_all, cfg, mask[0])
+    from repro_torch.core.besf import besf_attention, besf_attention_decode
+    qt, kr, vr = _expand_gqa(q, k_all, v_all, cfg.n_heads // cfg.n_kv_heads)
+    besf = besf_attention_decode if Sq == 1 else besf_attention
+    res = besf(qt, kr, vr, cfg=cfg.bitstopper, mask=mask[:, None])
+    return res.out.transpose(1, 2).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,17 @@
 """Serving: the paged continuous-batching engine with BitStopper decode,
-seeded sampling, oversubscription with preemption, and speculative
-decoding."""
+seeded sampling, oversubscription with preemption, speculative decoding,
+and crash snapshots with the deterministic chaos harness."""
 
+from repro_torch.serving.chaos import (  # noqa: F401
+    CheckpointInterrupted,
+    DrafterFault,
+    FaultEvent,
+    FaultInjector,
+    FaultPlan,
+    HostCrash,
+    KernelFault,
+    serve_with_chaos,
+)
 from repro_torch.serving.engine import (  # noqa: F401
     PagedEngine,
     Request,

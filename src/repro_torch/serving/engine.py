@@ -37,10 +37,28 @@ tail's blocks are rolled back.  A draft write that grows a pool-wide quant
 scale is undone and the tick replayed plain, so traces equal
 non-speculative serving.
 
-Not ported yet (each is a queue A item in ROADMAP.md): chaos, snapshot and
-restore and the fused-kernel circuit breaker, the swap and prefix-store
-tiers, ``memory_report``, the engine API, mesh sharding, the bf16 cache,
-and the contiguous and static engines.
+A page size that is not a multiple of 8 gives a planeless pool (no scales,
+no plane pool): its decode gathers each slot's view for the single-query
+BESF, and ``fused_decode`` (auto only where ``page_size % 8 == 0``) and
+speculative serving are refused there, as in the reference.
+
+Crash snapshots and chaos (``serving/chaos.py``): :meth:`PagedEngine.snapshot`
+is the engine's host state as JSON (requests, queue, slots, counters, tick,
+seed, allocator state and the pool-wide quant scales; never device KV), and
+:meth:`PagedEngine.restore` rebuilds a fresh engine from it: the scales are
+written back first, then every in-flight request requeues through the
+resume path, so the recompute runs under the crash-time scales.  With a
+``FaultInjector`` attached (``self.chaos``) the engine consults it, keyed on
+its tick counter, at a mid-decode block claim (``pool_dry``), at the head
+of a speculative tick (``drafter_fail``) and before each decode or verify
+forward on the kernel (``kernel_fail``): the circuit breaker then switches
+the engine to the plain oracle for the rest of its life and runs the same
+tick there.  The breaker catches only the injected ``KernelFault``; an
+error raised by a kernel propagates.
+
+Not ported yet (each is a queue A item in ROADMAP.md): the swap and
+prefix-store tiers, ``memory_report``, the engine API, mesh sharding, the
+bf16 cache, and the contiguous and static engines.
 """
 
 from __future__ import annotations
@@ -57,6 +75,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.attention import (POS_SENTINEL, PagedLayout,
                                           undo_paged_write)
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving.chaos import KernelFault
 from repro_torch.serving.kv_pool import KVBlockPool
 from repro_torch.serving.sampling import prng_key, sample_tokens
 
@@ -88,7 +107,8 @@ class ServeConfig:
     fused_decode: bool | None = None  # BitStopper decode through the CUDA
                                       # kernel (True), the plain oracle
                                       # (False), or auto: kernel iff the
-                                      # engine runs on a CUDA device
+                                      # engine runs on a CUDA device and
+                                      # page_size % 8 == 0
     speculative: str = "off"          # "off" | "ngram" (prompt-lookup
                                       # self-drafter) | "draft" (draft
                                       # transformer; defaults to self-draft)
@@ -101,6 +121,10 @@ class ServeConfig:
     shed_watermark: float | None = None  # pool saturation past which queued
                                       # besteffort requests are shed
                                       # (needs oversubscribe=True)
+    snapshot_every: int = 0           # crash-snapshot cadence in ticks for
+                                      # serving/chaos.serve_with_chaos and
+                                      # launch/serve --snapshot-every
+                                      # (0 = only the initial snapshot)
 
     def __post_init__(self):
         for name in ("max_len", "max_slots", "prefill_bucket", "page_size"):
@@ -132,10 +156,11 @@ class ServeConfig:
                 raise ValueError(
                     f"prefill_chunk ({self.prefill_chunk}) must be a "
                     f"multiple of prefill_bucket ({self.prefill_bucket})")
-        if self.page_size % 8:
+        if self.fused_decode and self.page_size % 8:
             raise ValueError(
-                f"page_size must be a multiple of 8 (bit planes pack 8 "
-                f"tokens/byte along the page axis), got {self.page_size}")
+                f"fused_decode needs page_size % 8 == 0 (bit planes pack 8 "
+                f"tokens/byte along the page axis), got page_size="
+                f"{self.page_size}")
         if self.preempt_policy not in ("fewest_tokens", "lifo"):
             raise ValueError(
                 f"preempt_policy must be fewest_tokens|lifo, got "
@@ -160,6 +185,9 @@ class ServeConfig:
                     "-reserved admission blocks the head of line instead of "
                     "overcommitting the pool, so saturation-based shedding "
                     "could never relieve preemption pressure")
+        if self.snapshot_every < 0:
+            raise ValueError(f"snapshot_every must be >= 0, got "
+                             f"{self.snapshot_every}")
 
     def resolved_max_blocks(self) -> int:
         return self.max_blocks_per_req or -(-self.max_len // self.page_size)
@@ -229,11 +257,62 @@ def _layers(caches) -> list[dict]:
             for b in sorted(unit)]
 
 
-def _amax_leaves(caches) -> list[torch.Tensor]:
-    """Every ``k_amax``/``v_amax`` leaf, in a fixed order (the growth probe
-    of a speculative draft-block write)."""
-    return [c[key] for c in _layers(caches) for key in ("k_amax", "v_amax")
-            if key in c]
+def _amax_groups(caches, scan_layers: bool) -> list[list[torch.Tensor]]:
+    """The reference's ``k_amax``/``v_amax`` leaves in its sorted-key
+    traversal of the cache tree, each as the per-layer tensors it holds: a
+    segment the reference stacks (``scan_layers`` and more than one rep)
+    has one leaf per block and key, stacked over its reps; any other
+    segment has one leaf per layer."""
+    groups = []
+    for seg in sorted(caches):
+        units = caches[seg]
+        stacked = scan_layers and len(units) > 1
+        for reps in ([units] if stacked else [[u] for u in units]):
+            for b in sorted(reps[0]):
+                for key in ("k_amax", "v_amax"):
+                    if key in reps[0][b]:
+                        groups.append([u[b][key] for u in reps])
+    return groups
+
+
+def _amax_leaves(caches, scan_layers: bool = True) -> list[torch.Tensor]:
+    """Every layer's ``k_amax``/``v_amax``, in the order of
+    :func:`_amax_groups` (the growth probe of a speculative draft-block
+    write, and the snapshot's scales)."""
+    return [t for g in _amax_groups(caches, scan_layers) for t in g]
+
+
+def _amax_state(caches, scan_layers: bool) -> list:
+    """The scales as the reference's snapshot holds them: one f32 list per
+    leaf of :func:`_amax_groups` (nested over reps where it stacks)."""
+    out = []
+    for g in _amax_groups(caches, scan_layers):
+        a = np.stack([t.cpu().numpy() for t in g])
+        out.append(np.asarray(a if len(g) > 1 else a[0],
+                              np.float32).tolist())
+    return out
+
+
+def _set_amax_leaves(caches, values: list, scan_layers: bool) -> None:
+    """Write a snapshot's scales back, in place and on the caches' device,
+    in the order :func:`_amax_state` reads them: the restore half of engine
+    snapshotting.  The running scales are monotone and depend on the order
+    of writes (growth overshoots by ``AMAX_HEADROOM``), so a restored
+    engine inherits the crash-time scales instead of re-deriving them from
+    recomputed tokens: the recompute's writes then grow no scale, and every
+    later growth happens as in the undisturbed run."""
+    groups = _amax_groups(caches, scan_layers)
+    if len(values) != len(groups):
+        extra = len(values) - len(groups)
+        raise ValueError(
+            f"snapshot carries {extra} extra quant-scale leaves the cache "
+            f"has no home for" if extra > 0 else
+            f"snapshot carries {len(values)} quant-scale leaves, the cache "
+            f"has {len(groups)}")
+    for g, val in zip(groups, values):
+        a = np.asarray(val, np.float32).reshape((len(g),) + tuple(g[0].shape))
+        for t, row in zip(g, a):
+            t.copy_(torch.as_tensor(row, device=t.device))
 
 
 def _kv_bytes_per_token(cfg: ModelConfig) -> int:
@@ -270,7 +349,7 @@ class PagedEngine:
         self.device = resolve_device(device)
         fused = scfg.fused_decode
         if fused is None:
-            fused = self.device.type == "cuda"
+            fused = self.device.type == "cuda" and scfg.page_size % 8 == 0
         if fused:
             # The pool's V width is head_dim (models/attention.py).
             reason = paged_decode.kernel_refusal(
@@ -283,8 +362,17 @@ class PagedEngine:
         self.cfg = cfg.replace(fused_decode=bool(fused))
         self.params = params
         self.scfg = scfg
+        # Deterministic fault injection (serving/chaos.py): an attached
+        # FaultInjector is consulted at the pool claim, the kernel forwards
+        # and the drafter, keyed on self.ticks.
+        self.chaos = None
         self._drafter = None
         if scfg.speculative != "off":
+            if scfg.page_size % 8:
+                raise ValueError(
+                    "speculative BitStopper serving needs page_size % 8 == "
+                    "0 (the paged verify shares the pool-wide quant state; "
+                    f"got page_size={scfg.page_size})")
             from repro_torch.serving.speculative import make_drafter
             self._drafter = (drafter if drafter is not None else
                              make_drafter(scfg.speculative, cfg, params))
@@ -310,6 +398,7 @@ class PagedEngine:
         self._next_rid = 0
         self._admit_seq = 0
         self._step = 0
+        self._seed = None
         self._base_key = prng_key(0).numpy()  # host words, like the rids
         # The engine's only clock: deadlines key on it, never on wall time.
         self.ticks = 0
@@ -324,7 +413,19 @@ class PagedEngine:
                          "preempt_dropped_tokens": 0,
                          "requests_shed": 0, "shed_watermark": 0,
                          "shed_deadline": 0, "deadline_truncated": 0,
-                         "drafter_failures": 0}
+                         "degradations": 0, "drafter_failures": 0,
+                         "forced_preemptions": 0,
+                         # The tiers of the engine API, swap and the prefix
+                         # store are not ported (ROADMAP A7.3, A8): their
+                         # counters stay 0, and a snapshot carries the
+                         # reference's keys.
+                         "prefixes_prefilled": 0, "prefixes_inserted": 0,
+                         "prefix_transfers": 0,
+                         "swap_outs": 0, "swap_ins": 0,
+                         "swap_fallbacks": 0, "swap_in_tokens": 0,
+                         "prefix_spills": 0, "prefix_store_hits": 0,
+                         "prefix_store_tokens": 0,
+                         "prefix_store_interrupts": 0}
 
     # ------------------------------------------------------------------
     # tick loop
@@ -332,7 +433,9 @@ class PagedEngine:
 
     def begin(self, seed: int = 0) -> None:
         """Fix the sampling seed for a serving run (split out of
-        :meth:`run` so a caller can own the tick loop)."""
+        :meth:`run` so a caller, such as ``serve_with_chaos``, can own the
+        tick loop; a restored engine derives the same key again)."""
+        self._seed = seed
         self._base_key = prng_key(seed).numpy()
 
     def pending(self) -> bool:
@@ -404,6 +507,52 @@ class PagedEngine:
         return logits, new, grew, undo
 
     # ------------------------------------------------------------------
+    # the kernel circuit breaker
+    # ------------------------------------------------------------------
+
+    def _degrade(self, why: str) -> None:
+        """Per-engine circuit breaker: a kernel fault switches the engine to
+        the plain oracle for the rest of its life.  The oracle computes the
+        kernels' integer observables and reads the same caches (the write
+        path keeps the f32 pool and the plane pool either way), so the
+        served tokens do not change.  Counted in ``degradations``."""
+        if not self.cfg.fused_decode:
+            raise RuntimeError(
+                f"kernel fault on the plain oracle path ({why}): the "
+                f"breaker has nothing simpler to fall back to")
+        self.cfg = self.cfg.replace(fused_decode=False)
+        self.counters["degradations"] += 1
+
+    def _consult_kernel_fault(self, what: str) -> None:
+        """The ``kernel_fail`` consult: raises :class:`KernelFault` when an
+        injected fault is due, before the forward writes anything."""
+        if (self.chaos is not None and self.cfg.fused_decode
+                and self.chaos.fire("kernel_fail", self.ticks)):
+            raise KernelFault(
+                f"injected fused-{what} fault at tick {self.ticks}")
+
+    def _guarded_decode(self, *args):
+        """The decode forward behind the circuit breaker.  The fault is
+        raised before the forward runs, so the caches are untouched and the
+        tick runs once, on the plain oracle.  Only the consult's
+        ``KernelFault`` is caught: an error the kernel raises propagates."""
+        try:
+            self._consult_kernel_fault("decode")
+        except KernelFault as e:
+            self._degrade(str(e))
+        return self._forward(*args)
+
+    def _guarded_verify(self, *args):
+        """The verify forward behind the circuit breaker (see
+        :meth:`_guarded_decode`); no undo record exists yet when the fault
+        is raised."""
+        try:
+            self._consult_kernel_fault("verify")
+        except KernelFault as e:
+            self._degrade(str(e))
+        return self._verify_forward(*args)
+
+    # ------------------------------------------------------------------
     # capacity accounting
     # ------------------------------------------------------------------
 
@@ -419,8 +568,10 @@ class PagedEngine:
         static per-layer ``k_amax``/``v_amax`` scales."""
         blocks = (self.pool.peak_live_blocks if peak
                   else self.pool.live_blocks())
-        amax = sum(reps * 2 * self.cfg.n_kv_heads * 4 * len(unit)
-                   for unit, reps in self.cfg.segments)
+        amax = 0
+        if self._page % 8 == 0:          # a planeless pool keeps no scales
+            amax = sum(reps * 2 * self.cfg.n_kv_heads * 4 * len(unit)
+                       for unit, reps in self.cfg.segments)
         return blocks * self._page * _kv_bytes_per_token(self.cfg) + amax
 
     # ------------------------------------------------------------------
@@ -685,6 +836,106 @@ class PagedEngine:
         return True
 
     # ------------------------------------------------------------------
+    # crash-consistent snapshot and restore
+    # ------------------------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """The engine's host state as plain JSON data, with the reference's
+        keys and layout: every request (prompt, tokens, QoS and accounting
+        fields), queue and slot occupancy, counters, tick counter, sampling
+        seed, the allocator's state and the pool-wide quant scales.  For
+        the same trace at the same tick it equals the reference's, but for
+        the scales' last bits, which come from each package's own K/V
+        projections.
+
+        Device KV is not kept.  Restore rebuilds it through the resume
+        path: in-flight requests requeue with their tokens and recompute
+        their context by chunked prefill under the restored scales."""
+        active = sorted(
+            (st.seq, st.req.rid) for st in self.slots if st is not None)
+        reqs = []
+        for rid in sorted(self.requests):
+            r = self.requests[rid]
+            reqs.append({
+                "rid": rid,
+                "prompt": [int(t) for t in r.prompt],
+                "max_new_tokens": int(r.max_new_tokens),
+                "generated": [int(t) for t in r.generated],
+                "deadline_ticks": r.deadline_ticks,
+                "slo": r.slo,
+                "prefill_len": int(r.prefill_len),
+                "admitted_step": int(r.admitted_step),
+                "finished_step": int(r.finished_step),
+                "preemptions": int(r.preemptions),
+                "submitted_tick": int(r.submitted_tick),
+                "shed_reason": r.shed_reason,
+                "deadline_hit": bool(r.deadline_hit),
+            })
+        return {
+            "version": 1,
+            "ticks": int(self.ticks),
+            "step": int(self._step),
+            "seed": self._seed,
+            "next_rid": int(self._next_rid),
+            "admit_seq": int(self._admit_seq),
+            "counters": {k: int(v) for k, v in self.counters.items()},
+            "requests": reqs,
+            "queue": [r.rid for r in self.queue],
+            "active": [rid for _, rid in active],
+            "amax": _amax_state(self.caches, self.cfg.scan_layers),
+            "pool": self.pool.snapshot(),
+        }
+
+    def restore(self, state: dict) -> None:
+        """Rebuild scheduler state from a snapshot (this package's or the
+        reference's) into this engine, which must be freshly built: a crash
+        took the old one's device KV, so restore starts from a clean pool.
+
+        The quant scales are written back before anything is recomputed
+        (:func:`_set_amax_leaves`).  Then the requests that held a slot
+        requeue in admission order, followed by the snapshot's queue; the
+        ordinary resume path recomputes each context and replays its last
+        sampled token."""
+        if self.requests or self.ticks or self.pool.live_blocks():
+            raise RuntimeError(
+                "restore() needs a freshly constructed engine (the crash "
+                "destroyed the old one; device KV is recomputed, not "
+                "re-mapped)")
+        if state.get("version") != 1:
+            raise ValueError(f"unknown snapshot version "
+                             f"{state.get('version')!r}")
+        self.ticks = int(state["ticks"])
+        self._step = int(state["step"])
+        self._next_rid = int(state["next_rid"])
+        self._admit_seq = int(state["admit_seq"])
+        if state["seed"] is not None:
+            self.begin(int(state["seed"]))
+        self.counters.update(state["counters"])
+        # The allocator restarts empty; its bookkeeping counters carry over.
+        self.pool.peak_live_blocks = int(state["pool"]["peak_live_blocks"])
+        self.pool.alloc_count = int(state["pool"]["alloc_count"])
+        self.requests = {}
+        for d in state["requests"]:
+            self.requests[d["rid"]] = Request(
+                prompt=np.asarray(d["prompt"], np.int32),
+                max_new_tokens=d["max_new_tokens"],
+                generated=list(d["generated"]),
+                rid=d["rid"],
+                deadline_ticks=d["deadline_ticks"],
+                slo=d["slo"],
+                prefill_len=d["prefill_len"],
+                admitted_step=d["admitted_step"],
+                finished_step=d["finished_step"],
+                preemptions=d["preemptions"],
+                submitted_tick=d["submitted_tick"],
+                shed_reason=d["shed_reason"],
+                deadline_hit=d["deadline_hit"],
+            )
+        _set_amax_leaves(self.caches, state["amax"], self.cfg.scan_layers)
+        for rid in list(state["active"]) + list(state["queue"]):
+            self.queue.append(self.requests[rid])
+
+    # ------------------------------------------------------------------
     # oversubscription: victim preemption and lossless requeue
     # ------------------------------------------------------------------
 
@@ -785,6 +1036,16 @@ class PagedEngine:
                 raise RuntimeError(
                     "paged scheduler invariant violated: slot "
                     f"{slot} needs a decode block but has no reservation")
+            # Injected pool-dry: force one preemption although the pool has
+            # room.  With no victim the forced dryness is dropped rather
+            # than wedging a healthy pool.  A draft-block claim skips the
+            # consult: the speculative tick consults it itself.
+            if (not optional and self.chaos is not None
+                    and self.chaos.fire("pool_dry", self.ticks)):
+                victim = self._select_victim(needy=slot)
+                if victim is not None:
+                    self._preempt(victim)
+                    self.counters["forced_preemptions"] += 1
             while self.pool.available() < 1:
                 victim = self._select_victim(needy=slot)
                 if victim is None:
@@ -804,8 +1065,8 @@ class PagedEngine:
         positions = np.full((len(self.slots), 1), POS_SENTINEL, np.int32)
         for i in active:
             positions[i, 0] = self.lengths[i]
-        logits = self._forward(self.last_token[:, None], positions,
-                               slice(None))
+        logits = self._guarded_decode(self.last_token[:, None], positions,
+                                      slice(None))
         rids = [st.req.rid if st is not None else 0 for st in self.slots]
         counts = [len(st.req.generated) if st is not None else 0
                   for st in self.slots]
@@ -847,12 +1108,18 @@ class PagedEngine:
         i.e. iff plain decoding would have fed the same input.  So the
         first divergence ends acceptance and the rest is rolled back."""
         k = self.scfg.draft_k
+        # An injected drafter death costs the tick its drafts, never the
+        # trace: with no draft anywhere the tick decodes plain.
+        drafter_down = (self.chaos is not None
+                        and self.chaos.fire("drafter_fail", self.ticks))
+        if drafter_down:
+            self.counters["drafter_failures"] += 1
         drafts: dict[int, list[int]] = {}
         for i in active:
             req = self.slots[i].req
             # Stay within the request's worst-case footprint.
             cap = min(k, req.max_new_tokens - len(req.generated) - 1)
-            if cap <= 0:
+            if drafter_down or cap <= 0:
                 drafts[i] = []
                 continue
             ctx = np.concatenate([np.asarray(req.prompt, np.int32),
@@ -883,14 +1150,18 @@ class PagedEngine:
             new_blocks[i] = []
             # Blocks past the row's first only hold draft tokens: claim them
             # from the reservation or, oversubscribed, from spare capacity,
-            # never by preemption; truncate the draft when none is left.
+            # never by preemption; truncate the draft when none is left.  An
+            # injected pool-dry on an unreserved claim truncates it too.
             for j in range(base // self._page + 1,
                            (base + len(row) - 1) // self._page + 1):
                 if self.table[i, j] != 0:
                     continue
                 reserved = st.blocks_reserved > 0
-                if reserved or (self.scfg.oversubscribe
-                                and self.pool.available() >= 1):
+                forced_dry = (not reserved and self.chaos is not None
+                              and self.chaos.fire("pool_dry", self.ticks))
+                if not forced_dry and (
+                        reserved or (self.scfg.oversubscribe
+                                     and self.pool.available() >= 1)):
                     new_blocks[i].append(
                         (j, self._claim_block(i, j, optional=True),
                          reserved))
@@ -902,7 +1173,7 @@ class PagedEngine:
             tokens[i, :len(row)] = row
             positions[i, :len(row)] = base + np.arange(len(row))
 
-        logits, new_caches, grew, undo = self._verify_forward(tokens,
+        logits, new_caches, grew, undo = self._guarded_verify(tokens,
                                                               positions)
         if grew:
             # A draft token grew a pool-wide quant scale: earlier queries

@@ -148,7 +148,8 @@ def test_serve_config_validation():
            dict(temperature=-0.5), dict(cache_dtype="float16"),
            dict(preempt_policy="roulette"), dict(deadline_ticks=0),
            dict(shed_watermark=0.5), dict(oversubscribe=True,
-                                          shed_watermark=1.0)]
+                                          shed_watermark=1.0),
+           dict(fused_decode=True, page_size=12), dict(snapshot_every=-1)]
     for kw in bad:
         with pytest.raises(ValueError) as want:
             JServe(**kw)
@@ -156,8 +157,11 @@ def test_serve_config_validation():
             ServeConfig(**kw)
         # (the port leaves out the reference's remarks on jit shapes)
         assert str(want.value).startswith(str(got.value)), kw
+    # tests/test_serving.py: only the kernel needs whole plane bytes; a
+    # planeless pool (page % 8 != 0) serves through the dense gather.
     with pytest.raises(ValueError):
-        ServeConfig(page_size=12)
+        ServeConfig(fused_decode=True, page_size=12)
+    assert ServeConfig(page_size=12).fused_decode is None
     with pytest.raises(NotImplementedError, match="A10"):
         ServeConfig(cache_dtype="bfloat16")
     scfg = ServeConfig(temperature=0.7, oversubscribe=True,
@@ -234,6 +238,26 @@ def test_serve_cli_sampled_oversubscribed_on_cpu():
                      [x for x in text.splitlines() if "counters" in x]))
     assert runs[0] == runs[1]
     assert all(len(t) == 12 for t in runs[0][0])
+
+
+def test_serve_cli_chaos_on_cpu(tmp_path):
+    """A crash at tick 3 with a snapshot every tick: the chaos summary
+    reports one crash and one restore, and the tokens equal a run without
+    the plan."""
+    base = ["--device", "cpu", "--requests", "3", "--new-tokens", "5",
+            "--max-prompt", "20", "--page-size", "8", "--seed", "0"]
+    plain = tserve.main(base)
+    out = io.StringIO()
+    with redirect_stdout(out):
+        reqs = tserve.main(base + ["--snapshot-dir", str(tmp_path),
+                                   "--snapshot-every", "1",
+                                   "--fault-plan", '[["crash", 3]]'])
+    line = next(x for x in out.getvalue().splitlines()
+                if x.startswith("[serve] chaos: 1 crashes"))
+    assert "1 restores" in line and "unfired=[]" in line, line
+    assert "fired={'crash': 1}" in line, line
+    assert [r.generated for r in reqs] == [r.generated for r in plain]
+    assert all(len(r.generated) == 5 for r in reqs)
 
 
 @pytest.mark.parametrize("head_dim", [8, 24, 272])
