@@ -60,7 +60,22 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    page_size=12, a planeless pool, with no paged kernel launched.  Prints
    the wall time of each restore and what it recomputed, snapshot bytes
    and ms per write, and degraded against fused tick times;
-9. prints one JSON line describing each kernel, then the device line last.
+9. memory path: (a) the sampled path's oversubscribed run again with a
+   swap tier (``swap_host_bytes``): the victim swaps out and back in, with
+   the uncontended tokens, fewer prefill chunks than the recompute run, the
+   swap pool empty at the end and one decode launch per layer per tick;
+   (b) a 256-token system prompt with four tails, greedy at one slot: a
+   cold engine on an empty prefix store flushes its registered blocks, and
+   a fresh warm engine on that store gives the cold tokens, every scale and
+   every plane byte equal, with fewer prefill chunks; (b') the same at four
+   slots, measured only (tokens equal or not, the largest relative gap
+   between the grids); (c) at cut depth 4, a snug pool with a host prefix
+   tier of about one record spills to disk, and a warm engine on the store
+   gives a cold one's tokens.  Prints ms and bytes per swap-out and
+   swap-in and per prefix record written and loaded, and
+   ``memory_report()`` after (a) and (c);
+10. prints one JSON line describing each kernel, then the device line
+   last.
 
 Any failed check exits non-zero.  Without a card it exits non-zero and
 prints no result.  ``--profile`` instead profiles decode ticks, a prefill
@@ -112,6 +127,10 @@ OVERSUB_POOL_BLOCKS = 92
 # fault at tick 62 degrades the engine, whose tick-64 snapshot (taken
 # degraded) the crash after tick 65 restores.
 CHAOS_SNAPSHOT_EVERY = 8
+# The memory path: a swap budget that never refuses, and the prefix-store
+# trace of (b), a system prompt of whole 64-token prefill chunks.
+SWAP_HOST_BYTES = 1 << 30
+STORE_PREFIX, STORE_NEW, STORE_POOL_BLOCKS = 256, 8, 1 + 4 * 32
 CHAOS_PLAN = (("crash", 3), ("checkpoint_interrupt", 24), ("pool_dry", 30),
               ("kernel_fail", 62), ("crash", 65))
 
@@ -1205,15 +1224,18 @@ def sampler_card_vs_cpu(torch, vocab):
     return kernels, copies
 
 
-def serve_sampled(torch, np, cfg, params, label, **kw):
-    """The main path's trace at TEMPERATURE under SAMPLE_SEED.  Returns the
-    engine, the tokens, the decode launches, the mean pure decode tick and
-    the sampler's CUDA-event ms over the run."""
+def serve_sampled(torch, np, cfg, params, label, probe=None, **kw):
+    """The main path's trace at TEMPERATURE under SAMPLE_SEED; ``probe``, if
+    given, is called with the engine before it serves.  Returns the engine,
+    the tokens, the decode launches, the mean pure decode tick and the
+    sampler's CUDA-event ms over the run."""
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.serving import PagedEngine, Request, ServeConfig
     eng = PagedEngine(cfg, params, ServeConfig(
         max_slots=4, page_size=16, max_len=512, temperature=TEMPERATURE,
         **kw))
+    if probe is not None:
+        probe(eng)
     if not eng.cfg.fused_decode:
         raise SystemExit(f"[chip_smoke] {label}: fused_decode did not "
                          f"resolve to the kernel on the card")
@@ -1264,8 +1286,9 @@ def serve_sampled(torch, np, cfg, params, label, **kw):
 def sampled_path_phase(torch, cfg, params, greedy_tick_ms):
     """(a) the sampler on the card against the CPU, (b) the main trace
     sampled, uncontended and oversubscribed, (c) sampled speculative
-    serving.  Returns the decode kernel's launches in (b) and the verify
-    kernel's in (c)'s replay run."""
+    serving.  Returns the decode kernel's launches in (b), the verify
+    kernel's in (c)'s replay run, (b)'s uncontended tokens and the prefill
+    chunks of its oversubscribed run (which recomputes on resume)."""
     import numpy as np
     from repro_torch.serving import PagedEngine, Request, ServeConfig
     kernels, copies = sampler_card_vs_cpu(torch, cfg.vocab)
@@ -1334,7 +1357,8 @@ def sampled_path_phase(torch, cfg, params, greedy_tick_ms):
                          "tokens differ from plain sampled")
     print("[chip_smoke] sampled (c): replay and n-gram speculative serving "
           "give the plain sampled tokens")
-    return l_full + l_over, verify_launches
+    return (l_full + l_over, verify_launches, [r.generated for r in reqs],
+            c["prefill_chunks"])
 
 
 class ChaosProbe:
@@ -1629,6 +1653,308 @@ def chaos_spec_trace(torch, np, cfg, params, prompts, snap_dir):
     return launches
 
 
+class TierLog:
+    """Wall time (the card synchronized on both sides) and bytes of every
+    swap-out and swap-in of the engines it watches, and of every prefix
+    record written to or loaded from the store while ``store_patch`` is
+    open."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events = {"swap-out": [], "swap-in": [], "record write": [],
+                       "record load": []}
+
+    def _timed(self, fn, *a):
+        self.torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a)
+        self.torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def watch(self, eng):
+        real_out, real_in = eng._swap_out, eng._swap_in
+
+        def swap_out(slot, exclusive, L, req):
+            _, ms = self._timed(real_out, slot, exclusive, L, req)
+            if req.rid in eng._swap:
+                self.events["swap-out"].append(
+                    (ms, eng._swap.nbytes_of(req.rid)))
+
+        def swap_in(req, row, ctx, m, resumed):
+            nbytes = eng._swap.nbytes_of(req.rid)
+            done = eng.counters["swap_ins"]
+            out, ms = self._timed(real_in, req, row, ctx, m, resumed)
+            if eng.counters["swap_ins"] > done:
+                self.events["swap-in"].append((ms, nbytes))
+            return out
+
+        eng._swap_out, eng._swap_in = swap_out, swap_in
+
+    def store_patch(self):
+        import contextlib
+        import os
+        from repro_torch.checkpoint import store
+        real_save, real_load = store.save_prefix_record, store.load_prefix_record
+
+        def save(directory, chain, layers, interrupt=None):
+            fresh = not os.path.isdir(os.path.join(
+                directory, store.prefix_record_name(chain)))
+            t = time.perf_counter()
+            final = real_save(directory, chain, layers, interrupt)
+            if fresh:
+                self.events["record write"].append((
+                    (time.perf_counter() - t) * 1e3,
+                    os.path.getsize(os.path.join(final, "record.npz"))))
+            return final
+
+        def load(directory, chain):
+            t = time.perf_counter()
+            layers = real_load(directory, chain)
+            if layers is not None:
+                self.events["record load"].append((
+                    (time.perf_counter() - t) * 1e3,
+                    sum(a.nbytes for lay in layers for a in lay.values())))
+            return layers
+
+        @contextlib.contextmanager
+        def patched():
+            store.save_prefix_record, store.load_prefix_record = save, load
+            try:
+                yield
+            finally:
+                store.save_prefix_record = real_save
+                store.load_prefix_record = real_load
+        return patched()
+
+    def report(self, np, label, kinds):
+        for kind in kinds:
+            ev = self.events[kind]
+            if not ev:
+                print(f"[chip_smoke] {label}: no {kind}")
+                continue
+            ms = [e[0] for e in ev]
+            print(f"[chip_smoke] {label}: {len(ev)} {kind}(s), "
+                  f"{np.mean([e[1] for e in ev]):.0f} bytes and "
+                  f"{np.mean(ms):.3f} ms each on average (max "
+                  f"{max(e[1] for e in ev)} bytes, {max(ms):.3f} ms)")
+            ev.clear()
+
+
+def serve_counted(torch, cfg, params, scfg, prompts, new_tokens, label):
+    """Serve greedily; checks one decode launch per layer per decode tick.
+    Returns the engine, the tokens and the wall seconds."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.serving import PagedEngine, Request
+    eng = PagedEngine(cfg, params, scfg)
+    reqs = [Request(prompt=p.copy(), max_new_tokens=new_tokens)
+            for p in prompts]
+    pd.LAUNCHES = 0
+    t = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    steps = eng.counters["decode_steps"]
+    if pd.LAUNCHES != cfg.n_layers * steps or not steps:
+        raise SystemExit(f"[chip_smoke] {label}: {pd.LAUNCHES} decode "
+                         f"launches for {steps} ticks x {cfg.n_layers} "
+                         f"layers")
+    for r in reqs:
+        if len(r.generated) != new_tokens or not all(
+                0 <= x < cfg.vocab for x in r.generated):
+            raise SystemExit(f"[chip_smoke] {label}: request {r.rid} "
+                             f"generated {r.generated}")
+    return eng, [r.generated for r in reqs], wall
+
+
+def grids_and_planes(np, cold, warm):
+    """(every scale equal, every plane byte equal, the largest relative gap
+    between the two engines' scales)."""
+    from repro_torch.serving.engine import _amax_arrays, _layers
+    gap, same = 0.0, True
+    for a, b in zip(_amax_arrays(cold.caches, cold.cfg.scan_layers),
+                    _amax_arrays(warm.caches, warm.cfg.scan_layers)):
+        same &= bool(np.array_equal(a, b))
+        gap = max(gap, float(np.max(np.abs(a - b)
+                                    / np.maximum(np.abs(a), 1e-30))))
+    planes = all(bool((c["kq"] == w["kq"]).all())
+                 for c, w in zip(_layers(cold.caches), _layers(warm.caches)))
+    return same, planes, gap
+
+
+def store_warm_start(torch, np, cfg, params, store_dir, max_slots, label):
+    """(b): a cold engine on an empty store serves the trace and flushes
+    its registered blocks; a fresh engine on the store serves it again.
+    Returns the cold and warm engines, their tokens and the records
+    flushed."""
+    from repro_torch.serving import ServeConfig
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, cfg.vocab, STORE_PREFIX, dtype=np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(
+        0, cfg.vocab, int(rng.integers(16, 81)), dtype=np.int32)])
+        for _ in range(4)]
+    scfg = ServeConfig(max_slots=max_slots, page_size=16, max_len=512,
+                       pool_blocks=STORE_POOL_BLOCKS,
+                       prefix_store_dir=store_dir)
+    cold, cold_tok, cold_s = serve_counted(
+        torch, cfg, params, scfg, prompts, STORE_NEW, f"{label} cold")
+    t = time.perf_counter()
+    flushed = cold.flush_prefixes()
+    flush_s = time.perf_counter() - t
+    warm, warm_tok, warm_s = serve_counted(
+        torch, cfg, params, scfg, prompts, STORE_NEW, f"{label} warm")
+    cc, wc = cold.counters, warm.counters
+    print(f"[chip_smoke] {label}: {max_slots} slot(s), prompts "
+          f"{[len(p) for p in prompts]} ({STORE_PREFIX}-token system "
+          f"prompt); cold {cold_s:.3f} s, {cc['prefill_chunks']} prefill "
+          f"chunks, {cc['prefix_spills']} spills; flush_prefixes() "
+          f"{flushed} records in {flush_s:.3f} s; warm {warm_s:.3f} s, "
+          f"{wc['prefill_chunks']} prefill chunks, "
+          f"{wc['prefix_store_hits']} store hits "
+          f"({wc['prefix_store_tokens']} tokens), "
+          f"{wc['prefix_hit_tokens']} registry-hit tokens")
+    return cold, cold_tok, warm, warm_tok, flushed
+
+
+@phase("memory path")
+def memory_path_phase(torch, cfg, params, want_sampled, recompute_chunks):
+    """(a) swap-to-host on the sampled oversubscribed run, (b) the prefix
+    store at one slot, by construction, (b') at four slots, measured, (c)
+    the host prefix tier spilling to disk at cut depth.  Returns the decode
+    kernel's launches."""
+    import tempfile
+    import numpy as np
+    tiers = TierLog(torch)
+    eng, got, launches, _, _ = serve_sampled(
+        torch, np, cfg, params, "memory (a) swap", probe=tiers.watch,
+        oversubscribe=True, pool_blocks=OVERSUB_POOL_BLOCKS,
+        swap_host_bytes=SWAP_HOST_BYTES)
+    c, rep = eng.counters, eng.memory_report()
+    print(f"[chip_smoke] memory (a): {c['preemptions']} preemptions, "
+          f"{c['swap_outs']} swap-outs, {c['swap_ins']} swap-ins "
+          f"({c['swap_in_tokens']} tokens spliced), {c['swap_fallbacks']} "
+          f"fallbacks; {c['prefill_chunks']} prefill chunks against "
+          f"{recompute_chunks} in the recompute run; memory_report() {rep}")
+    tiers.report(np, "memory (a)", ("swap-out", "swap-in"))
+    checks = {
+        "the uncontended tokens": got == want_sampled,
+        "a preemption swapped out and in": (
+            c["preemptions"] >= 1 and c["swap_outs"] >= 1
+            and c["swap_ins"] >= 1 and c["swap_in_tokens"] > 0),
+        "fewer prefill chunks than recompute":
+            c["prefill_chunks"] < recompute_chunks,
+        "the swap pool empty, its peak above 0": (
+            rep["host_swap_bytes"] == 0 and rep["host_swap_bytes_peak"] > 0),
+        "the pool drained": eng.pool.available() == eng.pool.capacity,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"[chip_smoke] memory (a) failed: {failed}")
+    print(f"[chip_smoke] memory (a): {', '.join(checks)}, decode launches "
+          f"24 x ticks: all hold")
+
+    with tempfile.TemporaryDirectory() as tmp, tiers.store_patch():
+        cold, cold_tok, warm, warm_tok, flushed = store_warm_start(
+            torch, np, cfg, params, f"{tmp}/b", 1, "memory (b)")
+        tiers.report(np, "memory (b)", ("record write", "record load"))
+        same, planes, _ = grids_and_planes(np, cold, warm)
+        cc, wc = cold.counters, warm.counters
+        launches += cfg.n_layers * (cc["decode_steps"] + wc["decode_steps"])
+        saved = wc["prefix_store_tokens"] // cold.scfg.resolved_chunk()
+        checks = {
+            "the cold tokens": warm_tok == cold_tok,
+            "every scale equal": same,
+            "every plane byte equal": planes,
+            "at least 16 records flushed": flushed >= 16,
+            "nothing spilled or injected cold": (
+                cc["prefix_spills"] == 0 and cc["prefix_store_hits"] == 0),
+            "at least 16 store hits": wc["prefix_store_hits"] >= 16,
+            "one prefill chunk fewer per injected chunk, at least 4": (
+                cc["prefill_chunks"] - wc["prefill_chunks"] == saved >= 4),
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise SystemExit(f"[chip_smoke] memory (b) failed: {failed}")
+        print(f"[chip_smoke] memory (b): {', '.join(checks)}: all hold")
+
+        cold, cold_tok, warm, warm_tok, _ = store_warm_start(
+            torch, np, cfg, params, f"{tmp}/b2", 4, "memory (b')")
+        tiers.report(np, "memory (b')", ("record write", "record load"))
+        same, _, gap = grids_and_planes(np, cold, warm)
+        launches += cfg.n_layers * (cold.counters["decode_steps"]
+                                    + warm.counters["decode_steps"])
+        # (Plane pools do not compare here: the cold run's four requests
+        # each prefilled the system prompt into blocks of their own.)
+        print(f"[chip_smoke] memory (b') measured: warm tokens "
+              f"{'equal' if warm_tok == cold_tok else 'DIFFER from'} the "
+              f"cold ones; scales {'all equal' if same else 'differ'}, "
+              f"largest relative gap {gap:.6e}")
+
+        launches += memory_host_tier(torch, np, cfg, params, f"{tmp}/c",
+                                     tiers)
+    return launches
+
+
+def memory_host_tier(torch, np, cfg, params, store_dir, tiers):
+    """(c) at the cut depth of the speculative fused-vs-plain check: a snug
+    pool's LRU evicts registered blocks into a host tier of about one
+    record, which spills on to disk; a warm engine on the flushed store
+    gives a cold one's tokens.  Both serve at one slot, as the spilling
+    engine does, so injection leaves the order of writes as it was.
+    Returns the decode kernel's launches."""
+    from repro_torch.serving import ServeConfig
+    depth = min(4, cfg.n_layers)
+    cut = cfg.replace(segments=((cfg.segments[0][0], depth),))
+    cut_params = dict(params, seg0=params["seg0"][:depth])
+    page = 16
+    record = depth * (2 * page * cfg.n_kv_heads * cfg.head_dim * 4 + page * 4)
+    rng = np.random.default_rng(8)
+    prefix = rng.integers(0, cfg.vocab, 2 * page, dtype=np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab, L,
+                                                    dtype=np.int32)])
+               for L in (18, 22, 20, 18, 22)]
+    base = dict(max_slots=1, page_size=page, max_len=512, prefill_chunk=page)
+    eng, tok, wall = serve_counted(
+        torch, cut, cut_params, ServeConfig(
+            **base, pool_blocks=8, prefix_store_dir=store_dir,
+            prefix_host_bytes=record * 3 // 2), prompts, 16, "memory (c)")
+    c, rep = eng.counters, eng.memory_report()
+    launches = depth * c["decode_steps"]
+    print(f"[chip_smoke] memory (c): depth {depth}, pool 8 blocks, host "
+          f"tier {record * 3 // 2} bytes (a record is {record}); "
+          f"{wall:.3f} s; {c['prefix_spills']} spills, host tier "
+          f"evictions {eng._prefix_host.evict_count}; memory_report() {rep}")
+    tiers.report(np, "memory (c) spilling", ("record write",))
+    checks = {
+        "a spill": c["prefix_spills"] >= 1,
+        "a host-tier eviction": eng._prefix_host.evict_count >= 1,
+        "bytes on disk": rep["disk_prefix_bytes"] > 0,
+    }
+    eng.flush_prefixes()
+    cold, cold_tok, _ = serve_counted(torch, cut, cut_params,
+                                      ServeConfig(**base), prompts, 16,
+                                      "memory (c) cold")
+    warm, warm_tok, _ = serve_counted(
+        torch, cut, cut_params, ServeConfig(**base,
+                                            prefix_store_dir=store_dir),
+        prompts, 16, "memory (c) warm")
+    tiers.report(np, "memory (c) flush and warm start",
+                 ("record write", "record load"))
+    launches += depth * (cold.counters["decode_steps"]
+                         + warm.counters["decode_steps"])
+    print(f"[chip_smoke] memory (c): warm {warm.counters['prefix_store_hits']}"
+          f" store hits, {warm.counters['prefill_chunks']} prefill chunks "
+          f"against {cold.counters['prefill_chunks']} cold")
+    checks.update({
+        "store hits when warm": warm.counters["prefix_store_hits"] >= 1,
+        "the cold tokens when warm": warm_tok == cold_tok,
+    })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"[chip_smoke] memory (c) failed: {failed}")
+    print(f"[chip_smoke] memory (c): {', '.join(checks)}: all hold")
+    return launches
+
+
 @phase("profile")
 def profile_phase(torch, cfg, params, decode_ticks=8, verify_ticks=3):
     """torch.profiler over steady decode ticks, one prefill chunk,
@@ -1750,12 +2076,14 @@ def main(argv=None):
         torch, cfg, params, plain_reqs)
     rows[2]["launches"], rows[3]["launches"] = forward_path_phase(
         torch, cfg, params)
-    (rows[0]["launches_sampled_path"],
-     rows[1]["launches_sampled_path"]) = sampled_path_phase(
+    (rows[0]["launches_sampled_path"], rows[1]["launches_sampled_path"],
+     want_sampled, recompute_chunks) = sampled_path_phase(
         torch, cfg, params, greedy_tick_ms)
     (rows[0]["launches_chaos_path"],
      rows[1]["launches_chaos_path"]) = chaos_path_phase(
         torch, cfg, params, plain_reqs, ngram_prompts)
+    rows[0]["launches_memory_path"] = memory_path_phase(
+        torch, cfg, params, want_sampled, recompute_chunks)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

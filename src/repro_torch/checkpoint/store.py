@@ -1,11 +1,15 @@
-"""Crash snapshots: one JSON document per step, staged then promoted.
+"""Crash snapshots and the persistent prefix store, staged then promoted.
 
-Counterpart of the snapshot half of ``repro/checkpoint/store.py``, with the
-same on-disk layout, so a directory written by either package loads in the
-other::
+Counterpart of the snapshot and prefix-record halves of
+``repro/checkpoint/store.py``, with the same on-disk layout, so a
+directory written by either package loads in the other::
 
     <dir>/step_<NNNNNNNN>/snapshot.json    the engine's snapshot()
     <dir>/step_<NNNNNNNN>/MANIFEST.json    {"step": N, "kind": "snapshot"}
+    <dir>/prefix_<digest>/record.npz       one prefix block's rows,
+                                           keys L{i}__{k,v,pos}
+    <dir>/prefix_<digest>/MANIFEST.json    {"kind": "prefix", "chain": [...],
+                                            "n_layers": n}
 
 A write goes to a unique ``step_<N>.tmp.*`` staging directory first and is
 published with one ``os.replace``: a reader sees the previous snapshot or
@@ -13,18 +17,27 @@ the new one, never a torn write.  ``save_snapshot``'s ``interrupt`` hook
 runs between the two (the chaos harness's ``checkpoint_interrupt``), and
 :func:`gc_staging` reclaims the staging orphans a dead writer leaves.
 
+A prefix record is one registered prefix block (``PagedEngine``'s disk
+tier): its f32 K/V rows and ``pos`` plane per paged layer, in the
+reference's layer layout (a segment the reference stacks is one entry with
+a leading reps axis), under the sha256 digest of its full token chain.  The
+MANIFEST carries the chain itself and a load checks it, so a digest
+collision reads as a miss, never as another prefix's KV.
+
 The pytree checkpoints of the reference (``save_checkpoint``,
-``load_checkpoint``, ``CheckpointManager``) come with training, and its
-prefix-store records with the swap and prefix tiers (ROADMAP).
+``load_checkpoint``, ``CheckpointManager``) come with training (ROADMAP).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
 import tempfile
 import time
+
+import numpy as np
 
 
 def _stage_named(directory: str, name: str) -> str:
@@ -125,3 +138,111 @@ def latest_step(directory: str) -> int | None:
                 s = int(name.split("_")[1])
                 best = s if best is None or s > best else best
     return best
+
+
+# ---------------------------------------------------------------------------
+# The persistent prefix store (the disk tier of the serving KV hierarchy)
+# ---------------------------------------------------------------------------
+
+
+def _prefix_digest(chain) -> str:
+    payload = json.dumps([int(t) for t in chain]).encode()
+    return hashlib.sha256(payload).hexdigest()[:32]
+
+
+def prefix_record_name(chain) -> str:
+    """Directory name of one stored prefix block.  The digest is only a
+    file name: the full chain lives in the MANIFEST, and a load checks it."""
+    return f"prefix_{_prefix_digest(chain)}"
+
+
+def save_prefix_record(directory: str, chain, layers,
+                       interrupt=None) -> str:
+    """Atomically persist one registered prefix block under its token
+    chain.
+
+    ``layers`` holds one dict of host arrays per paged layer, the block's
+    f32 ``k``/``v`` rows and ``pos`` plane as
+    :func:`repro_torch.models.attention.extract_block_rows` gives them for
+    one block.  Packed planes and scales are not stored: the loading engine
+    derives its own from the rows through the write rule's scale update, so
+    a record stays valid whatever the writer's scales were.
+
+    The first writer wins: a chain already promoted is left as it is (the
+    content under one chain is the same by construction).  ``interrupt``
+    runs after the staging write and before the promote (the chaos
+    harness's ``checkpoint_interrupt``); if it raises, the torn record is
+    an invisible ``.tmp`` orphan for :func:`gc_staging`."""
+    chain = [int(t) for t in chain]
+    name = prefix_record_name(chain)
+    final = os.path.join(directory, name)
+    if os.path.isdir(final):
+        return final
+    tmp = _stage_named(directory, name)
+    flat = {}
+    for i, layer in enumerate(layers):
+        for field, arr in layer.items():
+            flat[f"L{i}__{field}"] = np.asarray(arr)
+    np.savez(os.path.join(tmp, "record.npz"), **flat)
+    with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
+        json.dump({"kind": "prefix", "chain": chain,
+                   "n_layers": len(layers)}, f)
+    if interrupt is not None:
+        interrupt()
+    _promote(tmp, final)
+    return final
+
+
+def load_prefix_record(directory: str, chain):
+    """The layer arrays stored for ``chain``, or None on a miss.  A MANIFEST
+    whose chain differs (a digest collision) is a miss."""
+    chain = [int(t) for t in chain]
+    d = os.path.join(directory, prefix_record_name(chain))
+    manifest_path = os.path.join(d, "MANIFEST.json")
+    if not os.path.isfile(manifest_path):
+        return None
+    with open(manifest_path) as f:
+        manifest = json.load(f)
+    if manifest.get("kind") != "prefix" or manifest.get("chain") != chain:
+        return None
+    layers = [dict() for _ in range(manifest["n_layers"])]
+    with np.load(os.path.join(d, "record.npz")) as z:
+        for k in z.files:
+            li, field = k.split("__", 1)
+            layers[int(li[1:])][field] = z[k]
+    return layers
+
+
+def _prefix_dirs(directory: str) -> list[str]:
+    """Names of the promoted prefix records (staging orphans excluded), in
+    digest order."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(n for n in os.listdir(directory)
+                  if n.startswith("prefix_") and ".tmp" not in n)
+
+
+def list_prefix_records(directory: str) -> list[list[int]]:
+    """Token chains of every promoted prefix record, in digest order."""
+    chains = []
+    for n in _prefix_dirs(directory):
+        manifest_path = os.path.join(directory, n, "MANIFEST.json")
+        if not os.path.isfile(manifest_path):
+            continue
+        with open(manifest_path) as f:
+            manifest = json.load(f)
+        if manifest.get("kind") == "prefix":
+            chains.append(list(manifest["chain"]))
+    return chains
+
+
+def prefix_store_bytes(directory: str) -> int:
+    """On-disk payload bytes of every promoted prefix record (the
+    ``disk_prefix_bytes`` of ``PagedEngine.memory_report``)."""
+    total = 0
+    for n in _prefix_dirs(directory):
+        try:
+            total += os.path.getsize(os.path.join(directory, n, "record.npz"))
+        except OSError:
+            pass
+    return total

@@ -5,10 +5,13 @@ over a mixed-length request trace.
 ``--device cpu`` runs the plain PyTorch path; ``--speculative ngram|draft
 --draft-k 4`` serves speculatively; ``--temperature 0.7`` samples under
 ``--seed``; ``--oversubscribe --pool-blocks N`` preempts when the pool runs
-dry; ``--fault-plan '[["crash", 3]]' --snapshot-dir DIR`` serves through the
-chaos harness with crash snapshots).  Mirror of ``repro/launch/serve.py``
-for what this port serves: the paged engine with deadlines, SLO classes,
-load shedding and crash recovery, reduced-width configs with seeded random
+dry; ``--swap-host-bytes B`` swaps preemption victims to host RAM;
+``--prefix-store-dir DIR`` keeps a persistent prefix store, flushed at the
+end, that a later launch warms from; ``--fault-plan '[["crash", 3]]'
+--snapshot-dir DIR`` serves through the chaos harness with crash
+snapshots).  Mirror of ``repro/launch/serve.py`` for what this port serves:
+the paged engine with deadlines, SLO classes, load shedding, the KV memory
+hierarchy and crash recovery, reduced-width configs with seeded random
 weights.
 """
 
@@ -104,6 +107,19 @@ def main(argv=None):
     ap.add_argument("--besteffort-tail", type=int, default=0, metavar="N",
                     help="mark the last N trace requests slo=besteffort "
                          "(sheddable; preferred preemption victims)")
+    ap.add_argument("--swap-host-bytes", type=int, default=0, metavar="B",
+                    help="host-RAM budget for swap-to-host preemption: "
+                         "victims' exclusive blocks copy to host and resume "
+                         "by splice instead of chunked-prefill recompute "
+                         "(requires --oversubscribe; 0 = recompute only)")
+    ap.add_argument("--prefix-store-dir", default=None,
+                    help="persistent prefix store: cold registered prefix "
+                         "blocks spill here (atomic stage-then-promote) and "
+                         "a restarted engine warms its prefix cache from it")
+    ap.add_argument("--prefix-host-bytes", type=int, default=0, metavar="B",
+                    help="host-RAM tier between the device prefix LRU and "
+                         "the disk store (evictions cascade downward; 0 = "
+                         "spill straight to disk)")
     ap.add_argument("--snapshot-dir", default=None,
                     help="persist crash snapshots (engine host state; "
                          "atomic stage-then-promote) under this directory")
@@ -137,7 +153,10 @@ def main(argv=None):
         oversubscribe=args.oversubscribe,
         preempt_policy=args.preempt_policy, deadline_ticks=args.deadline,
         shed_watermark=args.shed_watermark,
-        snapshot_every=args.snapshot_every)
+        snapshot_every=args.snapshot_every,
+        swap_host_bytes=args.swap_host_bytes,
+        prefix_store_dir=args.prefix_store_dir,
+        prefix_host_bytes=args.prefix_host_bytes)
     plan = None
     if args.fault_plan is not None:
         text = args.fault_plan
@@ -217,6 +236,22 @@ def main(argv=None):
         print(f"[serve] qos: {c['requests_shed']} shed (watermark "
               f"{c['shed_watermark']} / deadline {c['shed_deadline']}), "
               f"{c['deadline_truncated']} deadline-truncated")
+    if (args.swap_host_bytes or args.prefix_host_bytes
+            or args.prefix_store_dir is not None):
+        if args.prefix_store_dir is not None:
+            # Graceful shutdown: persist the registered prefix blocks, so
+            # that the next launch warms from the store.
+            flushed = engine.flush_prefixes()
+            print(f"[serve] prefix store: flushed {flushed} record(s) to "
+                  f"{args.prefix_store_dir}")
+        c = engine.counters
+        print(f"[serve] hierarchy: {c['swap_outs']} swap-outs / "
+              f"{c['swap_ins']} swap-ins ({c['swap_in_tokens']} tokens "
+              f"spliced, {c['swap_fallbacks']} recompute fallbacks), "
+              f"{c['prefix_spills']} prefix spills, "
+              f"{c['prefix_store_hits']} store hits "
+              f"({c['prefix_store_tokens']} tokens warmed); "
+              f"tiers={engine.memory_report()}")
     print(f"[serve] kv pool: page_size={engine.layout.page_size} "
           f"blocks={engine.layout.pool_blocks} "
           f"peak_live={engine.pool.peak_live_blocks} "

@@ -23,7 +23,11 @@ and the paths paged serving runs:
   page size that is not a multiple of 8 carries no scales and no planes),
   which gathers each row's view for the single-query BESF
   (``besf_attention_decode``) or, several queries per row, the per-token
-  BESF.
+  BESF;
+* the paged block-row transport (``extract_block_rows``,
+  ``splice_block_rows``, ``requant_plane_pools``, ``repack_block_planes``,
+  ``apply_inject_amax_rule``) under swap-to-host preemption and the
+  persistent prefix store.
 
 Four CUDA kernels sit under this module: ``flash_attention`` and
 ``bitstopper_qk`` on the cache-free forward, ``paged_decode`` and
@@ -42,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core import quantization as qlib
@@ -569,3 +574,183 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
                                   "(ROADMAP A10)")
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return L.by_column(lambda t: L.linear(p["wo"], t), out, split), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Paged block-row transport: the device<->host seam of the memory hierarchy
+# ---------------------------------------------------------------------------
+#
+# These helpers move whole physical blocks between the paged pools and host
+# arrays; swap-to-host preemption and the persistent prefix store are built
+# on them.  A record lists the layers in the reference's layout, so that
+# stores cross between the packages: one entry per paged layer of the
+# reference, where a segment the reference stacks (``scan_layers`` and more
+# than one rep) is one entry whose arrays carry a leading reps axis.  The
+# port keeps one cache dict per layer, so each entry maps to the list of
+# layer dicts it holds (:func:`paged_layer_groups`).  Splices write the pool
+# tensors in place; records are host copies, never views of a pool.
+
+
+def paged_layer_groups(caches, scan_layers: bool = True) -> list[list[dict]]:
+    """The reference's paged layers in its sorted-key traversal of the
+    cache tree, each as the list of the port's layer caches it holds: the
+    reps of a segment the reference stacks, else one layer."""
+    groups = []
+    for seg in sorted(caches):
+        units = caches[seg]
+        stacked = scan_layers and len(units) > 1
+        for reps in ([units] if stacked else [[u] for u in units]):
+            for b in sorted(reps[0]):
+                if cache_is_paged(reps[0][b]):
+                    groups.append([u[b] for u in reps])
+    return groups
+
+
+def _host_rows(group, field, idx):
+    """Rows ``idx`` of one field of a layer group as a host array: stacked
+    over the group's reps when it has several.  Indexing with a tensor
+    gathers into new storage, so the array is a copy, never a view of the
+    pool (``numpy()`` of a CPU tensor shares its memory)."""
+    rows = [c[field][idx] for c in group]
+    t = torch.stack(rows) if len(group) > 1 else rows[0]
+    return t.cpu().numpy()
+
+
+def extract_block_rows(caches, bids, planes: bool = False,
+                       scan_layers: bool = True) -> list[dict]:
+    """Device-to-host copy of the physical blocks ``bids`` from every paged
+    layer: one dict per reference paged layer with the f32 ``k``/``v``
+    rows and the ``pos`` plane (``[reps, n, ...]`` for a stacked entry,
+    else ``[n, ...]``) and, with ``planes`` and a plane pool, the packed
+    ``kq`` rows.  Full blocks are never rewritten, so the rows stay valid
+    until the block is freed and reused."""
+    groups = paged_layer_groups(caches, scan_layers)
+    idx = torch.as_tensor(list(bids), dtype=torch.long,
+                          device=groups[0][0]["k"].device)
+    layers = []
+    for group in groups:
+        fields = ("k", "v", "pos")
+        if planes and "kq" in group[0]:
+            fields += ("kq",)
+        layers.append({f: _host_rows(group, f, idx) for f in fields})
+    return layers
+
+
+def splice_block_rows(caches, bids, layers, sel=None,
+                      scan_layers: bool = True):
+    """Write rows from :func:`extract_block_rows` into the physical blocks
+    ``bids`` of every paged layer, in place.  ``sel`` picks which record
+    rows feed which block (``bids[i] <- rows[sel[i]]``; by default all rows
+    in order).  ``kq`` rows are written only where both the record and the
+    cache carry them: a caller whose scales moved since the extraction
+    strips them and repacks instead (:func:`repack_block_planes`).
+    Returns ``caches``."""
+    groups = paged_layer_groups(caches, scan_layers)
+    if len(layers) != len(groups):
+        raise ValueError(f"record holds {len(layers)} paged layers, the "
+                         f"cache {len(groups)}")
+    idx = torch.as_tensor(list(bids), dtype=torch.long,
+                          device=groups[0][0]["k"].device)
+    for group, rows in zip(groups, layers):
+        for field in ("k", "v", "pos", "kq"):
+            if field not in rows or field not in group[0]:
+                continue
+            dst = group[0][field]
+            val = torch.as_tensor(np.asarray(rows[field])).to(
+                device=dst.device, dtype=dst.dtype)
+            if len(group) == 1:
+                val = val[None]
+            if sel is not None:
+                val = val[:, list(sel)]
+            for c, v in zip(group, val):
+                c[field][idx] = v
+    return caches
+
+
+def requant_plane_pools(caches):
+    """Rebuild every packed plane pool from its f32 pool under the current
+    scales, in place: the fix-up after an operation that moved ``k_amax``
+    under stored planes.  ``pack_pool_planes`` is a function of (f32 pool,
+    amax) alone, so the bytes equal an incrementally kept pool whose last
+    requant happened at these scales.  Returns ``caches``."""
+    for group in paged_layer_groups(caches):
+        for c in group:
+            if "kq" in c:
+                c["kq"].copy_(qlib.pack_pool_planes(
+                    c["k"], c["k_amax"], c["kq"].shape[1]))
+    return caches
+
+
+def repack_block_planes(caches, bids):
+    """Rebuild the packed planes of the blocks ``bids`` alone from their
+    (just spliced) f32 rows under the current scales, in place: equal to
+    the write rule quantizing the same tokens under the same unchanged
+    scale.  Returns ``caches``."""
+    for group in paged_layer_groups(caches):
+        for c in group:
+            if "kq" in c:
+                idx = torch.as_tensor(list(bids), dtype=torch.long,
+                                      device=c["kq"].device)
+                c["kq"][idx] = qlib.pack_pool_planes(
+                    c["k"][idx], c["k_amax"], c["kq"].shape[1])
+    return caches
+
+
+def apply_inject_amax_rule(caches, layers, groups, scan_layers: bool = True):
+    """Replay the cache write's scale rule for injected rows, once per
+    chunk group: the trajectory chunked prefill of the same tokens takes.
+
+    ``layers`` pairs with the reference's paged layers (an
+    :func:`extract_block_rows` result); ``groups`` is a list of chunk
+    groups, each a list of ``(row, lo, hi)``: a record row and the token
+    window of that block inside the group.  Host numpy, as in the
+    reference: ``abs`` and ``max`` are exact and the f32 multiply by
+    ``AMAX_HEADROOM`` rounds as the device rule's in
+    :func:`_update_plane_pool`.  The scales are written back in place.
+
+    Returns ``(caches, k_grew)``; ``k_grew`` says whether any K scale moved,
+    in which case the caller requantizes every plane pool
+    (:func:`requant_plane_pools`), else repacks the injected blocks."""
+    headroom = np.float32(AMAX_HEADROOM)
+    k_grew = False
+
+    def window_hi(rows, stacked, row, lo, hi):
+        if stacked:                       # [reps, nrows, bs, H, D]
+            w = np.abs(rows[:, row, lo:hi])
+            return w.max(axis=(1, 3), initial=np.float32(0.0))
+        w = np.abs(rows[row, lo:hi])      # [hi-lo, H, D]
+        return w.max(axis=(0, 2), initial=np.float32(0.0))
+
+    for group, rows in zip(paged_layer_groups(caches, scan_layers), layers):
+        if "k_amax" not in group[0]:
+            continue
+        stacked = len(group) > 1
+        k_rows = np.asarray(rows["k"], np.float32)
+        v_rows = np.asarray(rows["v"], np.float32)
+        k_amax = np.stack([c["k_amax"].cpu().numpy() for c in group])
+        v_amax = np.stack([c["v_amax"].cpu().numpy() for c in group])
+        if not stacked:
+            k_amax, v_amax = k_amax[0], v_amax[0]
+        k0, v0 = k_amax.copy(), v_amax.copy()
+        for wins in groups:
+            k_hi = np.zeros(k_amax.shape, np.float32)
+            v_hi = np.zeros(v_amax.shape, np.float32)
+            for row, lo, hi in wins:
+                k_hi = np.maximum(k_hi, window_hi(k_rows, stacked, row,
+                                                  lo, hi))
+                v_hi = np.maximum(v_hi, window_hi(v_rows, stacked, row,
+                                                  lo, hi))
+            k_new = np.where(k_hi > k_amax, k_hi * headroom, k_amax)
+            v_new = np.where(v_hi > v_amax, v_hi * headroom, v_amax)
+            if (k_new > k_amax).any():
+                k_grew = True
+            k_amax = k_new.astype(np.float32)
+            v_amax = v_new.astype(np.float32)
+        if (k_amax == k0).all() and (v_amax == v0).all():
+            continue
+        k_amax = k_amax.reshape((len(group),) + k_amax.shape[-1:])
+        v_amax = v_amax.reshape((len(group),) + v_amax.shape[-1:])
+        for c, ka, va in zip(group, k_amax, v_amax):
+            c["k_amax"].copy_(torch.as_tensor(ka))
+            c["v_amax"].copy_(torch.as_tensor(va))
+    return caches, k_grew

@@ -1,6 +1,7 @@
 """Serving: the paged continuous-batching engine with BitStopper decode,
 seeded sampling, oversubscription with preemption, speculative decoding,
-and crash snapshots with the deterministic chaos harness."""
+crash snapshots with the deterministic chaos harness, and the KV memory
+hierarchy (swap-to-host preemption, the persistent prefix store)."""
 
 from repro_torch.serving.chaos import (  # noqa: F401
     CheckpointInterrupted,
@@ -17,7 +18,7 @@ from repro_torch.serving.engine import (  # noqa: F401
     Request,
     ServeConfig,
 )
-from repro_torch.serving.kv_pool import KVBlockPool  # noqa: F401
+from repro_torch.serving.kv_pool import KVBlockPool, SwapPool  # noqa: F401
 from repro_torch.serving.sampling import (  # noqa: F401
     prng_key,
     sample_tokens,

@@ -19,11 +19,12 @@ Fault kinds and where they bite:
   the engine's circuit breaker switches to the plain oracle, which gives
   the same tokens, and runs the same tick again.
 * ``drafter_fail``: the speculative drafter dies; the tick decodes plain.
-* ``checkpoint_interrupt``: a snapshot write dies after staging, before
-  the atomic promote; the store never exposes it and GC reclaims it.
-* ``swap_fail``: consulted by the swap-to-host tier, which the port does
-  not have yet (ROADMAP A7.3); until then such an event stays unfired, as
-  it does in the reference when swap is off.
+* ``checkpoint_interrupt``: a snapshot write, or a prefix-store spill or
+  flush (``PagedEngine._store_interrupt``), dies after staging, before the
+  atomic promote; the store never exposes it and GC reclaims it.
+* ``swap_fail``: a preemption victim's device-to-host swap copy dies
+  (``PagedEngine._swap_out``); the victim resumes by recompute.  An engine
+  without a swap tier never consults it.
 * ``crash``: the host dies between ticks; the harness builds a fresh
   engine and restores the latest snapshot.  Served tokens must equal an
   undisturbed run's.

@@ -56,9 +56,21 @@ the engine to the plain oracle for the rest of its life and runs the same
 tick there.  The breaker catches only the injected ``KernelFault``; an
 error raised by a kernel propagates.
 
-Not ported yet (each is a queue A item in ROADMAP.md): the swap and
-prefix-store tiers, ``memory_report``, the engine API, mesh sharding, the
-bf16 cache, and the contiguous and static engines.
+The KV memory hierarchy (``swap_host_bytes``, ``prefix_store_dir``,
+``prefix_host_bytes``): a preemption victim's exclusive blocks copy to a
+budgeted host pool (``kv_pool.SwapPool``) and its resume splices them back
+instead of recomputing them; registered prefix blocks that the pool's LRU
+evicts spill to a host tier and on to a disk store
+(``checkpoint/store.py``), from which a fresh engine warms its prefix cache,
+replaying the write rule's scale updates chunk group by chunk group.  A
+refused put, a ``swap_fail``, a victim whose exclusive blocks are not one
+run, and a record that no longer matches its admission fall back to
+recompute (``swap_fallbacks``).  :meth:`PagedEngine.memory_report` gives the
+bytes of each tier.  Host tiers are not snapshotted: a restored engine
+resumes by recompute.
+
+Not ported yet (each is a queue A item in ROADMAP.md): the engine API, mesh
+sharding, the bf16 cache, and the contiguous and static engines.
 """
 
 from __future__ import annotations
@@ -69,14 +81,21 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.kernels import paged_decode
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import (POS_SENTINEL, PagedLayout,
+                                          apply_inject_amax_rule,
+                                          extract_block_rows,
+                                          paged_layer_groups,
+                                          repack_block_planes,
+                                          requant_plane_pools,
+                                          splice_block_rows,
                                           undo_paged_write)
 from repro_torch.models.config import ModelConfig
-from repro_torch.serving.chaos import KernelFault
-from repro_torch.serving.kv_pool import KVBlockPool
+from repro_torch.serving.chaos import CheckpointInterrupted, KernelFault
+from repro_torch.serving.kv_pool import KVBlockPool, SwapPool
 from repro_torch.serving.sampling import prng_key, sample_tokens
 
 
@@ -125,6 +144,19 @@ class ServeConfig:
                                       # serving/chaos.serve_with_chaos and
                                       # launch/serve --snapshot-every
                                       # (0 = only the initial snapshot)
+    swap_host_bytes: int = 0          # host-RAM budget for swap-to-host
+                                      # preemption: a victim's exclusive
+                                      # blocks copy to host and resume by
+                                      # splice instead of prefill recompute
+                                      # (0 = recompute only)
+    prefix_store_dir: str | None = None  # persistent prefix store: cold
+                                      # registered prefix blocks spill to
+                                      # disk and a (re)started engine warms
+                                      # its prefix cache from it
+    prefix_host_bytes: int = 0        # host-RAM tier between the pool's
+                                      # prefix LRU and the disk store
+                                      # (evictions cascade downward; 0 =
+                                      # spill straight to disk)
 
     def __post_init__(self):
         for name in ("max_len", "max_slots", "prefill_bucket", "page_size"):
@@ -188,6 +220,22 @@ class ServeConfig:
         if self.snapshot_every < 0:
             raise ValueError(f"snapshot_every must be >= 0, got "
                              f"{self.snapshot_every}")
+        if self.swap_host_bytes < 0:
+            raise ValueError(f"swap_host_bytes must be >= 0, got "
+                             f"{self.swap_host_bytes}")
+        if self.prefix_host_bytes < 0:
+            raise ValueError(f"prefix_host_bytes must be >= 0, got "
+                             f"{self.prefix_host_bytes}")
+        if self.swap_host_bytes and not self.oversubscribe:
+            raise ValueError(
+                "swap_host_bytes requires oversubscribe=True: swap-to-host "
+                "captures preemption victims, and only oversubscribed "
+                "admission ever preempts")
+        if ((self.prefix_store_dir is not None or self.prefix_host_bytes)
+                and not self.prefix_sharing):
+            raise ValueError(
+                "the prefix store extends the registered-prefix LRU tier "
+                "downward; it needs prefix_sharing=True")
 
     def resolved_max_blocks(self) -> int:
         return self.max_blocks_per_req or -(-self.max_len // self.page_size)
@@ -263,16 +311,9 @@ def _amax_groups(caches, scan_layers: bool) -> list[list[torch.Tensor]]:
     segment the reference stacks (``scan_layers`` and more than one rep)
     has one leaf per block and key, stacked over its reps; any other
     segment has one leaf per layer."""
-    groups = []
-    for seg in sorted(caches):
-        units = caches[seg]
-        stacked = scan_layers and len(units) > 1
-        for reps in ([units] if stacked else [[u] for u in units]):
-            for b in sorted(reps[0]):
-                for key in ("k_amax", "v_amax"):
-                    if key in reps[0][b]:
-                        groups.append([u[b][key] for u in reps])
-    return groups
+    return [[c[key] for c in group]
+            for group in paged_layer_groups(caches, scan_layers)
+            for key in ("k_amax", "v_amax") if key in group[0]]
 
 
 def _amax_leaves(caches, scan_layers: bool = True) -> list[torch.Tensor]:
@@ -282,15 +323,20 @@ def _amax_leaves(caches, scan_layers: bool = True) -> list[torch.Tensor]:
     return [t for g in _amax_groups(caches, scan_layers) for t in g]
 
 
+def _amax_arrays(caches, scan_layers: bool) -> list[np.ndarray]:
+    """The scales as the reference's leaves hold them: one f32 host array
+    per leaf of :func:`_amax_groups` (``[reps, Hkv]`` where it stacks)."""
+    out = []
+    for g in _amax_groups(caches, scan_layers):
+        a = np.stack([t.cpu().numpy() for t in g]).astype(np.float32)
+        out.append(a if len(g) > 1 else a[0])
+    return out
+
+
 def _amax_state(caches, scan_layers: bool) -> list:
     """The scales as the reference's snapshot holds them: one f32 list per
     leaf of :func:`_amax_groups` (nested over reps where it stacks)."""
-    out = []
-    for g in _amax_groups(caches, scan_layers):
-        a = np.stack([t.cpu().numpy() for t in g])
-        out.append(np.asarray(a if len(g) > 1 else a[0],
-                              np.float32).tolist())
-    return out
+    return [a.tolist() for a in _amax_arrays(caches, scan_layers)]
 
 
 def _set_amax_leaves(caches, values: list, scan_layers: bool) -> None:
@@ -384,8 +430,23 @@ class PagedEngine:
         self._chunk = scfg.resolved_chunk()
         self.layout = PagedLayout(scfg.resolved_pool_blocks(), self._page,
                                   self._mb)
+        # The KV memory hierarchy: host swap records of preemption victims,
+        # and a host-RAM to disk cascade for registered prefix blocks that
+        # the pool's LRU evicts.  The pool calls evict_cb inside alloc,
+        # before the block's new owner writes it, so the spilled copy is
+        # the block's content.
+        self._swap = (SwapPool(scfg.swap_host_bytes)
+                      if scfg.swap_host_bytes else None)
+        self._prefix_host = (
+            SwapPool(scfg.prefix_host_bytes,
+                     evict_cb=self._spill_prefix_record)
+            if scfg.prefix_host_bytes else None)
+        evict_cb = (self._on_prefix_evict
+                    if (self._prefix_host is not None
+                        or scfg.prefix_store_dir is not None) else None)
         self.pool = KVBlockPool(self.layout.pool_blocks, self._page,
-                                prefix_sharing=scfg.prefix_sharing)
+                                prefix_sharing=scfg.prefix_sharing,
+                                evict_cb=evict_cb)
         B = scfg.max_slots
         self.caches = T.init_caches(self.cfg, B, self.layout,
                                     device=self.device)
@@ -415,9 +476,8 @@ class PagedEngine:
                          "shed_deadline": 0, "deadline_truncated": 0,
                          "degradations": 0, "drafter_failures": 0,
                          "forced_preemptions": 0,
-                         # The tiers of the engine API, swap and the prefix
-                         # store are not ported (ROADMAP A7.3, A8): their
-                         # counters stay 0, and a snapshot carries the
+                         # The engine API is not ported (ROADMAP A8): its
+                         # three counters stay 0, and a snapshot carries the
                          # reference's keys.
                          "prefixes_prefilled": 0, "prefixes_inserted": 0,
                          "prefix_transfers": 0,
@@ -709,17 +769,20 @@ class PagedEngine:
             row[:len(matched)] = matched
             for j in range(len(matched), n_ctx):
                 row[j] = self.pool.alloc(reserved=True)
-            # No swap or prefix-store tier is ported: the cached context is
-            # the prefix hit.
             hit_len = len(matched) * self._page
+            # Fill the claimed context blocks from the memory hierarchy (a
+            # host swap record, else the prefix store) instead of
+            # recomputing them; without a tier the prefix hit is all.
+            cached_len = self._rehydrate(req, row, ctx, len(matched),
+                                         hit_len, resumed)
             self.table[slot] = row
-            self.lengths[slot] = hit_len
-            self.slots[slot] = _PagedSlot(req, next_prefill=hit_len,
+            self.lengths[slot] = cached_len
+            self.slots[slot] = _PagedSlot(req, next_prefill=cached_len,
                                           blocks_reserved=goal - n_ctx,
                                           ctx=ctx, resumed=resumed,
                                           seq=self._admit_seq)
             self._admit_seq += 1
-            if hit_len < Lc:
+            if cached_len < Lc:
                 self._prefill_fifo.append(slot)
             else:
                 # Fully cached resume: decode continues from the last
@@ -936,6 +999,264 @@ class PagedEngine:
             self.queue.append(self.requests[rid])
 
     # ------------------------------------------------------------------
+    # KV memory hierarchy: swap-to-host preemption and the prefix store
+    # ------------------------------------------------------------------
+
+    def _swap_out(self, slot: int, exclusive: list[int], L: int,
+                  req: Request) -> None:
+        """Device-to-host copy of a preemption victim's exclusive blocks
+        into the swap pool, under its rid.  The record holds the f32
+        K/V/pos rows, the packed ``kq`` rows and the scales at swap time:
+        what :meth:`_swap_in` needs to splice the context back with no
+        recompute.  An injected ``swap_fail``, exclusive blocks that are
+        not one run up to the fill level, and a refused put skip the
+        record: the victim then resumes by recompute."""
+        if (self.chaos is not None
+                and self.chaos.fire("swap_fail", self.ticks)):
+            # The host copy died in flight: the victim recomputes.
+            self.counters["swap_fallbacks"] += 1
+            return
+        excl = set(exclusive)
+        n_used = -(-L // self._page)
+        pairs = [(j, int(self.table[slot, j])) for j in range(n_used)
+                 if int(self.table[slot, j]) in excl]
+        if not pairs:
+            return        # every block with tokens is shared: the resume
+                          # maps them again from the registry
+        js = [j for j, _ in pairs]
+        if js != list(range(js[0], n_used)):
+            # Shared blocks past the first exclusive one: the record could
+            # not splice back as one tail.
+            self.counters["swap_fallbacks"] += 1
+            return
+        bids = [b for _, b in pairs]
+        layers = extract_block_rows(self.caches, bids, planes=True,
+                                    scan_layers=self.cfg.scan_layers)
+        amax = _amax_arrays(self.caches, self.cfg.scan_layers)
+        rec = {"js": js, "length": int(L), "layers": layers, "amax": amax}
+        nbytes = (sum(int(a.nbytes) for lay in layers for a in lay.values())
+                  + sum(int(a.nbytes) for a in amax))
+        if self._swap.put(req.rid, rec, nbytes):
+            self.counters["swap_outs"] += 1
+        else:
+            self.counters["swap_fallbacks"] += 1
+
+    def _rehydrate(self, req: Request, row: np.ndarray, ctx: np.ndarray,
+                   m: int, cached_len: int, resumed: bool) -> int:
+        """After admission claims the context blocks, fill them from a host
+        swap record, else from the host or disk prefix store.  Returns the
+        new cached length (``cached_len`` when neither applies)."""
+        new_len = None
+        if self._swap is not None:
+            new_len = self._swap_in(req, row, ctx, m, resumed)
+        if new_len is None and (self._prefix_host is not None
+                                or self.scfg.prefix_store_dir is not None):
+            new_len = self._store_inject(req, row, ctx, m, resumed)
+        return cached_len if new_len is None else new_len
+
+    def _swap_in(self, req: Request, row: np.ndarray, ctx: np.ndarray,
+                 m: int, resumed: bool) -> int | None:
+        """Splice a swapped-out victim's record into its freshly claimed
+        blocks.
+
+        This engine wrote every swapped value, so the current (monotone)
+        scales already cover it: recompute would grow no scale, and the
+        splice applies no scale rule.  If no scale grew since the swap-out,
+        the stored ``kq`` rows are what incremental packing holds and
+        splice as they are; if one grew, recompute's growth requantized the
+        whole pool, so repacking the spliced blocks under the current
+        scales gives its bytes."""
+        rec = self._swap.take(req.rid)
+        if rec is None:
+            return None
+        L, js = rec["length"], rec["js"]
+        if not resumed or js[0] != m or L > len(ctx):
+            # The registry changed under the record (prefix blocks it
+            # relied on were evicted): recompute instead.
+            self.counters["swap_fallbacks"] += 1
+            return None
+        bids = [int(row[j]) for j in range(m, m + len(js))]
+        layers = rec["layers"]
+        cur = _amax_arrays(self.caches, self.cfg.scan_layers)
+        same_scales = (len(cur) == len(rec["amax"]) and all(
+            np.array_equal(a, b) for a, b in zip(cur, rec["amax"])))
+        if same_scales:
+            splice_block_rows(self.caches, bids, layers,
+                              scan_layers=self.cfg.scan_layers)
+        else:
+            stripped = [{k: v for k, v in lay.items() if k != "kq"}
+                        for lay in layers]
+            splice_block_rows(self.caches, bids, stripped,
+                              scan_layers=self.cfg.scan_layers)
+            repack_block_planes(self.caches, bids)
+        # Full blocks register under their chain keys, as the prefill of
+        # [m * page, L) would have registered them.
+        bs = self._page
+        for j in range(m, L // bs):
+            key = tuple(int(t) for t in ctx[:(j + 1) * bs])
+            self.pool.register(key, int(row[j]))
+        self.counters["swap_ins"] += 1
+        self.counters["swap_in_tokens"] += L - m * bs
+        return L
+
+    def _store_inject(self, req: Request, row: np.ndarray, ctx: np.ndarray,
+                      m: int, resumed: bool) -> int | None:
+        """Warm a request's context from the prefix store: walk the chain
+        of full context blocks past the registry match, taking host-tier
+        records, then disk records; splice the covered rows and replay the
+        scale rule on the host with the chunk boundaries chunked prefill
+        would use.  Injection stops at the largest chunk boundary that
+        stored blocks cover; a fresh request keeps at least one token to
+        prefill (its forward samples the first new token)."""
+        bs = self._page
+        Lc = len(ctx)
+        tier, sdir = self._prefix_host, self.scfg.prefix_store_dir
+        recs = []
+        j = m
+        while (j + 1) * bs <= Lc:
+            key = tuple(int(t) for t in ctx[:(j + 1) * bs])
+            rec = None
+            if tier is not None:
+                got = tier.get(key)
+                if got is not None:
+                    rec = got["layers"]
+            if rec is None and sdir is not None:
+                rec = store.load_prefix_record(sdir, key)
+            if rec is None:
+                break
+            recs.append(rec)
+            j += 1
+        if not recs:
+            return None
+        base = m * bs
+        cov = (m + len(recs)) * bs
+        # The largest chunk boundary min(base + k * chunk, Lc) the records
+        # cover; a resumed request may reach Lc (no prefill chunk at all).
+        if resumed and cov >= Lc:
+            inject_end = Lc
+        else:
+            hi = min(cov, Lc - 1)
+            inject_end = base + ((hi - base) // self._chunk) * self._chunk
+        if inject_end <= base:
+            return None
+        jend = -(-inject_end // bs)
+        recs = recs[:jend - m]
+        # One record of all blocks: the rows axis is 1 in a stacked entry
+        # and 0 otherwise (pos is two ranks slimmer than k and v).
+        merged = []
+        for li in range(len(recs[0])):
+            merged.append({
+                f: np.concatenate(
+                    [np.asarray(r[li][f]) for r in recs],
+                    axis=np.asarray(recs[0][li][f]).ndim
+                    - (2 if f == "pos" else 4))
+                for f in ("k", "v", "pos")})
+        bids = [int(row[jj]) for jj in range(m, jend)]
+        splice_block_rows(self.caches, bids, merged,
+                          scan_layers=self.cfg.scan_layers)
+        # The stored values may be new to this engine and growth depends on
+        # the order of writes, so the scale rule replays per chunk group.
+        groups = []
+        s = base
+        while s < inject_end:
+            e = min(s + self._chunk, inject_end)
+            groups.append([(jj - m, max(s, jj * bs) - jj * bs,
+                            min(e, (jj + 1) * bs) - jj * bs)
+                           for jj in range(s // bs, -(-e // bs))])
+            s = e
+        _, k_grew = apply_inject_amax_rule(self.caches, merged, groups,
+                                           scan_layers=self.cfg.scan_layers)
+        if k_grew:
+            # Recompute's last growth requantizes the whole pool.
+            requant_plane_pools(self.caches)
+        else:
+            repack_block_planes(self.caches, bids)
+        for jj in range(m, inject_end // bs):
+            key = tuple(int(t) for t in ctx[:(jj + 1) * bs])
+            self.pool.register(key, int(row[jj]))
+        self.counters["prefix_store_hits"] += len(recs)
+        self.counters["prefix_store_tokens"] += inject_end - base
+        return inject_end
+
+    def _on_prefix_evict(self, key: tuple, bid: int) -> None:
+        """The pool's evict hook: a parked registered block is taken for
+        reuse, so its rows copy down the hierarchy (the host tier, which
+        cascades to disk) before the new owner writes them."""
+        if getattr(self, "caches", None) is None:
+            return
+        layers = extract_block_rows(self.caches, [bid],
+                                    scan_layers=self.cfg.scan_layers)
+        rec = {"chain": key, "layers": layers}
+        nbytes = sum(int(a.nbytes) for lay in layers for a in lay.values())
+        self.counters["prefix_spills"] += 1
+        if self._prefix_host is not None:
+            self._prefix_host.put(key, rec, nbytes)
+        else:
+            self._spill_prefix_record(key, rec, nbytes)
+
+    def _spill_prefix_record(self, key, rec, nbytes) -> None:
+        """The bottom of the cascade: persist a prefix record to the disk
+        store.  An injected ``checkpoint_interrupt`` drops the record and
+        leaves a staging orphan for GC; any other error propagates."""
+        if self.scfg.prefix_store_dir is not None:
+            self._persist(key, rec["layers"])
+
+    def _persist(self, key, layers) -> bool:
+        """Save one prefix record to the disk store; False when an injected
+        ``checkpoint_interrupt`` killed the write (counted)."""
+        try:
+            store.save_prefix_record(self.scfg.prefix_store_dir, list(key),
+                                     layers, interrupt=self._store_interrupt)
+            return True
+        except CheckpointInterrupted:
+            self.counters["prefix_store_interrupts"] += 1
+            return False
+
+    def _store_interrupt(self) -> None:
+        if (self.chaos is not None
+                and self.chaos.fire("checkpoint_interrupt", self.ticks)):
+            raise CheckpointInterrupted(
+                f"prefix-store write killed at tick {self.ticks}")
+
+    def flush_prefixes(self) -> int:
+        """Persist every registered prefix block and every host-tier record
+        to the prefix store: the graceful-shutdown half of warm restarts.
+        Chains already stored are left as they are.  Returns the number of
+        records written or found present."""
+        if self.scfg.prefix_store_dir is None:
+            raise RuntimeError(
+                "flush_prefixes() needs ServeConfig.prefix_store_dir")
+        n = 0
+        for key, bid in self.pool.registered_items():
+            n += self._persist(key, extract_block_rows(
+                self.caches, [bid], scan_layers=self.cfg.scan_layers))
+        if self._prefix_host is not None:
+            for key, rec in self._prefix_host.items():
+                n += self._persist(key, rec["layers"])
+        return n
+
+    def memory_report(self) -> dict:
+        """Bytes held at each tier of the KV memory hierarchy.
+        :meth:`kv_bytes_resident` counts the device alone; the host and
+        disk tiers report on their own, so no token's bytes count twice."""
+        def tier(pool, field):
+            return int(getattr(pool, field)) if pool is not None else 0
+
+        rep = {
+            "device_bytes": int(self.kv_bytes_resident(peak=False)),
+            "device_bytes_peak": int(self.kv_bytes_resident(peak=True)),
+            "host_swap_bytes": tier(self._swap, "bytes_used"),
+            "host_swap_bytes_peak": tier(self._swap, "peak_bytes"),
+            "host_prefix_bytes": tier(self._prefix_host, "bytes_used"),
+            "host_prefix_bytes_peak": tier(self._prefix_host, "peak_bytes"),
+            "disk_prefix_bytes": 0,
+        }
+        if self.scfg.prefix_store_dir is not None:
+            rep["disk_prefix_bytes"] = int(
+                store.prefix_store_bytes(self.scfg.prefix_store_dir))
+        return rep
+
+    # ------------------------------------------------------------------
     # oversubscription: victim preemption and lossless requeue
     # ------------------------------------------------------------------
 
@@ -997,6 +1318,11 @@ class PagedEngine:
                 dropped += max(0, min(L - j * self._page, self._page))
             else:
                 shared.append(bid)
+        # Swap-to-host: copy the exclusive blocks to a host record before
+        # they free, so that the resume splices instead of recomputing.  A
+        # victim still in its first prefill resumes as a fresh admission.
+        if self._swap is not None and req.generated and exclusive:
+            self._swap_out(slot, exclusive, L, req)
         self.pool.preempt(exclusive)
         for bid in shared:
             self.pool.decref(bid)

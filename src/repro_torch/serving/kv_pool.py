@@ -1,7 +1,9 @@
-"""Paged KV-cache block pool: allocator, refcounts, prefix sharing.
+"""Paged KV-cache block pool: allocator, refcounts, prefix sharing, and
+the budgeted host tier of swap and prefix records.
 
-A copy of ``repro/serving/kv_pool.py:KVBlockPool`` (pure Python; importing
-it from the JAX package would import JAX through ``repro.serving``).
+A copy of ``repro/serving/kv_pool.py``'s ``KVBlockPool`` and ``SwapPool``
+(pure Python; importing them from the JAX package would import JAX through
+``repro.serving``).
 
 The device side of the paged cache is a batch-free
 ``[pool_blocks, page_size, Hkv, D]`` K/V pool per attention layer
@@ -307,3 +309,100 @@ class KVBlockPool:
         rewritten, so its device content is always safe to copy down a
         tier (``PagedEngine.flush_prefixes``)."""
         return sorted(self._registry.items())
+
+
+class SwapPool:
+    """Budgeted host-RAM tier of opaque swap and spill records.
+
+    A copy of ``repro/serving/kv_pool.py:SwapPool``.  Pure bookkeeping,
+    like the allocator above (no tensors): records are opaque to the pool
+    and sized in bytes by the caller, so swap records of host arrays and
+    prefix records fit through the same accounting.  Insertion order is
+    the LRU order (:meth:`get` touches).
+
+    Two policies, chosen by ``evict_cb``:
+
+    * ``evict_cb=None``: a :meth:`put` that does not fit is **refused**
+      (returns False) and the caller falls back a tier (swap-to-host
+      preemption: the victim recomputes on resume, as without swap).
+    * ``evict_cb=f``: a put that does not fit first evicts the least
+      recently used records, handing each to ``f(key, record, nbytes)``
+      (the warm prefix tier: cold records spill down to the disk store
+      instead of vanishing).
+    """
+
+    def __init__(self, budget_bytes: int = 0, evict_cb=None):
+        if budget_bytes < 0:
+            raise ValueError(f"budget_bytes must be >= 0, got {budget_bytes}")
+        self.budget_bytes = int(budget_bytes)
+        self.evict_cb = evict_cb
+        self._records: collections.OrderedDict = collections.OrderedDict()
+        self._nbytes: dict = {}
+        self.bytes_used = 0
+        self.peak_bytes = 0
+        self.put_count = 0
+        self.evict_count = 0
+        self.refused_count = 0
+
+    def __contains__(self, key) -> bool:
+        return key in self._records
+
+    def __len__(self) -> int:
+        return len(self._records)
+
+    def keys(self) -> list:
+        return list(self._records)
+
+    def nbytes_of(self, key) -> int:
+        return self._nbytes.get(key, 0)
+
+    def put(self, key, record, nbytes: int) -> bool:
+        """Admit a record under the byte budget, replacing any record under
+        the same key.  Returns False (refused, nothing stored) when the
+        record cannot fit and there is no ``evict_cb`` to make room."""
+        nbytes = int(nbytes)
+        if nbytes < 0:
+            raise ValueError(f"record nbytes must be >= 0, got {nbytes}")
+        if key in self._records:
+            self.drop(key)
+        if nbytes > self.budget_bytes or (
+                self.evict_cb is None
+                and self.bytes_used + nbytes > self.budget_bytes):
+            self.refused_count += 1
+            return False
+        while self.bytes_used + nbytes > self.budget_bytes:
+            old_key, old_rec = self._records.popitem(last=False)  # LRU
+            old_n = self._nbytes.pop(old_key)
+            self.bytes_used -= old_n
+            self.evict_count += 1
+            self.evict_cb(old_key, old_rec, old_n)
+        self._records[key] = record
+        self._nbytes[key] = nbytes
+        self.bytes_used += nbytes
+        self.peak_bytes = max(self.peak_bytes, self.bytes_used)
+        self.put_count += 1
+        return True
+
+    def get(self, key):
+        """Peek a record (None on a miss); a hit is an LRU touch."""
+        rec = self._records.get(key)
+        if rec is not None:
+            self._records.move_to_end(key)
+        return rec
+
+    def take(self, key):
+        """Remove and return a record (None on a miss).  A swap record is
+        consumed this way, exactly once, by its resume."""
+        if key not in self._records:
+            return None
+        rec = self._records.pop(key)
+        self.bytes_used -= self._nbytes.pop(key)
+        return rec
+
+    def drop(self, key) -> None:
+        self.take(key)
+
+    def items(self) -> list:
+        """(key, record) pairs, LRU-oldest first: a copy, so the pool may
+        change while the caller walks it."""
+        return list(self._records.items())

@@ -173,6 +173,36 @@ def test_serve_config_validation():
     assert ServeConfig().resolved_pool_blocks() == 1 + 4 * 32
 
 
+def test_hierarchy_config_validation(model):
+    """tests/test_swap.py:395-415 (but the contiguous engine's case, whose
+    engine is not ported): the memory hierarchy's fields raise ValueError
+    with the reference's message, and ``flush_prefixes()`` without a store
+    raises RuntimeError."""
+    bad = [dict(swap_host_bytes=-1), dict(prefix_host_bytes=-1),
+           dict(swap_host_bytes=1 << 20),
+           dict(prefix_store_dir="/tmp/x", prefix_sharing=False),
+           dict(prefix_host_bytes=1 << 20, prefix_sharing=False)]
+    for kw in bad:
+        with pytest.raises(ValueError) as want:
+            JServe(**kw)
+        with pytest.raises(ValueError) as got:
+            ServeConfig(**kw)
+        assert str(got.value) == str(want.value), kw
+    scfg = ServeConfig(oversubscribe=True, swap_host_bytes=1 << 20,
+                       prefix_store_dir="/tmp/x", prefix_host_bytes=1 << 20)
+    assert scfg.swap_host_bytes == 1 << 20
+    _, tcfg, _, tparams = model
+    eng = PagedEngine(tcfg, tparams, ServeConfig(**_KW), "cpu")
+    with pytest.raises(RuntimeError, match="prefix_store_dir"):
+        eng.flush_prefixes()
+    assert eng.memory_report() == {
+        "device_bytes": eng.kv_bytes_resident(peak=False),
+        "device_bytes_peak": eng.kv_bytes_resident(peak=True),
+        "host_swap_bytes": 0, "host_swap_bytes_peak": 0,
+        "host_prefix_bytes": 0, "host_prefix_bytes_peak": 0,
+        "disk_prefix_bytes": 0}
+
+
 def test_device_and_kernel_resolution(model):
     _, tcfg, _, tparams = model
     scfg = ServeConfig(**_KW)
@@ -238,6 +268,26 @@ def test_serve_cli_sampled_oversubscribed_on_cpu():
                      [x for x in text.splitlines() if "counters" in x]))
     assert runs[0] == runs[1]
     assert all(len(t) == 12 for t in runs[0][0])
+
+
+def test_serve_cli_swap_on_cpu():
+    """``--swap-host-bytes`` on the sampled oversubscribed run: the
+    ``hierarchy:`` line reports the swap-ins, and the tokens equal the run
+    without swap."""
+    argv = ["--device", "cpu", "--requests", "4", "--new-tokens", "12",
+            "--max-prompt", "40", "--slots", "3", "--page-size", "8",
+            "--temperature", "0.7", "--oversubscribe", "--pool-blocks", "10",
+            "--seed", "0"]
+    plain = tserve.main(argv)
+    out = io.StringIO()
+    with redirect_stdout(out):
+        reqs = tserve.main(argv + ["--swap-host-bytes", "4194304"])
+    line = next(x for x in out.getvalue().splitlines()
+                if x.startswith("[serve] hierarchy: "))
+    swap_ins = int(line.split(" / ")[1].split()[0])
+    assert swap_ins >= 1, line
+    assert "'host_swap_bytes': 0" in line, line
+    assert [r.generated for r in reqs] == [r.generated for r in plain]
 
 
 def test_serve_cli_chaos_on_cpu(tmp_path):
