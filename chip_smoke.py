@@ -74,7 +74,21 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    gives a cold one's tokens.  Prints ms and bytes per swap-out and
    swap-in and per prefix record written and loaded, and
    ``memory_report()`` after (a) and (c);
-10. prints one JSON line describing each kernel, then the device line
+10. front door path: (a) the main trace submitted to an
+   ``AsyncFrontDoor`` over a paged engine and streamed: the main path's
+   tokens, admission in arrival order, the pool drained, one decode launch
+   per layer per tick; (b) the same through a ``DisaggController`` (a
+   one-slot prefill engine hands detached prefixes to a four-slot decode
+   engine): the main path's tokens, 8 prefixes of 147 blocks and 147 x
+   6,292,992 payload bytes, both pools drained, decode launches 24 x the
+   decode engine's ticks and none by the prefill engine; (c) at cut depth
+   4, the ``prefill -> insert -> generate_step`` loop gives
+   ``generate()``'s tokens, and a door stopped by ``shutdown("snapshot")``
+   restores in a fresh door whose streams replay to the undisturbed
+   tokens; (d) ``sparsity_report`` of the 8 prompts (measured).  Prints
+   the ticks, first-token and finish ticks per request, ms per
+   ``prefill``/``extract``/``insert`` and ``kv_bytes_contiguous_equiv``;
+11. prints one JSON line describing each kernel, then the device line
    last.
 
 Any failed check exits non-zero.  Without a card it exits non-zero and
@@ -1955,6 +1969,325 @@ def memory_host_tier(torch, np, cfg, params, store_dir, tiers):
     return launches
 
 
+class ApiTimer:
+    """Wall time (the card synchronized on both sides) of every call of
+    the named engine-API methods of the engines it watches."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ms = {}
+
+    def watch(self, eng, *names):
+        for name in names:
+            real = getattr(eng, name)
+
+            def timed(*a, _real=real, _name=name):
+                self.torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _real(*a)
+                self.torch.cuda.synchronize()
+                self.ms.setdefault(_name, []).append(
+                    (time.perf_counter() - t) * 1e3)
+                return out
+
+            setattr(eng, name, timed)
+
+    def report(self, np, label):
+        for name, ms in self.ms.items():
+            print(f"[chip_smoke] {label}: {len(ms)} {name}() calls, "
+                  f"{np.mean(ms):.3f} ms each on average (min "
+                  f"{min(ms):.3f}, max {max(ms):.3f})")
+
+
+def drain_streams(door, rids):
+    """Run a started door's loop to the end of a drain and collect the
+    streams of ``rids`` (each replays from token zero)."""
+    import asyncio
+
+    async def go():
+        task = asyncio.create_task(door.run())
+
+        async def collect(rid):
+            return [tok async for tok in door.stream(rid)]
+
+        gathered = asyncio.gather(*(collect(r) for r in rids))
+        door.shutdown("drain")
+        toks = await gathered
+        await task
+        return toks
+
+    return asyncio.run(go())
+
+
+def door_serve(torch, backend, prompts, new_tokens, clock=None, sla=None):
+    """Submit every prompt to an ``AsyncFrontDoor`` over ``backend`` before
+    its loop starts, drain it, and collect every stream.  Returns the door,
+    the streamed tokens and the wall seconds."""
+    from repro_torch.serving.frontdoor import AsyncFrontDoor
+    door = AsyncFrontDoor(backend, clock=clock, sla=sla)
+    door.start()
+    rids = [door.submit(p, new_tokens) for p in prompts]
+    t = time.perf_counter()
+    toks = drain_streams(door, rids)
+    torch.cuda.synchronize()
+    return door, toks, time.perf_counter() - t
+
+
+def first_and_finish(door):
+    return {rid: (door.first_token_tick.get(rid),
+                  door.finish_tick.get(rid))
+            for rid in sorted(door.finish_tick)}
+
+
+@phase("front door path")
+def frontdoor_path_phase(torch, cfg, params, plain_reqs):
+    """(a) the main trace through the async door over a paged engine, (b)
+    disaggregated behind the door (a one-slot prefill engine hands detached
+    prefixes to a four-slot decode engine), (c) at cut depth 4 the engine
+    API loop and a snapshot shutdown with restore, (d) the traffic reports.
+    Returns the decode kernel's launches."""
+    import numpy as np
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.runtime import SystemClock
+    from repro_torch.serving import PagedEngine, ServeConfig
+    from repro_torch.serving.frontdoor import DisaggController, SlaMapper
+
+    prompts = [r.prompt for r in plain_reqs]
+    want = [r.generated for r in plain_reqs]
+    new_tokens = len(want[0])
+
+    def scfg(slots):
+        return ServeConfig(max_slots=slots, page_size=16, max_len=512)
+
+    # (a) The colocated door.
+    eng = PagedEngine(cfg, params, scfg(4))
+    clock = SystemClock()
+    sla = SlaMapper(granularity=clock.granularity)
+    pd.LAUNCHES = 0
+    door, got, wall_a = door_serve(torch, eng, prompts, new_tokens, clock,
+                                   sla)
+    launches_a = pd.LAUNCHES
+    n_tok = sum(len(t) for t in got)
+    steps = eng.counters["decode_steps"]
+    print(f"[chip_smoke] front door (a): {n_tok} tokens streamed in "
+          f"{wall_a:.3f} s ({n_tok / wall_a:.2f} tok/s), {door.ticks_run} "
+          f"ticks ({steps} decode, {eng.counters['prefill_chunks']} "
+          f"prefill chunks), tick estimate {sla.tick_estimate * 1e3:.3f} "
+          f"ms; (first-token tick, finish tick) by rid "
+          f"{first_and_finish(door)}")
+    print(f"[chip_smoke] front door (a): kv_bytes_resident() "
+          f"{eng.kv_bytes_resident()} (peak), kv_bytes_contiguous_equiv() "
+          f"{eng.kv_bytes_contiguous_equiv()}")
+    checks = {
+        "the main path's tokens": got == want,
+        "admission in arrival order": (
+            door.admission_log == list(range(len(prompts)))),
+        "the pool drained": eng.pool.available() == eng.pool.capacity,
+        "decode launches 24 x ticks": (
+            launches_a == cfg.n_layers * steps and steps > 0),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"[chip_smoke] front door (a) failed: {failed}")
+    print(f"[chip_smoke] front door (a): {', '.join(checks)}: all hold")
+
+    # (b) Disaggregated behind the door.
+    pre, dec = PagedEngine(cfg, params, scfg(1)), PagedEngine(cfg, params,
+                                                              scfg(4))
+    timer = ApiTimer(torch)
+    timer.watch(pre, "prefill", "extract")
+    timer.watch(dec, "insert")
+    ctl = DisaggController(pre, dec)
+    pd.LAUNCHES = 0
+    door_b, got_b, wall_b = door_serve(torch, ctl, prompts, new_tokens)
+    launches_b = pd.LAUNCHES
+    x = ctl.xfer.counters
+    blocks = sum(-(-len(p) // 16) for p in prompts)
+    per_block = cfg.n_layers * (2 * 16 * cfg.n_kv_heads * cfg.head_dim * 4
+                                + 16 * 4)
+    n_tok = sum(len(t) for t in got_b)
+    print(f"[chip_smoke] front door (b): {n_tok} tokens streamed in "
+          f"{wall_b:.3f} s ({n_tok / wall_b:.2f} tok/s against "
+          f"{sum(len(t) for t in got) / wall_a:.2f} colocated), "
+          f"{door_b.ticks_run} controller ticks; decode engine "
+          f"{dec.counters['decode_steps']} decode ticks (colocated {steps}),"
+          f" prefill engine {pre.counters['prefill_chunks']} prefill chunks; "
+          f"transfers {x}; (first-token tick, finish tick) by rid "
+          f"{first_and_finish(door_b)}")
+    timer.report(np, "front door (b)")
+    same, _, gap = grids_and_planes(np, eng, dec)
+    print(f"[chip_smoke] front door (b) measured: the decode engine's scales "
+          f"{'all equal' if same else 'differ from'} the colocated "
+          f"engine's, largest relative gap {gap:.6e}")
+    checks = {
+        "the main path's tokens": got_b == want,
+        "8 prefixes transferred": x["prefixes_transferred"] == len(prompts),
+        f"{blocks} blocks transferred": x["blocks_transferred"] == blocks,
+        f"{blocks} x {per_block} payload bytes": (
+            x["payload_bytes"] == blocks * per_block),
+        "both pools drained": (
+            pre.pool.available() == pre.pool.capacity
+            and dec.pool.available() == dec.pool.capacity),
+        "decode launches 24 x decode-engine ticks, none by prefill": (
+            launches_b == cfg.n_layers * dec.counters["decode_steps"]
+            and pre.counters["decode_steps"] == 0
+            and dec.counters["decode_steps"] > 0),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        if got_b != want:
+            diff = [(i, next(j for j, (a, b) in enumerate(zip(g, w))
+                             if a != b))
+                    for i, (g, w) in enumerate(zip(got_b, want)) if g != w]
+            print(f"[chip_smoke] front door (b): (request, first differing "
+                  f"token) {diff}")
+        raise SystemExit(f"[chip_smoke] front door (b) failed: {failed}")
+    print(f"[chip_smoke] front door (b): {', '.join(checks)}: all hold")
+
+    launches_c = frontdoor_cut_depth(torch, np, cfg, params, prompts,
+                                     new_tokens)
+
+    # (d) The traffic reports (measured; the reference test's ranges).
+    t = time.perf_counter()
+    rep = eng.sparsity_report(prompts)
+    torch.cuda.synchronize()
+    print(f"[chip_smoke] front door (d): sparsity_report() of the 8 prompts "
+          f"in {time.perf_counter() - t:.3f} s")
+    keys = ("mean_rounds", "plane_fraction", "block_alive_fraction",
+            "survivor_fraction")
+    print(f"[chip_smoke] front door (d) aggregate: "
+          f"{ {k: rep[k] for k in keys} }")
+    for r in rep["per_request"]:
+        print(f"[chip_smoke] front door (d) prompt {r['prompt_len']}: "
+              f"{ {k: r[k] for k in keys + ('n_blocks', 'n_pairs')} }")
+    if not all(0.0 < r[k] <= 1.0 for r in rep["per_request"]
+               for k in ("plane_fraction", "survivor_fraction")):
+        raise SystemExit("[chip_smoke] front door (d): a fraction outside "
+                         "(0, 1]")
+    return launches_a + launches_b + launches_c
+
+
+def frontdoor_cut_depth(torch, np, cfg, params, prompts, new_tokens):
+    """(c) at the cut depth of the speculative fused-vs-plain check: the
+    prefill -> insert -> generate_step loop gives generate()'s tokens, and
+    a door with a snapshot directory stopped by ``shutdown("snapshot")``
+    once a stream holds 2 tokens restores in a fresh door whose streams
+    replay from token zero to the undisturbed tokens.  Returns the decode
+    kernel's launches."""
+    import asyncio
+    import tempfile
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
+    from repro_torch.serving.frontdoor import AsyncFrontDoor
+    depth = min(4, cfg.n_layers)
+    cut = cfg.replace(segments=((cfg.segments[0][0], depth),))
+    cut_params = dict(params, seg0=params["seg0"][:depth])
+    scfg = ServeConfig(max_slots=4, page_size=16, max_len=512)
+
+    def reqs():
+        return [Request(prompt=p.copy(), max_new_tokens=new_tokens)
+                for p in prompts]
+
+    pd.LAUNCHES = 0
+    ref_eng = PagedEngine(cut, cut_params, scfg)
+    ref = reqs()
+    ref_eng.generate(ref)
+    want = [r.generated for r in ref]
+    launches = pd.LAUNCHES
+    ok = launches == depth * ref_eng.counters["decode_steps"]
+
+    api = PagedEngine(cut, cut_params, scfg)
+    api.begin(0)
+    pending, live, out = reqs(), 0, {}
+    order = list(pending)
+    pd.LAUNCHES = 0
+    t = time.perf_counter()
+    while pending or live:
+        while pending and api.free_slots():
+            req = pending.pop(0)
+            api.insert(api.prefill(req), api.free_slots()[0])
+            out[req.rid] = list(req.generated)
+            live += 1
+        for ev in api.generate_step():
+            out.setdefault(ev["rid"], []).extend(ev["tokens"])
+            live -= ev["finished"]
+    torch.cuda.synchronize()
+    api_s = time.perf_counter() - t
+    launches += pd.LAUNCHES
+    ok &= pd.LAUNCHES == depth * api.counters["decode_steps"]
+    c = api.counters
+    print(f"[chip_smoke] front door (c): depth {depth}, engine API loop "
+          f"{api_s:.3f} s, {c['prefixes_prefilled']} prefilled, "
+          f"{c['prefixes_inserted']} inserted, {c['decode_steps']} decode "
+          f"ticks (generate(): {ref_eng.counters['decode_steps']})")
+    checks = {
+        "the API loop gives generate()'s tokens": (
+            [out[r.rid] for r in order] == want
+            and [r.generated for r in order] == want),
+        "8 prefilled and inserted": (
+            c["prefixes_prefilled"] == c["prefixes_inserted"] == len(want)),
+        "the pool drained": api.pool.available() == api.pool.capacity,
+    }
+
+    with tempfile.TemporaryDirectory() as snap:
+        door = AsyncFrontDoor(PagedEngine(cut, cut_params, scfg),
+                              snapshot_dir=snap)
+        door.start()
+        rids = [door.submit(p, new_tokens) for p in prompts]
+        partial = {rid: [] for rid in rids}
+
+        async def phase1():
+            async def collect(rid):
+                async for tok in door.stream(rid):
+                    partial[rid].append(tok)
+
+            task = asyncio.create_task(door.run())
+            collectors = [asyncio.create_task(collect(r)) for r in rids]
+            for _ in range(2000):
+                await asyncio.sleep(0)
+                if any(len(v) >= 2 for v in partial.values()):
+                    break
+            door.shutdown("snapshot")
+            await task
+            await asyncio.gather(*collectors)
+
+        pd.LAUNCHES = 0
+        asyncio.run(phase1())
+        launches += pd.LAUNCHES
+        ok &= pd.LAUNCHES == depth * door.backend.counters["decode_steps"]
+        stopped = door.backend.ticks
+        t = time.perf_counter()
+        door2 = AsyncFrontDoor(PagedEngine(cut, cut_params, scfg),
+                               snapshot_dir=snap)
+        restored = door2.start()
+        restore_s = time.perf_counter() - t
+        pd.LAUNCHES = 0
+        full = drain_streams(door2, rids)
+        torch.cuda.synchronize()
+        launches += pd.LAUNCHES
+        ok &= pd.LAUNCHES == depth * (door2.backend.counters["decode_steps"]
+                                      - door.backend.counters["decode_steps"])
+    print(f"[chip_smoke] front door (c): snapshot shutdown at engine tick "
+          f"{stopped} with {sum(map(len, partial.values()))} tokens "
+          f"streamed, {len(door.interrupted)} streams interrupted; restore "
+          f"{restore_s:.3f} s, then {door2.ticks_run} ticks")
+    checks.update({
+        "a snapshot mid-flight": bool(door.interrupted) and any(
+            partial.values()),
+        "the restore took the snapshot": restored and door2.restored,
+        "every stream replays to the undisturbed tokens": full == want,
+        "replays begin with the tokens streamed before the stop": all(
+            full[rids.index(rid)][:len(seen)] == seen
+            for rid, seen in partial.items()),
+        f"decode launches {depth} x ticks": ok,
+    })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"[chip_smoke] front door (c) failed: {failed}")
+    print(f"[chip_smoke] front door (c): {', '.join(checks)}: all hold")
+    return launches
+
+
 @phase("profile")
 def profile_phase(torch, cfg, params, decode_ticks=8, verify_ticks=3):
     """torch.profiler over steady decode ticks, one prefill chunk,
@@ -2084,6 +2417,8 @@ def main(argv=None):
         torch, cfg, params, plain_reqs, ngram_prompts)
     rows[0]["launches_memory_path"] = memory_path_phase(
         torch, cfg, params, want_sampled, recompute_chunks)
+    rows[0]["launches_frontdoor_path"] = frontdoor_path_phase(
+        torch, cfg, params, plain_reqs)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

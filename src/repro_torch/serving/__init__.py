@@ -1,7 +1,9 @@
 """Serving: the paged continuous-batching engine with BitStopper decode,
 seeded sampling, oversubscription with preemption, speculative decoding,
-crash snapshots with the deterministic chaos harness, and the KV memory
-hierarchy (swap-to-host preemption, the persistent prefix store)."""
+crash snapshots with the deterministic chaos harness, the KV memory
+hierarchy (swap-to-host preemption, the persistent prefix store), and the
+engine API (prefill, extract, insert, generate_step) that the async front
+door in ``serving/frontdoor`` drives."""
 
 from repro_torch.serving.chaos import (  # noqa: F401
     CheckpointInterrupted,
@@ -14,7 +16,9 @@ from repro_torch.serving.chaos import (  # noqa: F401
     serve_with_chaos,
 )
 from repro_torch.serving.engine import (  # noqa: F401
+    InsufficientBlocks,
     PagedEngine,
+    Prefix,
     Request,
     ServeConfig,
 )

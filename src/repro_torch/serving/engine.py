@@ -69,24 +69,40 @@ recompute (``swap_fallbacks``).  :meth:`PagedEngine.memory_report` gives the
 bytes of each tier.  Host tiers are not snapshotted: a restored engine
 resumes by recompute.
 
-Not ported yet (each is a queue A item in ROADMAP.md): the engine API, mesh
-sharding, the bf16 cache, and the contiguous and static engines.
+The engine API (:meth:`PagedEngine.prefill`, :meth:`~PagedEngine.extract`,
+:meth:`~PagedEngine.insert`, :meth:`~PagedEngine.generate_step`): prefill
+hands a fresh request's blocks and first token to a :class:`Prefix`;
+extract copies its rows and the quant scales to host arrays (a detached
+Prefix another engine can take); insert mounts a Prefix into a free slot as
+a post-preemption resume, merging a detached Prefix's scales by elementwise
+max and rebuilding the plane pools; generate_step is one tick reported as
+per-request token events.  ``serving/frontdoor`` builds the async door and
+prefill/decode disaggregation on it.  :meth:`PagedEngine.sparsity_report`
+measures a prompt's BitStopper traffic at the first attention layer, and
+:meth:`PagedEngine.kv_bytes_contiguous_equiv` what a contiguous cache of
+the same configuration would hold.
+
+Not ported yet (each is a queue A item in ROADMAP.md): mesh sharding, the
+bf16 cache, and the contiguous and static engines.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint import store
+from repro_torch.core.block_adaptation import block_bitstopper_attention
 from repro_torch.kernels import paged_decode
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import (POS_SENTINEL, PagedLayout,
                                           apply_inject_amax_rule,
+                                          attention_block_shape,
                                           extract_block_rows,
                                           paged_layer_groups,
                                           repack_block_planes,
@@ -94,6 +110,7 @@ from repro_torch.models.attention import (POS_SENTINEL, PagedLayout,
                                           splice_block_rows,
                                           undo_paged_write)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import embed, linear, rope
 from repro_torch.serving.chaos import CheckpointInterrupted, KernelFault
 from repro_torch.serving.kv_pool import KVBlockPool, SwapPool
 from repro_torch.serving.sampling import prng_key, sample_tokens
@@ -274,6 +291,43 @@ class Request:
                                       # undisturbed stream)
 
 
+class InsufficientBlocks(RuntimeError):
+    """The pool cannot cover an engine-API ``prefill()`` or ``insert()``
+    right now.  Retryable: capacity returns as requests finish, so callers
+    (the disaggregation controller, the async door) back off a tick
+    instead of failing the request."""
+
+
+@dataclasses.dataclass
+class Prefix:
+    """Handle to a prefilled context: paged block handles plus sampling
+    state, the currency of the engine API (``PagedEngine.prefill() ->
+    insert() -> generate_step()``).
+
+    Two forms:
+
+    * **attached** (``pool`` is the source engine's pool): ``blocks`` holds
+      physical block ids whose references the Prefix owns; insert into the
+      same engine is a block-table splice and moves no KV.
+    * **detached** (``payload`` set, ``pool``/``blocks`` cleared by
+      ``extract()``): the blocks' rows copied through the pool to host
+      arrays, so a different engine instance (its own pool, its own block
+      numbering) can ``insert()`` it: the prefill/decode disaggregation
+      handoff.
+    """
+    req: Request
+    chain: np.ndarray          # cached context tokens [L] int32
+    length: int                # tokens cached (== len(chain))
+    last_token: int            # next decode input (already appended to
+                               # req.generated by the prefill sample)
+    blocks: list               # attached: block ids, refs owned here
+    pool: Any = None           # the pool the blocks live in
+    payload: Any = None        # detached: {"layers": [...], "amax": [...]}
+    finished: bool = False     # the request completed during prefill (eos,
+                               # max_new_tokens == 1, deadline): nothing to
+                               # insert, its tokens are in req.generated
+
+
 @dataclasses.dataclass
 class _PagedSlot:
     """Scheduler-side state of one occupied serving slot."""
@@ -373,6 +427,21 @@ def _kv_bytes_per_token(cfg: ModelConfig) -> int:
                 total += (reps * acfg.bitstopper.bits * acfg.n_kv_heads
                           * acfg.head_dim) // 8
     return total
+
+
+def _kv_bytes_contiguous(cfg: ModelConfig, scfg: ServeConfig) -> int:
+    """Resident bytes of a contiguous per-slot f32 cache: max_len rows per
+    slot per layer, except sliding-window layers, whose ring buffers hold
+    min(max_len, window) rows."""
+    total = 0
+    for unit, reps in cfg.segments:
+        for spec in unit:
+            acfg = cfg.attn_config(spec.mixer == "local_attn")
+            rows = scfg.max_len
+            if spec.mixer == "local_attn" and acfg.window:
+                rows = min(rows, acfg.window)
+            total += reps * rows * 2 * acfg.n_kv_heads * acfg.head_dim * 4
+    return total * scfg.max_slots
 
 
 class PagedEngine:
@@ -476,9 +545,6 @@ class PagedEngine:
                          "shed_deadline": 0, "deadline_truncated": 0,
                          "degradations": 0, "drafter_failures": 0,
                          "forced_preemptions": 0,
-                         # The engine API is not ported (ROADMAP A8): its
-                         # three counters stay 0, and a snapshot carries the
-                         # reference's keys.
                          "prefixes_prefilled": 0, "prefixes_inserted": 0,
                          "prefix_transfers": 0,
                          "swap_outs": 0, "swap_ins": 0,
@@ -633,6 +699,53 @@ class PagedEngine:
             amax = sum(reps * 2 * self.cfg.n_kv_heads * 4 * len(unit)
                        for unit, reps in self.cfg.segments)
         return blocks * self._page * _kv_bytes_per_token(self.cfg) + amax
+
+    def kv_bytes_contiguous_equiv(self) -> int:
+        """What a contiguous per-slot cache of the same ServeConfig would
+        keep resident (window layers: ring-buffer rows), for comparison
+        with :meth:`kv_bytes_resident`."""
+        return _kv_bytes_contiguous(self.cfg, self.scfg)
+
+    # ------------------------------------------------------------------
+    # measured traffic
+    # ------------------------------------------------------------------
+
+    def sparsity_report(self, prompts) -> dict[str, Any]:
+        """Measured BitStopper traffic, per request and aggregated.
+
+        ``prompts``: a 2-D int array [B, S] or a list of 1-D int arrays of
+        any lengths.  Each prompt's prefill attention at the first
+        attention layer runs through the block-granular model; the report
+        gives the mean planes fetched per (q tile, kv block), the plane
+        fraction against dense ``bits``-bit keys, the block-level V-fetch
+        fraction and the token survivor fraction, aggregated and under
+        ``per_request``."""
+        if isinstance(prompts, np.ndarray) and prompts.ndim == 2:
+            prompts = list(prompts)
+        per_request = []
+        for p in prompts:
+            rep = _prompt_sparsity(self.cfg, self.params, np.asarray(p))
+            if rep:
+                per_request.append(rep)
+        if not per_request:
+            return {}
+        # Weighted: a long prompt has many more (q tile, kv block) units and
+        # (q, k) pairs than a short one, and an unweighted mean over
+        # requests would let short prompts skew the aggregate.
+        blocks = np.array([r["n_blocks"] for r in per_request], np.float64)
+        pairs = np.array([r["n_pairs"] for r in per_request], np.float64)
+
+        def wmean(key, w):
+            vals = np.array([r[key] for r in per_request], np.float64)
+            return float((vals * w).sum() / w.sum())
+
+        return {
+            "mean_rounds": wmean("mean_rounds", blocks),
+            "plane_fraction": wmean("plane_fraction", blocks),
+            "block_alive_fraction": wmean("block_alive_fraction", blocks),
+            "survivor_fraction": wmean("survivor_fraction", pairs),
+            "per_request": per_request,
+        }
 
     # ------------------------------------------------------------------
     # scheduling
@@ -897,6 +1010,254 @@ class PagedEngine:
         else:
             self._plain_decode_tick(active)
         return True
+
+    # ------------------------------------------------------------------
+    # the engine API: prefill -> insert -> generate_step (serving/frontdoor
+    # builds the async door and prefill/decode disaggregation on it)
+    # ------------------------------------------------------------------
+
+    def prefill(self, req: Request) -> Prefix:
+        """Engine API step 1: prefill a fresh request's prompt to the end
+        and return a :class:`Prefix`: the prompt's paged blocks (their
+        references move to the Prefix) and the first sampled token.  It runs
+        the ordinary chunked prefill (prefix-registry CoW hits, block
+        publication, the first-token sample), so a later ``insert()`` and
+        decode give the tokens of serving the request through ``submit()``.
+
+        The slot used for prefilling frees on return; only the blocks stay
+        live.  Raises :class:`InsufficientBlocks` (retryable) when the pool
+        cannot cover the prompt right now."""
+        if req.generated:
+            raise ValueError(
+                "prefill() takes a fresh request; preemption resume runs "
+                "through the scheduler (submit()/step())")
+        self._validate_request(req)
+        if None not in self.slots:
+            raise RuntimeError("prefill() needs a free slot")
+        self._register(req)
+        req.submitted_tick = self.ticks
+        ctx = np.asarray(req.prompt, np.int32)
+        L = len(ctx)
+        n_ctx = -(-L // self._page)
+        matched = self._match_prefix(ctx, keep_last=True)
+        need = n_ctx - len(matched)
+        if need > self.pool.available():
+            for bid in matched:
+                self.pool.decref(bid)
+            raise InsufficientBlocks(
+                f"prompt needs {need} blocks beyond its prefix hits, pool "
+                f"has {self.pool.available()}")
+        self.pool.reserve(need)
+        slot = self.slots.index(None)
+        row = np.zeros((self._mb,), np.int32)
+        row[:len(matched)] = matched
+        for j in range(len(matched), n_ctx):
+            row[j] = self.pool.alloc(reserved=True)
+        cached = len(matched) * self._page
+        self.table[slot] = row
+        self.lengths[slot] = cached
+        # blocks_reserved=0: prefill writes only the context blocks, all
+        # allocated above; the decode tail is reserved at insert() against
+        # the decoding engine's pool.
+        self.slots[slot] = _PagedSlot(req, next_prefill=cached,
+                                      blocks_reserved=0, ctx=ctx,
+                                      seq=self._admit_seq)
+        self._admit_seq += 1
+        req.prefill_len = L
+        req.admitted_step = self._step
+        self.counters["prefix_hit_tokens"] += cached
+        # keep_last leaves at least one token to prefill, so the loop runs
+        # and the first token samples in _prefill_tick.
+        self._prefill_fifo.appendleft(slot)
+        while (self.slots[slot] is not None
+               and not self.slots[slot].prefilled()):
+            self.ticks += 1
+            self._prefill_tick()
+        if self.slots[slot] is None:
+            # Finished during prefill (max_new_tokens == 1, eos or a
+            # deadline): _maybe_evict released every block and the tokens
+            # are in req.generated; nothing to hand off.
+            last = int(req.generated[-1]) if req.generated else 0
+            return Prefix(req=req, chain=ctx, length=0, last_token=last,
+                          blocks=[], pool=self.pool, finished=True)
+        # Detach: block ownership moves from the slot to the Prefix (the
+        # references taken above are kept); the slot frees.
+        bids = [int(self.table[slot, j]) for j in range(n_ctx)]
+        last = int(self.last_token[slot])
+        self.table[slot] = 0
+        self.lengths[slot] = 0
+        self.last_token[slot] = 0
+        self.slots[slot] = None
+        self.counters["prefixes_prefilled"] += 1
+        return Prefix(req=req, chain=ctx, length=L, last_token=last,
+                      blocks=bids, pool=self.pool)
+
+    def extract(self, prefix: Prefix) -> Prefix:
+        """Detach a prefix from this engine: copy its blocks' K/V/pos rows
+        and the pool-wide quant scales (f32, in the reference's leaf order)
+        to host arrays, then drop the block references.  The payload is
+        independent of the pool's layout, so a decoding engine with its own
+        pool and block numbering can ``insert()`` it.  Registered source
+        blocks park in the LRU on decref, so this engine's prefix cache
+        stays warm for repeated prompts."""
+        if prefix.finished or prefix.payload is not None:
+            return prefix
+        if prefix.pool is not self.pool:
+            raise ValueError(
+                "extract() must run on the engine owning the prefix")
+        layers = extract_block_rows(self.caches, prefix.blocks,
+                                    scan_layers=self.cfg.scan_layers)
+        amax = _amax_arrays(self.caches, self.cfg.scan_layers)
+        for bid in prefix.blocks:
+            self.pool.decref(bid)
+        self.counters["prefix_transfers"] += 1
+        return dataclasses.replace(prefix, blocks=[], pool=None,
+                                   payload={"layers": layers, "amax": amax})
+
+    def release(self, prefix: Prefix) -> None:
+        """Drop an attached prefix without inserting it (the client went
+        away between prefill and insert).  Detached and finished prefixes
+        hold no pool state."""
+        if prefix.pool is not self.pool or not prefix.blocks:
+            return
+        for bid in prefix.blocks:
+            self.pool.decref(bid)
+        prefix.blocks = []
+        prefix.pool = None
+
+    def insert(self, prefix: Prefix, slot: int) -> None:
+        """Engine API step 2: mount a prefilled context into a free slot
+        and arm it for decode.  An attached (same-pool) prefix splices by
+        block handle and moves no KV; a detached one CoW-matches its chain
+        against this pool's registry, scatters only the unmatched blocks
+        from the payload, and merges the source's quant scales (elementwise
+        max) with a rebuild of the packed plane pools, so that every
+        resident page means the same integers under the merged grid.
+
+        The slot then holds the post-preemption resume state
+        (``resumed=True``, next decode input ``prefix.last_token``), so
+        decode, speculation, oversubscription and deadlines behave as if
+        the request had always lived here."""
+        if not 0 <= slot < len(self.slots):
+            raise ValueError(f"slot {slot} out of range "
+                             f"[0, {len(self.slots)})")
+        if self.slots[slot] is not None:
+            raise RuntimeError(
+                f"insert into occupied slot {slot} (rid "
+                f"{self.slots[slot].req.rid} is live there)")
+        if prefix.finished:
+            raise ValueError(
+                "prefix finished during prefill: nothing to insert")
+        req = prefix.req
+        if req.rid < 0:
+            raise ValueError("prefix carries an unregistered request")
+        chain = np.asarray(prefix.chain, np.int32)
+        n_ctx = -(-prefix.length // self._page)
+        goal = self._reserve_goal(self._blocks_for(req), n_ctx)
+        if prefix.pool is self.pool:
+            # Attached: the references taken at prefill() move to the slot.
+            need = goal - n_ctx
+            if need > self.pool.available():
+                raise InsufficientBlocks(
+                    f"decode tail needs {need} reserved blocks, pool has "
+                    f"{self.pool.available()}")
+            self.pool.reserve(need)
+            row_bids = [int(b) for b in prefix.blocks]
+            prefix.blocks = []
+            prefix.pool = None
+            cached_hit = 0
+        else:
+            if prefix.payload is None:
+                raise ValueError(
+                    "cross-engine insert needs a detached prefix: call "
+                    "extract() on the source engine first")
+            matched = self._match_prefix(chain, keep_last=False)
+            need = goal - len(matched)
+            if need > self.pool.available():
+                for bid in matched:
+                    self.pool.decref(bid)
+                raise InsufficientBlocks(
+                    f"prefix needs {need} blocks beyond its local CoW "
+                    f"hits, pool has {self.pool.available()}")
+            self.pool.reserve(need)
+            sel = list(range(len(matched), n_ctx))
+            fresh = [self.pool.alloc(reserved=True) for _ in sel]
+            row_bids = [int(b) for b in matched] + fresh
+            if fresh:
+                splice_block_rows(self.caches, fresh,
+                                  prefix.payload["layers"], sel,
+                                  scan_layers=self.cfg.scan_layers)
+            self._merge_amax(prefix.payload["amax"])
+            # Full transferred blocks register under their chain keys; the
+            # partial tail block stays exclusively owned and unregistered.
+            for j in range(len(matched), prefix.length // self._page):
+                key = tuple(int(t) for t in chain[:(j + 1) * self._page])
+                self.pool.register(key, row_bids[j])
+            cached_hit = len(matched) * self._page
+        self._register(req)
+        # Deadlines re-anchor at insert: the prefill and decode engines'
+        # tick clocks are unrelated when disaggregated, so deadline_ticks
+        # bounds decode-side service from here.
+        req.submitted_tick = self.ticks
+        row = np.zeros((self._mb,), np.int32)
+        row[:n_ctx] = row_bids
+        self.table[slot] = row
+        self.lengths[slot] = prefix.length
+        self.last_token[slot] = int(prefix.last_token)
+        self.slots[slot] = _PagedSlot(req, next_prefill=prefix.length,
+                                      blocks_reserved=goal - n_ctx,
+                                      ctx=chain, resumed=True,
+                                      seq=self._admit_seq)
+        self._admit_seq += 1
+        self.counters["prefix_hit_tokens"] += cached_hit
+        self.counters["prefixes_inserted"] += 1
+
+    def _merge_amax(self, incoming: list) -> None:
+        """Fold another engine's quant-scale leaves into this one's
+        (elementwise max) and rebuild the packed plane pools.  It runs on
+        every detached insert even when nothing grew: the spliced pages
+        carry no plane rows until the requant writes them.  A planeless
+        pool has no scales and nothing to do."""
+        cur = _amax_arrays(self.caches, self.cfg.scan_layers)
+        if len(cur) != len(incoming):
+            raise ValueError(
+                f"prefix payload carries {len(incoming)} quant-scale "
+                f"leaves, cache has {len(cur)}")
+        if not cur:
+            return
+        merged = [np.maximum(c, np.asarray(p, np.float32).reshape(c.shape))
+                  for c, p in zip(cur, incoming)]
+        _set_amax_leaves(self.caches, merged, self.cfg.scan_layers)
+        requant_plane_pools(self.caches)
+
+    def generate_step(self) -> list[dict]:
+        """Engine API step 3: one scheduler tick, returning the tokens it
+        committed as per-request events ``{"rid", "slot", "tokens",
+        "finished"}`` sorted by rid (``slot`` is -1 once the request has
+        left its slot).  A preemption emits no event (the requeued
+        request's tokens stand); an expiry or a shed emits a terminal event
+        with no tokens.  The tokens are ``step()``'s: this is a diff of the
+        request registry, not another decode path."""
+        before = {rid: (len(r.generated),
+                        r.finished_step >= 0 or r.shed_reason is not None)
+                  for rid, r in self.requests.items()}
+        self.step()
+        slot_of = {st.req.rid: i for i, st in enumerate(self.slots)
+                   if st is not None}
+        events = []
+        for rid in sorted(before):
+            n0, was_done = before[rid]
+            req = self.requests[rid]
+            done = req.finished_step >= 0 or req.shed_reason is not None
+            toks = [int(t) for t in req.generated[n0:]]
+            if toks or (done and not was_done):
+                events.append({"rid": rid, "slot": slot_of.get(rid, -1),
+                               "tokens": toks, "finished": done})
+        return events
+
+    def free_slots(self) -> list[int]:
+        """Indices of the unoccupied slots (insert targets)."""
+        return [i for i, st in enumerate(self.slots) if st is None]
 
     # ------------------------------------------------------------------
     # crash-consistent snapshot and restore
@@ -1552,3 +1913,70 @@ class PagedEngine:
                 self.table[i, j] = 0
             self._return_draft_blocks(i, stale)
             self._maybe_evict(i, emitted[-1])
+
+
+# ---------------------------------------------------------------------------
+# measured sparsity of one prompt's prefill attention (layer 0)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def _prompt_sparsity(cfg: ModelConfig, params, prompt: np.ndarray):
+    p0 = _first_attn_params(params, cfg)
+    if p0 is None:
+        return {}
+    dev = params["embed"]["table"].device
+    ids = torch.as_tensor(np.asarray(prompt, np.int64), device=dev)[None]
+    x = embed(params["embed"], ids).to(cfg.activation_dtype)
+    acfg = cfg.attn_config(False)
+    pos = torch.arange(x.shape[1], device=dev)
+    q = rope(linear(p0["wq"], x), pos[None], acfg.rope_theta)
+    k = rope(linear(p0["wk"], x), pos[None], acfg.rope_theta)
+    v = linear(p0["wv"], x)
+    G = acfg.n_heads // acfg.n_kv_heads
+    kr = k.repeat_interleave(G, dim=2).transpose(1, 2)
+    vr = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    qt = q.transpose(1, 2)
+    S = qt.shape[-2]
+    # Small q tiles: a kv block stops fetching planes only when every query
+    # row of the tile agrees, so tall tiles cannot terminate.  The serving
+    # forward's pad-to-tile rule; padding is masked out, and blocks with no
+    # unmasked pair are left out of the means rather than counted as free.
+    bq, pad_q = attention_block_shape(S, 8)
+    bk, pad_k = attention_block_shape(S, 16)
+    mask2d = torch.zeros((S + pad_q, S + pad_k), dtype=torch.bool,
+                         device=dev)
+    mask2d[:S, :S] = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                           device=dev))
+    if pad_q:
+        qt = torch.nn.functional.pad(qt, (0, 0, 0, pad_q))
+    if pad_k:
+        kr = torch.nn.functional.pad(kr, (0, 0, 0, pad_k))
+        vr = torch.nn.functional.pad(vr, (0, 0, 0, pad_k))
+    res = block_bitstopper_attention(qt, kr, vr, cfg=cfg.bitstopper,
+                                     block_q=bq, block_k=bk, mask=mask2d)
+    rounds = res.stats.rounds_per_block.cpu().numpy().astype(np.float64)
+    alive = res.stats.block_alive.cpu().numpy()
+    surv = res.stats.survivors.cpu().numpy()[..., :S, :S]
+    n_qt, n_kb = rounds.shape[-2], rounds.shape[-1]
+    live = mask2d.cpu().numpy().reshape(n_qt, bq, n_kb, bk).any((1, 3))
+    live = np.broadcast_to(live, rounds.shape)
+    return {
+        "prompt_len": int(prompt.shape[0]),
+        "mean_rounds": float(rounds[live].mean()),
+        "plane_fraction": float(rounds[live].mean() / cfg.bitstopper.bits),
+        "block_alive_fraction": float(alive[live].mean()),
+        "survivor_fraction": float(surv.mean()),
+        "n_blocks": int(live.sum()),
+        "n_pairs": int(surv.size),
+    }
+
+
+def _first_attn_params(params, cfg: ModelConfig):
+    """The first attention layer's parameters (the port keeps one dict per
+    rep of a segment, so no stacked axis to index)."""
+    for si, (unit, _) in enumerate(cfg.segments):
+        for i, spec in enumerate(unit):
+            if spec.mixer in ("attn", "local_attn"):
+                return params[f"seg{si}"][0][f"b{i}"]["attn"]
+    return None
