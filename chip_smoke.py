@@ -88,7 +88,29 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    tokens; (d) ``sparsity_report`` of the 8 prompts (measured).  Prints
    the ticks, first-token and finish ticks per request, ms per
    ``prefill``/``extract``/``insert`` and ``kv_bytes_contiguous_equiv``;
-11. prints one JSON line describing each kernel, then the device line
+11. wide kernels (C1): ``bitstopper_qk`` and ``flash_attention`` at head
+   widths 256/256 and 192/128 (recurrentgemma-2b, deepseek-v3's MLA)
+   against their plain versions (``bitstopper_qk`` bit-equal on rounds,
+   survivors and out, its byte counts as designed; flash within
+   UNCACHED_TOL), each timed beside its bound; large pages (C3): the
+   decode and verify kernels at pages of 512 and 1024 tokens (their
+   striped walk) against their plain versions (rounds, survivors and
+   v_fetched equal, each verify query equal to the decode, byte counts as
+   designed, and on pages that die whole 50 launches each equal to
+   plain), timed; these two run right after the kernel phases; after the
+   main path, ``PagedEngine`` at pages of 512 (cut depth 4) serves the
+   same tokens with the kernel and with the plain oracle, one launch per
+   layer per decode tick;
+12. dense path (last): the main trace at full width and depth through (a)
+   ``PagedEngine`` on ``attn_impl="xla"``, (b) ``ContinuousBatchingEngine``
+   on ``xla`` (its tokens equal (a)'s, or first differ at a near-tie of
+   (a)'s logits: a gap of at most 1e-3 of max |logit|), (c)
+   ``ContinuousBatchingEngine`` on ``bitstopper_xla`` (agreement with the
+   main path printed), (d) ``StaticBucketEngine`` on ``xla`` sampled at
+   0.7 (its sampler's first key, bits and tokens equal to the CPU's) and
+   (e) the contiguous cache's resident bytes against the paged pool's
+   peak; no kernel of the port launches on it;
+13. prints one JSON line describing each kernel, then the device line
    last.
 
 Any failed check exits non-zero.  Without a card it exits non-zero and
@@ -507,19 +529,22 @@ def verify_kernel_phase(torch):
 
 
 def uncached_case(torch, seed, N=FWD_B * 32, S=FWD_S, d=64, blk=128,
-                  hot=True):
+                  hot=True, dv=None):
     """q, k, v [N, S, d] on the card.  Hot (the default): every query of a
     slice leans on the slice's hot direction, and so do the keys of every
     other kv block (blocks 0, 2, ...): a hot pair scores about 8 logits
     above a cold one, so LATS ends the cold blocks early, as in the
     reference's ``test_bitstopper_kernel_skips_planes``.  Not hot: q and k
     are small and random, their logits within about one of each other, so
-    LATS prunes as little as it does on random weights."""
+    LATS prunes as little as it does on random weights.  V is [N, S, dv]
+    (dv defaults to d)."""
     import numpy as np
     rng = np.random.default_rng(seed)
+    dv = d if dv is None else dv
     if not hot:
-        q, k, v = (rng.normal(size=(N, S, d)).astype(np.float32)
-                   for _ in range(3))
+        q, k = (rng.normal(size=(N, S, d)).astype(np.float32)
+                for _ in range(2))
+        v = rng.normal(size=(N, S, dv)).astype(np.float32)
         return tuple(torch.as_tensor(x, device="cuda")
                      for x in (0.5 * q, 0.5 * k, v))
     hot = rng.normal(size=(N, 1, d)).astype(np.float32)
@@ -527,7 +552,7 @@ def uncached_case(torch, seed, N=FWD_B * 32, S=FWD_S, d=64, blk=128,
     q = hot + 0.5 * rng.normal(size=(N, S, d)).astype(np.float32)
     k = 0.5 * rng.normal(size=(N, S, d)).astype(np.float32)
     k += hot * ((np.arange(S) // blk) % 2 == 0)[None, :, None]
-    v = rng.normal(size=(N, S, d)).astype(np.float32)
+    v = rng.normal(size=(N, S, dv)).astype(np.float32)
     return tuple(torch.as_tensor(x, device="cuda") for x in (q, k, v))
 
 
@@ -700,6 +725,270 @@ def flash_kernel_phase(torch):
             "bound_rate": "split TF32: 3 TF32 tensor-core products an f32 "
                           "product",
             "library_ms": library_ms}
+
+
+# C1 and C3: the widths and pages the kernels took on beside their main
+# shapes.  Wide heads: recurrentgemma-2b's 256 and deepseek-v3's MLA
+# 192 / 128 (configs/registry.py); 8 slices of S=1024.  Large pages: 512
+# and 1024 tokens at the serving widths (B=4, H=32, D=64).
+WIDE_WIDTHS = ((256, 256), (192, 128))
+WIDE_N = 8
+LARGE_PAGES = ((512, 8, 24), (1024, 8, 20))      # (bs, MB, P)
+
+
+@phase("wide kernels")
+def wide_kernel_phase(torch):
+    """flash_attention and bitstopper_qk at the wide head widths against
+    their plain versions: bitstopper_qk's rounds, survivors and out equal
+    bit for bit on hot inputs, causal and not (its byte counts held to the
+    design), flash within UNCACHED_TOL; each timed alone, causal, beside its
+    bound (and flash beside scaled_dot_product_attention)."""
+    from repro_torch.core.besf import BitStopperConfig
+    from repro_torch.kernels import bitstopper_qk as bq
+    from repro_torch.kernels import flash_attention as fa
+    cfg = BitStopperConfig(alpha=0.6)
+    rows = []
+    for i, (d, dv) in enumerate(WIDE_WIDTHS):
+        q, k, v = uncached_case(torch, 320 + i, N=WIDE_N, d=d, dv=dv)
+        N, S, _ = q.shape
+        blk = min(128, S)
+        ops = bq.prep(q, k, v, cfg)
+        for causal in (False, True):
+            bq.count_copies(True)
+            try:
+                bq.copied_bytes()
+                ker = bq.launch_kernel(ops, cfg, blk, blk, causal)
+                planes, v_bytes = bq.copied_bytes()
+            finally:
+                bq.count_copies(False)
+            ref = bq.bitstopper_qk_plain(ops, cfg, blk, blk, causal)
+            torch.cuda.synchronize()
+            for field in ("rounds", "survivors", "out"):
+                a, b = getattr(ker, field), getattr(ref, field)
+                if not torch.equal(a, b):
+                    raise SystemExit(
+                        f"[chip_smoke] bitstopper_qk d={d} dv={dv} causal="
+                        f"{causal}: {field} differs in "
+                        f"{int((a != b).sum())} entries")
+            n_qt, n_kb = ker.rounds.shape[1:]
+            live_v = int(ker.survivors.reshape(N, n_qt, blk, n_kb, blk)
+                         .any(4).any(2).sum())
+            design = bq.design_plane_bytes(ker.rounds, cfg.bits, blk, d)
+            if planes != design or v_bytes != live_v * blk * dv * 4:
+                raise SystemExit(f"[chip_smoke] bitstopper_qk d={d} dv={dv}"
+                                 f" copied {planes} plane and {v_bytes} V "
+                                 f"bytes; the design copies {design} and "
+                                 f"{live_v * blk * dv * 4}")
+        kargs, held = bq.kernel_args(ops, cfg, blk, blk, True)
+        qk_ms = cuda_ms(torch, lambda: bq.launch_c(*kargs), iters=5,
+                        warmup=1)
+        qk_plain_ms = cuda_ms(torch, lambda: bq.bitstopper_qk_plain(
+            ops, cfg, blk, blk, True), iters=1, warmup=1)
+        nbytes, plane_ops, pv_ops, live = qk_bytes_ops(ops, ker, blk, blk)
+        qk_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        qk_ops_ms = (plane_ops / FP16_OPS_PER_S + pv_ops / F32_OPS_PER_S) \
+            * 1e3
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= UNCACHED_TOL:
+            raise SystemExit(f"[chip_smoke] flash_attention d={d} dv={dv}: "
+                             f"out differs by {err} > {UNCACHED_TOL}")
+        fl_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v,
+                                                          causal=True),
+                        iters=5, warmup=1)
+        fl_plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal=True), iters=2, warmup=1)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True),
+                         iters=5, warmup=1)
+        fl_bytes = N * S * (2 * d + 2 * dv) * 4
+        fl_ops = N * S * (S + 1) // 2 * 2 * (d + dv)
+        # The bound of the function is the narrow row's: f32-accurate
+        # products at the split-TF32 rate.  The wide form runs on the CUDA
+        # cores, whose f32 bound is printed beside it.
+        fl_bound = max(fl_bytes / HBM_BYTES_PER_S,
+                       fl_ops / SPLIT_TF32_OPS_PER_S) * 1e3
+        fl_bound_f32 = fl_ops / F32_OPS_PER_S * 1e3
+        print(f"[chip_smoke] wide d={d} dv={dv} (N={N}, S={S}, causal): "
+              f"bitstopper_qk rounds/survivors/out equal to plain, copies "
+              f"as designed ({planes} plane, {v_bytes} V bytes), kernel "
+              f"{qk_ms:.4f} ms, plain {qk_plain_ms:.3f} ms, bound "
+              f"{max(qk_bytes_ms, qk_ops_ms):.5f} ms ({live} live rounds); "
+              f"flash max|out diff| {err:.3e}, kernel {fl_ms:.4f} ms, plain "
+              f"{fl_plain_ms:.3f} ms, scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms, bound {fl_bound:.5f} ms at the split-TF32 "
+              f"rate ({fl_bound_f32:.5f} ms at the f32 CUDA-core rate)")
+        rows.append({"d": d, "dv": dv, "qk_ms": qk_ms,
+                     "qk_plain_ms": qk_plain_ms,
+                     "qk_bound_ms": max(qk_bytes_ms, qk_ops_ms),
+                     "flash_ms": fl_ms, "flash_plain_ms": fl_plain_ms,
+                     "flash_bound_ms": fl_bound,
+                     "flash_bound_f32_ms": fl_bound_f32,
+                     "flash_library_ms": lib_ms,
+                     "flash_max_abs_err": err})
+    return rows
+
+
+@phase("large pages")
+def large_page_phase(torch):
+    """paged_decode and paged_verify at pages of 512 and 1024 tokens (the
+    striped walk) against their plain versions: rounds, survivors and
+    v_fetched equal, out within OUT_TOL, every real verify query equal to
+    the decode at its position, the bytes each counted as requested equal
+    to its design's; each kernel timed alone beside its bound."""
+    from repro_torch.core.besf import BitStopperConfig
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_verify as pv
+    cfg = BitStopperConfig(alpha=0.6)
+    rows = []
+    for i, (bs, MB, P) in enumerate(LARGE_PAGES):
+        shapes = dict(B=4, Hq=32, Hkv=32, D=64, bs=bs, MB=MB, P=P)
+        row = {"bs": bs}
+        for name, mod, Sq in (("paged_decode", pd, 1),
+                              ("paged_verify", pv, SPEC_K + 1)):
+            args = decode_case(torch, 400 + i, Sq=Sq, **shapes)
+            plain_fn = (pd.paged_bitstopper_decode_plain if Sq == 1
+                        else pv.paged_bitstopper_verify_plain)
+            kern_fn = (pd.paged_bitstopper_decode if Sq == 1
+                       else pv.paged_bitstopper_verify)
+            mod.copied_bytes()
+            _, rounds_h, surv = mod.launch_kernel(*args, cfg=cfg)
+            physical, v_copied = mod.copied_bytes()
+            ker = kern_fn(*args, cfg=cfg)
+            ref = plain_fn(*args, cfg=cfg)
+            torch.cuda.synchronize()
+            for field in ("rounds", "survivors", "v_fetched"):
+                a, b = getattr(ker, field), getattr(ref, field)
+                if not torch.equal(a, b):
+                    raise SystemExit(f"[chip_smoke] {name} bs={bs}: {field} "
+                                     f"differs in {int((a != b).sum())} "
+                                     f"entries")
+            err = float((ker.out - ref.out).abs().max())
+            if not err <= OUT_TOL:
+                raise SystemExit(f"[chip_smoke] {name} bs={bs}: out differs "
+                                 f"by {err} > {OUT_TOL}")
+            if Sq == 1:
+                B, Hq = args[0].shape[:2]
+                live_v = int(surv.reshape(B, 32, Hq // 32, MB, bs)
+                             .any(4).any(2).sum())
+                design = (decode_plane_bytes(args, rounds_h, None)[1],
+                          live_v * bs * args[2].shape[-1] * 4)
+                nbytes, ops = decode_bytes_ops(args, rounds_h, surv, False)
+            else:
+                design = verify_copy_bytes(args, surv, None)
+                nbytes, ops, _, _ = verify_bytes_ops(args, rounds_h, surv)
+                q, kq, v, table, lengths, q_pos, k_amax, v_amax = args
+                for s in range(Sq):
+                    dec = pd.paged_bitstopper_decode(
+                        q[:, s], kq, v, table, lengths[:, s].contiguous(),
+                        q_pos[:, s].contiguous(), k_amax, v_amax, cfg=cfg)
+                    real = lengths[:, s] > 0
+                    for field in ("out", "rounds", "survivors", "v_fetched"):
+                        if not torch.equal(getattr(dec, field)[real],
+                                           getattr(ker, field)[:, s][real]):
+                            raise SystemExit(
+                                f"[chip_smoke] paged_verify bs={bs}: query "
+                                f"{s} {field} differs from paged_decode at "
+                                f"its position")
+            if (physical, v_copied) != design:
+                raise SystemExit(f"[chip_smoke] {name} bs={bs} copied "
+                                 f"{physical} plane and {v_copied} V bytes; "
+                                 f"the design copies {design}")
+            kargs, *held = mod.kernel_args(*args, cfg=cfg, stats=False)
+            kernel_ms = cuda_ms(torch, lambda: mod.launch_c(*kargs),
+                                iters=20, warmup=3)
+            plain_ms = cuda_ms(torch, lambda: plain_fn(*args, cfg=cfg,
+                                                       stats=False),
+                               iters=1, warmup=1)
+            bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                           ops / INT8_OPS_PER_S) * 1e3
+            print(f"[chip_smoke] {name} bs={bs} (B=4, Sq={Sq}, H=32, D=64, "
+                  f"MB={MB}): rounds/survivors/v_fetched equal to plain; "
+                  f"max|out diff| {err:.3e}; copied {physical} plane and "
+                  f"{v_copied} V bytes (measured, as designed); kernel "
+                  f"alone {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{bound_ms:.5f} ms ({nbytes} bytes, {ops} ops)"
+                  + ("; every real query equal to paged_decode" if Sq > 1
+                     else ""))
+            row[name] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "max_abs_err": err}
+        dead_page_repeats(torch, bs, cfg)
+        rows.append(row)
+    return rows
+
+
+def dead_page_case(torch, bs, Hkv=8, G=4, D=64, P=9, dev="cuda"):
+    """Decode operands where whole pages die: the query heads of every KV
+    head point along its hot direction, which only physical pages 1 and 5
+    hold, so a cold page after a hot one stops with no survivor in any
+    row.  Slot 3 walks hot, cold, hot, cold pages."""
+    import numpy as np
+    from repro_torch.core import quantization as qlib
+    rng = np.random.default_rng(500 + bs)
+    u = rng.normal(size=(Hkv, D))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    k = rng.normal(size=(P, bs, Hkv, D)) * 0.04
+    k[[1, 5]] += 8.0 * u
+    v = rng.normal(size=(P, bs, Hkv, D))
+    table = np.array([[1, 2, 3, 4], [1, 5, 6, 0], [7, 3, 0, 0],
+                      [1, 2, 5, 3]], np.int32)
+    lengths = np.array([4 * bs, 5 * bs // 2, 19 * bs // 16, 4 * bs],
+                       np.int32)
+    q = 8.0 * np.repeat(u, G, axis=0)[None] + 0.1 * rng.normal(
+        size=(4, Hkv * G, D))
+    t = lambda a, dt=np.float32: torch.as_tensor(np.asarray(a, dt),
+                                                 device=dev)
+    k_amax = np.abs(k).max(axis=(0, 1, 3))
+    kq = qlib.pack_pool_planes(t(k), t(k_amax), 12)
+    return (t(q), kq, t(v), t(table, np.int32), t(lengths, np.int32),
+            t(lengths - 1, np.int32), t(k_amax),
+            t(np.abs(v).max(axis=(0, 1, 3))))
+
+
+def dead_page_repeats(torch, bs, cfg, repeats=50):
+    """The striped walk on pages where every row of a KV head dies, right
+    after a hot page and between live ones (a block that leaves such a page
+    early must not race the next page's reset): ``repeats`` launches each
+    of the decode and the verify, every one equal to the plain version."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_verify as pv
+    args = dead_page_case(torch, bs)
+    q, kq, v, table, lengths, q_pos, k_amax, v_amax = args
+    ref = pd.paged_bitstopper_decode_plain(*args, cfg=cfg)
+    B, Hq, _ = q.shape
+    Hkv = v.shape[2]
+    live = ref.survivors.reshape(B, Hkv, Hq // Hkv, -1, bs).any(4).any(2)
+    reach = torch.arange(table.shape[1], device=q.device)[None] * bs \
+        < lengths[:, None]
+    dead = reach[:, None] & ~live
+    # a dead page with a live one after it, in the same (slot, KV head)
+    later = live[..., 1:].int().flip(-1).cummax(-1)[0].flip(-1).bool()
+    between = dead[..., :-1] & later
+    if not bool(between.any()):
+        raise SystemExit(f"[chip_smoke] dead pages bs={bs}: no page dies "
+                         f"between live ones ({int(dead.sum())} dead)")
+    vargs = (q[:, None], kq, v, table, lengths[:, None].contiguous(),
+             q_pos[:, None].contiguous(), k_amax, v_amax)
+    for i in range(repeats):
+        ker = pd.paged_bitstopper_decode(*args, cfg=cfg)
+        ver = pv.paged_bitstopper_verify(*vargs, cfg=cfg)
+        for field in ("rounds", "survivors", "v_fetched"):
+            a = getattr(ker, field)
+            if not (torch.equal(a, getattr(ref, field))
+                    and torch.equal(getattr(ver, field)[:, 0], a)):
+                raise SystemExit(f"[chip_smoke] dead pages bs={bs}, launch "
+                                 f"{i}: {field} differs")
+        err = float((ker.out - ref.out).abs().max())
+        if not (err <= OUT_TOL and torch.equal(ver.out[:, 0], ker.out)):
+            raise SystemExit(f"[chip_smoke] dead pages bs={bs}, launch {i}: "
+                             f"out differs by {err}")
+    print(f"[chip_smoke] dead pages bs={bs} (B=4, H=32/8, D=64): "
+          f"{int(dead.sum())} of {int(reach.sum()) * Hkv} reached (slot, KV "
+          f"head, page) triples die whole, {int(between.sum())} between live "
+          f"ones; {repeats} launches each of decode and verify equal to "
+          f"plain")
 
 
 @phase("forward path")
@@ -941,6 +1230,56 @@ def main_path_phase(torch, cfg, params):
     print(f"[chip_smoke] fused and plain decode give identical tokens on "
           f"{len(streams[0])} requests")
     return launches, reqs, float(np.mean(tick_ms["decode"]))
+
+
+LARGE_PAGE_PROMPTS = (700, 300, 900, 520)       # two pages for three
+
+
+@phase("large pages (engine)")
+def large_page_engine_phase(torch, cfg, params):
+    """The striped walk on a served path: PagedEngine at pages of 512
+    tokens (full width, cut depth 4), greedy, with the decode kernel and
+    with the plain oracle: the same tokens, and one kernel launch per layer
+    per decode tick in the kernel's run and none in the oracle's.  Returns
+    the kernel run's launches."""
+    import numpy as np
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
+    depth = min(4, cfg.n_layers)
+    cut = cfg.replace(segments=((cfg.segments[0][0], depth),))
+    cut_params = dict(params, seg0=params["seg0"][:depth])
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in LARGE_PAGE_PROMPTS]
+    streams, launches = [], []
+    for fused in (True, False):
+        eng = PagedEngine(cut, cut_params, ServeConfig(
+            max_slots=4, page_size=512, max_len=1024, fused_decode=fused))
+        reqs = [Request(prompt=p.copy(), max_new_tokens=8) for p in prompts]
+        pd.LAUNCHES = 0
+        t = time.perf_counter()
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches.append(pd.LAUNCHES)
+        ticks = eng.counters["decode_steps"]
+        want = depth * ticks if fused else 0
+        if pd.LAUNCHES != want or ticks == 0:
+            raise SystemExit(f"[chip_smoke] large pages (engine) fused="
+                             f"{fused}: {pd.LAUNCHES} decode launches for "
+                             f"{ticks} ticks x {depth} layers")
+        streams.append([r.generated for r in reqs])
+        print(f"[chip_smoke] large pages (engine) fused_decode={fused}: "
+              f"page_size 512, prompts {list(LARGE_PAGE_PROMPTS)}, depth "
+              f"{depth}, {ticks} decode ticks, {pd.LAUNCHES} decode "
+              f"launches, {wall:.3f} s")
+    if streams[0] != streams[1]:
+        raise SystemExit(f"[chip_smoke] large pages (engine): kernel and "
+                         f"plain oracle disagree: {streams[0]} vs "
+                         f"{streams[1]}")
+    print(f"[chip_smoke] large pages (engine): kernel and plain oracle give "
+          f"identical tokens on {len(prompts)} requests")
+    return launches[0]
 
 
 def serve_speculative(torch, np, cfg, params, prompts, new_tokens,
@@ -2288,6 +2627,220 @@ def frontdoor_cut_depth(torch, np, cfg, params, prompts, new_tokens):
     return launches
 
 
+class LogitTap:
+    """The top-k logits of every row an engine samples, by (rid, token
+    index): the near-tie test of the dense path's divergence check."""
+
+    def __init__(self, torch, eng, k=8):
+        import collections
+        self.rows = collections.defaultdict(list)
+        real = eng._sample_rows
+
+        def tapped(logits, rids, counts):
+            toks = real(logits, rids, counts)
+            x = logits.float()
+            vals, idx = torch.topk(x, k, dim=-1)
+            amax = x.abs().amax(-1)
+            for i, (r, c) in enumerate(zip(rids, counts)):
+                self.rows[int(r), int(c)].append(
+                    (vals[i].cpu().numpy(), idx[i].cpu().numpy(),
+                     float(amax[i])))
+            return toks
+
+        eng._sample_rows = tapped
+
+    def gap(self, rid, pos, tok_a, tok_b):
+        """(logit gap between tok_a and tok_b, max |logit|) in the row whose
+        argmax is tok_a (a greedy run's own row), or (inf, nan)."""
+        for vals, idx, amax in self.rows[rid, pos]:
+            if idx[0] == tok_a:
+                hit = [j for j, t in enumerate(idx) if t == tok_b]
+                return (float(vals[0] - vals[hit[0]]) if hit
+                        else float("inf")), amax
+        return float("inf"), float("nan")
+
+
+def timed_ticks(torch, eng, prefill_key):
+    """Wrap ``eng.step`` to time every tick (host clock, synchronised),
+    sorted into pure prefill, pure decode and mixed ticks by the
+    ``prefill_key`` and ``decode_steps`` counters."""
+    ticks = {"prefill": [], "decode": [], "mixed": []}
+    real = eng.step
+
+    def step():
+        p, d = eng.counters[prefill_key], eng.counters["decode_steps"]
+        t = time.perf_counter()
+        out = real()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        pre = eng.counters[prefill_key] > p
+        dec = eng.counters["decode_steps"] > d
+        if pre or dec:
+            ticks["mixed" if pre and dec else
+                  "prefill" if pre else "decode"].append(dt)
+        return out
+
+    eng.step = step
+    return ticks
+
+
+def mean_ms(xs) -> float:
+    return float(sum(xs) / len(xs)) if xs else float("nan")
+
+
+@phase("dense path")
+def dense_path_phase(torch, cfg, params, plain_reqs):
+    """The dense serving slice at full width and depth, on the main trace:
+    (a) the paged engine on ``attn_impl="xla"``; (b) the contiguous engine
+    on ``xla``, whose tokens must equal (a)'s or first differ where (a)'s
+    logits are a near-tie; (c) the contiguous engine on ``bitstopper_xla``,
+    its agreement with the main path printed; (d) the static engine on
+    ``xla``, sampled, its sampler's bits for the first key equal to the
+    CPU's; (e) the contiguous cache's resident bytes against the paged
+    pool's peak.  The dense path runs no kernel of the port: every count is
+    set to 0 before it and must read 0 after (the paged kernels serve
+    BitStopper only)."""
+    import numpy as np
+    from repro_torch.kernels import (bitstopper_qk, flash_attention,
+                                     paged_decode, paged_verify)
+    from repro_torch.serving import (ContinuousBatchingEngine, PagedEngine,
+                                     Request, ServeConfig,
+                                     StaticBucketEngine)
+    from repro_torch.serving import sampling as S
+    mods = (paged_decode, paged_verify, bitstopper_qk, flash_attention)
+    for m in mods:
+        m.LAUNCHES = 0
+    scfg = ServeConfig(max_slots=4, page_size=16, max_len=512)
+    dense = cfg.replace(attn_impl="xla")
+    out = {}
+
+    def serve(label, eng, prefill_key):
+        reqs = make_requests(np, Request, 0, 8, 32, cfg.vocab)
+        ticks = timed_ticks(torch, eng, prefill_key)
+        t = time.perf_counter()
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n_tok = sum(len(r.generated) for r in reqs)
+        print(f"[chip_smoke] dense {label}: {n_tok} new tokens in "
+              f"{wall:.3f} s ({n_tok / wall:.2f} tok/s); "
+              f"{len(ticks['decode'])} pure decode ticks at mean "
+              f"{mean_ms(ticks['decode']):.2f} ms, {len(ticks['prefill'])} "
+              f"pure prefill ticks at mean {mean_ms(ticks['prefill']):.2f} "
+              f"ms, {len(ticks['mixed'])} mixed at mean "
+              f"{mean_ms(ticks['mixed']):.2f} ms; counters {eng.counters}")
+        out[label] = dict(tokens=[r.generated for r in reqs],
+                          tok_s=n_tok / wall,
+                          decode_ms=mean_ms(ticks["decode"]),
+                          prefill_ms=mean_ms(ticks["prefill"]),
+                          mixed_ms=mean_ms(ticks["mixed"]))
+        return reqs
+
+    # (a) paged on xla: a pure prefill tick is one 64-token chunk.
+    paged = PagedEngine(dense, params, scfg)
+    tap = LogitTap(torch, paged)
+    serve("(a) paged xla", paged, "prefill_chunks")
+    # (b) contiguous on xla: a tick that admits prefills whole prompts,
+    # then decodes (mixed).
+    contiguous = ContinuousBatchingEngine(dense, params, scfg)
+    serve("(b) contiguous xla", contiguous, "prefill_tokens")
+    a_toks, b_toks = out["(a) paged xla"]["tokens"], \
+        out["(b) contiguous xla"]["tokens"]
+    diverged = []
+    for rid, (ta, tb) in enumerate(zip(a_toks, b_toks)):
+        if ta == tb:
+            continue
+        pos = next(i for i, (x, y) in enumerate(zip(ta, tb)) if x != y)
+        gap, amax = tap.gap(rid, pos, ta[pos], tb[pos])
+        print(f"[chip_smoke] dense (b) request {rid}: first differs from (a) "
+              f"at token {pos} ({ta[pos]} vs {tb[pos]}); (a)'s logit gap "
+              f"{gap:.6e}, max |logit| {amax:.6e}, ratio "
+              f"{gap / amax:.3e}")
+        if not gap <= 1e-3 * amax:
+            raise SystemExit(f"[chip_smoke] dense: the contiguous engine's "
+                             f"request {rid} leaves the paged engine's "
+                             f"tokens at {pos} where (a)'s logits are no "
+                             f"near-tie")
+        diverged.append((rid, pos, gap, amax))
+    print(f"[chip_smoke] dense (b) vs (a): {8 - len(diverged)} of 8 "
+          f"requests equal token for token"
+          + (f"; the others first differ at near-ties {diverged}"
+             if diverged else ""))
+    # (c) contiguous on bitstopper_xla, against the main path's tokens.
+    serve("(c) contiguous bitstopper_xla",
+          ContinuousBatchingEngine(cfg, params, scfg), "prefill_tokens")
+    main = [r.generated for r in plain_reqs]
+    c_toks = out["(c) contiguous bitstopper_xla"]["tokens"]
+    same_req = sum(x == y for x, y in zip(c_toks, main))
+    same_tok = sum(int(a == b) for x, y in zip(c_toks, main)
+                   for a, b in zip(x, y))
+    print(f"[chip_smoke] dense (c) vs the main path (paged BitStopper, "
+          f"pool-wide scales; the contiguous engine scales per row): "
+          f"{same_req} of 8 requests and {same_tok} of 256 tokens equal "
+          f"(measured, not checked)")
+    # (d) static on xla, sampled: buckets of two 128-token prompts, then
+    # 256 and 384; the sampler's bits for the first key against the CPU.
+    rng = np.random.default_rng(7)
+    static_reqs = [Request(prompt=rng.integers(0, cfg.vocab, n,
+                                               dtype=np.int32),
+                           max_new_tokens=16) for n in (128, 128, 256, 384)]
+    static = StaticBucketEngine(dense, params, ServeConfig(
+        max_len=512, temperature=TEMPERATURE))
+    first = []
+    real_sample = static._sample
+
+    def sample(logits, key):
+        if not first:
+            first.append((logits.detach().clone(), np.array(key)))
+        return real_sample(logits, key)
+
+    static._sample = sample
+    t = time.perf_counter()
+    static.generate(static_reqs, seed=SAMPLE_SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    logits, key = first[0]
+    want_key = S.fold_in(S.fold_in(S.prng_key(SAMPLE_SEED).numpy(), 0), 0)
+    n = logits.numel()
+    card_bits = S.random_bits(torch.as_tensor(key, device=logits.device),
+                              n).cpu()
+    cpu_bits = S.random_bits(torch.as_tensor(want_key), n)
+    card_tok = S.categorical_block(key, logits, TEMPERATURE).cpu()
+    cpu_tok = S.categorical_block(want_key, logits.cpu(), TEMPERATURE)
+    if not (np.array_equal(key, want_key) and torch.equal(card_bits, cpu_bits)
+            and torch.equal(card_tok, cpu_tok)):
+        raise SystemExit("[chip_smoke] dense (d): the static sampler's key, "
+                         "bits or tokens differ between the card and the CPU")
+    n_tok = sum(len(r.generated) for r in static_reqs)
+    print(f"[chip_smoke] dense (d) static xla at temperature {TEMPERATURE}, "
+          f"seed {SAMPLE_SEED}: prompts {[len(r.prompt) for r in static_reqs]}"
+          f", {n_tok} new tokens in {wall:.3f} s ({n_tok / wall:.2f} tok/s); "
+          f"first key, {n} random bits and the first tokens equal to the "
+          f"CPU's")
+    if any(len(r.generated) != 16 for r in static_reqs):
+        raise SystemExit("[chip_smoke] dense (d): a request fell short")
+    # (e) resident KV bytes.
+    cont_bytes = contiguous.kv_bytes_resident()
+    paged_peak = paged.kv_bytes_resident()
+    want = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 4 * 512 * 4
+    print(f"[chip_smoke] dense (e): contiguous kv_bytes_resident "
+          f"{cont_bytes} ({cfg.n_layers} x 2 x {cfg.n_kv_heads} x "
+          f"{cfg.head_dim} x 4 B x 4 slots x 512 tokens), paged peak "
+          f"{paged_peak} ({paged_peak / cont_bytes:.3f} of it)")
+    if cont_bytes != want or not 0 < paged_peak < cont_bytes:
+        raise SystemExit(f"[chip_smoke] dense (e): {cont_bytes} contiguous "
+                         f"bytes (want {want}), paged peak {paged_peak}")
+    launched = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in mods}
+    print(f"[chip_smoke] dense path kernel launches {launched} (none of "
+          f"the port's kernels serves a dense impl)")
+    if any(launched.values()):
+        raise SystemExit("[chip_smoke] dense path launched a kernel")
+    for r in out.values():
+        r.pop("tokens")
+    return dict(out, static_tok_s=n_tok / wall, contiguous_bytes=cont_bytes,
+                paged_peak_bytes=paged_peak, diverged=diverged)
+
+
 @phase("profile")
 def profile_phase(torch, cfg, params, decode_ticks=8, verify_ticks=3):
     """torch.profiler over steady decode ticks, one prefill chunk,
@@ -2402,8 +2955,21 @@ def main(argv=None):
         return
     rows = [kernel_phase(torch), verify_kernel_phase(torch),
             qk_kernel_phase(torch), flash_kernel_phase(torch)]
+    for wide in wide_kernel_phase(torch):
+        rows[2].setdefault("wide", []).append(
+            {k[3:]: v for k, v in wide.items() if k.startswith("qk_")}
+            | {"d": wide["d"], "dv": wide["dv"]})
+        rows[3].setdefault("wide", []).append(
+            {k[6:]: v for k, v in wide.items() if k.startswith("flash_")}
+            | {"d": wide["d"], "dv": wide["dv"]})
+    for page in large_page_phase(torch):
+        for row in rows[:2]:
+            row.setdefault("pages", []).append(dict(page[row["name"]],
+                                                    bs=page["bs"]))
     cfg, params = build_model(torch)
     rows[0]["launches"], plain_reqs, greedy_tick_ms = main_path_phase(
+        torch, cfg, params)
+    rows[0]["launches_large_page_engine"] = large_page_engine_phase(
         torch, cfg, params)
     rows[1]["launches"], ngram_prompts = speculative_phase(
         torch, cfg, params, plain_reqs)
@@ -2419,6 +2985,8 @@ def main(argv=None):
         torch, cfg, params, want_sampled, recompute_chunks)
     rows[0]["launches_frontdoor_path"] = frontdoor_path_phase(
         torch, cfg, params, plain_reqs)
+    dense = dense_path_phase(torch, cfg, params, plain_reqs)
+    print(f"[chip_smoke] dense path summary: {json.dumps(dense)}")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ Counterpart of ``repro/kernels/bitstopper_qk.py`` (the Pallas TPU kernel
   and k, packed K bit planes, bit margins, the two LATS scalars, V
   dequantized), then launches ``csrc/bitstopper_qk.cu`` once over all
   (batch x head) slices for CUDA tensors, or runs the plain version for CPU
-  tensors.  A failed build or launch raises; there is no fallback.
+  tensors.  Head and value widths over 160 (up to 256) run the source's
+  wide instantiations, which stage V in column chunks.  A failed build or
+  launch raises; there is no fallback.
 * :func:`bitstopper_qk_plain`, the same function in plain torch on the same
   operands: the planes unpacked, then the block oracle
   (``core/block_adaptation.block_rows``).
@@ -32,14 +34,12 @@ import torch
 from repro_torch.core import quantization as qlib
 from repro_torch.core.besf import BitStopperConfig
 from repro_torch.core.block_adaptation import block_prep, block_rows
-from repro_torch.kernels.runtime import load_library, on_card
+from repro_torch.kernels.runtime import (load_library, on_card,
+                                         width_refusal)
 
 LAUNCHES = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-KERNEL_DV = (16, 32, 64, 128, 160)   # value widths the kernel is built for
-MAX_HEAD = 160              # widest q/k head whose tiles fit the card's
-                            # 227 KB of shared memory at 128-row tiles
 MAX_BLOCK = 128             # largest q or kv tile the kernel takes
 LOOKAHEAD = 2               # planes requested ahead (kLook in the source)
 
@@ -112,13 +112,11 @@ def kernel_args(ops: Operands, cfg: BitStopperConfig, bq: int, bk: int,
     ``(args, KernelOutput)``."""
     N, Sq, D = ops.q_int.shape
     Sk, Dv = ops.v_eff.shape[1], ops.v_eff.shape[2]
-    if Dv not in KERNEL_DV or D > MAX_HEAD or bq > MAX_BLOCK or \
-            bk > MAX_BLOCK:
-        raise ValueError(f"the bitstopper_qk kernel takes value widths "
-                         f"{KERNEL_DV}, head widths up to {MAX_HEAD} (wider "
-                         f"tiles exceed the card's shared memory) and blocks "
-                         f"up to {MAX_BLOCK}, got D={D}, Dv={Dv}, blocks "
-                         f"({bq}, {bk})")
+    reason = width_refusal(D, Dv)
+    if reason is not None or bq > MAX_BLOCK or bk > MAX_BLOCK:
+        raise ValueError(f"the bitstopper_qk kernel takes "
+                         f"{reason or 'these widths'} and blocks up to "
+                         f"{MAX_BLOCK}, got blocks ({bq}, {bk})")
     dev = ops.q_int.device
     out = torch.empty((N, Sq, Dv), dtype=torch.float32, device=dev)
     rounds = torch.empty((N, Sq // bq, Sk // bk), dtype=torch.int32,

@@ -532,13 +532,197 @@ int launch(const float* q, const float* k, const float* v, float* out, int N,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Wide heads: the CUDA-core form.
+//
+// At head width 256 the tensor-core kernel's q operands and two K/V stages
+// need more than the card's 227 KB of shared memory, and its fragments are
+// instantiated per value width.  flash_wide_kernel runs every width of the
+// cache-free kernels' rule (kernels/runtime.py, width_refusal) that the
+// tensor-core kernel does not: one block of 4 warps per (slice, kWideRows q
+// rows), a warp owning kWideRows / 4 whole rows.  A kv tile of kWideKt keys comes to shared
+// memory (K rows padded by one word, so that lane j's reads of key j meet
+// no bank twice); lane j scores key j against each of the warp's rows with
+// f32 fused multiply-adds in d order, and owns V columns lane, lane + 32,
+// ... of the output.  The online softmax takes the tensor-core kernel's
+// float steps in its order (s = dot * sm_scale, NEG_INF masks, corr = 0
+// while m is NEG_INF, l = l * corr + sum p, acc = acc * corr + P V), and
+// rows that see no key get the reference's mean of V, as there.  What bounds
+// this form: the f32 CUDA-core rate (67 TFLOP/s), for 2 * rows * keys *
+// (D + Dv) flops a reachable tile pair, 2.5x the function's bound at the
+// split-TF32 rate; nothing here is tuned beyond being right, and at width
+// 256 it is slower than the plain version.  A tensor-core wide tile is
+// ROADMAP B8.
+constexpr int kMaxWide = 256;
+constexpr int kWideRows = 16;
+constexpr int kWideKt = 32;
+constexpr int kWideRpw = kWideRows / kWarps;   // rows a warp owns
+constexpr int kWideCols = kMaxWide / 32;       // V columns a lane owns
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = __fadd_rn(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+size_t wide_smem_bytes(int D, int Dv) {
+  return ((size_t)kWideRows * D + (size_t)kWideKt * (D + 1) +
+          (size_t)kWideKt * Dv) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_wide_kernel(const float* __restrict__ q,    // [N, Sq, D]
+                  const float* __restrict__ k,    // [N, Sk, D]
+                  const float* __restrict__ v,    // [N, Sk, Dv]
+                  float* __restrict__ out,        // [N, Sq, Dv]
+                  int N, int Sq, int Sk, int D, int Dv, int bq, int bk,
+                  int causal, int q_offset, float sm_scale) {
+  const int n_qt = (Sq + kWideRows - 1) / kWideRows;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / N);
+  const int n = (int)(blockIdx.x % N);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = qt * kWideRows;
+  const int KS = D + 1;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);       // [kWideRows, D]
+  float* k_s = q_s + kWideRows * D;                  // [kWideKt, D + 1]
+  float* v_s = k_s + kWideKt * KS;                   // [kWideKt, Dv]
+
+  const float* qn = q + (size_t)n * Sq * D;
+  const float* kn = k + (size_t)n * Sk * D;
+  const float* vn = v + (size_t)n * Sk * Dv;
+  for (int i = tid; i < kWideRows * D; i += kThreads) {
+    const int r = i / D;
+    q_s[i] = qn[(size_t)min(q0 + r, Sq - 1) * D + (i - r * D)];
+  }
+
+  const int rows_valid = min(kWideRows, Sq - q0);
+  int last_key = Sk - 1;
+  if (causal) last_key = min(last_key, q0 + rows_valid - 1 + q_offset);
+  const int n_tiles = last_key < 0 ? 0 : last_key / kWideKt + 1;
+
+  int rpos[kWideRpw];
+  float m_run[kWideRpw], l_run[kWideRpw], acc[kWideRpw][kWideCols];
+#pragma unroll
+  for (int i = 0; i < kWideRpw; ++i) {
+    rpos[i] = q0 + warp * kWideRpw + i + q_offset;
+    m_run[i] = kNegInf;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int u = 0; u < kWideCols; ++u) acc[i][u] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kWideKt;
+    const int rows = min(kWideKt, Sk - k0);   // rows past Sk: row Sk - 1
+    __syncthreads();                          // the last tile is read
+    for (int i = tid; i < kWideKt * D; i += kThreads) {
+      const int r = i / D, d = i - r * D;
+      k_s[r * KS + d] = kn[(size_t)(k0 + min(r, rows - 1)) * D + d];
+    }
+    for (int i = tid; i < kWideKt * Dv; i += kThreads) {
+      const int r = i / Dv, c = i - r * Dv;
+      v_s[i] = vn[(size_t)(k0 + min(r, rows - 1)) * Dv + c];
+    }
+    __syncthreads();
+
+    const int col = k0 + lane;                // this lane's key
+    const float* krow = k_s + lane * KS;
+#pragma unroll
+    for (int i = 0; i < kWideRpw; ++i) {
+      const float* qrow = q_s + (warp * kWideRpw + i) * D;
+      float dot = 0.f;
+      for (int d = 0; d < D; ++d) dot = __fmaf_rn(qrow[d], krow[d], dot);
+      float x = __fmul_rn(dot, sm_scale);
+      if (causal && col > rpos[i]) x = kNegInf;
+      if (col >= Sk) x = -INFINITY;
+      const float m_new = fmaxf(m_run[i], warp_max(x));
+      const float corr =
+          m_run[i] == kNegInf ? 0.f : expf(__fsub_rn(m_run[i], m_new));
+      const float p = expf(__fsub_rn(x, m_new));
+      l_run[i] = __fadd_rn(__fmul_rn(l_run[i], corr), warp_sum(p));
+      m_run[i] = m_new;
+      float pv[kWideCols];
+#pragma unroll
+      for (int u = 0; u < kWideCols; ++u) pv[u] = 0.f;
+      for (int j = 0; j < kWideKt; ++j) {
+        const float pj = __shfl_sync(kFull, p, j);
+        const float* vrow = v_s + j * Dv;
+#pragma unroll
+        for (int u = 0; u < kWideCols; ++u)
+          if (lane + 32 * u < Dv)
+            pv[u] = __fmaf_rn(pj, vrow[lane + 32 * u], pv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kWideCols; ++u)
+        acc[i][u] = __fadd_rn(__fmul_rn(acc[i][u], corr), pv[u]);
+    }
+  }
+
+  float* on = out + (size_t)n * Sq * Dv;
+#pragma unroll
+  for (int i = 0; i < kWideRpw; ++i) {
+    const int row = q0 + warp * kWideRpw + i;
+    if (row >= Sq) continue;
+    float* orow = on + (size_t)row * Dv;
+    if (causal && rpos[i] < 0) {
+      // A row that sees no key: the mean of V over the last of the
+      // reference's kv tiles its q tile reaches (0 if there is none).
+      const int last = (row / bq) * bq + q_offset + bq - 1;
+      const int kb = last < 0 ? -1 : min(last / bk, Sk / bk - 1);
+      for (int c = lane; c < Dv; c += 32) {
+        float a = 0.f;
+        if (kb >= 0) {
+          for (int j = 0; j < bk; ++j)
+            a = __fadd_rn(a, vn[((size_t)kb * bk + j) * Dv + c]);
+          a = __fdiv_rn(a, (float)bk);
+        }
+        orow[c] = a;
+      }
+      continue;
+    }
+    const float inv = fmaxf(l_run[i], 1e-30f);
+#pragma unroll
+    for (int u = 0; u < kWideCols; ++u)
+      if (lane + 32 * u < Dv) orow[lane + 32 * u] = __fdiv_rn(acc[i][u], inv);
+  }
+}
+
+int launch_wide(const float* q, const float* k, const float* v, float* out,
+                int N, int Sq, int Sk, int D, int Dv, int bq, int bk,
+                int causal, float sm_scale, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes(D, Dv);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks =
+      (long long)N * ((Sq + kWideRows - 1) / kWideRows);
+  if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  flash_wide_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      q, k, v, out, N, Sq, Sk, D, Dv, bq, bk, causal, causal ? Sk - Sq : 0,
+      sm_scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  q [N, Sq, D], k [N, Sk, D],
 // v [N, Sk, Dv], out [N, Sq, Dv], all contiguous f32; bq | Sq, bk | Sk,
-// both at most 128; D at most 160; Dv one of 16, 32, 64, 128, 160.
-// Returns the CUDA error code of the launch (0 on success); the caller
-// raises on anything else.
+// both at most 128.  The widths are the cache-free kernels' rule
+// (kernels/runtime.py, width_refusal): D up to 160, or a multiple of 16 up
+// to 256; Dv a multiple of 16 up to 256.  D at most 160 with Dv one of 16,
+// 32, 64, 128, 160 runs the tensor-core kernel, every other width the
+// CUDA-core form.  Returns the CUDA error code of the launch (0 on
+// success); the caller raises on anything else.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int N, int Sq,
                                       int Sk, int D, int Dv, int bq, int bk,
@@ -546,7 +730,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* stream) {
   if (N == 0 || Sq == 0) return 0;
   if (bq < 1 || bk < 1 || bq > kMaxTile || bk > kMaxTile || Sq % bq ||
-      Sk % bk || N > 65535 || D < 1 || D > kMaxD)
+      Sk % bk || N > 65535 || D < 1 || D > kMaxWide ||
+      (D > kMaxD && D % 16) || Dv < 16 || Dv > kMaxWide || Dv % 16)
     return (int)cudaErrorInvalidValue;
   const float *qf = (const float*)q, *kf = (const float*)k,
               *vf = (const float*)v;
@@ -554,13 +739,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
 #define FLASH_LAUNCH(DV) \
   return launch<DV>(qf, kf, vf, of, N, Sq, Sk, D, bq, bk, causal, sm_scale, s)
-  switch (Dv) {
-    case 16: FLASH_LAUNCH(16);
-    case 32: FLASH_LAUNCH(32);
-    case 64: FLASH_LAUNCH(64);
-    case 128: FLASH_LAUNCH(128);
-    case 160: FLASH_LAUNCH(160);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (D <= kMaxD) switch (Dv) {
+      case 16: FLASH_LAUNCH(16);
+      case 32: FLASH_LAUNCH(32);
+      case 64: FLASH_LAUNCH(64);
+      case 128: FLASH_LAUNCH(128);
+      case 160: FLASH_LAUNCH(160);
+    }
+  return launch_wide(qf, kf, vf, of, N, Sq, Sk, D, Dv, bq, bk, causal,
+                     sm_scale, s);
 #undef FLASH_LAUNCH
 }

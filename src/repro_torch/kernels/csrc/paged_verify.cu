@@ -49,7 +49,10 @@
 // walk warp, so a block's page costs about one decode page whatever Sq is
 // at G = 1, and adds blocks (query groups) rather than serial work.
 //
-// Limits, those of the decode: bs <= 256, bits <= 16, D <= 256 and a
+// Pages of more than 256 tokens run the striped walk of paged_walk.cuh, as
+// the decode does, with the same query groups.
+//
+// Limits, those of the decode: bs <= 1024, bits <= 16, D <= 256 and a
 // multiple of 16, Dv a multiple of 4, pools 16-byte aligned, the block's
 // shared memory within the card's 227 KB; the wrapper raises on anything
 // else (on the last through the launch's error).
@@ -381,10 +384,16 @@ int launch(PV_PARAMS) {
 // the launch (0 on success); the caller raises on anything else.
 extern "C" int paged_verify_launch(PV_PARAMS) {
   if (B == 0 || Sq == 0 || Hkv == 0) return 0;
-  if (bs % 8 || bs > kMaxBs || bits < 2 || bits > kMaxBits || D % 16 ||
-      D > kMaxD || Dv % 4 ||
+  if (bs % 8 || bs > kMaxStripedBs || bits < 2 || bits > kMaxBits ||
+      D % 16 || D > kMaxD || Dv % 4 ||
       (reinterpret_cast<uintptr_t>(kq) | reinterpret_cast<uintptr_t>(v)) & 15)
     return (int)cudaErrorInvalidValue;
+  if (bs > kMaxBs)   // the striped walk (paged_walk.cuh)
+    return launch_striped(q_int, m_min, m_max, scale_total, alpha_radius,
+                          v_scale, kq, v, table, lengths, q_pos, out,
+                          rounds_h, surv, B, Sq, Hq, Hkv, D, Dv, bits, bs, MB,
+                          min_rounds, quantize_v, has_window, window,
+                          group_queries(Hq / Hkv), stream);
   if (bs > 32) {
     if (bits <= 4) return launch<4, 8>(PV_ARGS);
     if (bits <= 8) return launch<8, 8>(PV_ARGS);

@@ -6,9 +6,10 @@ Counterpart of ``repro/kernels/flash_attention.py`` (the Pallas TPU kernel
 * :func:`flash_attention_single` with the reference's signature and block
   clamps, and :func:`flash_attention`, the same over leading batch dims in
   one launch (the reference ``vmap``s the single form).  CUDA tensors go
-  through the hand-written kernel ``csrc/flash_attention.cu``, CPU tensors
-  through the plain version.  A failed build or launch raises; there is no
-  fallback.
+  through the hand-written kernel ``csrc/flash_attention.cu`` (split-TF32
+  tensor cores up to head width 160, a CUDA-core form beyond, up to 256),
+  CPU tensors through the plain version.  A failed build or launch raises;
+  there is no fallback.
 * :func:`flash_attention_plain`, the dense masked softmax of
   ``kernels/ref.py``, which the kernel's online softmax equals up to the
   order of its sums.
@@ -22,16 +23,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.runtime import load_library, on_card
+from repro_torch.kernels.runtime import (load_library, on_card,
+                                         width_refusal)
 
 LAUNCHES = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
              + [ctypes.c_void_p])
-KERNEL_DV = (16, 32, 64, 128, 160)   # value widths the kernel is built for
-MAX_HEAD = 160              # widest q/k head the kernel takes (at 256 q's
-                            # split operands and two K/V stages exceed the
-                            # card's 227 KB of shared memory)
 MAX_BLOCK = 128             # largest q or kv tile the kernel takes
 
 
@@ -55,18 +53,18 @@ def flash_attention_plain(q, k, v, causal: bool = False,
 def launch_kernel(q, k, v, causal: bool, sm_scale: float, bq: int,
                   bk: int) -> torch.Tensor:
     """One launch over q [N, Sq, D], k [N, Sk, D], v [N, Sk, Dv] on the
-    card; returns f32 [N, Sq, Dv]."""
+    card; returns f32 [N, Sq, Dv].  Heads up to 160 with a value width of
+    16, 32, 64, 128 or 160 run the tensor-core form, every other width the
+    CUDA-core form (the source chooses)."""
     N, Sq, D = q.shape
     Sk, Dv = k.shape[1], v.shape[2]
     if k.shape != (N, Sk, D) or v.shape[:2] != (N, Sk):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} do not match")
-    if Dv not in KERNEL_DV or D > MAX_HEAD or bq > MAX_BLOCK or \
-            bk > MAX_BLOCK:
-        raise ValueError(f"the flash kernel takes value widths {KERNEL_DV}, "
-                         f"head widths up to {MAX_HEAD} (wider tiles exceed "
-                         f"the card's shared memory) and blocks up to "
-                         f"{MAX_BLOCK}, got D={D}, Dv={Dv}, blocks ({bq}, "
+    reason = width_refusal(D, Dv)
+    if reason is not None or bq > MAX_BLOCK or bk > MAX_BLOCK:
+        raise ValueError(f"the flash kernel takes {reason or 'these widths'}"
+                         f" and blocks up to {MAX_BLOCK}, got blocks ({bq}, "
                          f"{bk})")
     qf, kf, vf = (x.float().contiguous() for x in (q, k, v))
     out = torch.empty((N, Sq, Dv), dtype=torch.float32, device=q.device)

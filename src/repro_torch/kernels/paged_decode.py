@@ -19,7 +19,11 @@ The kernel runs one thread block per (slot, KV head).  Walk warps, one
 per query head, run the LATS rounds on planes already in shared memory
 (all planes of a page, copied two pages ahead) and synchronise only within
 the warp; epilogue warps copy V for pages with a survivor and run the
-softmax one page behind.  What bounds it is the latency of one slot's
+softmax one page behind.  Pages of more than 256 tokens (up to
+``MAX_PAGE``) run a kernel of their own, the striped walk of
+``csrc/paged_walk.cuh``: round by round over 32-token stripes with each
+row's partials in shared memory, so that LATS still decides per page, and
+V staged 64 tokens at a time.  What bounds it is the latency of one slot's
 serial page walk, with B x Hkv blocks in the grid (128 at B=4).  Plane
 counts are per query head: a KV head's is their max, and the slot-wide
 ``rounds`` of the reference is the max over KV heads
@@ -40,7 +44,8 @@ from repro_torch.core.besf import (BitStopperConfig, PagedDecodeOutput,
 from repro_torch.kernels.runtime import load_library, on_card
 
 LAUNCHES = 0
-MAX_PAGE = 256          # tokens a page may hold in the kernel
+MAX_PAGE = 1024         # tokens a page may hold in the kernels (pages over
+                        # 256 run the striped walk of csrc/paged_walk.cuh)
 
 _ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 12
              + [ctypes.c_void_p])

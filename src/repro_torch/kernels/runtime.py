@@ -12,7 +12,9 @@ the root of the checkout, keyed by a hash of the source, the headers in
 ``csrc/`` and the flags.  There are four, one library each:
 ``paged_decode`` and ``paged_verify`` (the serving reads, which share their
 page walk through ``csrc/paged_walk.cuh``), ``bitstopper_qk`` and
-``flash_attention`` (the cache-free forward).
+``flash_attention`` (the cache-free forward).  The widths the two
+cache-free kernels take are one rule, ``width_refusal``, which both
+wrappers apply and both C entry points state.
 """
 
 from __future__ import annotations
@@ -37,6 +39,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+MAX_HEAD = 160              # widest head of any width (wider ones must be
+                            # a multiple of 16)
+MAX_WIDTH = 256             # widest head and value width
+
+
+def width_refusal(D: int, Dv: int) -> str | None:
+    """Why the cache-free kernels (flash and ``bitstopper_qk``) refuse a
+    head width D and value width Dv, or None: they take any head width up to
+    160, wider ones that are a multiple of 16 up to 256, and value widths
+    that are a multiple of 16 up to 256."""
+    if Dv % 16 or not 16 <= Dv <= MAX_WIDTH or not 1 <= D <= MAX_WIDTH or \
+            (D > MAX_HEAD and D % 16):
+        return (f"value widths that are a multiple of 16 up to {MAX_WIDTH} "
+                f"and head widths up to {MAX_HEAD}, or multiples of 16 up to "
+                f"{MAX_WIDTH}, got D={D}, Dv={Dv}")
+    return None
 
 
 def resolve_device(device=None) -> torch.device:

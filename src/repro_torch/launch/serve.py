@@ -1,18 +1,23 @@
-"""Serving launcher: paged continuous batching with BitStopper attention
-over a mixed-length request trace.
+"""Serving launcher: continuous batching with BitStopper (or dense)
+attention over a mixed-length request trace.
 
 ``python -m repro_torch.launch.serve --arch stablelm-1.6b`` (on the card;
-``--device cpu`` runs the plain PyTorch path; ``--speculative ngram|draft
+``--device cpu`` runs the plain PyTorch path; ``--engine
+paged|continuous|static`` picks the paged engine, the contiguous per-slot
+baseline or the static length-bucketed batcher, ``--impl
+xla|bitstopper_xla`` the score path; ``--speculative ngram|draft
 --draft-k 4`` serves speculatively; ``--temperature 0.7`` samples under
 ``--seed``; ``--oversubscribe --pool-blocks N`` preempts when the pool runs
 dry; ``--swap-host-bytes B`` swaps preemption victims to host RAM;
 ``--prefix-store-dir DIR`` keeps a persistent prefix store, flushed at the
 end, that a later launch warms from; ``--fault-plan '[["crash", 3]]'
 --snapshot-dir DIR`` serves through the chaos harness with crash
-snapshots).  Mirror of ``repro/launch/serve.py`` for what this port serves:
-the paged engine with deadlines, SLO classes, load shedding, the KV memory
-hierarchy and crash recovery, reduced-width configs with seeded random
-weights.
+snapshots).  Mirror of ``repro/launch/serve.py`` for what this port serves
+(no ``--mesh``: mesh serving is not ported): the three engines, and on the
+paged one deadlines, SLO classes, load shedding, the KV memory hierarchy
+and crash recovery, reduced-width configs with seeded random weights.
+Flags that only the paged engine takes are refused with the reference's
+messages.
 """
 
 from __future__ import annotations
@@ -27,8 +32,9 @@ from repro_torch.configs import reduced_config
 from repro_torch.core.besf import BitStopperConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.serving import (FaultPlan, PagedEngine, Request,
-                                 ServeConfig, serve_with_chaos)
+from repro_torch.serving import (ContinuousBatchingEngine, FaultPlan,
+                                 PagedEngine, Request, ServeConfig,
+                                 StaticBucketEngine, serve_with_chaos)
 
 
 def make_trace(rng, vocab, n_requests, min_len, max_len, new_tokens,
@@ -50,6 +56,10 @@ def main(argv=None):
     """Serve the trace; returns its requests with their tokens."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--impl", default="bitstopper_xla",
+                    choices=["xla", "bitstopper_xla"])
+    ap.add_argument("--engine", default="paged",
+                    choices=["paged", "continuous", "static"])
     ap.add_argument("--alpha", type=float, default=0.6)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)
@@ -136,9 +146,27 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    if args.speculative != "off" and args.engine != "paged":
+        ap.error("--speculative requires --engine paged "
+                 "(block-table rollback)")
+    if args.oversubscribe and args.engine != "paged":
+        ap.error("--oversubscribe requires --engine paged "
+                 "(block-pool preemption)")
+    if args.engine != "paged" and (
+            args.swap_host_bytes or args.prefix_host_bytes
+            or args.prefix_store_dir is not None):
+        ap.error("--swap-host-bytes/--prefix-store-dir/--prefix-host-bytes "
+                 "require --engine paged (docs/serving.md)")
+    chaos = args.fault_plan is not None or args.snapshot_dir is not None
+    if args.engine != "paged" and (
+            chaos or args.deadline is not None
+            or args.shed_watermark is not None or args.snapshot_every):
+        ap.error("--fault-plan/--snapshot-dir/--snapshot-every/--deadline/"
+                 "--shed-watermark require --engine paged "
+                 "(docs/robustness.md)")
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch).replace(
-        attn_impl="bitstopper_xla",
+        attn_impl=args.impl,
         bitstopper=BitStopperConfig(alpha=args.alpha))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init_model(cfg, gen, device)
@@ -166,7 +194,10 @@ def main(argv=None):
         plan = FaultPlan.from_json(text)
 
     def make_engine():
-        return PagedEngine(cfg, params, scfg, device=device)
+        return {"paged": PagedEngine,
+                "continuous": ContinuousBatchingEngine,
+                "static": StaticBucketEngine}[args.engine](
+                    cfg, params, scfg, device=device)
 
     rng = np.random.default_rng(args.seed)
     reqs = make_trace(rng, cfg.vocab, args.requests, args.min_prompt,
@@ -176,7 +207,7 @@ def main(argv=None):
         for r in reqs[len(reqs) - args.besteffort_tail:]:
             r.slo = "besteffort"
 
-    if args.fault_plan is not None or args.snapshot_dir is not None:
+    if chaos:
         t0 = time.perf_counter()
         reqs, rep = serve_with_chaos(make_engine, reqs, seed=args.seed,
                                      plan=plan,
@@ -211,9 +242,15 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     n_tok = sum(len(r.generated) for r in reqs)
     print(f"[serve] {len(reqs)} requests / {n_tok} new tokens in {dt:.2f}s "
-          f"({n_tok / dt:.1f} tok/s, device={device}, "
-          f"fused_decode={engine.cfg.fused_decode})")
+          f"({n_tok / dt:.1f} tok/s, device={device}, engine={args.engine}, "
+          f"impl={args.impl}, fused_decode={engine.cfg.fused_decode})")
+    if isinstance(engine, StaticBucketEngine):
+        return reqs
     print(f"[serve] counters: {engine.counters}")
+    if isinstance(engine, ContinuousBatchingEngine):
+        print(f"[serve] kv cache: contiguous, resident="
+              f"{engine.kv_bytes_resident() / 1024:.1f} KiB")
+        return reqs
     if args.speculative != "off":
         c = engine.counters
         acc = (c["spec_accepted"] / c["spec_proposed"]

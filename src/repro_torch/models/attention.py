@@ -1,8 +1,7 @@
-"""Multi-head attention: the cache-free forward and the paged BitStopper
-KV cache.
+"""Multi-head attention: the cache-free forward and the serving KV caches.
 
 Counterpart of ``repro/models/attention.py`` for the cache-free forward
-and the paths paged serving runs:
+and the paths serving runs:
 
 * the cache-free forward (``cache=None``) for every score path: ``xla``,
   chunked online-softmax attention in plain torch (``chunked_attention``,
@@ -12,18 +11,26 @@ and the paths paged serving runs:
   in plain torch.  The two kernel paths run their plain versions for CPU
   tensors;
 
-* the cache write (``_update_paged_cache``), which also keeps the pool-wide
-  running quant scales and the packed bit-plane pool (``_update_plane_pool``);
+* the contiguous caches (``init_cache`` without ``paged``): a shared-cursor
+  cache (one ``length`` for the batch, ``dynamic_update_slice`` at
+  ``length mod n_slots``), the per-slot layout of continuous batching
+  (``length`` [B], ``pos`` [B, T], a scatter at ``(length + i) mod
+  n_slots`` that drops pad tokens) and ring buffers of ``min(max_len,
+  window)`` slots for sliding-window layers (``_update_cache``), read by
+  ``_cached_attention``;
+* the paged cache write (``_update_paged_cache``), which also keeps the
+  pool-wide running quant scales and the packed bit-plane pool
+  (``_update_plane_pool``);
 * the decode read (``_paged_cached_attention``): one query per slot through
   the paged BESF decode, the CUDA kernel when ``fused_decode`` is set, else
   the plain torch oracle; with ``spec_verify``, a speculative draft block
   per slot through the paged BESF verify in the same way;
-* prefill chunks, which gather the slot's logical view and run block
-  BitStopper (``_bitstopper_full``), and every read of a planeless pool (a
-  page size that is not a multiple of 8 carries no scales and no planes),
-  which gathers each row's view for the single-query BESF
-  (``besf_attention_decode``) or, several queries per row, the per-token
-  BESF;
+* every other paged read (prefill chunks, a planeless pool, whose page
+  size is not a multiple of 8 and which carries no scales and no planes,
+  and every read of a dense impl) gathers each row's logical view for
+  ``_cached_attention``: block BitStopper (``_bitstopper_full``), the
+  single-query or per-token BESF, or the dense masked softmax of ``xla``
+  and ``flash`` (plain torch einsums, as the reference leaves it to XLA);
 * the paged block-row transport (``extract_block_rows``,
   ``splice_block_rows``, ``requant_plane_pools``, ``repack_block_planes``,
   ``apply_inject_amax_rule``) under swap-to-host preemption and the
@@ -253,13 +260,36 @@ class PagedLayout:
             raise ValueError("page_size and max_blocks_per_req must be >= 1")
 
 
-def init_cache(cfg: AttnConfig, batch: int, paged: PagedLayout,
-               dtype=torch.float32, device=None):
-    """A paged cache: batch-free ``[pool_blocks, page_size, Hkv, D]`` K/V
-    pools, per-slot block ``table`` and fill ``length``.  BitStopper layers
-    also carry the pool-wide running max-abs ``k_amax``/``v_amax`` and,
-    with ``fused_decode``, the packed plane pool ``kq`` uint8[pool_blocks,
-    bits, page_size//8, Hkv, D]."""
+def init_cache(cfg: AttnConfig, batch: int, max_len: int | None = None,
+               dtype=torch.float32, ring: bool = False,
+               per_slot: bool = False, paged: PagedLayout | None = None,
+               device=None):
+    """A KV cache in one of the reference's layouts.
+
+    Contiguous (no ``paged``): K/V ``[batch, n_slots, Hkv, D]`` with
+    ``n_slots = min(max_len, window)`` for a ``ring`` (sliding-window) layer
+    and ``max_len`` otherwise; writes go to ``length mod n_slots``.  With
+    ``per_slot`` every row is a serving slot with its own cursor (``length``
+    [batch]) and slot->position map (``pos`` [batch, n_slots]); otherwise
+    the batch shares one cursor (``length`` a scalar, ``pos`` [n_slots]).
+
+    Paged: batch-free ``[pool_blocks, page_size, Hkv, D]`` K/V pools,
+    per-slot block ``table`` and fill ``length``.  BitStopper layers also
+    carry the pool-wide running max-abs ``k_amax``/``v_amax`` and, with
+    ``fused_decode``, the packed plane pool ``kq`` uint8[pool_blocks, bits,
+    page_size//8, Hkv, D]."""
+    if paged is None:
+        n_slots = (min(max_len, cfg.window) if ring and cfg.window
+                   else max_len)
+        shape = (batch, n_slots, cfg.n_kv_heads, cfg.head_dim)
+        lead = (batch,) if per_slot else ()
+        return {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full(lead + (n_slots,), POS_SENTINEL,
+                              dtype=torch.int32, device=device),
+            "length": torch.zeros(lead, dtype=torch.int32, device=device),
+        }
     nb, bs = paged.pool_blocks, paged.page_size
     shape = (nb, bs, cfg.n_kv_heads, cfg.head_dim)
     cache = {
@@ -285,6 +315,50 @@ def init_cache(cfg: AttnConfig, batch: int, paged: PagedLayout,
 
 def cache_is_paged(cache) -> bool:
     return "table" in cache
+
+
+def cache_is_per_slot(cache) -> bool:
+    return cache_is_paged(cache) or cache["pos"].ndim == 2
+
+
+def _update_cache(cache, k, v, positions):
+    """Write new token(s) into a contiguous cache, in place; returns (k,
+    v, pos, new cache).
+
+    Per-slot: a scatter at ``(length[b] + i) mod n_slots``; pad-sentinel
+    tokens (trailing bucket padding) are dropped and never advance the
+    cursor.  Shared cursor: the block lands at ``length mod n_slots``, its
+    start clamped so that it fits, as ``dynamic_update_slice`` clamps it.
+    The reference's ``shard_map`` write for a sequence-sharded cache waits
+    for mesh serving (ROADMAP A10), which brings the mesh it needs."""
+    S = k.shape[1]
+    n_slots = cache["k"].shape[1]
+    kc = k.to(cache["k"].dtype)
+    vc = v.to(cache["v"].dtype)
+    pc = positions.to(torch.int32)
+    if cache_is_per_slot(cache):
+        B = kc.shape[0]
+        pc2 = torch.broadcast_to(pc, (B, S))
+        real = pc2 != POS_SENTINEL
+        idx = torch.remainder(
+            cache["length"][:, None]
+            + torch.arange(S, dtype=torch.int32, device=pc.device)[None],
+            n_slots).long()
+        rows = torch.arange(B, device=pc.device)[:, None].expand(B, S)
+        sel = (rows[real], idx[real])
+        cache["k"].index_put_(sel, kc[real])
+        cache["v"].index_put_(sel, vc[real])
+        cache["pos"].index_put_(sel, pc2[real])
+        new = dict(cache, length=cache["length"]
+                   + real.sum(1, dtype=torch.int32))
+        return cache["k"], cache["v"], cache["pos"], new
+    widx = int(cache["length"]) % n_slots
+    start = min(max(widx, 0), n_slots - S)
+    cache["k"][:, start:start + S] = kc
+    cache["v"][:, start:start + S] = vc
+    cache["pos"][start:start + S] = pc
+    new = dict(cache, length=cache["length"] + S)
+    return cache["k"], cache["v"], cache["pos"], new
 
 
 def _put_rows(dst: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor,
@@ -491,28 +565,53 @@ def _paged_cached_attention(q, cache, positions, cfg: AttnConfig):
 
 def _cached_attention(q, k_all, v_all, q_positions, k_positions,
                       cfg: AttnConfig):
-    """BitStopper attention of q [B, Sq, Hq, D] against each row's gathered
-    view, every row masked by its own positions ([B, Sq] and [B, T]).
+    """Attention of q [B, Sq, Hq, D] against a contiguous cache or each
+    row's gathered paged view, masked from slot positions: 1-D (a
+    shared-cursor cache, one mask for the batch) or 2-D [B, ...] (every row
+    masked by its own positions).
 
-    One query per row (the decode of a planeless pool) runs the
-    single-query BESF; one row's prefill chunk runs block BitStopper; a
-    multi-query block per row (a verify forward on a planeless pool) runs
-    the per-token BESF.  The reference's dense ``xla``/``flash`` branch is
-    not ported yet."""
+    BitStopper: one query per row runs the single-query BESF; a shared
+    cursor or one row's prefill chunk runs block BitStopper; several
+    queries in several rows (a verify forward on a planeless pool) the
+    per-token BESF.  ``xla`` and ``flash``: the dense masked softmax with
+    grouped heads, ``/ sqrt(D)``, masked logits at ``NEG_INF`` and masked
+    weights zeroed, in f32."""
     B, Sq = q.shape[:2]
-    if cfg.impl not in _BITSTOPPER:
-        raise NotImplementedError(
-            f"cached attention with impl {cfg.impl!r} is not ported yet "
-            f"(ROADMAP A10)")
-    mask = torch.stack([_mask_block(qp, kp, causal=True, window=cfg.window)
-                        for qp, kp in zip(q_positions, k_positions)])
-    if B == 1 and Sq > 1:
-        return _bitstopper_full(q, k_all, v_all, cfg, mask[0])
-    from repro_torch.core.besf import besf_attention, besf_attention_decode
-    qt, kr, vr = _expand_gqa(q, k_all, v_all, cfg.n_heads // cfg.n_kv_heads)
-    besf = besf_attention_decode if Sq == 1 else besf_attention
-    res = besf(qt, kr, vr, cfg=cfg.bitstopper, mask=mask[:, None])
-    return res.out.transpose(1, 2).to(q.dtype)
+    per_slot = q_positions.ndim == 2
+    if per_slot:
+        mask = torch.stack([_mask_block(qp, kp, causal=True,
+                                        window=cfg.window)
+                            for qp, kp in zip(q_positions, k_positions)])
+        bmask = mask                                         # [B, Sq, T]
+    else:
+        mask = _mask_block(q_positions, k_positions, causal=True,
+                           window=cfg.window)               # [Sq, T]
+        bmask = mask[None].expand((B,) + mask.shape)
+    if cfg.impl in _BITSTOPPER:
+        if Sq > 1 and (not per_slot or B == 1):
+            return _bitstopper_full(q, k_all, v_all, cfg,
+                                    mask if not per_slot else mask[0])
+        from repro_torch.core.besf import (besf_attention,
+                                           besf_attention_decode)
+        qt, kr, vr = _expand_gqa(q, k_all, v_all,
+                                 cfg.n_heads // cfg.n_kv_heads)
+        besf = besf_attention_decode if Sq == 1 else besf_attention
+        res = besf(qt, kr, vr, cfg=cfg.bitstopper, mask=bmask[:, None])
+        return res.out.transpose(1, 2).to(q.dtype)
+    G = cfg.n_heads // cfg.n_kv_heads
+    _, T, Hkv, D = k_all.shape
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    # A true division by sqrt(D), as the reference's: a 0-dim tensor on the
+    # logits' device (a Python scalar becomes a reciprocal multiply on CUDA).
+    scale = torch.tensor(D ** 0.5, dtype=torch.float32, device=q.device)
+    logits = torch.einsum("bqhgd,bthd->bhgqt", qg.float(),
+                          k_all.float()) / scale
+    bm = bmask[:, None, None]
+    logits = torch.where(bm, logits, torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(bm, p, torch.zeros_like(p))
+    out = torch.einsum("bhgqt,bthd->bqhgd", p, v_all.float())
+    return out.reshape(q.shape).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -524,15 +623,13 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
               cache: dict[str, Any] | None = None):
     """Returns (out [B,S,d_model], new_cache).
 
-    ``positions`` is [S] or, with a paged cache, [B, S] (each slot at its
-    own absolute position; pad rows at ``POS_SENTINEL``).  A speculative
-    verify (``cfg.spec_verify``) runs the projections position by position
-    (``layers.by_column``)."""
+    ``positions`` is [S] (shared across the batch) or, with a per-slot or
+    paged cache, [B, S] (each slot at its own absolute position; pad rows
+    at ``POS_SENTINEL``).  A speculative verify (``cfg.spec_verify``) runs
+    the projections position by position (``layers.by_column``)."""
     B, S, _ = x.shape
-    if cache is not None and cfg.impl not in _BITSTOPPER:
-        raise NotImplementedError(f"cached attention with impl {cfg.impl!r}"
-                                  f" is not ported yet (ROADMAP A10)")
-    if cache is not None and positions.ndim == 1:
+    if cache is not None and cache_is_per_slot(cache) and \
+            positions.ndim == 1:
         positions = positions[None].expand(B, S)
     split = cfg.spec_verify and cache is not None
     q = L.by_column(lambda t: L.linear(p["wq"], t), x, split)  # [B,S,Hq,D]
@@ -570,8 +667,9 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
         new_cache = _update_paged_cache(cache, k, v, positions)
         out = _paged_cached_attention(q, new_cache, positions, cfg)
     else:
-        raise NotImplementedError("contiguous KV caches are not ported yet "
-                                  "(ROADMAP A10)")
+        k_all, v_all, k_pos, new_cache = _update_cache(cache, k, v,
+                                                       positions)
+        out = _cached_attention(q, k_all, v_all, positions, k_pos, cfg)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return L.by_column(lambda t: L.linear(p["wo"], t), out, split), new_cache
 

@@ -124,17 +124,36 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, caches=None,
     return logits, new_caches, torch.zeros((), device=logits.device)
 
 
-def init_caches(cfg: ModelConfig, batch: int, paged: PagedLayout,
-                dtype=torch.float32, device=None):
-    """Per-layer paged caches: {segN: [per-rep {bI: layer cache}]}."""
+def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int,
+                     max_len: int | None, dtype=torch.float32,
+                     per_slot: bool = False,
+                     paged: PagedLayout | None = None, device=None):
+    """One layer's cache: ``local_attn`` layers get a ring of
+    ``min(max_len, window)`` slots in a contiguous layout."""
+    if spec.mixer in _MIXERS:
+        local = spec.mixer == "local_attn"
+        return init_cache(cfg.attn_config(local), batch, max_len, dtype,
+                          ring=local, per_slot=per_slot, paged=paged,
+                          device=device)
+    if per_slot or paged is not None:
+        raise NotImplementedError(
+            f"per-slot/paged serving caches support attn/local_attn mixers "
+            f"only, got {spec.mixer!r}")
+    raise NotImplementedError(f"the {spec.mixer!r} mixer's cache is not "
+                              f"ported yet (ROADMAP A10, the model zoo)")
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int | None = None,
+                dtype=torch.float32, per_slot: bool = False,
+                paged: PagedLayout | None = None, device=None):
+    """Per-layer caches {segN: [per-rep {bI: layer cache}]}: contiguous
+    (shared cursor, or ``per_slot`` for continuous batching) or, with
+    ``paged``, block pools addressed through per-slot tables."""
     caches: dict[str, Any] = {}
     for si, (unit, reps) in enumerate(cfg.segments):
-        for spec in unit:
-            _check_mixer(spec)
         caches[f"seg{si}"] = [
-            {f"b{i}": init_cache(
-                cfg.attn_config(spec.mixer == "local_attn"), batch, paged,
-                dtype, device)
+            {f"b{i}": init_block_cache(spec, cfg, batch, max_len, dtype,
+                                       per_slot, paged, device)
              for i, spec in enumerate(unit)}
             for _ in range(reps)]
     return caches
@@ -177,8 +196,8 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
 
 
 def caches_from_numpy(tree, cfg: ModelConfig, device=None):
-    """The reference's paged cache pytree (numpy leaves) -> per-layer
-    caches."""
+    """The reference's cache pytree (numpy leaves; paged or contiguous,
+    a shared cursor's ``length`` a 0-d leaf) -> per-layer caches."""
     return _segments_from_numpy(tree, cfg, device)
 
 

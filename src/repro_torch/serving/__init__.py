@@ -1,4 +1,5 @@
-"""Serving: the paged continuous-batching engine with BitStopper decode,
+"""Serving: the paged continuous-batching engine with BitStopper (or
+dense) decode, the contiguous and static baselines,
 seeded sampling, oversubscription with preemption, speculative decoding,
 crash snapshots with the deterministic chaos harness, the KV memory
 hierarchy (swap-to-host preemption, the persistent prefix store), and the
@@ -16,11 +17,13 @@ from repro_torch.serving.chaos import (  # noqa: F401
     serve_with_chaos,
 )
 from repro_torch.serving.engine import (  # noqa: F401
+    ContinuousBatchingEngine,
     InsufficientBlocks,
     PagedEngine,
     Prefix,
     Request,
     ServeConfig,
+    StaticBucketEngine,
 )
 from repro_torch.serving.kv_pool import KVBlockPool, SwapPool  # noqa: F401
 from repro_torch.serving.sampling import (  # noqa: F401

@@ -82,8 +82,15 @@ measures a prompt's BitStopper traffic at the first attention layer, and
 :meth:`PagedEngine.kv_bytes_contiguous_equiv` what a contiguous cache of
 the same configuration would hold.
 
-Not ported yet (each is a queue A item in ROADMAP.md): mesh sharding, the
-bf16 cache, and the contiguous and static engines.
+Every attention impl serves: BitStopper decodes through the paged BESF
+above, ``xla`` and ``flash`` through each slot's gathered view and the
+dense masked softmax (speculative ticks too, with no scales and so no
+growth bailout).  :class:`ContinuousBatchingEngine` is the contiguous
+per-slot baseline the paged engine equals token for token, and
+:class:`StaticBucketEngine` the static length-bucketed batcher.
+
+Not ported yet (each is a queue A item in ROADMAP.md): mesh sharding and
+the bf16 cache.
 """
 
 from __future__ import annotations
@@ -113,7 +120,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed, linear, rope
 from repro_torch.serving.chaos import CheckpointInterrupted, KernelFault
 from repro_torch.serving.kv_pool import KVBlockPool, SwapPool
-from repro_torch.serving.sampling import prng_key, sample_tokens
+from repro_torch.serving.sampling import (categorical_block, fold_in,
+                                         prng_key, sample_tokens)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -415,18 +423,45 @@ def _set_amax_leaves(caches, values: list, scan_layers: bool) -> None:
             t.copy_(torch.as_tensor(row, device=t.device))
 
 
-def _kv_bytes_per_token(cfg: ModelConfig) -> int:
-    """f32 K/V bytes plus, with the fused kernel, packed plane bytes that
-    one cached token costs across all attention layers."""
-    total = 0
+def _supported(cfg: ModelConfig) -> None:
+    mixers = {spec.mixer for unit, _ in cfg.segments for spec in unit}
+    bad = mixers - {"attn", "local_attn"}
+    if bad:
+        raise ValueError(
+            f"continuous batching serves attention models only "
+            f"(per-slot KV cache); config has mixers {sorted(bad)}")
+
+
+def _attn_configs(cfg: ModelConfig):
+    """(reps, is local_attn, AttnConfig) of every attention block."""
     for unit, reps in cfg.segments:
         for spec in unit:
-            acfg = cfg.attn_config(spec.mixer == "local_attn")
-            total += reps * 2 * acfg.n_kv_heads * acfg.head_dim * 4
-            if acfg.fused_decode:
-                total += (reps * acfg.bitstopper.bits * acfg.n_kv_heads
-                          * acfg.head_dim) // 8
-    return total
+            if spec.mixer in ("attn", "local_attn"):
+                local = spec.mixer == "local_attn"
+                yield reps, local, cfg.attn_config(local)
+
+
+def _kv_bytes_per_token(cfg: ModelConfig) -> int:
+    """f32 K/V bytes one cached token costs across all attention layers."""
+    return sum(reps * 2 * a.n_kv_heads * a.head_dim * 4
+               for reps, _, a in _attn_configs(cfg))
+
+
+def _plane_bytes_per_token(cfg: ModelConfig) -> int:
+    """Packed plane-pool bytes one cached token costs across the BitStopper
+    layers whose fused kernel keeps ``kq``: bits x Hkv x D bits."""
+    return sum((reps * a.bitstopper.bits * a.n_kv_heads * a.head_dim) // 8
+               for reps, _, a in _attn_configs(cfg)
+               if a.impl in ("bitstopper", "bitstopper_xla")
+               and a.fused_decode)
+
+
+def _amax_static_bytes(cfg: ModelConfig) -> int:
+    """The f32 ``k_amax``/``v_amax`` per KV head of every BitStopper
+    layer's paged cache."""
+    return sum(reps * 2 * a.n_kv_heads * 4
+               for reps, _, a in _attn_configs(cfg)
+               if a.impl in ("bitstopper", "bitstopper_xla"))
 
 
 def _kv_bytes_contiguous(cfg: ModelConfig, scfg: ServeConfig) -> int:
@@ -434,17 +469,245 @@ def _kv_bytes_contiguous(cfg: ModelConfig, scfg: ServeConfig) -> int:
     slot per layer, except sliding-window layers, whose ring buffers hold
     min(max_len, window) rows."""
     total = 0
-    for unit, reps in cfg.segments:
-        for spec in unit:
-            acfg = cfg.attn_config(spec.mixer == "local_attn")
-            rows = scfg.max_len
-            if spec.mixer == "local_attn" and acfg.window:
-                rows = min(rows, acfg.window)
-            total += reps * rows * 2 * acfg.n_kv_heads * acfg.head_dim * 4
+    for reps, local, acfg in _attn_configs(cfg):
+        rows = scfg.max_len
+        if local and acfg.window:
+            rows = min(rows, acfg.window)
+        total += reps * rows * 2 * acfg.n_kv_heads * acfg.head_dim * 4
     return total * scfg.max_slots
 
 
-class PagedEngine:
+class _EngineCommon:
+    """The tick loop, sampling and traffic reports the serving engines
+    share."""
+
+    def begin(self, seed: int = 0) -> None:
+        """Fix the sampling seed for a serving run (split out of
+        :meth:`run` so a caller, such as ``serve_with_chaos``, can own the
+        tick loop; a restored engine derives the same key again)."""
+        self._seed = seed
+        self._base_key = prng_key(seed).numpy()
+
+    def pending(self) -> bool:
+        """True while a submitted request is unfinished (queued or in a
+        slot)."""
+        return bool(self.queue or any(r is not None for r in self.slots))
+
+    def run(self, seed: int = 0) -> None:
+        """Serve queue and slots to completion, deterministically under
+        ``seed``."""
+        self.begin(seed)
+        while self.pending():
+            self.step()
+
+    def generate(self, requests: list[Request],
+                 seed: int = 0) -> list[Request]:
+        """Serve the requests to completion; returns them with
+        ``generated`` filled."""
+        for r in requests:
+            self.submit(r)
+        self.run(seed)
+        return requests
+
+    def _sample_rows(self, logits: torch.Tensor, rids,
+                     counts) -> np.ndarray:
+        """Tokens for logits rows ``[R, V]`` under the rows' (rid, token
+        index) keys; the one host sync of a tick's sampling."""
+        return sample_tokens(self._base_key, logits, rids, counts,
+                             self.scfg.temperature).cpu().numpy()
+
+    def _bucketed(self, L: int) -> int:
+        b = self.scfg.prefill_bucket
+        return min(self.scfg.max_len, -(-L // b) * b)
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    def sparsity_report(self, prompts) -> dict[str, Any]:
+        """Measured BitStopper traffic, per request and aggregated.
+
+        ``prompts``: a 2-D int array [B, S] or a list of 1-D int arrays of
+        any lengths.  Each prompt's prefill attention at the first
+        attention layer runs through the block-granular model; the report
+        gives the mean planes fetched per (q tile, kv block), the plane
+        fraction against dense ``bits``-bit keys, the block-level V-fetch
+        fraction and the token survivor fraction, aggregated and under
+        ``per_request``."""
+        if isinstance(prompts, np.ndarray) and prompts.ndim == 2:
+            prompts = list(prompts)
+        per_request = []
+        for p in prompts:
+            rep = _prompt_sparsity(self.cfg, self.params, np.asarray(p))
+            if rep:
+                per_request.append(rep)
+        if not per_request:
+            return {}
+        # Weighted: a long prompt has many more (q tile, kv block) units and
+        # (q, k) pairs than a short one, and an unweighted mean over
+        # requests would let short prompts skew the aggregate.
+        blocks = np.array([r["n_blocks"] for r in per_request], np.float64)
+        pairs = np.array([r["n_pairs"] for r in per_request], np.float64)
+
+        def wmean(key, w):
+            vals = np.array([r[key] for r in per_request], np.float64)
+            return float((vals * w).sum() / w.sum())
+
+        return {
+            "mean_rounds": wmean("mean_rounds", blocks),
+            "plane_fraction": wmean("plane_fraction", blocks),
+            "block_alive_fraction": wmean("block_alive_fraction", blocks),
+            "survivor_fraction": wmean("survivor_fraction", pairs),
+            "per_request": per_request,
+        }
+
+
+class ContinuousBatchingEngine(_EngineCommon):
+    """Request-level continuous batching over a contiguous per-slot KV
+    cache: every slot reserves ``max_len`` rows per layer (a ring of the
+    window for ``local_attn`` layers).  A request prefills alone,
+    bucket-padded, into an empty one-slot cache that is then copied into
+    its slot's rows; every tick decodes all slots, each at its own
+    position.  The paged engine serves the same tokens (the reference's
+    bit-identity baseline).  ``device=None`` serves on the CUDA card and
+    raises if there is none."""
+
+    def __init__(self, cfg: ModelConfig, params,
+                 scfg: ServeConfig = ServeConfig(), device=None):
+        _supported(cfg)
+        if scfg.speculative != "off":
+            raise ValueError(
+                "speculative decoding needs the paged engine (block-table "
+                "rollback); use PagedEngine")
+        if scfg.oversubscribe:
+            raise ValueError(
+                "oversubscription needs the paged engine (block-pool "
+                "preemption); use PagedEngine")
+        if (scfg.deadline_ticks is not None
+                or scfg.shed_watermark is not None or scfg.snapshot_every):
+            raise ValueError(
+                "deadlines / load shedding / crash snapshots are "
+                "PagedEngine features (docs/robustness.md); use PagedEngine")
+        if (scfg.swap_host_bytes or scfg.prefix_host_bytes
+                or scfg.prefix_store_dir is not None):
+            raise ValueError(
+                "the KV memory hierarchy (swap_host_bytes / "
+                "prefix_store_dir / prefix_host_bytes) is a PagedEngine "
+                "feature (docs/serving.md); use PagedEngine")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.scfg = scfg
+        B = scfg.max_slots
+        self.caches = T.init_caches(cfg, B, scfg.max_len, per_slot=True,
+                                    device=self.device)
+        self.slots: list[Request | None] = [None] * B
+        self.queue: collections.deque[Request] = collections.deque()
+        self.lengths = np.zeros((B,), np.int32)       # tokens in each slot
+        self.last_token = np.zeros((B,), np.int32)    # next decode input
+        self._next_rid = 0
+        self._step = 0
+        self._seed = None
+        self._base_key = prng_key(0).numpy()
+        self.counters = {"prefill_tokens": 0, "decode_tokens": 0,
+                         "decode_steps": 0, "decode_slot_steps": 0,
+                         "requests_finished": 0}
+
+    def kv_bytes_resident(self) -> int:
+        """KV memory the cache keeps resident: contiguous slots reserve
+        their full capacity (ring buffers: the window) whatever the
+        occupancy."""
+        return _kv_bytes_contiguous(self.cfg, self.scfg)
+
+    def submit(self, req: Request) -> Request:
+        L = len(req.prompt)
+        if req.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if L + req.max_new_tokens > self.scfg.max_len:
+            raise ValueError(
+                f"request needs {L}+{req.max_new_tokens} tokens, "
+                f"max_len={self.scfg.max_len}")
+        req.rid = self._next_rid
+        self._next_rid += 1
+        self.queue.append(req)
+        return req
+
+    def _insert(self, small, slot: int) -> None:
+        """Copy a one-slot cache tree into row ``slot`` of every leaf."""
+        for seg, units in small.items():
+            for u, unit in enumerate(units):
+                for b, layer in unit.items():
+                    big = self.caches[seg][u][b]
+                    for key, val in layer.items():
+                        big[key][slot] = val[0]
+
+    @torch.no_grad()
+    def _admit(self) -> None:
+        while self.queue and None in self.slots:
+            slot = self.slots.index(None)
+            req = self.queue.popleft()
+            L = len(req.prompt)
+            Sp = self._bucketed(L)
+            tokens = np.zeros((1, Sp), np.int32)
+            tokens[0, :L] = np.asarray(req.prompt, np.int32)
+            positions = np.full((1, Sp), POS_SENTINEL, np.int32)
+            positions[0, :L] = np.arange(L, dtype=np.int32)
+            small = T.init_caches(self.cfg, 1, self.scfg.max_len,
+                                  per_slot=True, device=self.device)
+            logits, small, _ = T.forward(
+                self.params, self._tensor(tokens), self.cfg, caches=small,
+                positions=self._tensor(positions))
+            self._insert(small, slot)
+            tok = int(self._sample_rows(logits[:, L - 1], [req.rid], [0])[0])
+            req.generated.append(tok)
+            req.prefill_len = L
+            req.admitted_step = self._step
+            self.counters["prefill_tokens"] += L
+            self.slots[slot] = req
+            self.lengths[slot] = L
+            self.last_token[slot] = tok
+            self._maybe_evict(slot, tok)
+
+    def _maybe_evict(self, slot: int, tok: int) -> None:
+        req = self.slots[slot]
+        if req is None:
+            return
+        done = len(req.generated) >= req.max_new_tokens
+        if self.scfg.eos_id is not None and tok == self.scfg.eos_id:
+            done = True
+        if done:
+            req.finished_step = self._step
+            self.counters["requests_finished"] += 1
+            self.slots[slot] = None
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """One scheduler tick: admit from the queue, then one decode step
+        over every slot.  Returns False when there is no work."""
+        self._admit()
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return bool(self.queue)
+        self._step += 1
+        logits, self.caches, _ = T.forward(
+            self.params, self._tensor(self.last_token[:, None]), self.cfg,
+            caches=self.caches, positions=self._tensor(self.lengths[:, None]))
+        rids = [r.rid if r is not None else 0 for r in self.slots]
+        counts = [len(r.generated) if r is not None else 0
+                  for r in self.slots]
+        toks = self._sample_rows(logits[:, -1], rids, counts)
+        self.counters["decode_steps"] += 1
+        self.counters["decode_slot_steps"] += len(self.slots)
+        for i in active:
+            req = self.slots[i]
+            req.generated.append(int(toks[i]))
+            self.counters["decode_tokens"] += 1
+            self.lengths[i] += 1
+            self.last_token[i] = toks[i]
+            self._maybe_evict(i, int(toks[i]))
+        return True
+
+
+class PagedEngine(_EngineCommon):
     """Continuous batching over a paged block-pool KV cache.
 
     ``device=None`` serves on the CUDA card and raises if there is none;
@@ -453,19 +716,12 @@ class PagedEngine:
     def __init__(self, cfg: ModelConfig, params,
                  scfg: ServeConfig = ServeConfig(), device=None,
                  drafter=None):
-        mixers = {spec.mixer for unit, _ in cfg.segments for spec in unit}
-        if mixers - {"attn", "local_attn"}:
-            raise ValueError(f"paged serving needs attention mixers, got "
-                             f"{sorted(mixers)}")
-        if cfg.attn_impl not in ("bitstopper", "bitstopper_xla"):
-            raise NotImplementedError(
-                f"attn_impl {cfg.attn_impl!r}: the port serves the "
-                f"BitStopper score path only (ROADMAP A10)")
+        _supported(cfg)
         self.device = resolve_device(device)
         fused = scfg.fused_decode
         if fused is None:
             fused = self.device.type == "cuda" and scfg.page_size % 8 == 0
-        if fused:
+        if fused and cfg.attn_impl in ("bitstopper", "bitstopper_xla"):
             # The pool's V width is head_dim (models/attention.py).
             reason = paged_decode.kernel_refusal(
                 scfg.page_size, cfg.head_dim, cfg.head_dim,
@@ -483,7 +739,8 @@ class PagedEngine:
         self.chaos = None
         self._drafter = None
         if scfg.speculative != "off":
-            if scfg.page_size % 8:
+            if (cfg.attn_impl in ("bitstopper", "bitstopper_xla")
+                    and scfg.page_size % 8):
                 raise ValueError(
                     "speculative BitStopper serving needs page_size % 8 == "
                     "0 (the paged verify shares the pool-wide quant state; "
@@ -517,7 +774,7 @@ class PagedEngine:
                                 prefix_sharing=scfg.prefix_sharing,
                                 evict_cb=evict_cb)
         B = scfg.max_slots
-        self.caches = T.init_caches(self.cfg, B, self.layout,
+        self.caches = T.init_caches(self.cfg, B, paged=self.layout,
                                     device=self.device)
         self.slots: list[_PagedSlot | None] = [None] * B
         self.queue: collections.deque[Request] = collections.deque()
@@ -554,44 +811,8 @@ class PagedEngine:
                          "prefix_store_interrupts": 0}
 
     # ------------------------------------------------------------------
-    # tick loop
+    # forwards
     # ------------------------------------------------------------------
-
-    def begin(self, seed: int = 0) -> None:
-        """Fix the sampling seed for a serving run (split out of
-        :meth:`run` so a caller, such as ``serve_with_chaos``, can own the
-        tick loop; a restored engine derives the same key again)."""
-        self._seed = seed
-        self._base_key = prng_key(seed).numpy()
-
-    def pending(self) -> bool:
-        return bool(self.queue or any(r is not None for r in self.slots))
-
-    def run(self, seed: int = 0) -> None:
-        """Serve queue and slots to completion, deterministically under
-        ``seed``."""
-        self.begin(seed)
-        while self.pending():
-            self.step()
-
-    def generate(self, requests: list[Request],
-                 seed: int = 0) -> list[Request]:
-        """Serve the requests to completion; returns them with
-        ``generated`` filled."""
-        for r in requests:
-            self.submit(r)
-        self.run(seed)
-        return requests
-
-    def _sample_rows(self, logits: torch.Tensor, rids,
-                     counts) -> np.ndarray:
-        """Tokens for logits rows ``[R, V]`` under the rows' (rid, token
-        index) keys; the one host sync of a tick's sampling."""
-        return sample_tokens(self._base_key, logits, rids, counts,
-                             self.scfg.temperature).cpu().numpy()
-
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
     @torch.no_grad()
     def _forward(self, tokens: np.ndarray, positions: np.ndarray,
@@ -621,9 +842,10 @@ class PagedEngine:
                                    positions=self._tensor(positions))
         for c in _layers(new):
             del c["undo"]
-        grew = bool(torch.stack([
-            (n > o).any() for o, n in zip(_amax_leaves(self.caches),
-                                          _amax_leaves(new))]).any())
+        before, after = _amax_leaves(self.caches), _amax_leaves(new)
+        # A dense impl's pool has no scales to grow.
+        grew = bool(before) and bool(torch.stack([
+            (n > o).any() for o, n in zip(before, after)]).any())
 
         def undo():
             for c in _layers(caches):
@@ -694,58 +916,18 @@ class PagedEngine:
         static per-layer ``k_amax``/``v_amax`` scales."""
         blocks = (self.pool.peak_live_blocks if peak
                   else self.pool.live_blocks())
-        amax = 0
+        per_tok = _kv_bytes_per_token(self.cfg)
+        extra = 0
         if self._page % 8 == 0:          # a planeless pool keeps no scales
-            amax = sum(reps * 2 * self.cfg.n_kv_heads * 4 * len(unit)
-                       for unit, reps in self.cfg.segments)
-        return blocks * self._page * _kv_bytes_per_token(self.cfg) + amax
+            per_tok += _plane_bytes_per_token(self.cfg)
+            extra = _amax_static_bytes(self.cfg)
+        return blocks * self._page * per_tok + extra
 
     def kv_bytes_contiguous_equiv(self) -> int:
         """What a contiguous per-slot cache of the same ServeConfig would
         keep resident (window layers: ring-buffer rows), for comparison
         with :meth:`kv_bytes_resident`."""
         return _kv_bytes_contiguous(self.cfg, self.scfg)
-
-    # ------------------------------------------------------------------
-    # measured traffic
-    # ------------------------------------------------------------------
-
-    def sparsity_report(self, prompts) -> dict[str, Any]:
-        """Measured BitStopper traffic, per request and aggregated.
-
-        ``prompts``: a 2-D int array [B, S] or a list of 1-D int arrays of
-        any lengths.  Each prompt's prefill attention at the first
-        attention layer runs through the block-granular model; the report
-        gives the mean planes fetched per (q tile, kv block), the plane
-        fraction against dense ``bits``-bit keys, the block-level V-fetch
-        fraction and the token survivor fraction, aggregated and under
-        ``per_request``."""
-        if isinstance(prompts, np.ndarray) and prompts.ndim == 2:
-            prompts = list(prompts)
-        per_request = []
-        for p in prompts:
-            rep = _prompt_sparsity(self.cfg, self.params, np.asarray(p))
-            if rep:
-                per_request.append(rep)
-        if not per_request:
-            return {}
-        # Weighted: a long prompt has many more (q tile, kv block) units and
-        # (q, k) pairs than a short one, and an unweighted mean over
-        # requests would let short prompts skew the aggregate.
-        blocks = np.array([r["n_blocks"] for r in per_request], np.float64)
-        pairs = np.array([r["n_pairs"] for r in per_request], np.float64)
-
-        def wmean(key, w):
-            vals = np.array([r[key] for r in per_request], np.float64)
-            return float((vals * w).sum() / w.sum())
-
-        return {
-            "mean_rounds": wmean("mean_rounds", blocks),
-            "plane_fraction": wmean("plane_fraction", blocks),
-            "block_alive_fraction": wmean("block_alive_fraction", blocks),
-            "survivor_fraction": wmean("survivor_fraction", pairs),
-            "per_request": per_request,
-        }
 
     # ------------------------------------------------------------------
     # scheduling
@@ -1913,6 +2095,66 @@ class PagedEngine:
                 self.table[i, j] = 0
             self._return_draft_blocks(i, stale)
             self._maybe_evict(i, emitted[-1])
+
+
+class StaticBucketEngine:
+    """The static batcher: prompts bucketed by exact length, one batch per
+    bucket on a shared-cursor cache.  Kept as the baseline that the
+    reference's ``benchmarks/serve_throughput.py`` compares against.
+    Bucket ``bi`` (in order of length) samples under ``fold_in(seed,
+    bi)``, step i under ``fold_in(that, i)``, one key for the whole batch.
+    ``device=None`` serves on the CUDA card and raises if there is
+    none."""
+
+    def __init__(self, cfg: ModelConfig, params,
+                 scfg: ServeConfig = ServeConfig(), device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.scfg = scfg
+
+    def init_caches(self, batch: int):
+        return T.init_caches(self.cfg, batch, self.scfg.max_len,
+                             device=self.device)
+
+    def _sample(self, logits: torch.Tensor, key) -> torch.Tensor:
+        if self.scfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        return categorical_block(key, logits, self.scfg.temperature)
+
+    def generate(self, requests: list[Request], seed: int = 0):
+        """Serve requests bucketed by prompt length, one batch at a time."""
+        base_key = prng_key(seed).numpy()
+        buckets: dict[int, list[Request]] = {}
+        for r in requests:
+            buckets.setdefault(len(r.prompt), []).append(r)
+        for bi, (_, batch) in enumerate(sorted(buckets.items())):
+            self._generate_batch(batch, fold_in(base_key, bi))
+        return requests
+
+    @torch.no_grad()
+    def _generate_batch(self, requests: list[Request], key):
+        prompts = torch.as_tensor(np.stack([r.prompt for r in requests]),
+                                  device=self.device)
+        B, S = prompts.shape
+        caches = self.init_caches(B)
+        logits, caches, _ = T.forward(
+            self.params, prompts, self.cfg, caches=caches,
+            positions=torch.arange(S, device=self.device))
+        max_new = max(r.max_new_tokens for r in requests)
+        token = self._sample(logits[:, -1], fold_in(key, 0))
+        for r, t in zip(requests, token.tolist()):
+            r.generated.append(int(t))
+        for i in range(1, max_new):
+            logits, caches, _ = T.forward(
+                self.params, token[:, None], self.cfg, caches=caches,
+                positions=torch.tensor([S + i - 1], dtype=torch.int32,
+                                       device=self.device))
+            token = self._sample(logits[:, -1], fold_in(key, i))
+            for r, t in zip(requests, token.tolist()):
+                if len(r.generated) < r.max_new_tokens:
+                    r.generated.append(int(t))
+        return requests
 
 
 # ---------------------------------------------------------------------------

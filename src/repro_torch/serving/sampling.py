@@ -124,6 +124,22 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(gumbel(key, logits.shape[-1]) + logits, dim=-1)
 
 
+def categorical_block(key, logits: torch.Tensor,
+                      temperature: float) -> torch.Tensor:
+    """The reference's ``categorical(key, logits / temperature, axis=-1)``
+    for a whole ``[B, V]`` block under one key, as its static engine calls
+    it outside any compiled function: the noise of the block (random bits
+    counted over the flattened [B, V] index), a true f32 division by the
+    temperature (a 0-dim tensor on the logits' device: a Python scalar
+    becomes a reciprocal multiply on CUDA) and a separate add.  Returns
+    int64 ``[B]``."""
+    B, V = logits.shape
+    keyt = torch.as_tensor(np.asarray(key)).to(logits.device)
+    noise = gumbel(keyt, B * V).reshape(B, V)
+    t = torch.tensor(temperature, dtype=torch.float32, device=logits.device)
+    return torch.argmax(noise + logits / t, dim=-1)
+
+
 def sample_tokens(base_key, logits: torch.Tensor, rids, counts,
                   temperature: float) -> torch.Tensor:
     """Row i's token: argmax at temperature 0, else a draw from

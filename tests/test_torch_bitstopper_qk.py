@@ -23,6 +23,7 @@ from repro_torch.core.besf import BitStopperConfig as TConfig
 from repro_torch.core.besf import besf_attention as tbesf
 from repro_torch.kernels import bitstopper_qk as BQ
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.runtime import width_refusal
 
 # Integers exact; the output's softmax differs by exp and summation order.
 TOL = 2e-5
@@ -97,6 +98,8 @@ def _assert_matches(got, want):
     (64, 128, 64, 64, 32, 64),
     (128, 128, 64, 64, 64, 64),
     (32, 256, 64, 32, 32, 64),
+    (128, 128, 256, 256, 64, 64),     # recurrentgemma-2b's heads
+    (128, 128, 192, 128, 64, 64),     # deepseek-v3's MLA heads
 ])
 @pytest.mark.parametrize("alpha", [0.2, 0.6])
 def test_kernel_matches_reference(Sq, Sk, d, dv, bq, bk, alpha):
@@ -225,6 +228,15 @@ CARD_CASES = {
     "d18": ((2,), 64, 128, 18, 16, 64, 64, dict(alpha=0.6), 43, 2.0),
     "bits14": ((2,), 128, 128, 64, 64, 64, 64, dict(alpha=0.6, bits=14), 44,
                2.0),
+    # The wide instantiations (V staged in column chunks): the registry's
+    # widest heads, a narrow head with a wide value, and a value width of
+    # 48 on the narrow ones.
+    "d256": ((2,), 256, 256, 256, 256, 128, 128, dict(alpha=0.6), 45, 2.0),
+    "d192_dv128": ((2,), 128, 256, 192, 128, 64, 64, dict(alpha=0.6), 46,
+                   2.0),
+    "d64_dv208": ((2,), 64, 128, 64, 208, 64, 64, dict(alpha=0.6), 47,
+                  2.0),
+    "dv48": ((2,), 64, 128, 64, 48, 64, 64, dict(alpha=0.6), 48, 2.0),
 }
 
 
@@ -273,7 +285,8 @@ def test_bitstopper_kernel_matches_plain_on_card(case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["blk128", "deaths", "sq24", "d40", "d18"])
+@pytest.mark.parametrize("case", ["blk128", "deaths", "sq24", "d40", "d18",
+                                  "d256", "d64_dv208"])
 def test_kernel_copy_counter_matches_design(case):
     """The plane and V bytes the kernel requested, by its own counter: every
     reachable tile min(bits, rounds + LOOKAHEAD) planes, V only for a tile
@@ -474,14 +487,26 @@ def test_fp64_fragments_sum_every_token():
     np.testing.assert_allclose(A @ B, p @ v, rtol=1e-15, atol=1e-15)
 
 
-@pytest.mark.parametrize("d,dv", [(256, 256), (64, 48), (192, 64)])
+@pytest.mark.parametrize("d,dv", [(256, 256), (64, 48), (192, 64), (64, 40),
+                                  (200, 64), (272, 64), (64, 272)])
 def test_kernel_refuses_widths_it_does_not_take(d, dv):
-    """Value widths outside KERNEL_DV, and heads wider than 160 (whose
-    128-row tiles exceed the card's shared memory, as recurrentgemma-2b's
-    256 does), raise before any launch."""
-    q, k, v = map(torch.as_tensor, _inputs(41, 128, 128, d, dv, (1,)))
+    """Value widths that are not a multiple of 16, widths over 256, and
+    heads over 160 that are not a multiple of 16 raise before any launch.
+    The first three widths were refused until the kernel took every head
+    and value width that is a multiple of 16 up to 256 (its wide
+    instantiations): they are held instead, the plain version (the CPU
+    path) against the reference's kernel in interpret mode."""
+    q, k, v = _inputs(41, 128, 128, d, dv, (1,))
     cfg = TConfig(alpha=0.6)
-    ops = BQ.prep(q, k, v, cfg)
+    if width_refusal(d, dv) is None:
+        want = jkernel(*map(jnp.asarray, (q[0], k[0], v[0])),
+                       cfg=JConfig(alpha=0.6), block_q=64, block_k=64)
+        got = BQ.bitstopper_attention_kernel(
+            *(torch.as_tensor(x[0]) for x in (q, k, v)), cfg=cfg,
+            block_q=64, block_k=64)
+        _assert_matches(got, want)
+        return
+    ops = BQ.prep(*map(torch.as_tensor, (q, k, v)), cfg)
     before = BQ.LAUNCHES
     with pytest.raises(ValueError, match="value widths"):
         BQ.launch_kernel(ops, cfg, 128, 128, True)

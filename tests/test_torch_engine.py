@@ -15,6 +15,7 @@ import torch
 from repro.configs import reduced_config as jreduced
 from repro.core.besf import BitStopperConfig as JConfig
 from repro.models import transformer as JT
+from repro.serving import ContinuousBatchingEngine as JContinuous
 from repro.serving import PagedEngine as JEngine
 from repro.serving import Request as JRequest
 from repro.serving import ServeConfig as JServe
@@ -22,7 +23,8 @@ from repro_torch.configs import reduced_config
 from repro_torch.core.besf import BitStopperConfig as TConfig
 from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as TT
-from repro_torch.serving import PagedEngine, Request, ServeConfig
+from repro_torch.serving import (ContinuousBatchingEngine, PagedEngine,
+                                 Request, ServeConfig)
 
 
 @pytest.fixture(scope="module")
@@ -174,10 +176,11 @@ def test_serve_config_validation():
 
 
 def test_hierarchy_config_validation(model):
-    """tests/test_swap.py:395-415 (but the contiguous engine's case, whose
-    engine is not ported): the memory hierarchy's fields raise ValueError
-    with the reference's message, and ``flush_prefixes()`` without a store
-    raises RuntimeError."""
+    """tests/test_swap.py:395-415: the memory hierarchy's fields raise
+    ValueError with the reference's message, the contiguous engine refuses
+    a prefix store (it has no paged pool to tier) with the reference's
+    message, and ``flush_prefixes()`` without a store raises
+    RuntimeError."""
     bad = [dict(swap_host_bytes=-1), dict(prefix_host_bytes=-1),
            dict(swap_host_bytes=1 << 20),
            dict(prefix_store_dir="/tmp/x", prefix_sharing=False),
@@ -191,7 +194,13 @@ def test_hierarchy_config_validation(model):
     scfg = ServeConfig(oversubscribe=True, swap_host_bytes=1 << 20,
                        prefix_store_dir="/tmp/x", prefix_host_bytes=1 << 20)
     assert scfg.swap_host_bytes == 1 << 20
-    _, tcfg, _, tparams = model
+    jcfg, tcfg, jparams, tparams = model
+    kw = dict(max_len=64, prefix_store_dir="/tmp/x")
+    with pytest.raises(ValueError) as want:
+        JContinuous(jcfg, jparams, JServe(**kw))
+    with pytest.raises(ValueError) as got:
+        ContinuousBatchingEngine(tcfg, tparams, ServeConfig(**kw), "cpu")
+    assert str(got.value) == str(want.value)
     eng = PagedEngine(tcfg, tparams, ServeConfig(**_KW), "cpu")
     with pytest.raises(RuntimeError, match="prefix_store_dir"):
         eng.flush_prefixes()
@@ -211,8 +220,10 @@ def test_device_and_kernel_resolution(model):
                      "cpu")
     assert on.cfg.fused_decode is True
     assert "kq" in on.caches["seg0"][0]["b0"]
-    with pytest.raises(NotImplementedError):
-        PagedEngine(tcfg.replace(attn_impl="xla"), tparams, scfg, "cpu")
+    # Dense impls serve too (once refused): their pools carry no scales
+    # and no planes.
+    dense = PagedEngine(tcfg.replace(attn_impl="xla"), tparams, scfg, "cpu")
+    assert not {"kq", "k_amax"} & set(dense.caches["seg0"][0]["b0"])
     if torch.cuda.is_available():
         assert PagedEngine(tcfg, tparams, scfg).device.type == "cuda"
     else:
@@ -224,17 +235,76 @@ def test_device_and_kernel_resolution(model):
 
 
 def test_fused_decode_refuses_pages_over_the_kernel_limit(model):
-    """The decode kernel takes pages of at most 256 tokens: an engine that
-    would hand it larger ones fails when it is built, not at its first
-    decode tick.  The plain oracle serves such pages."""
+    """The decode and verify kernels take pages of up to 1024 tokens (over
+    256 through their striped walk): an engine with fused decode builds at
+    pages of 264 and 512, and one that would hand the kernels larger pages
+    fails when it is built, not at its first decode tick.  The plain oracle
+    serves such pages."""
     _, tcfg, _, tparams = model
-    big = dict(_KW, page_size=264, max_len=528)
-    with pytest.raises(ValueError, match="at most 256"):
+    for page in (264, 512):
+        eng = PagedEngine(tcfg, tparams, ServeConfig(
+            fused_decode=True, **dict(_KW, page_size=page,
+                                      max_len=2 * page)), "cpu")
+        assert eng.cfg.fused_decode is True and "kq" in \
+            eng.caches["seg0"][0]["b0"]
+    big = dict(_KW, page_size=1032, max_len=2064)
+    with pytest.raises(ValueError, match="at most 1024"):
         PagedEngine(tcfg, tparams, ServeConfig(fused_decode=True, **big),
                     "cpu")
     plain = PagedEngine(tcfg, tparams, ServeConfig(fused_decode=False, **big),
                         "cpu")
-    assert plain.cfg.fused_decode is False and plain.layout.page_size == 264
+    assert plain.cfg.fused_decode is False and plain.layout.page_size == 1032
+
+
+_LARGE = dict(max_len=1024, max_slots=2, prefill_bucket=8, page_size=512)
+
+
+def _serve_large_pages(model, fused, device):
+    """Three prompts (two of them over a page) served greedily at pages of
+    512 tokens, the striped walk's size; returns the engine and tokens."""
+    _, tcfg, jparams, tparams = model
+    if device != "cpu":
+        tparams = TT.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                       tcfg, device)
+    eng = PagedEngine(tcfg, tparams, ServeConfig(fused_decode=fused,
+                                                 **_LARGE), device=device)
+    reqs = [Request(prompt=p, max_new_tokens=5)
+            for p in _prompts((600, 40, 530), seed=3)]
+    eng.generate(reqs)
+    return eng, [r.generated for r in reqs]
+
+
+def test_engine_serves_pages_over_256_like_the_reference(model):
+    """Pages of 512 tokens served through the kernel's plain version and
+    through the torch oracle: the reference's tokens and counters."""
+    jcfg, _, jparams, _ = model
+    jeng = JEngine(jcfg, jparams, JServe(fused_decode=False, **_LARGE))
+    jreqs = [JRequest(prompt=p, max_new_tokens=5)
+             for p in _prompts((600, 40, 530), seed=3)]
+    jeng.generate(jreqs)
+    want = [r.generated for r in jreqs]
+    for fused in (True, False):
+        eng, toks = _serve_large_pages(model, fused, "cpu")
+        assert eng.cfg.fused_decode is fused and toks == want
+        for key, val in eng.counters.items():
+            assert jeng.counters[key] == val, key
+
+
+@pytest.mark.gpu
+def test_engine_on_card_serves_pages_over_256(model):
+    """On the card: the engine at pages of 512 tokens launches the striped
+    walk once per layer per decode tick and serves the plain oracle's
+    tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import paged_decode as pd
+    before = pd.LAUNCHES
+    eng, fused = _serve_large_pages(model, True, "cuda")
+    assert (pd.LAUNCHES - before
+            == eng.counters["decode_steps"] * model[1].n_layers > 0)
+    before = pd.LAUNCHES
+    _, plain = _serve_large_pages(model, False, "cuda")
+    assert pd.LAUNCHES == before and fused == plain
 
 
 def test_serve_cli_on_cpu():

@@ -6,8 +6,8 @@ Reduced stablelm-1.6b with the reference's weights carried across, on the
 reference's own traces and geometry (tests/test_frontdoor.py: page_size 8,
 prefill_bucket 8, max_len 64).  The reference's cases that serve its
 default ``attn_impl="xla"`` run here with both packages on
-``bitstopper_xla`` (the port's paged engine serves the BitStopper score
-path only), at the reference case's trace, temperature and seed.  Tokens,
+``bitstopper_xla``, at the reference case's trace, temperature and seed
+(tests/test_torch_dense_frontdoor.py holds them on ``xla``).  Tokens,
 events and integer counters must be equal; scales agree within
 ``AMAX_RTOL``."""
 

@@ -13,6 +13,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_single as jflash
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.runtime import width_refusal
 
 # f32 on both sides; exp and the order of the sums differ between the
 # frameworks and between tiled and dense softmax, by a few ulps.
@@ -31,6 +32,8 @@ def _inputs(seed, Sq, Sk, d, dv, lead=()):
     (128, 256, 64, 128),
     (256, 256, 128, 128),
     (64, 128, 32, 32),
+    (128, 128, 256, 256),     # recurrentgemma-2b's heads
+    (128, 128, 192, 128),     # deepseek-v3's MLA q/k and value heads
 ])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_matches_reference(Sq, Sk, d, dv, causal):
@@ -97,14 +100,17 @@ def test_flash_batched_equals_slices(causal):
 def test_flash_kernel_matches_plain_on_card():
     """The CUDA kernel against its plain version at the forward's tile (128)
     and at small tiles, causal and not, one launch per call; head width 160
-    (stablelm-12b: K and V tiles in two chunks); a value width the kernel
-    is not built for raises."""
+    (stablelm-12b: K and V tiles in two chunks); the CUDA-core form at head
+    widths 256, 192 (value width 128) and 176 (tiles of 8), and at value
+    width 48; a value width that is not a multiple of 16 raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = [((4, 2), 256, 256, 64, 64, 128), ((3,), 128, 256, 64, 128, 64),
              ((2,), 64, 128, 32, 32, 64), ((2, 2), 64, 64, 16, 16, 128),
-             ((2,), 256, 256, 160, 160, 128)]
+             ((2,), 256, 256, 160, 160, 128),
+             ((2,), 256, 256, 256, 256, 128), ((3,), 128, 256, 192, 128, 64),
+             ((2,), 64, 64, 176, 64, 8), ((2,), 64, 64, 48, 48, 32)]
     for i, (lead, Sq, Sk, d, dv, blk) in enumerate(cases):
         q, k, v = (torch.as_tensor(x, device="cuda")
                    for x in _inputs(10 + i, Sq, Sk, d, dv, lead))
@@ -117,18 +123,32 @@ def test_flash_kernel_matches_plain_on_card():
             assert FA.LAUNCHES == before + 1
             torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
     q, k, v = (torch.as_tensor(x, device="cuda")
-               for x in _inputs(20, 64, 64, 48, 48))
+               for x in _inputs(20, 64, 64, 48, 40))
     with pytest.raises(ValueError, match="value widths"):
         FA.flash_attention(q, k, v)
 
 
-@pytest.mark.parametrize("d,dv", [(256, 256), (64, 48), (192, 64)])
+@pytest.mark.parametrize("d,dv", [(256, 256), (64, 48), (192, 64), (64, 40),
+                                  (200, 64), (272, 64), (64, 272)])
 def test_flash_kernel_refuses_widths_it_does_not_take(d, dv):
-    """Value widths outside KERNEL_DV, and heads wider than 160 (whose
-    128-row tiles exceed the card's shared memory, as recurrentgemma-2b's
-    256 does), raise before any launch."""
-    q, k, v = map(torch.as_tensor, _inputs(21, 128, 128, d, dv))
+    """Value widths that are not a multiple of 16, widths over 256, and
+    heads over 160 that are not a multiple of 16 raise before any launch.
+    The first three widths were refused until the kernel took every head
+    and value width that is a multiple of 16 up to 256 (its CUDA-core
+    form): they are held instead, the plain version (the CPU path) against
+    the reference's kernel and its dense oracle."""
+    q, k, v = _inputs(21, 128, 128, d, dv)
+    if width_refusal(d, dv) is None:
+        got = FA.flash_attention_single(*map(torch.as_tensor, (q, k, v)),
+                                        causal=True)
+        jq, jk, jv = map(jnp.asarray, (q, k, v))
+        for want in (jflash(jq, jk, jv, causal=True),
+                     jref.flash_attention(jq, jk, jv, causal=True)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=TOL, rtol=TOL)
+        return
     before = FA.LAUNCHES
     with pytest.raises(ValueError, match="value widths"):
-        FA.launch_kernel(q[None], k[None], v[None], True, 0.125, 128, 128)
+        FA.launch_kernel(*(torch.as_tensor(x)[None] for x in (q, k, v)),
+                         True, 0.125, 128, 128)
     assert FA.LAUNCHES == before

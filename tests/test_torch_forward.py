@@ -2,7 +2,8 @@
 model logits of reduced stablelm-1.6b for every attention impl, with the
 reference's weights carried across; the uncached attention dispatch
 ``kernels.ops.attention``; the chunked (``xla``) attention with padding,
-GQA and a sliding window; and the paths that stay unported."""
+GQA and a sliding window; and the cached forward of the dense impls over
+a paged cache."""
 
 import jax
 import jax.numpy as jnp
@@ -79,12 +80,37 @@ def test_forward_untiled_length_raises_for_the_kernel(weights):
 
 @pytest.mark.parametrize("impl", ["xla", "flash"])
 def test_cached_dense_impls_stay_unported(weights, impl):
-    _, tcfg, _, tparams = weights
-    cfg = tcfg.replace(attn_impl=impl)
-    caches = TT.init_caches(cfg, 1, TA.PagedLayout(4, 8, 2))
-    with pytest.raises(NotImplementedError, match="A10"):
-        TT.forward(tparams, torch.zeros((1, 4), dtype=torch.long), cfg,
-                   caches=caches, positions=torch.arange(4)[None])
+    """The cached forward of the dense impls, once refused here, is now
+    ported (the name is kept): over a paged cache, a prefill of 4 tokens
+    then a decode step give the reference's logits, and the written K/V
+    and positions equal its cache leaves."""
+    from repro.serving.engine import _attach_tables as jattach
+    from repro_torch.serving.engine import _attach_tables as tattach
+    jcfg, tcfg, jparams, tparams = weights
+    jcfg, tcfg = jcfg.replace(attn_impl=impl), tcfg.replace(attn_impl=impl)
+    table = np.array([[1, 0]], np.int32)
+    jcaches = JT.init_caches(jcfg, 1, 16, paged=JA.PagedLayout(4, 8, 2))
+    tcaches = TT.init_caches(tcfg, 1, paged=TA.PagedLayout(4, 8, 2))
+    tokens = np.random.default_rng(6).integers(0, 256, (1, 5)).astype(
+        np.int32)
+    for lo, hi in ((0, 4), (4, 5)):
+        pos = np.arange(lo, hi, dtype=np.int32)[None]
+        length = np.array([lo], np.int32)
+        want, jcaches, _ = JT.forward(
+            jparams, jnp.asarray(tokens[:, lo:hi]), jcfg,
+            caches=jattach(jcaches, table, length),
+            positions=jnp.asarray(pos))
+        got, tcaches, _ = TT.forward(
+            tparams, torch.as_tensor(tokens[:, lo:hi]), tcfg,
+            caches=tattach(tcaches, torch.as_tensor(table),
+                           torch.as_tensor(length)),
+            positions=torch.as_tensor(pos))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=LOGIT_TOL[impl], rtol=LOGIT_TOL[impl])
+    back = TT.caches_to_numpy(tcaches, tcfg)
+    ref = jax.tree.map(np.asarray, jcaches)
+    for t, j in zip(jax.tree.leaves(back), jax.tree.leaves(ref)):
+        np.testing.assert_allclose(t, j, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("impl", IMPLS)

@@ -6,7 +6,8 @@ Reduced stablelm-1.6b (alpha 0.8) with the reference's weights carried
 across, on tests/test_frontdoor.py's traces and geometry (page_size 8,
 prefill_bucket 8, max_len 64).  The reference's cases that serve its
 default ``attn_impl="xla"`` run here with both packages on
-``bitstopper_xla``, at the reference case's trace, temperature and seed.
+``bitstopper_xla``, at the reference case's trace, temperature and seed
+(tests/test_torch_dense_frontdoor.py holds them on ``xla``).
 Streamed tokens, admission logs and the ticks at which each stream got its
 first token and finished must equal the reference door's."""
 

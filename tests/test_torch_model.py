@@ -87,7 +87,7 @@ def _cache_pair(batch, layout, table, fused=True):
     jc, tc = _acfg(fused)
     jcache = JA.init_cache(jc, batch=batch, max_len=64,
                            paged=JA.PagedLayout(*layout))
-    tcache = TA.init_cache(tc, batch, TA.PagedLayout(*layout))
+    tcache = TA.init_cache(tc, batch, paged=TA.PagedLayout(*layout))
     jcache = dict(jcache, table=jnp.asarray(table, jnp.int32))
     tcache = dict(tcache, table=_t(np.asarray(table, np.int32)))
     return jcache, tcache
@@ -225,7 +225,7 @@ def test_paged_prefill_and_decode_forward_match_reference(model):
     tcfg = tcfg.replace(fused_decode=True)
     layout = (9, 8, 4)
     jcaches = JT.init_caches(jcfg, 2, 32, paged=JA.PagedLayout(*layout))
-    tcaches = TT.init_caches(tcfg, 2, TA.PagedLayout(*layout))
+    tcaches = TT.init_caches(tcfg, 2, paged=TA.PagedLayout(*layout))
     table = np.array([[1, 2, 3, 0], [4, 5, 0, 0]], np.int32)
     S = JA.POS_SENTINEL
     rng = np.random.default_rng(4)

@@ -96,11 +96,13 @@ def test_plain_matches_jax_oracle(alpha, window, G, min_rounds, quantize_v):
     assert (rounds[3] == 0).all() and not plain.survivors[3].any()
 
 
-@pytest.mark.parametrize("bs,G,window", [(48, 2, None), (64, 1, 40)])
+@pytest.mark.parametrize("bs,G,window", [(48, 2, None), (64, 1, 40),
+                                         (512, 1, None), (1024, 2, 700)])
 def test_plain_matches_jax_oracle_large_pages(bs, G, window):
     """Pages of more than 32 tokens, which the CUDA kernel walks with
-    several tokens a lane: the plain version it is held to equals the JAX
-    oracle there too."""
+    several tokens a lane, and of 512 and 1024 tokens, which it walks in
+    stripes: the plain version it is held to equals the JAX oracle there
+    too."""
     k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _inputs(2, G,
                                                                   bs=bs)
     want = joracle(*map(jnp.asarray, (q, k, v, table, lengths, q_pos,
@@ -115,6 +117,50 @@ def test_plain_matches_jax_oracle_large_pages(bs, G, window):
     np.testing.assert_allclose(got.out.numpy(), np.asarray(want.out),
                                atol=1e-6, rtol=1e-6)
     assert got.survivors.shape[-1] == 4 * bs
+
+
+def _dead_page_inputs(bs):
+    """Pages on which every row of a KV head dies: four query heads a KV
+    head point at the hot page (physical block 1, copied to block 5), so
+    the cold pages after it stop in two rounds with no survivor.  Row 3
+    walks hot, cold, hot, cold pages: a dead page between live ones."""
+    k, _, v, _, lengths, _, k_amax, v_amax, q = _inputs(8, 4, hot_heads=(0, 1),
+                                                        bs=bs)
+    k = k.copy()
+    k[5] = k[1]
+    table = _TABLE.copy()
+    table[3] = [1, 2, 5, 3]
+    lengths = lengths.copy()
+    lengths[3] = 4 * bs
+    q_pos = np.maximum(lengths - 1, 0).astype(np.int32)
+    kq = np.asarray(jq.pack_pool_planes(jnp.asarray(k), jnp.asarray(k_amax)))
+    return k, kq, v, table, lengths, q_pos, k_amax, v_amax, q
+
+
+# Pages with a survivor of some query head, per (row, KV head, page).
+_DEAD_PAGE_LIVE = [[[1, 0, 0, 0]] * 2, [[1, 1, 0, 0]] * 2, [[1, 1, 0, 0]] * 2,
+                   [[1, 0, 1, 0]] * 2]
+
+
+@pytest.mark.parametrize("bs", [512, 1024])
+def test_plain_matches_jax_oracle_pages_that_die_whole(bs):
+    """The striped walk's inputs with whole dead pages (the card test below
+    repeats its kernel on them): the plain version equals the JAX oracle,
+    and the pages die as designed."""
+    k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _dead_page_inputs(bs)
+    want = joracle(*map(jnp.asarray, (q, k, v, table, lengths, q_pos,
+                                      k_amax, v_amax)),
+                   cfg=JConfig(alpha=0.4))
+    got = pd.paged_bitstopper_decode(
+        *map(_t, (q, kq, v, table, lengths, q_pos, k_amax, v_amax)),
+        cfg=TConfig(alpha=0.4))
+    for field in ("rounds", "survivors", "v_fetched"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)))
+    np.testing.assert_allclose(got.out.numpy(), np.asarray(want.out),
+                               atol=1e-6, rtol=1e-6)
+    live = got.survivors.reshape(4, 2, 4, 4, bs).any(4).any(2)
+    assert live.int().tolist() == _DEAD_PAGE_LIVE
 
 
 @pytest.mark.parametrize("alpha,window,G", [(0.6, None, 2), (0.8, 24, 1)])
@@ -244,7 +290,10 @@ def test_cpu_tensors_take_the_plain_path():
                             (0.8, 24, 5, 2, False, 16, 16),
                             (0.6, None, 8, 1, True, 64, 16),
                             (0.6, None, 2, 1, True, 16, 64),
-                            (0.8, 40, 1, 1, True, 16, 48)])
+                            (0.8, 40, 1, 1, True, 16, 48),
+                            (0.6, None, 2, 1, True, 16, 512),
+                            (0.8, 700, 1, 2, False, 64, 1024),
+                            (0.6, None, 8, 1, True, 16, 264)])
 def test_cuda_kernel_matches_plain(alpha, window, G, min_rounds,
                                    quantize_v, D, bs):
     """On the card: the CUDA kernel against the plain version on the same
@@ -253,7 +302,7 @@ def test_cuda_kernel_matches_plain(alpha, window, G, min_rounds,
     gives each lane several plane words and V columns; G = 3, 5 and 8 give
     other splits of walk and epilogue warps, beyond four walk warps a warp
     walks several heads; pages of 48 and 64 tokens give a lane several
-    tokens."""
+    tokens; pages of 264, 512 and 1024 tokens run the striped walk."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = _inputs(3, G, D=D,
@@ -277,7 +326,8 @@ def test_cuda_kernel_matches_plain(alpha, window, G, min_rounds,
 @pytest.mark.gpu
 @pytest.mark.parametrize("G,window,bs", [(1, None, 16), (2, 24, 16),
                                          (5, None, 16), (8, 24, 16),
-                                         (2, None, 64)])
+                                         (2, None, 64), (1, None, 512),
+                                         (2, 600, 1024)])
 def test_cuda_kernel_equals_verify_kernel(G, window, bs):
     """On the card: the decode kernel's output equals, bit for bit, the
     verify kernel's for each real query of a draft block, as lossless
@@ -313,7 +363,37 @@ def test_cuda_kernel_equals_verify_kernel(G, window, bs):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("bs", [512, 1024])
+def test_cuda_striped_kernel_on_pages_that_die_whole(bs):
+    """On the card: the striped walk on pages where every row of a KV head
+    dies, after a hot page and between live ones (a block that leaves such
+    a page early must not race the next page's reset), 50 launches each of
+    the decode and the verify: every one equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import paged_verify as pv
+    ops = _dead_page_inputs(bs)
+    k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = (
+        torch.as_tensor(np.array(a), device="cuda") for a in ops)
+    cfg = TConfig(alpha=0.4)
+    args = (q, kq, v, table, lengths, q_pos, k_amax, v_amax)
+    ref = pd.paged_bitstopper_decode_plain(*args, cfg=cfg)
+    vargs = (q[:, None], kq, v, table, lengths[:, None].contiguous(),
+             q_pos[:, None].contiguous(), k_amax, v_amax)
+    for i in range(50):
+        ker = pd.paged_bitstopper_decode(*args, cfg=cfg)
+        ver = pv.paged_bitstopper_verify(*vargs, cfg=cfg)
+        for field in ("rounds", "survivors", "v_fetched"):
+            assert torch.equal(getattr(ker, field), getattr(ref, field)), \
+                (i, field)
+            assert torch.equal(getattr(ver, field)[:, 0],
+                               getattr(ker, field)), (i, field)
+        assert float((ker.out - ref.out).abs().max()) <= 1e-5, i
+        assert torch.equal(ver.out[:, 0], ker.out), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [16, 64, 512])
 def test_cuda_kernel_copies_reachable_planes(bs):
     """On the card: the kernel's own count of the bytes it requested is
     every plane of every reachable page and V only of pages where some

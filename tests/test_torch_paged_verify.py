@@ -239,7 +239,8 @@ def test_cpu_tensors_take_the_plain_path():
 # mid-page with padding queries.  G = 3, 5 and 8 give other row layouts
 # (beyond four rows a walk warp walks several); G = 1 with Sq = 5 gives two
 # query groups per (slot, KV head); pages of 48 and 64 tokens give a lane
-# several tokens; windows give each query another first page.
+# several tokens, pages of 512 and 1024 run the striped walk; windows give
+# each query another first page.
 _GPU_CASES = [
     (0.2, None, 1, 1, True, "reference", 16, 16, 3),
     (0.6, None, 2, 1, True, "reference", 16, 16, 3),
@@ -253,6 +254,8 @@ _GPU_CASES = [
     (0.4, 20, 1, 1, True, "draft", 16, 16, 5),
     (0.6, None, 1, 1, True, "draft", 48, 16, 5),
     (0.8, 40, 2, 1, True, "draft", 64, 16, 3),
+    (0.6, None, 1, 1, True, "draft", 512, 16, 5),
+    (0.8, 600, 2, 1, False, "draft", 1024, 64, 3),
 ]
 
 
@@ -319,7 +322,8 @@ def _block_pages(lengths, q_pos, bs, MB, G, window):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("G,window,bs,Sq", [(1, None, 16, 5), (2, 20, 16, 3),
-                                            (1, None, 64, 5)])
+                                            (1, None, 64, 5),
+                                            (1, None, 512, 5)])
 def test_cuda_kernel_copies_reachable_planes(G, window, bs, Sq):
     """On the card: the kernel's own count of the bytes it requested is
     every plane of every page some query of a block reaches, once per

@@ -143,7 +143,7 @@ def test_verify_write_and_undo_match_reference_bitwise(scale):
                                 paged=JA.PagedLayout(*layout)),
                   table=jnp.asarray(table))
     tcache = dict(TA.init_cache(TA.AttnConfig(**kw), 2,
-                                TA.PagedLayout(*layout)),
+                                paged=TA.PagedLayout(*layout)),
                   table=torch.as_tensor(table))
     rng = np.random.default_rng(0)
     S = JA.POS_SENTINEL

@@ -7,9 +7,9 @@ Each case of the reference's swap tests is served by both packages with a
 swap tier: the tokens, the swap and prefill counters and
 ``memory_report()`` must equal the reference's, and the port's swap run
 must give the port's recompute run's tokens with fewer prefill chunks.  The
-reference's ``model`` fixture there serves dense ``xla`` attention, which
-the port's engine does not serve (ROADMAP A10), so every case runs the
-BitStopper score path.  Also: the block-row transport against the
+reference's ``model`` fixture there serves dense ``xla`` attention; every
+case here runs the BitStopper score path, whose swap also carries planes
+and scales (a dense pool's swap is the same row transport without them).  Also: the block-row transport against the
 reference's on equal caches, the stale-planes path (a scale that grows
 between swap-out and swap-in; a probe asserts the growth in both
 packages), ``swap_fail`` through both chaos harnesses, and a swap record
