@@ -46,13 +46,15 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    repeated-pattern trace, gives the plain sampled tokens.  Prints tokens/s, the sampled and greedy decode
    ticks, preemptions and recomputed tokens, and the sampler's ms and
    launches per tick;
-8. chaos path: (a) the main trace, greedy, through
+8. chaos path: (a) the main trace, greedy, at cut depth 4 (the plan's
+   ticks depend on the schedule alone), through
    ``serving.serve_with_chaos`` on an oversubscribed engine with a snapshot
    every 8 ticks, under a crash mid-prefill, a forced pool-dry preemption,
    an interrupted snapshot write, a kernel fault (the circuit breaker
    switches that engine to the plain oracle) and a crash three ticks
-   later: the main path's tokens, the plan fired whole, one degradation,
-   decode launches 24 x the decode forwards of engines on the kernel;
+   later: the undisturbed run's tokens at that depth, the plan fired
+   whole, one degradation, decode launches 4 x the decode forwards of
+   engines on the kernel;
    (b) the speculative phase's n-gram trace at the cut depth (4) of its
    fused-vs-plain check, drafted as there by replaying the plain tokens,
    under a drafter failure and a crash among its verify ticks: its plain
@@ -60,10 +62,12 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    page_size=12, a planeless pool, with no paged kernel launched.  Prints
    the wall time of each restore and what it recomputed, snapshot bytes
    and ms per write, and degraded against fused tick times;
-9. memory path: (a) the sampled path's oversubscribed run again with a
-   swap tier (``swap_host_bytes``): the victim swaps out and back in, with
-   the uncontended tokens, fewer prefill chunks than the recompute run, the
-   swap pool empty at the end and one decode launch per layer per tick;
+9. memory path: (a) the sampled path's oversubscribed run again at cut
+   depth 4 with a swap tier (``swap_host_bytes``): the victim swaps out
+   and back in, with the uncontended tokens at that depth, fewer prefill
+   chunks than the sampled path's recompute run (the schedule depends on
+   the prompt lengths alone), the swap pool empty at the end and one
+   decode launch per layer per tick;
    (b) a 256-token system prompt with four tails, greedy at one slot: a
    cold engine on an empty prefix store flushes its registered blocks, and
    a fresh warm engine on that store gives the cold tokens, every scale and
@@ -110,8 +114,24 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    0.7 (its sampler's first key, bits and tokens equal to the CPU's) and
    (e) the contiguous cache's resident bytes against the paged pool's
    peak; no kernel of the port launches on it;
-13. prints one JSON line describing each kernel, then the device line
-   last.
+13. bf16 caches (``ServeConfig.cache_dtype="bfloat16"``): (a) right after
+   the large-page phase, the decode and verify kernels' bf16-V forms at
+   the kernel shape (bs=16) and on the striped walk (bs=512) against their
+   plain versions (rounds, survivors and v_fetched equal, out within
+   OUT_TOL and bit-equal to the f32 form on the widened pool, every verify
+   query equal to the bf16 decode, V bytes requested as designed and half
+   the f32 form's), each timed alone beside the f32 form and its bound;
+   after the dense path, (b) the main trace at full width and depth on a
+   bf16 cache (24 decode launches a tick, tokens/s, the decode tick, the
+   byte reports against the f32 main path's; how many requests give its
+   tokens is reported), (c) at cut depth 4 the main trace with the kernel
+   and with the plain oracle (equal tokens), speculatively with replayed
+   drafts, the sampled oversubscribed run with a swap tier and a prefix
+   store cold then warm at one slot (equal tokens, scales and planes), (d)
+   the contiguous engine on ``xla`` against the paged one (the dense
+   path's near-tie rule) and its resident bytes, half the f32 cache's;
+14. prints one JSON line describing each kernel (the bf16 forms under the
+   decode and verify rows), then the device line last.
 
 Any failed check exits non-zero.  Without a card it exits non-zero and
 prints no result.  ``--profile`` instead profiles decode ticks, a prefill
@@ -146,7 +166,8 @@ SPEC_K = 4                       # drafts per slot and tick
 UNCACHED_TOL = 2e-5              # bitstopper_qk / flash vs plain output
 FWD_B, FWD_S = 2, 1024           # the forward path's prompts
 KERNELS = ("paged_decode", "paged_verify", "bitstopper_qk",
-           "flash_attention")
+           "flash_attention", "paged_decode_bf16", "paged_verify_bf16")
+BF16 = "bfloat16"                # ServeConfig.cache_dtype of the bf16 phases
 TEMPERATURE, SAMPLE_SEED = 0.7, 7  # the sampled path's
 # Physical blocks of the sampled path's oversubscribed run (null block
 # included).  The schedule depends only on the prompt lengths (no eos), so
@@ -277,8 +298,9 @@ def decode_case(torch, seed, B, Hq, Hkv, D, bs, MB, P, Sq=1, bits=12,
 
 def decode_bytes_ops(args, rounds_h, surv, stats):
     """Bytes and integer ops one call needs on this data: the planes LATS
-    kept alive per (slot, KV head, page), the V pages with a survivor, the
-    small operands once, the outputs once."""
+    kept alive per (slot, KV head, page), the V pages with a survivor (at
+    the V pool's value size), the small operands once, the outputs
+    once."""
     q, kq, v, table, lengths, q_pos = args[:6]
     B, Hq, D = q.shape
     P, bits, bs8, Hkv, _ = kq.shape
@@ -289,7 +311,8 @@ def decode_bytes_ops(args, rounds_h, surv, stats):
     small = (B * Hq * D * 4 + 2 * bits * B * Hq * 4 + 2 * B * Hq * 4
              + Hkv * 4 + B * MB * 4 + 2 * B * 4)
     outs = B * Hq * Dv * 4 + B * MB * 4 + (B * Hq * MB * bs if stats else 0)
-    nbytes = planes * bs8 * D + live_v * bs * Dv * 4 + small + outs
+    nbytes = planes * bs8 * D + live_v * bs * Dv * v.element_size() + small \
+        + outs
     ops = planes * G * bs * D * 2 + live_v * G * bs * Dv * 2
     return nbytes, ops
 
@@ -402,7 +425,8 @@ def verify_bytes_ops(args, rounds_h, surv):
     small = (B * Sq * Hq * D * 4 + 2 * bits * B * Sq * Hq * 4
              + 2 * B * Sq * Hq * 4 + Hkv * 4 + B * MB * 4 + 2 * B * Sq * 4)
     outs = B * Sq * Hq * Dv * 4 + B * Sq * MB * 4
-    nbytes = union * bs8 * D + v_union * bs * Dv * 4 + small + outs
+    nbytes = (union * bs8 * D + v_union * bs * Dv * v.element_size() + small
+              + outs)
     ops = per_query * G * bs * D * 2 + v_per_query * G * bs * Dv * 2
     return nbytes, ops, union, per_query
 
@@ -433,7 +457,8 @@ def verify_copy_bytes(args, surv, window):
             if reach:
                 live += int(sv[b, s0:s0 + QG][:, :, sorted(reach)]
                             .any(0).sum())
-    return pages * Hkv * bits * bs8 * D, live * bs * Dv * 4
+    return (pages * Hkv * bits * bs8 * D,
+            live * bs * Dv * v.element_size())
 
 
 @phase("verify kernel")
@@ -1062,6 +1087,13 @@ def make_requests(np, Request, seed, n, new_tokens, vocab):
                     max_new_tokens=new_tokens) for _ in range(n)]
 
 
+def cut_model(cfg, params, depth=4):
+    """The model cut to its first ``depth`` layers (full width)."""
+    depth = min(depth, cfg.n_layers)
+    return (cfg.replace(segments=((cfg.segments[0][0], depth),)),
+            dict(params, seg0=params["seg0"][:depth]))
+
+
 def build_model(torch):
     """Full-width stablelm-1.6b (f32) with seeded random weights."""
     from repro_torch.configs import get_config
@@ -1089,11 +1121,11 @@ class LaunchTimer:
         self.torch, self.module, self.events = torch, module, []
         self.real = module.launch_c
 
-    def _timed(self, *a):
+    def _timed(self, *a, **kw):
         start = self.torch.cuda.Event(enable_timing=True)
         end = self.torch.cuda.Event(enable_timing=True)
         start.record()
-        self.real(*a)
+        self.real(*a, **kw)
         end.record()
         self.events.append((start, end))
 
@@ -1129,8 +1161,9 @@ class ReplayDrafter:
 @phase("main path")
 def main_path_phase(torch, cfg, params):
     """Full-width stablelm-1.6b served greedily through the port's
-    PagedEngine; returns the decode kernel's launch count of the main run
-    and its requests (the recorded plain tokens)."""
+    PagedEngine; returns the decode kernel's launch count of the main run,
+    its requests (the recorded plain tokens), its mean pure decode tick
+    and its tokens/s and byte reports (for the bf16 path)."""
     import numpy as np
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.serving import PagedEngine, Request, ServeConfig
@@ -1229,7 +1262,12 @@ def main_path_phase(torch, cfg, params):
                          f"{streams[0]} vs {streams[1]}")
     print(f"[chip_smoke] fused and plain decode give identical tokens on "
           f"{len(streams[0])} requests")
-    return launches, reqs, float(np.mean(tick_ms["decode"]))
+    reports = {"tok_s": n_tok / wall,
+               "decode_ms": float(np.mean(tick_ms["decode"])),
+               "kv_bytes_resident": eng.kv_bytes_resident(),
+               "peak_blocks": eng.pool.peak_live_blocks,
+               "memory_report": eng.memory_report()}
+    return launches, reqs, reports["decode_ms"], reports
 
 
 LARGE_PAGE_PROMPTS = (700, 300, 900, 520)       # two pages for three
@@ -1640,8 +1678,8 @@ def sampled_path_phase(torch, cfg, params, greedy_tick_ms):
     """(a) the sampler on the card against the CPU, (b) the main trace
     sampled, uncontended and oversubscribed, (c) sampled speculative
     serving.  Returns the decode kernel's launches in (b), the verify
-    kernel's in (c)'s replay run, (b)'s uncontended tokens and the prefill
-    chunks of its oversubscribed run (which recomputes on resume)."""
+    kernel's in (c)'s replay run and the prefill chunks of (b)'s
+    oversubscribed run (which recomputes on resume)."""
     import numpy as np
     from repro_torch.serving import PagedEngine, Request, ServeConfig
     kernels, copies = sampler_card_vs_cpu(torch, cfg.vocab)
@@ -1710,8 +1748,7 @@ def sampled_path_phase(torch, cfg, params, greedy_tick_ms):
                          "tokens differ from plain sampled")
     print("[chip_smoke] sampled (c): replay and n-gram speculative serving "
           "give the plain sampled tokens")
-    return (l_full + l_over, verify_launches, [r.generated for r in reqs],
-            c["prefill_chunks"])
+    return l_full + l_over, verify_launches, c["prefill_chunks"]
 
 
 class ChaosProbe:
@@ -1884,12 +1921,19 @@ def chaos_path_phase(torch, cfg, params, plain_reqs, ngram_prompts):
 
 
 def chaos_main_trace(torch, np, cfg, params, plain_reqs, snap_dir, writes):
-    """Chaos (a); returns the decode and verify kernels' launches."""
+    """Chaos (a), at cut depth 4 (the plan's ticks depend on the trace's
+    schedule alone): the undisturbed tokens at that depth first.  Returns
+    the decode and verify kernels' launches."""
     import collections
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import paged_verify as pv
-    from repro_torch.serving import (FaultPlan, Request, ServeConfig,
-                                     serve_with_chaos)
+    from repro_torch.serving import (FaultPlan, PagedEngine, Request,
+                                     ServeConfig, serve_with_chaos)
+    cfg, params = cut_model(cfg, params)
+    plain_reqs = [Request(prompt=r.prompt.copy(), max_new_tokens=32)
+                  for r in plain_reqs]
+    PagedEngine(cfg, params, ServeConfig(
+        max_slots=4, page_size=16, max_len=512)).generate(plain_reqs)
     probe = ChaosProbe(torch, cfg, params, ServeConfig(
         max_slots=4, page_size=16, max_len=512, oversubscribe=True,
         snapshot_every=CHAOS_SNAPSHOT_EVERY))
@@ -1905,7 +1949,8 @@ def chaos_main_trace(torch, np, cfg, params, plain_reqs, snap_dir, writes):
     launches = (pd.LAUNCHES, pv.LAUNCHES)
     c = rep["engine_counters"]
     n_tok = sum(len(r.generated) for r in out)
-    print(f"[chip_smoke] chaos (a): {n_tok} tokens in {wall:.3f} s "
+    print(f"[chip_smoke] chaos (a), depth {cfg.n_layers}: {n_tok} tokens in "
+          f"{wall:.3f} s "
           f"({n_tok / wall:.2f} tok/s); {rep['crashes']} crashes, "
           f"{rep['restores']} restores, {rep['snapshots_taken']} snapshots "
           f"({rep['snapshots_interrupted']} interrupted, "
@@ -1918,7 +1963,7 @@ def chaos_main_trace(torch, np, cfg, params, plain_reqs, snap_dir, writes):
     probe.report(np, "chaos (a)")
     want_kinds = dict(collections.Counter(k for k, _ in CHAOS_PLAN))
     checks = {
-        "the main path's tokens": ([r.generated for r in out]
+        "the undisturbed tokens": ([r.generated for r in out]
                                    == [r.generated for r in plain_reqs]),
         "one degradation": c["degradations"] == 1,
         "the plan fired whole": (rep["fired_by_kind"] == want_kinds
@@ -1926,7 +1971,7 @@ def chaos_main_trace(torch, np, cfg, params, plain_reqs, snap_dir, writes):
         "two restores": rep["crashes"] == rep["restores"] == 2,
         "one interrupted write": rep["snapshots_interrupted"] == 1,
         "one forced preemption": c["forced_preemptions"] == 1,
-        "decode launches 24 x fused decode forwards": (
+        f"decode launches {cfg.n_layers} x fused decode forwards": (
             launches == (cfg.n_layers * probe.fused["decode"], 0)
             and probe.fused["decode"] > 0),
         "degraded ticks timed": (len(probe.tick_ms[False]) > 0
@@ -2134,11 +2179,12 @@ def grids_and_planes(np, cold, warm):
     return same, planes, gap
 
 
-def store_warm_start(torch, np, cfg, params, store_dir, max_slots, label):
+def store_warm_start(torch, np, cfg, params, store_dir, max_slots, label,
+                     **kw):
     """(b): a cold engine on an empty store serves the trace and flushes
-    its registered blocks; a fresh engine on the store serves it again.
-    Returns the cold and warm engines, their tokens and the records
-    flushed."""
+    its registered blocks; a fresh engine on the store serves it again
+    (``kw``: more ServeConfig fields).  Returns the cold and warm engines,
+    their tokens and the records flushed."""
     from repro_torch.serving import ServeConfig
     rng = np.random.default_rng(11)
     prefix = rng.integers(0, cfg.vocab, STORE_PREFIX, dtype=np.int32)
@@ -2147,7 +2193,7 @@ def store_warm_start(torch, np, cfg, params, store_dir, max_slots, label):
         for _ in range(4)]
     scfg = ServeConfig(max_slots=max_slots, page_size=16, max_len=512,
                        pool_blocks=STORE_POOL_BLOCKS,
-                       prefix_store_dir=store_dir)
+                       prefix_store_dir=store_dir, **kw)
     cold, cold_tok, cold_s = serve_counted(
         torch, cfg, params, scfg, prompts, STORE_NEW, f"{label} cold")
     t = time.perf_counter()
@@ -2169,18 +2215,25 @@ def store_warm_start(torch, np, cfg, params, store_dir, max_slots, label):
 
 
 @phase("memory path")
-def memory_path_phase(torch, cfg, params, want_sampled, recompute_chunks):
-    """(a) swap-to-host on the sampled oversubscribed run, (b) the prefix
-    store at one slot, by construction, (b') at four slots, measured, (c)
-    the host prefix tier spilling to disk at cut depth.  Returns the decode
-    kernel's launches."""
+def memory_path_phase(torch, cfg, params, recompute_chunks):
+    """(a) swap-to-host on the sampled oversubscribed run at cut depth 4
+    (its schedule, and so the recompute run's prefill chunks, depends on
+    the prompt lengths alone), (b) the prefix store at one slot, by
+    construction, (b') at four slots, measured, (c) the host prefix tier
+    spilling to disk at cut depth.  Returns the decode kernel's
+    launches."""
     import tempfile
     import numpy as np
     tiers = TierLog(torch)
-    eng, got, launches, _, _ = serve_sampled(
-        torch, np, cfg, params, "memory (a) swap", probe=tiers.watch,
-        oversubscribe=True, pool_blocks=OVERSUB_POOL_BLOCKS,
-        swap_host_bytes=SWAP_HOST_BYTES)
+    cut, cut_params = cut_model(cfg, params)
+    _, want_sampled, launches, _, _ = serve_sampled(
+        torch, np, cut, cut_params,
+        f"memory (a) uncontended, depth {cut.n_layers}")
+    eng, got, swap_launches, _, _ = serve_sampled(
+        torch, np, cut, cut_params, f"memory (a) swap, depth {cut.n_layers}",
+        probe=tiers.watch, oversubscribe=True,
+        pool_blocks=OVERSUB_POOL_BLOCKS, swap_host_bytes=SWAP_HOST_BYTES)
+    launches += swap_launches
     c, rep = eng.counters, eng.memory_report()
     print(f"[chip_smoke] memory (a): {c['preemptions']} preemptions, "
           f"{c['swap_outs']} swap-outs, {c['swap_ins']} swap-ins "
@@ -2203,7 +2256,7 @@ def memory_path_phase(torch, cfg, params, want_sampled, recompute_chunks):
     if failed:
         raise SystemExit(f"[chip_smoke] memory (a) failed: {failed}")
     print(f"[chip_smoke] memory (a): {', '.join(checks)}, decode launches "
-          f"24 x ticks: all hold")
+          f"{cut.n_layers} x ticks: all hold")
 
     with tempfile.TemporaryDirectory() as tmp, tiers.store_patch():
         cold, cold_tok, warm, warm_tok, flushed = store_warm_start(
@@ -2688,6 +2741,52 @@ def mean_ms(xs) -> float:
     return float(sum(xs) / len(xs)) if xs else float("nan")
 
 
+def serve_main_trace(torch, np, eng, vocab, label, prefill_key):
+    """Serve the main trace greedily on ``eng``, every tick timed; returns
+    the tokens, tokens/s and the mean pure decode, pure prefill and mixed
+    tick."""
+    from repro_torch.serving import Request
+    reqs = make_requests(np, Request, 0, 8, 32, vocab)
+    ticks = timed_ticks(torch, eng, prefill_key)
+    t = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    n_tok = sum(len(r.generated) for r in reqs)
+    print(f"[chip_smoke] {label}: {n_tok} new tokens in {wall:.3f} s "
+          f"({n_tok / wall:.2f} tok/s); {len(ticks['decode'])} pure decode "
+          f"ticks at mean {mean_ms(ticks['decode']):.2f} ms, "
+          f"{len(ticks['prefill'])} pure prefill ticks at mean "
+          f"{mean_ms(ticks['prefill']):.2f} ms, {len(ticks['mixed'])} mixed "
+          f"at mean {mean_ms(ticks['mixed']):.2f} ms; counters "
+          f"{eng.counters}")
+    return dict(tokens=[r.generated for r in reqs], tok_s=n_tok / wall,
+                decode_ms=mean_ms(ticks["decode"]),
+                prefill_ms=mean_ms(ticks["prefill"]),
+                mixed_ms=mean_ms(ticks["mixed"]))
+
+
+def near_tie_divergence(label, tap, a_toks, b_toks):
+    """Run (b)'s tokens against run (a)'s: each request must equal (a)'s
+    or first differ where (a)'s logits (``tap``) are a near-tie, a gap of
+    at most 1e-3 of max |logit|.  Returns the divergences."""
+    diverged = []
+    for rid, (ta, tb) in enumerate(zip(a_toks, b_toks)):
+        if ta == tb:
+            continue
+        pos = next(i for i, (x, y) in enumerate(zip(ta, tb)) if x != y)
+        gap, amax = tap.gap(rid, pos, ta[pos], tb[pos])
+        print(f"[chip_smoke] {label} request {rid}: first differs at token "
+              f"{pos} ({ta[pos]} vs {tb[pos]}); the first run's logit gap "
+              f"{gap:.6e}, max |logit| {amax:.6e}, ratio {gap / amax:.3e}")
+        if not gap <= 1e-3 * amax:
+            raise SystemExit(f"[chip_smoke] {label}: request {rid} leaves "
+                             f"the first run's tokens at {pos} where its "
+                             f"logits are no near-tie")
+        diverged.append((rid, pos, gap, amax))
+    return diverged
+
+
 @phase("dense path")
 def dense_path_phase(torch, cfg, params, plain_reqs):
     """The dense serving slice at full width and depth, on the main trace:
@@ -2715,26 +2814,8 @@ def dense_path_phase(torch, cfg, params, plain_reqs):
     out = {}
 
     def serve(label, eng, prefill_key):
-        reqs = make_requests(np, Request, 0, 8, 32, cfg.vocab)
-        ticks = timed_ticks(torch, eng, prefill_key)
-        t = time.perf_counter()
-        eng.generate(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        n_tok = sum(len(r.generated) for r in reqs)
-        print(f"[chip_smoke] dense {label}: {n_tok} new tokens in "
-              f"{wall:.3f} s ({n_tok / wall:.2f} tok/s); "
-              f"{len(ticks['decode'])} pure decode ticks at mean "
-              f"{mean_ms(ticks['decode']):.2f} ms, {len(ticks['prefill'])} "
-              f"pure prefill ticks at mean {mean_ms(ticks['prefill']):.2f} "
-              f"ms, {len(ticks['mixed'])} mixed at mean "
-              f"{mean_ms(ticks['mixed']):.2f} ms; counters {eng.counters}")
-        out[label] = dict(tokens=[r.generated for r in reqs],
-                          tok_s=n_tok / wall,
-                          decode_ms=mean_ms(ticks["decode"]),
-                          prefill_ms=mean_ms(ticks["prefill"]),
-                          mixed_ms=mean_ms(ticks["mixed"]))
-        return reqs
+        out[label] = serve_main_trace(torch, np, eng, cfg.vocab,
+                                      f"dense {label}", prefill_key)
 
     # (a) paged on xla: a pure prefill tick is one 64-token chunk.
     paged = PagedEngine(dense, params, scfg)
@@ -2744,24 +2825,9 @@ def dense_path_phase(torch, cfg, params, plain_reqs):
     # then decodes (mixed).
     contiguous = ContinuousBatchingEngine(dense, params, scfg)
     serve("(b) contiguous xla", contiguous, "prefill_tokens")
-    a_toks, b_toks = out["(a) paged xla"]["tokens"], \
-        out["(b) contiguous xla"]["tokens"]
-    diverged = []
-    for rid, (ta, tb) in enumerate(zip(a_toks, b_toks)):
-        if ta == tb:
-            continue
-        pos = next(i for i, (x, y) in enumerate(zip(ta, tb)) if x != y)
-        gap, amax = tap.gap(rid, pos, ta[pos], tb[pos])
-        print(f"[chip_smoke] dense (b) request {rid}: first differs from (a) "
-              f"at token {pos} ({ta[pos]} vs {tb[pos]}); (a)'s logit gap "
-              f"{gap:.6e}, max |logit| {amax:.6e}, ratio "
-              f"{gap / amax:.3e}")
-        if not gap <= 1e-3 * amax:
-            raise SystemExit(f"[chip_smoke] dense: the contiguous engine's "
-                             f"request {rid} leaves the paged engine's "
-                             f"tokens at {pos} where (a)'s logits are no "
-                             f"near-tie")
-        diverged.append((rid, pos, gap, amax))
+    diverged = near_tie_divergence(
+        "dense (b) vs (a)", tap, out["(a) paged xla"]["tokens"],
+        out["(b) contiguous xla"]["tokens"])
     print(f"[chip_smoke] dense (b) vs (a): {8 - len(diverged)} of 8 "
           f"requests equal token for token"
           + (f"; the others first differ at near-ties {diverged}"
@@ -2839,6 +2905,314 @@ def dense_path_phase(torch, cfg, params, plain_reqs):
         r.pop("tokens")
     return dict(out, static_tok_s=n_tok / wall, contiguous_bytes=cont_bytes,
                 paged_peak_bytes=paged_peak, diverged=diverged)
+
+# ---------------------------------------------------------------------------
+# bf16 KV caches (ServeConfig.cache_dtype="bfloat16")
+# ---------------------------------------------------------------------------
+
+
+@phase("bf16 kernels")
+def bf16_kernel_phase(torch):
+    """(a) The decode and verify kernels' bf16-V forms at the kernel phases'
+    shape (bs=16) and on the striped walk (bs=512), against their plain
+    versions on the same bf16 pools: rounds, survivors and v_fetched equal,
+    out within OUT_TOL and bit for bit the f32 form's on the widened pool,
+    every real verify query equal to the bf16 decode at its position, the
+    V bytes each requested equal to the design's (2-byte values) and half
+    the f32 form's.  Each timed alone beside the f32 form on the widened
+    pool and its bound.  Returns {kernel name: [a row per page size]}."""
+    from repro_torch.core.besf import BitStopperConfig
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_verify as pv
+    cfg = BitStopperConfig(alpha=0.6)
+    rows = {"paged_decode": [], "paged_verify": []}
+    for bs, MB, P in ((16, 32, 129), LARGE_PAGES[0]):
+        shapes = dict(B=4, Hq=32, Hkv=32, D=64, bs=bs, MB=MB, P=P)
+        for name, mod, Sq, seed in (("paged_decode", pd, 1, 100),
+                                    ("paged_verify", pv, SPEC_K + 1, 200)):
+            f32 = decode_case(torch, seed, Sq=Sq, **shapes)
+            args = f32[:2] + (f32[2].to(torch.bfloat16),) + f32[3:]
+            wide = args[:2] + (args[2].float(),) + args[3:]
+            kern, plain = ((pd.paged_bitstopper_decode,
+                            pd.paged_bitstopper_decode_plain) if Sq == 1 else
+                           (pv.paged_bitstopper_verify,
+                            pv.paged_bitstopper_verify_plain))
+            label = f"{name} bf16 V, bs={bs}"
+            mod.copied_bytes()
+            mod.launch_kernel(*wide, cfg=cfg)
+            _, v32 = mod.copied_bytes()
+            _, rounds_h, surv = mod.launch_kernel(*args, cfg=cfg)
+            planes, v16 = mod.copied_bytes()
+            ker, ref = kern(*args, cfg=cfg), plain(*args, cfg=cfg)
+            ker32 = kern(*wide, cfg=cfg)
+            torch.cuda.synchronize()
+            for field in ("rounds", "survivors", "v_fetched"):
+                a, b = getattr(ker, field), getattr(ref, field)
+                if not torch.equal(a, b):
+                    raise SystemExit(f"[chip_smoke] {label}: {field} "
+                                     f"differs in {int((a != b).sum())} "
+                                     f"entries")
+            err = float((ker.out - ref.out).abs().max())
+            if not err <= OUT_TOL or not torch.equal(ker.out, ker32.out):
+                raise SystemExit(f"[chip_smoke] {label}: out differs from "
+                                 f"plain by {err} (tolerance {OUT_TOL}) or "
+                                 f"from the f32 form on the widened pool")
+            if Sq == 1:
+                B, Hq = args[0].shape[:2]
+                live_v = int(surv.reshape(B, 32, Hq // 32, MB, bs)
+                             .any(4).any(2).sum())
+                design = (decode_plane_bytes(args, rounds_h, None)[1],
+                          live_v * bs * args[2].shape[-1] * 2)
+                nbytes, ops = decode_bytes_ops(args, rounds_h, surv, False)
+            else:
+                design = verify_copy_bytes(args, surv, None)
+                nbytes, ops, _, _ = verify_bytes_ops(args, rounds_h, surv)
+                q, kq, v, table, lengths, q_pos, k_amax, v_amax = args
+                for s in range(Sq):
+                    dec = pd.paged_bitstopper_decode(
+                        q[:, s], kq, v, table, lengths[:, s].contiguous(),
+                        q_pos[:, s].contiguous(), k_amax, v_amax, cfg=cfg)
+                    real = lengths[:, s] > 0
+                    for field in ("out", "rounds", "survivors", "v_fetched"):
+                        if not torch.equal(getattr(dec, field)[real],
+                                           getattr(ker, field)[:, s][real]):
+                            raise SystemExit(
+                                f"[chip_smoke] {label}: query {s} {field} "
+                                f"differs from the bf16 decode at its "
+                                f"position")
+            if (planes, v16) != design or 2 * v16 != v32:
+                raise SystemExit(f"[chip_smoke] {label}: copied {planes} "
+                                 f"plane and {v16} V bytes; the design "
+                                 f"copies {design}, the f32 form {v32} V "
+                                 f"bytes")
+            iters = 50 if bs == 16 else 20
+            kargs, *held = mod.kernel_args(*args, cfg=cfg, stats=False)
+            kernel_ms = cuda_ms(torch, lambda: mod.launch_c(
+                *kargs, v_dtype=torch.bfloat16), iters=iters, warmup=5)
+            wargs, *held32 = mod.kernel_args(*wide, cfg=cfg, stats=False)
+            f32_ms = cuda_ms(torch, lambda: mod.launch_c(*wargs),
+                             iters=iters, warmup=5)
+            plain_ms = cuda_ms(torch, lambda: plain(*args, cfg=cfg,
+                                                    stats=False),
+                               iters=3 if bs == 16 else 1, warmup=1)
+            bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ops = ops / INT8_OPS_PER_S * 1e3
+            print(f"[chip_smoke] {label} (B=4, Sq={Sq}, H=32, D=64, "
+                  f"MB={MB}): rounds/survivors/v_fetched equal to plain; "
+                  f"max|out diff| {err:.3e}, out bit-equal to the f32 form "
+                  f"on the widened pool; copied {planes} plane and {v16} V "
+                  f"bytes (measured, as designed; the f32 form {v32}); "
+                  f"kernel alone {kernel_ms:.4f} ms (f32 form "
+                  f"{f32_ms:.4f}), plain {plain_ms:.3f} ms, bound "
+                  f"{max(bound_bytes, bound_ops):.5f} ms ({nbytes} bytes, "
+                  f"{ops} ops)"
+                  + ("; every real query equal to the bf16 decode"
+                     if Sq > 1 else ""))
+            rows[name].append({
+                "bs": bs, "ms": kernel_ms, "f32_ms": f32_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": max(bound_bytes, bound_ops),
+                "bound_by": ("bytes" if bound_bytes >= bound_ops
+                             else "operations"),
+                "max_abs_err": err, "v_bytes": v16, "f32_v_bytes": v32})
+    return rows
+
+
+@phase("bf16 path")
+def bf16_path_phase(torch, cfg, params, plain_reqs, f32_main):
+    """(b) the main trace at full width and depth on a bf16 cache, (c) at
+    cut depth 4 the kernel against the plain oracle, replayed speculation,
+    a sampled oversubscribed run with a swap tier and a prefix store cold
+    then warm, all at bf16, (d) the dense engines at bf16.  Returns the
+    decode and verify kernels' launches."""
+    import numpy as np
+    decode = bf16_main_trace(torch, np, cfg, params, plain_reqs, f32_main)
+    more, verify = bf16_cut_depth(torch, np, cfg, params)
+    bf16_dense(torch, np, cfg, params)
+    return decode + more, verify
+
+
+def bf16_main_trace(torch, np, cfg, params, plain_reqs, f32_main):
+    """(b): PagedEngine on bitstopper_xla with the decode kernel and a bf16
+    cache: one decode launch per layer per decode tick, tokens/s and the
+    decode tick, the byte reports against the f32 main path's (the same
+    schedule: equal peak blocks, the K/V bytes halved), and how many of
+    the 8 requests give the f32 main path's tokens (reported).  Returns the
+    decode launches."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.serving import PagedEngine, ServeConfig
+    eng = PagedEngine(cfg, params, ServeConfig(
+        max_slots=4, page_size=16, max_len=512, cache_dtype=BF16))
+    layer = eng.caches["seg0"][0]["b0"]
+    if not eng.cfg.fused_decode or layer["v"].dtype != torch.bfloat16:
+        raise SystemExit("[chip_smoke] bf16 (b): the engine did not resolve "
+                         "to the kernel over a bf16 pool")
+    with LaunchTimer(torch, pd) as timer:
+        pd.LAUNCHES = 0
+        run = serve_main_trace(torch, np, eng, cfg.vocab,
+                               "bf16 (b) main trace", "prefill_chunks")
+        launches = pd.LAUNCHES
+    steps = eng.counters["decode_steps"]
+    if launches != cfg.n_layers * steps or not steps:
+        raise SystemExit(f"[chip_smoke] bf16 (b): {launches} decode "
+                         f"launches for {steps} ticks x {cfg.n_layers} "
+                         f"layers")
+    for toks in run["tokens"]:
+        if len(toks) != 32 or not all(0 <= x < cfg.vocab for x in toks):
+            raise SystemExit(f"[chip_smoke] bf16 (b): generated {toks}")
+    same = sum(t == r.generated for t, r in zip(run["tokens"], plain_reqs))
+    kv16 = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    peak = eng.kv_bytes_resident()
+    want = f32_main["kv_bytes_resident"] - (
+        f32_main["peak_blocks"] * eng.scfg.page_size * kv16)
+    rep = eng.memory_report()
+    print(f"[chip_smoke] bf16 (b): {run['tok_s']:.2f} tok/s and pure decode "
+          f"ticks of {run['decode_ms']:.2f} ms against the f32 main path's "
+          f"{f32_main['tok_s']:.2f} and {f32_main['decode_ms']:.2f} ms (this "
+          f"call); paged_decode launches {launches} = {cfg.n_layers} x "
+          f"{steps} ticks ({timer.ms() / max(launches, 1):.4f} ms per launch,"
+          f" CUDA events); {same} of 8 requests give the f32 main path's "
+          f"tokens (reported, not checked)")
+    ratio = peak / f32_main["kv_bytes_resident"]
+    print(f"[chip_smoke] bf16 (b): kv_bytes_resident() {peak} against "
+          f"{f32_main['kv_bytes_resident']} at f32 ({ratio:.4f}); {kv16} "
+          f"K/V bytes a token instead of {2 * kv16}; memory_report() {rep} "
+          f"against {f32_main['memory_report']}")
+    if (eng.pool.peak_live_blocks != f32_main["peak_blocks"]
+            or peak != want):
+        raise SystemExit(f"[chip_smoke] bf16 (b): peak blocks "
+                         f"{eng.pool.peak_live_blocks} (f32 "
+                         f"{f32_main['peak_blocks']}), kv_bytes_resident "
+                         f"{peak}, want {want}")
+    return launches
+
+
+def bf16_cut_depth(torch, np, cfg, params):
+    """(c) at cut depth 4, bf16 caches: the main trace with the kernel and
+    with the plain oracle (equal tokens), served again speculatively with
+    drafts replaying the kernel run's tokens (equal tokens), the sampled
+    oversubscribed run with a swap tier (the uncontended sampled tokens),
+    and a prefix store cold then warm at one slot (equal tokens, scales
+    and planes).  Returns the decode and verify launches."""
+    import tempfile
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
+    cut, cut_params = cut_model(cfg, params)
+    depth = cut.n_layers
+    streams, launches = {}, 0
+    for fused in (True, False):
+        eng = PagedEngine(cut, cut_params, ServeConfig(
+            max_slots=4, page_size=16, max_len=512, cache_dtype=BF16,
+            fused_decode=fused))
+        reqs = make_requests(np, Request, 0, 8, 32, cfg.vocab)
+        pd.LAUNCHES = 0
+        t = time.perf_counter()
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        steps = eng.counters["decode_steps"]
+        if pd.LAUNCHES != (depth * steps if fused else 0) or not steps:
+            raise SystemExit(f"[chip_smoke] bf16 (c) fused={fused}: "
+                             f"{pd.LAUNCHES} decode launches for {steps} "
+                             f"ticks x {depth} layers")
+        launches += pd.LAUNCHES
+        streams[fused] = reqs
+        print(f"[chip_smoke] bf16 (c) depth {depth}, fused_decode={fused}: "
+              f"the main trace in {wall:.3f} s, {steps} decode ticks, "
+              f"{pd.LAUNCHES} decode launches")
+    want = [r.generated for r in streams[True]]
+    if want != [r.generated for r in streams[False]]:
+        raise SystemExit("[chip_smoke] bf16 (c): the kernel and the plain "
+                         "oracle disagree")
+    eng, got, verify, verify_ticks = serve_speculative(
+        torch, np, cut, cut_params, [r.prompt for r in streams[True]], 32,
+        ReplayDrafter(np, streams[True]),
+        f"bf16 (c) speculative replay, depth {depth}", speculative="draft",
+        cache_dtype=BF16)
+    launches += pd.LAUNCHES            # the speculative run's decodes
+    if got != want or not verify_ticks:
+        raise SystemExit(f"[chip_smoke] bf16 (c): speculative tokens "
+                         f"{'differ' if got != want else 'equal'}, "
+                         f"{len(verify_ticks)} verify ticks")
+
+    _, want_s, l1, _, _ = serve_sampled(
+        torch, np, cut, cut_params, f"bf16 (c) sampled, depth {depth}",
+        cache_dtype=BF16)
+    eng, got, l2, _, _ = serve_sampled(
+        torch, np, cut, cut_params, f"bf16 (c) sampled swap, depth {depth}",
+        oversubscribe=True, pool_blocks=OVERSUB_POOL_BLOCKS,
+        swap_host_bytes=SWAP_HOST_BYTES, cache_dtype=BF16)
+    launches += l1 + l2
+    c, rep = eng.counters, eng.memory_report()
+    checks = {
+        "the uncontended sampled tokens": got == want_s,
+        "a preemption swapped out and in": (
+            c["preemptions"] >= 1 and c["swap_outs"] >= 1
+            and c["swap_ins"] >= 1),
+        "the swap pool empty": rep["host_swap_bytes"] == 0 < rep[
+            "host_swap_bytes_peak"],
+        "the pool drained": eng.pool.available() == eng.pool.capacity,
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        cold, cold_tok, warm, warm_tok, flushed = store_warm_start(
+            torch, np, cut, cut_params, f"{tmp}/store", 1,
+            f"bf16 (c) store, depth {depth}", cache_dtype=BF16)
+        same, planes, _ = grids_and_planes(np, cold, warm)
+        checks.update({
+            "the cold store tokens when warm": warm_tok == cold_tok,
+            "every scale and plane byte equal warm": same and planes,
+            "at least 16 store hits": (
+                flushed >= 16 and warm.counters["prefix_store_hits"] >= 16),
+        })
+        launches += depth * (cold.counters["decode_steps"]
+                             + warm.counters["decode_steps"])
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"[chip_smoke] bf16 (c) failed: {failed}")
+    print(f"[chip_smoke] bf16 (c): swap {c['swap_outs']} out, "
+          f"{c['swap_ins']} in, memory_report() {rep}; store "
+          f"{flushed} records, {warm.counters['prefix_store_hits']} hits "
+          f"warm; the kernel's and the oracle's tokens, the replayed "
+          f"drafts' tokens ({verify} verify launches), "
+          f"{', '.join(checks)}: all hold")
+    return launches, verify
+
+
+def bf16_dense(torch, np, cfg, params):
+    """(d) the dense engines on a bf16 cache at full width and depth:
+    ContinuousBatchingEngine on xla gives PagedEngine on xla's tokens, or
+    first differs where the paged run's logits are a near-tie; the
+    contiguous cache's resident bytes are half the f32 cache's.  No kernel
+    of the port launches."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_verify as pv
+    from repro_torch.serving import (ContinuousBatchingEngine, PagedEngine,
+                                     ServeConfig)
+    pd.LAUNCHES = pv.LAUNCHES = 0
+    dense = cfg.replace(attn_impl="xla")
+    scfg = ServeConfig(max_slots=4, page_size=16, max_len=512,
+                       cache_dtype=BF16)
+    paged = PagedEngine(dense, params, scfg)
+    tap = LogitTap(torch, paged)
+    a = serve_main_trace(torch, np, paged, cfg.vocab, "bf16 (d) paged xla",
+                         "prefill_chunks")
+    contiguous = ContinuousBatchingEngine(dense, params, scfg)
+    b = serve_main_trace(torch, np, contiguous, cfg.vocab,
+                         "bf16 (d) contiguous xla", "prefill_tokens")
+    diverged = near_tie_divergence("bf16 (d) contiguous vs paged", tap,
+                                   a["tokens"], b["tokens"])
+    want = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2 * 512 * 4
+    got = contiguous.kv_bytes_resident()
+    print(f"[chip_smoke] bf16 (d): {8 - len(diverged)} of 8 requests equal "
+          f"token for token"
+          + (f", the others first differ at near-ties {diverged}"
+             if diverged else "")
+          + f"; contiguous kv_bytes_resident {got}, paged peak "
+          f"{paged.kv_bytes_resident()}")
+    if got != want or pd.LAUNCHES or pv.LAUNCHES:
+        raise SystemExit(f"[chip_smoke] bf16 (d): contiguous bytes {got} "
+                         f"(want {want}), kernel launches {pd.LAUNCHES}, "
+                         f"{pv.LAUNCHES}")
 
 
 @phase("profile")
@@ -2966,9 +3340,18 @@ def main(argv=None):
         for row in rows[:2]:
             row.setdefault("pages", []).append(dict(page[row["name"]],
                                                     bs=page["bs"]))
+    bf16 = bf16_kernel_phase(torch)
+    for row in rows[:2]:
+        main, *pages = bf16[row["name"]]
+        row["bf16"] = dict(
+            {k: v for k, v in row.items() if k in ("route", "source",
+                                                    "replaces")},
+            name=f"{row['name']} (bf16 V)", library_ms=None, pages=pages,
+            **{k: main[k] for k in ("ms", "f32_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "max_abs_err")})
     cfg, params = build_model(torch)
-    rows[0]["launches"], plain_reqs, greedy_tick_ms = main_path_phase(
-        torch, cfg, params)
+    rows[0]["launches"], plain_reqs, greedy_tick_ms, f32_main = \
+        main_path_phase(torch, cfg, params)
     rows[0]["launches_large_page_engine"] = large_page_engine_phase(
         torch, cfg, params)
     rows[1]["launches"], ngram_prompts = speculative_phase(
@@ -2976,17 +3359,19 @@ def main(argv=None):
     rows[2]["launches"], rows[3]["launches"] = forward_path_phase(
         torch, cfg, params)
     (rows[0]["launches_sampled_path"], rows[1]["launches_sampled_path"],
-     want_sampled, recompute_chunks) = sampled_path_phase(
-        torch, cfg, params, greedy_tick_ms)
+     recompute_chunks) = sampled_path_phase(torch, cfg, params,
+                                            greedy_tick_ms)
     (rows[0]["launches_chaos_path"],
      rows[1]["launches_chaos_path"]) = chaos_path_phase(
         torch, cfg, params, plain_reqs, ngram_prompts)
     rows[0]["launches_memory_path"] = memory_path_phase(
-        torch, cfg, params, want_sampled, recompute_chunks)
+        torch, cfg, params, recompute_chunks)
     rows[0]["launches_frontdoor_path"] = frontdoor_path_phase(
         torch, cfg, params, plain_reqs)
     dense = dense_path_phase(torch, cfg, params, plain_reqs)
     print(f"[chip_smoke] dense path summary: {json.dumps(dense)}")
+    rows[0]["bf16"]["launches"], rows[1]["bf16"]["launches"] = \
+        bf16_path_phase(torch, cfg, params, plain_reqs, f32_main)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -18,11 +18,19 @@ runs between the two (the chaos harness's ``checkpoint_interrupt``), and
 :func:`gc_staging` reclaims the staging orphans a dead writer leaves.
 
 A prefix record is one registered prefix block (``PagedEngine``'s disk
-tier): its f32 K/V rows and ``pos`` plane per paged layer, in the
-reference's layer layout (a segment the reference stacks is one entry with
-a leading reps axis), under the sha256 digest of its full token chain.  The
+tier): its K/V rows and ``pos`` plane per paged layer, in the reference's
+layer layout (a segment the reference stacks is one entry with a leading
+reps axis), under the sha256 digest of its full token chain.  The
 MANIFEST carries the chain itself and a load checks it, so a digest
 collision reads as a miss, never as another prefix's KV.
+
+A bf16 cache's K/V rows travel as their bits (uint16 host arrays; numpy
+has no bf16).  They are stored as their raw 2-byte values under the type
+the reference's ml_dtypes arrays are stored under (``<V2``), so a record
+holds the same bytes whichever package wrote it, and a load gives any
+2-byte field back as uint16 bits.  The reference itself cannot load such
+a record (its ``astype`` refuses the void type; ROADMAP C7); the port
+loads both packages' records.
 
 The pytree checkpoints of the reference (``save_checkpoint``,
 ``load_checkpoint``, ``CheckpointManager``) come with training (ROADMAP).
@@ -36,6 +44,7 @@ import os
 import shutil
 import tempfile
 import time
+import zipfile
 
 import numpy as np
 
@@ -162,7 +171,7 @@ def save_prefix_record(directory: str, chain, layers,
     chain.
 
     ``layers`` holds one dict of host arrays per paged layer, the block's
-    f32 ``k``/``v`` rows and ``pos`` plane as
+    ``k``/``v`` rows (f32, or bf16 bits as uint16) and ``pos`` plane as
     :func:`repro_torch.models.attention.extract_block_rows` gives them for
     one block.  Packed planes and scales are not stored: the loading engine
     derives its own from the rows through the write rule's scale update, so
@@ -183,7 +192,7 @@ def save_prefix_record(directory: str, chain, layers,
     for i, layer in enumerate(layers):
         for field, arr in layer.items():
             flat[f"L{i}__{field}"] = np.asarray(arr)
-    np.savez(os.path.join(tmp, "record.npz"), **flat)
+    _savez(os.path.join(tmp, "record.npz"), flat)
     with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
         json.dump({"kind": "prefix", "chain": chain,
                    "n_layers": len(layers)}, f)
@@ -209,8 +218,28 @@ def load_prefix_record(directory: str, chain):
     with np.load(os.path.join(d, "record.npz")) as z:
         for k in z.files:
             li, field = k.split("__", 1)
-            layers[int(li[1:])][field] = z[k]
+            a = z[k]
+            if a.dtype.itemsize == 2 and a.dtype.kind == "V":
+                a = a.view(np.uint16)             # bf16 bits
+            layers[int(li[1:])][field] = a
     return layers
+
+
+def _savez(path: str, arrays: dict) -> None:
+    """``np.savez`` (uncompressed, one ``<key>.npy`` member per array, zip64
+    forced as numpy forces it), writing a uint16 array, bf16 bits, with the
+    header ml_dtypes' bf16 gets there: descr ``<V2``."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                if arr.dtype != np.uint16:
+                    np.lib.format.write_array(f, arr)
+                    continue
+                np.lib.format.write_array_header_1_0(
+                    f, {"descr": "<V2", "fortran_order": False,
+                        "shape": arr.shape})
+                f.write(np.ascontiguousarray(arr).tobytes())
 
 
 def _prefix_dirs(directory: str) -> list[str]:

@@ -301,8 +301,8 @@ def paged_decode_rows(
 
 def besf_attention_decode_paged(
     q: torch.Tensor,            # [B, Hq, d]: one decode query per slot
-    k_pool: torch.Tensor,       # [P, page_size, Hkv, d] f32 pool
-    v_pool: torch.Tensor,       # [P, page_size, Hkv, dv] f32 pool
+    k_pool: torch.Tensor,       # [P, page_size, Hkv, d] f32 or bf16 pool
+    v_pool: torch.Tensor,       # [P, page_size, Hkv, dv] f32 or bf16 pool
     table: torch.Tensor,        # [B, MB] int32 block tables
     lengths: torch.Tensor,      # [B] int32 fill levels
     q_positions: torch.Tensor,  # [B] int32 absolute query positions
@@ -339,8 +339,8 @@ class PagedVerifyOutput(NamedTuple):
 
 def besf_attention_verify_paged(
     q: torch.Tensor,            # [B, Sq, Hq, d]: the draft block per slot
-    k_pool: torch.Tensor,       # [P, page_size, Hkv, d] f32 pool
-    v_pool: torch.Tensor,       # [P, page_size, Hkv, dv] f32 pool
+    k_pool: torch.Tensor,       # [P, page_size, Hkv, d] f32 or bf16 pool
+    v_pool: torch.Tensor,       # [P, page_size, Hkv, dv] f32 or bf16 pool
     table: torch.Tensor,        # [B, MB] int32 block tables
     lengths: torch.Tensor,      # [B, Sq] int32 per-query fill levels
     q_positions: torch.Tensor,  # [B, Sq] int32 absolute query positions

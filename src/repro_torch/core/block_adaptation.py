@@ -38,9 +38,9 @@ class BlockBESFOutput(NamedTuple):
 
 def _quantize_rows(x: torch.Tensor, bits: int):
     """Per-slice :func:`qlib.quantize` over a leading batch of [S, d]
-    slices -> (int32 values, f32 scale [N])."""
-    scale = qlib.scale_from_amax(x.abs().amax((1, 2)), bits)
-    return qlib.quantize_with_scale(x, scale[:, None, None], bits), scale
+    slices, in ``x``'s dtype -> (int32 values, f32 scale [N])."""
+    q, scale = qlib.quantize(x, bits, dims=(1, 2))
+    return q, scale.reshape(-1)
 
 
 class BlockOperands(NamedTuple):
@@ -58,17 +58,18 @@ def block_prep(q, k, v, cfg: BitStopperConfig) -> BlockOperands:
     """Per-slice quantization, margins and LATS scalars of q [N, Sq, d],
     k [N, Sk, d], v [N, Sk, dv], with the reference's float operations in
     its order (``bitstopper_qk.py:319-338``, ``block_adaptation.py:53-69``).
-    """
+    K and V quantize in their own dtype, as the reference's do: a bf16
+    cache's view gets bf16 scales and quotients."""
     bits = cfg.bits
     sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     q_int, q_scale = _quantize_rows(q.float(), bits)
-    k_int, k_scale = _quantize_rows(k.float(), bits)
+    k_int, k_scale = _quantize_rows(k, bits)
     m_min, m_max = margins_lib.bit_margins(q_int, bits)
     scale_total = q_scale * k_scale * sm_scale
     # A true IEEE division (``python_float / tensor`` is not one in torch).
     radius_int = torch.full_like(scale_total, cfg.radius) / scale_total
     if cfg.quantize_v:
-        v_int, v_scale = _quantize_rows(v.float(), bits)
+        v_int, v_scale = _quantize_rows(v, bits)
         v_eff = v_int.float() * v_scale[:, None, None]
     else:
         v_eff = v.float()

@@ -5,9 +5,11 @@ Counterpart of ``repro/core/quantization.py``.  Keys are quantized to
 into bit planes, most significant (sign) plane first: plane 0 weighs
 ``-2^(bits-1)``, plane r >= 1 weighs ``2^(bits-1-r)``.
 
-Every function here is exact integer work or a single IEEE f32 operation
-per element (``x / scale``, ``round`` half to even), so its results equal
-the JAX package's bit for bit.
+Every function here is exact integer work or a single IEEE operation per
+element (``x / scale``, ``round`` half to even), so its results equal the
+JAX package's bit for bit.  :func:`quantize` computes in its input's dtype,
+as the reference's does: a bf16 tensor (a bf16 KV cache's view) gets a bf16
+scale and bf16 quotients, each a correctly rounded bf16 operation.
 """
 
 from __future__ import annotations
@@ -26,10 +28,16 @@ def plane_weights_int(bits: int = DEFAULT_BITS,
     return w.to(torch.int32)
 
 
-def quantize(x: torch.Tensor, bits: int = DEFAULT_BITS):
-    """Symmetric per-tensor PTQ.  Returns (int32 values, f32 scale)."""
-    scale = scale_from_amax(x.abs().amax(), bits)
-    return quantize_with_scale(x, scale, bits), scale
+def quantize(x: torch.Tensor, bits: int = DEFAULT_BITS, dims=None):
+    """Symmetric PTQ over the whole tensor, or per slice over ``dims``
+    (the scale keeps those dims, size 1), in ``x``'s dtype: ``max(max|x|,
+    1e-12) / qmax`` and ``clip(round(x / scale))``.  Returns (int32 values,
+    f32 scale)."""
+    qmax = 2 ** (bits - 1) - 1
+    amax = x.abs().amax() if dims is None else x.abs().amax(dims, True)
+    scale = torch.clamp(amax, min=1e-12) / qmax
+    q = torch.clamp(torch.round(x / scale), -(qmax + 1), qmax)
+    return q.to(torch.int32), scale.float()
 
 
 def scale_from_amax(amax: torch.Tensor, bits: int = DEFAULT_BITS):

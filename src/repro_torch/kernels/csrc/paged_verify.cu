@@ -36,6 +36,9 @@
 //    rows, written as rounds_h [B, Hkv, Sq, MB]; the wrapper takes the max
 //    over KV heads (per head the live rounds form a prefix;
 //    tests/test_torch_paged_verify.py proves the rule).
+//  * A bf16 V pool runs the same kernel with V of __nv_bfloat16, laid out
+//    as the decode's: pages copied as bf16 into the first half of the f32
+//    form's V double buffer and widened (or quantized) into its second.
 //  * Launches given a survivors output add the plane and V bytes they
 //    request to a device counter (paged_verify_copied_bytes).  Physical
 //    plane bytes are every plane of every page some row of a block
@@ -53,9 +56,10 @@
 // the decode does, with the same query groups.
 //
 // Limits, those of the decode: bs <= 1024, bits <= 16, D <= 256 and a
-// multiple of 16, Dv a multiple of 4, pools 16-byte aligned, the block's
-// shared memory within the card's 227 KB; the wrapper raises on anything
-// else (on the last through the launch's error).
+// multiple of 16, Dv a multiple of 4 (of 8 for a bf16 V pool), pools
+// 16-byte aligned, the block's shared memory within the card's 227 KB; the
+// wrapper raises on anything else (on the last through the launch's
+// error).
 
 #include "paged_walk.cuh"
 
@@ -68,10 +72,10 @@ __host__ __device__ inline int group_queries(int G) {
   return G < 4 ? 4 / G : 1;
 }
 
-// NB: planes rounded up to a multiple of 4 (4, 8, 12 or 16).  KT: token
-// chunks of 32 a walk lane may hold (1 for pages of up to 32 tokens, 8 for
-// up to 256).
-template <int NB, int KT>
+// VT: the V pool's values (float or __nv_bfloat16).  NB: planes rounded up
+// to a multiple of 4 (4, 8, 12 or 16).  KT: token chunks of 32 a walk lane
+// may hold (1 for pages of up to 32 tokens, 8 for up to 256).
+template <typename VT, int NB, int KT>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 paged_verify_kernel(const int32_t* __restrict__ q_int,  // [B*Sq, Hq, D]
                     const float* __restrict__ m_min,    // [bits, B*Sq, Hq]
@@ -80,7 +84,7 @@ paged_verify_kernel(const int32_t* __restrict__ q_int,  // [B*Sq, Hq, D]
                     const float* __restrict__ alpha_radius,  // [B*Sq, Hq]
                     const float* __restrict__ v_scale,       // [Hkv]
                     const uint8_t* __restrict__ kq,  // [P, bits, bs/8, Hkv, D]
-                    const float* __restrict__ v,             // [P, bs, Hkv, Dv]
+                    const VT* __restrict__ v,                // [P, bs, Hkv, Dv]
                     const int32_t* __restrict__ table,       // [B, MB]
                     const int32_t* __restrict__ lengths,     // [B, Sq]
                     const int32_t* __restrict__ q_pos,       // [B, Sq]
@@ -114,6 +118,10 @@ paged_verify_kernel(const int32_t* __restrict__ q_int,  // [B*Sq, Hq, D]
   uint64_t* vbar = pbar + 2;                               // [2] V
   uint8_t* pbuf = smem + 32;                               // [2, bits, bs8, D]
   float* vbuf = reinterpret_cast<float*>(pbuf + 2 * plane_bytes);  // [2,bs,Dv]
+  // V pages in flight, [2, bs, Dv] of VT, as in the decode kernel.
+  constexpr bool kF32 = std::is_same<VT, float>::value;
+  VT* vraw = reinterpret_cast<VT*>(vbuf);
+  float* vf = vbuf + bs * Dv;
   float* acc_s = vbuf + 2 * bs * Dv;                       // [RL, Dv]
   uint32_t* qlo_s = reinterpret_cast<uint32_t*>(acc_s + RL * Dv);  // [RL, W]
   uint32_t* qhi_s = qlo_s + RL * W;                        // [RL, W]
@@ -294,19 +302,20 @@ paged_verify_kernel(const int32_t* __restrict__ q_int,  // [B*Sq, Hq, D]
           rounds_h[(((size_t)b * Hkv + h) * Sq + s0 + s) * MB + j] = rmax;
       }
       if (live)
-        copy_v(vbuf + cur * bs * Dv, v, tab_s[j], h, bs, Hkv, Dv, vbar + cur,
+        copy_v(vraw + cur * bs * Dv, v, tab_s[j], h, bs, Hkv, Dv, vbar + cur,
                ew * 32 + lane, nep * 32, count);
     }
     if (prev_live) {
       const int pc = cur ^ 1;
       mbar_wait(vbar + pc, (vloads >> pc) & 1);
       vloads ^= 1u << pc;
-      float* vp = vbuf + pc * bs * Dv;
-      if (quantize_v)
-        quantize_v_page(vp,
+      const VT* vin = vraw + pc * bs * Dv;
+      float* vp = kF32 ? vbuf + pc * bs * Dv : vf;
+      if (quantize_v || !kF32)
+        quantize_v_page(vp, vin,
                         v + ((size_t)tab_s[pg_s[i - 1]] * bs * Hkv + h) * Dv,
                         bs, Dv, Hkv, ew * 32 + lane, nep * 32, vs, vs_recip,
-                        vs_fast, qmax);
+                        vs_fast, qmax, quantize_v);
       const int pfb = (fb + 2) % 3;         // page i-1's fin_s/sv_s
       for (int r = hs; r < R; r += nwk)
         if ((prev_live >> (r / G)) & 1)
@@ -355,55 +364,72 @@ size_t smem_bytes(int G, int D, int Dv, int bs, int bits, int MB) {
       lengths, q_pos, out, rounds_h, surv, B, Sq, Hq, Hkv, D, Dv, bits, bs,  \
       MB, min_rounds, quantize_v, has_window, window, stream
 
-template <int NB, int KT>
+template <typename VT, int NB, int KT>
 int launch(PV_PARAMS) {
   const int G = Hq / Hkv;
   const size_t smem = smem_bytes(G, D, Dv, bs, bits, MB);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_verify_kernel<NB, KT>,
+        paged_verify_kernel<VT, NB, KT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int QG = group_queries(G);
   dim3 grid(Hkv, B, (Sq + QG - 1) / QG);
-  paged_verify_kernel<NB, KT><<<grid, block_threads(G), smem,
-                                (cudaStream_t)stream>>>(
+  paged_verify_kernel<VT, NB, KT><<<grid, block_threads(G), smem,
+                                    (cudaStream_t)stream>>>(
       (const int32_t*)q_int, (const float*)m_min, (const float*)m_max,
       (const float*)scale_total, (const float*)alpha_radius,
-      (const float*)v_scale, (const uint8_t*)kq, (const float*)v,
+      (const float*)v_scale, (const uint8_t*)kq, (const VT*)v,
       (const int32_t*)table, (const int32_t*)lengths, (const int32_t*)q_pos,
       (float*)out, (int32_t*)rounds_h, (int8_t*)surv, B, Sq, Hq, Hkv, D, Dv,
       bits, bs, MB, min_rounds, quantize_v, has_window, window);
   return (int)cudaGetLastError();
 }
 
+// Checks the widths, then launches the kernel for them: the striped walk
+// for pages over 256 tokens, else paged_verify_kernel at the plane count
+// and token chunks the page needs.
+template <typename VT>
+int dispatch(PV_PARAMS) {
+  if (B == 0 || Sq == 0 || Hkv == 0) return 0;
+  if (bs % 8 || bs > kMaxStripedBs || bits < 2 || bits > kMaxBits ||
+      D % 16 || D > kMaxD || Dv % kVPiece<VT> ||
+      (reinterpret_cast<uintptr_t>(kq) | reinterpret_cast<uintptr_t>(v)) & 15)
+    return (int)cudaErrorInvalidValue;
+  if (bs > kMaxBs)   // the striped walk (paged_walk.cuh)
+    return launch_striped<VT>(q_int, m_min, m_max, scale_total, alpha_radius,
+                              v_scale, kq, v, table, lengths, q_pos, out,
+                              rounds_h, surv, B, Sq, Hq, Hkv, D, Dv, bits, bs,
+                              MB, min_rounds, quantize_v, has_window, window,
+                              group_queries(Hq / Hkv), stream);
+  if (bs > 32) {
+    if (bits <= 4) return launch<VT, 4, 8>(PV_ARGS);
+    if (bits <= 8) return launch<VT, 8, 8>(PV_ARGS);
+    if (bits <= 12) return launch<VT, 12, 8>(PV_ARGS);
+    return launch<VT, 16, 8>(PV_ARGS);
+  }
+  if (bits <= 4) return launch<VT, 4, 1>(PV_ARGS);
+  if (bits <= 8) return launch<VT, 8, 1>(PV_ARGS);
+  if (bits <= 12) return launch<VT, 12, 1>(PV_ARGS);
+  return launch<VT, 16, 1>(PV_ARGS);
+}
+
 }  // namespace
+
+// The V pool type of this library: the source builds into two libraries,
+// libpaged_verify (f32 V) and, with -DPAGED_V_BF16, libpaged_verify_bf16
+// (bf16 V, Dv a multiple of 8), compiled side by side.
+#ifdef PAGED_V_BF16
+typedef __nv_bfloat16 VPool;
+#else
+typedef float VPool;
+#endif
 
 // Plain C entry point (loaded with ctypes).  Returns the CUDA error code of
 // the launch (0 on success); the caller raises on anything else.
 extern "C" int paged_verify_launch(PV_PARAMS) {
-  if (B == 0 || Sq == 0 || Hkv == 0) return 0;
-  if (bs % 8 || bs > kMaxStripedBs || bits < 2 || bits > kMaxBits ||
-      D % 16 || D > kMaxD || Dv % 4 ||
-      (reinterpret_cast<uintptr_t>(kq) | reinterpret_cast<uintptr_t>(v)) & 15)
-    return (int)cudaErrorInvalidValue;
-  if (bs > kMaxBs)   // the striped walk (paged_walk.cuh)
-    return launch_striped(q_int, m_min, m_max, scale_total, alpha_radius,
-                          v_scale, kq, v, table, lengths, q_pos, out,
-                          rounds_h, surv, B, Sq, Hq, Hkv, D, Dv, bits, bs, MB,
-                          min_rounds, quantize_v, has_window, window,
-                          group_queries(Hq / Hkv), stream);
-  if (bs > 32) {
-    if (bits <= 4) return launch<4, 8>(PV_ARGS);
-    if (bits <= 8) return launch<8, 8>(PV_ARGS);
-    if (bits <= 12) return launch<12, 8>(PV_ARGS);
-    return launch<16, 8>(PV_ARGS);
-  }
-  if (bits <= 4) return launch<4, 1>(PV_ARGS);
-  if (bits <= 8) return launch<8, 1>(PV_ARGS);
-  if (bits <= 12) return launch<12, 1>(PV_ARGS);
-  return launch<16, 1>(PV_ARGS);
+  return dispatch<VPool>(PV_ARGS);
 }
 
 // The bytes the kernel has requested with cp.async, planes in host[0] and V

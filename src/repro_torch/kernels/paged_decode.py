@@ -15,6 +15,10 @@ Counterpart of ``repro/kernels/paged_decode.py`` (the Pallas TPU kernel
   decode went through the kernel, and :func:`copied_bytes`, the plane and
   V bytes the kernel requested, so a run measures what it copied.
 
+The V pool is f32 or bf16 (``ServeConfig.cache_dtype``): the kernel copies
+a bf16 page as it is, half the bytes, and widens it in shared memory; the
+plain version widens with ``.float()``, as the reference does.
+
 The kernel runs one thread block per (slot, KV head).  Walk warps, one
 per query head, run the LATS rounds on planes already in shared memory
 (all planes of a page, copied two pages ahead) and synchronise only within
@@ -41,7 +45,8 @@ import torch
 
 from repro_torch.core.besf import (BitStopperConfig, PagedDecodeOutput,
                                    paged_decode_rows, paged_decode_prep)
-from repro_torch.kernels.runtime import load_library, on_card
+from repro_torch.kernels.runtime import (load_library, loaded_library,
+                                         on_card)
 
 LAUNCHES = 0
 MAX_PAGE = 1024         # tokens a page may hold in the kernels (pages over
@@ -49,6 +54,10 @@ MAX_PAGE = 1024         # tokens a page may hold in the kernels (pages over
 
 _ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 12
              + [ctypes.c_void_p])
+
+# V pool types the kernels take: the suffix of the kernel's library for the
+# type (runtime.py builds both from one source) and the value's bytes.
+V_DTYPES = {torch.float32: ("", 4), torch.bfloat16: ("_bf16", 2)}
 
 
 def _unpack_pages(kq_pages: torch.Tensor) -> torch.Tensor:
@@ -77,17 +86,21 @@ def _check(q, kq_pool, v_pool, table, lengths, q_positions, cfg):
                          f"{tuple(lengths.shape)}, {tuple(q_positions.shape)}")
 
 
-def kernel_refusal(page: int, head_dim: int, v_width: int,
-                   bits: int) -> str | None:
-    """Why the CUDA kernels (decode and verify) refuse these widths, or
-    None if they take them."""
+def kernel_refusal(page: int, head_dim: int, v_width: int, bits: int,
+                   v_dtype: torch.dtype = torch.float32) -> str | None:
+    """Why the CUDA kernels (decode and verify) refuse these widths over a
+    V pool of ``v_dtype``, or None if they take them."""
     if page > MAX_PAGE or page % 8:
         return (f"pages of a multiple of 8 tokens, at most {MAX_PAGE}, got "
                 f"{page}")
     if head_dim > 256 or head_dim % 16:
         return f"head_dim at most 256 and a multiple of 16, got {head_dim}"
-    if v_width % 4:
-        return f"a V width that is a multiple of 4, got {v_width}"
+    if v_dtype not in V_DTYPES:
+        return f"an f32 or bf16 V pool, got {v_dtype}"
+    piece = 16 // V_DTYPES[v_dtype][1]
+    if v_width % piece:
+        return (f"a V width that is a multiple of {piece} (16-byte pieces of "
+                f"{v_dtype}), got {v_width}")
     if not 2 <= bits <= 16:
         return f"2..16 bits, got {bits}"
     return None
@@ -96,16 +109,17 @@ def kernel_refusal(page: int, head_dim: int, v_width: int,
 def check_kernel_operands(q, kq_pool, v_pool, table, lengths, q_positions,
                           cfg):
     """Shapes, plus what the CUDA kernels (decode and verify) take: the
-    widths of :func:`kernel_refusal` and contiguous uint8 plane and f32 V
-    pools, 16-byte aligned (they are copied in 16-byte pieces)."""
+    widths of :func:`kernel_refusal` and contiguous pools, uint8 planes and
+    f32 or bf16 V, 16-byte aligned (they are copied in 16-byte pieces)."""
     _check(q, kq_pool, v_pool, table, lengths, q_positions, cfg)
-    if kq_pool.dtype != torch.uint8 or v_pool.dtype != torch.float32:
-        raise TypeError(f"kernel takes a uint8 plane pool and an f32 V pool, "
-                        f"got {kq_pool.dtype} and {v_pool.dtype}")
+    if kq_pool.dtype != torch.uint8 or v_pool.dtype not in V_DTYPES:
+        raise TypeError(f"kernel takes a uint8 plane pool and an f32 or bf16 "
+                        f"V pool, got {kq_pool.dtype} and {v_pool.dtype}")
     if not (kq_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("kq and V pools must be contiguous")
     _, bits, bs8, _, D = kq_pool.shape
-    reason = kernel_refusal(bs8 * 8, D, v_pool.shape[-1], bits)
+    reason = kernel_refusal(bs8 * 8, D, v_pool.shape[-1], bits,
+                            v_pool.dtype)
     if reason is not None:
         raise ValueError(f"the paged kernels take {reason}")
     if (kq_pool.data_ptr() | v_pool.data_ptr()) % 16:
@@ -182,7 +196,7 @@ def launch_kernel(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
         q, kq_pool, v_pool, table, lengths, q_positions, k_amax, v_amax,
         cfg=cfg, window=window, stats=stats)
     with torch.cuda.device(q.device):
-        launch_c(*args)
+        launch_c(*args, v_dtype=v_pool.dtype)
     return out, rounds_h, surv
 
 
@@ -195,32 +209,41 @@ def entry_point(lib: ctypes.CDLL):
     return fn
 
 
-def launch_c(*args) -> None:
-    """The C entry point ``paged_decode_launch`` (argument order of
-    ``csrc/paged_decode.cu``); raises on a launch error and counts the
-    launch."""
+def launch_c(*args, v_dtype: torch.dtype = torch.float32) -> None:
+    """The C entry point ``paged_decode_launch`` of the library for a V
+    pool of ``v_dtype`` (``paged_decode`` or ``paged_decode_bf16``;
+    argument order of ``csrc/paged_decode.cu``); raises on a launch error
+    and counts the launch."""
     global LAUNCHES
-    err = entry_point(load_library("paged_decode"))(*args)
+    lib = "paged_decode" + V_DTYPES[v_dtype][0]
+    err = entry_point(load_library(lib))(*args)
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed with CUDA "
                            f"error {err}")
     LAUNCHES += 1
 
 
-def copied_bytes() -> tuple[int, int]:
-    """(plane bytes, V bytes) that the kernel requested from device memory,
-    summed over its launches with ``stats`` on since the last call; the
-    call zeroes both counts.  Synchronizes the card."""
+def copied_bytes(name: str = "paged_decode") -> tuple[int, int]:
+    """(plane bytes, V bytes) that kernel ``name`` requested from device
+    memory, summed over its launches with ``stats`` on since the last call,
+    over both V pool types; the call zeroes the counts.  Synchronizes the
+    card."""
     torch.cuda.synchronize()
-    fn = load_library("paged_decode").paged_decode_copied_bytes
-    fn.argtypes = [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    counts = (ctypes.c_ulonglong * 2)()
-    err = fn(counts)
-    if err != 0:
-        raise RuntimeError(f"reading the paged_decode copy counts failed "
-                           f"with CUDA error {err}")
-    return int(counts[0]), int(counts[1])
+    total = [0, 0]
+    for suffix, _ in V_DTYPES.values():
+        lib = loaded_library(name + suffix)
+        if lib is None:
+            continue
+        fn = getattr(lib, f"{name}_copied_bytes")
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        counts = (ctypes.c_ulonglong * 2)()
+        err = fn(counts)
+        if err != 0:
+            raise RuntimeError(f"reading the {name}{suffix} copy counts "
+                               f"failed with CUDA error {err}")
+        total = [total[0] + int(counts[0]), total[1] + int(counts[1])]
+    return total[0], total[1]
 
 
 def paged_bitstopper_decode(

@@ -136,7 +136,7 @@ def launch_kernel(q, kq_pool, v_pool, table, lengths, q_positions, k_amax,
         q, kq_pool, v_pool, table, lengths, q_positions, k_amax, v_amax,
         cfg=cfg, window=window, stats=stats)
     with torch.cuda.device(q.device):
-        launch_c(*args)
+        launch_c(*args, v_dtype=v_pool.dtype)
     return out, rounds_h, surv
 
 
@@ -149,12 +149,14 @@ def entry_point(lib: ctypes.CDLL):
     return fn
 
 
-def launch_c(*args) -> None:
-    """The C entry point ``paged_verify_launch`` (argument order of
-    ``csrc/paged_verify.cu``); raises on a launch error and counts the
-    launch."""
+def launch_c(*args, v_dtype: torch.dtype = torch.float32) -> None:
+    """The C entry point ``paged_verify_launch`` of the library for a V
+    pool of ``v_dtype`` (``paged_verify`` or ``paged_verify_bf16``;
+    argument order of ``csrc/paged_verify.cu``); raises on a launch error
+    and counts the launch."""
     global LAUNCHES
-    err = entry_point(load_library("paged_verify"))(*args)
+    lib = "paged_verify" + pd.V_DTYPES[v_dtype][0]
+    err = entry_point(load_library(lib))(*args)
     if err != 0:
         raise RuntimeError(f"paged_verify kernel launch failed with CUDA "
                            f"error {err}")
@@ -163,18 +165,10 @@ def launch_c(*args) -> None:
 
 def copied_bytes() -> tuple[int, int]:
     """(plane bytes, V bytes) that the kernel requested from device memory,
-    summed over its launches with ``stats`` on since the last call; the
-    call zeroes both counts.  Synchronizes the card."""
-    torch.cuda.synchronize()
-    fn = load_library("paged_verify").paged_verify_copied_bytes
-    fn.argtypes = [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    counts = (ctypes.c_ulonglong * 2)()
-    err = fn(counts)
-    if err != 0:
-        raise RuntimeError(f"reading the paged_verify copy counts failed "
-                           f"with CUDA error {err}")
-    return int(counts[0]), int(counts[1])
+    summed over its launches with ``stats`` on since the last call, over
+    both V pool types; the call zeroes the counts.  Synchronizes the
+    card."""
+    return pd.copied_bytes("paged_verify")
 
 
 def paged_bitstopper_verify(

@@ -9,12 +9,15 @@ missing card, a missing ``nvcc`` or a failed build raises.
 Kernels are compiled at first use with ``nvcc`` into a shared library with
 a plain C interface (loaded through ``ctypes``), under ``build/kernels/`` at
 the root of the checkout, keyed by a hash of the source, the headers in
-``csrc/`` and the flags.  There are four, one library each:
-``paged_decode`` and ``paged_verify`` (the serving reads, which share their
-page walk through ``csrc/paged_walk.cuh``), ``bitstopper_qk`` and
-``flash_attention`` (the cache-free forward).  The widths the two
-cache-free kernels take are one rule, ``width_refusal``, which both
-wrappers apply and both C entry points state.
+``csrc/`` and the flags.  There are four kernels: ``paged_decode`` and
+``paged_verify`` (the serving reads, which share their page walk through
+``csrc/paged_walk.cuh``), ``bitstopper_qk`` and ``flash_attention`` (the
+cache-free forward).  Each builds into a library of its name; the two
+paged kernels also into ``<name>_bf16``, their form for a bf16 V pool
+(the same source with ``-DPAGED_V_BF16``), so that the two forms compile
+side by side.  The widths the two cache-free kernels take are one rule,
+``width_refusal``, which both wrappers apply and both C entry points
+state.
 """
 
 from __future__ import annotations
@@ -39,6 +42,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+# Libraries built from another source: name -> (source, extra flags).
+_VARIANTS = {f"{k}_bf16": (k, ("-DPAGED_V_BF16",))
+             for k in ("paged_decode", "paged_verify")}
 
 MAX_HEAD = 160              # widest head of any width (wider ones must be
                             # a multiple of 16)
@@ -89,20 +96,27 @@ def nvcc_path() -> str:
                        "the port's kernels")
 
 
+def _source(name: str) -> tuple[Path, tuple[str, ...]]:
+    """The source of library ``name`` and the flags it adds."""
+    src, extra = _VARIANTS.get(name, (name, ()))
+    return CSRC / f"{src}.cu", extra
+
+
 def _library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built: named by a hash of the source,
-    of every header in ``csrc/`` (a source may include any of them) and of
-    the flags, so that editing a shared header rebuilds its kernels."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """Where library ``name`` is built: named by a hash of its source, of
+    every header in ``csrc/`` (a source may include any of them) and of the
+    flags, so that editing a shared header rebuilds its kernels."""
+    src, extra = _source(name)
+    digest = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + extra).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build_libraries(names) -> None:
-    """Build every ``csrc/<name>.cu`` not built yet, one ``nvcc`` per
-    source, all started together, and load them."""
+    """Build every library of ``names`` not built yet, one ``nvcc`` per
+    library, all started together, and load them."""
     jobs = []
     for name in names:
         out = _library_path(name)
@@ -111,7 +125,8 @@ def build_libraries(names) -> None:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        src, extra = _source(name)
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", tmp, str(src)]
         jobs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
@@ -119,7 +134,7 @@ def build_libraries(names) -> None:
         _, err = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            failed.append(f"nvcc failed for {name}.cu:\n{err}")
+            failed.append(f"nvcc failed for {name}:\n{err}")
         else:
             os.replace(tmp, out)        # atomic: concurrent builds agree
     if failed:
@@ -128,8 +143,13 @@ def build_libraries(names) -> None:
         load_library(name)
 
 
+def loaded_library(name: str) -> ctypes.CDLL | None:
+    """Library ``name`` if this process has loaded it, else None."""
+    return _LIBS.get(name)
+
+
 def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` (once per content hash) and load it."""
+    """Build library ``name`` (once per content hash) and load it."""
     if name in _LIBS:
         return _LIBS[name]
     out = _library_path(name)

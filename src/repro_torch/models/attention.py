@@ -36,6 +36,13 @@ and the paths serving runs:
   ``apply_inject_amax_rule``) under swap-to-host preemption and the
   persistent prefix store.
 
+Every cache layout takes the K/V dtype (``ServeConfig.cache_dtype``: f32
+or bf16; ``k_amax``/``v_amax`` stay f32).  A write rounds K/V to it, and
+the scales and planes come from the rounded values widened; the score
+paths read a bf16 view as the reference does (its quantization in bf16,
+the dense softmax's weights rounded to bf16 before P x V), and host
+records carry bf16 rows as their bits.
+
 Four CUDA kernels sit under this module: ``flash_attention`` and
 ``bitstopper_qk`` on the cache-free forward, ``paged_decode`` and
 ``paged_verify`` on the serving reads.
@@ -379,7 +386,7 @@ def _update_plane_pool(cache, kc, vc, real, phys, p_safe, ok):
     ``k_amax``/``v_amax`` are the monotone running max-abs per KV head.
     While they hold, only the new tokens are quantized and their bits
     merged into ``kq``; when a write grows ``k_amax``, every stored plane
-    is stale and the whole pool is requantized from the f32 K pool.  The
+    is stale and the whole pool is requantized from the K pool.  The
     growth test is a host branch: one device-to-host sync per layer per
     write.
 
@@ -575,7 +582,9 @@ def _cached_attention(q, k_all, v_all, q_positions, k_positions,
     queries in several rows (a verify forward on a planeless pool) the
     per-token BESF.  ``xla`` and ``flash``: the dense masked softmax with
     grouped heads, ``/ sqrt(D)``, masked logits at ``NEG_INF`` and masked
-    weights zeroed, in f32."""
+    weights zeroed, in f32; the weights round to the cache's dtype before
+    P x V, as the reference's mixed-dtype einsum rounds them (a bf16 cache:
+    bf16 weights, whose products with bf16 V are exact in f32)."""
     B, Sq = q.shape[:2]
     per_slot = q_positions.ndim == 2
     if per_slot:
@@ -609,8 +618,8 @@ def _cached_attention(q, k_all, v_all, q_positions, k_positions,
     bm = bmask[:, None, None]
     logits = torch.where(bm, logits, torch.full_like(logits, NEG_INF))
     p = torch.softmax(logits, dim=-1)
-    p = torch.where(bm, p, torch.zeros_like(p))
-    out = torch.einsum("bhgqt,bthd->bqhgd", p, v_all.float())
+    p = torch.where(bm, p, torch.zeros_like(p)).to(v_all.dtype)
+    out = torch.einsum("bhgqt,bthd->bqhgd", p.float(), v_all.float())
     return out.reshape(q.shape).to(q.dtype)
 
 
@@ -704,6 +713,40 @@ def paged_layer_groups(caches, scan_layers: bool = True) -> list[list[dict]]:
     return groups
 
 
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host array; bf16 (which numpy lacks) as its raw bits,
+    uint16.  A record's K/V field of 2-byte values always holds bf16
+    bits."""
+    if t.dtype == torch.bfloat16:
+        return t.cpu().view(torch.int16).numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def _bf16_bits(a: np.ndarray) -> bool:
+    """Whether a host K/V array holds bf16 bits: 2-byte unsigned, or the
+    2-byte void type that ``np.load`` gives a stored bf16 array."""
+    return a.dtype.itemsize == 2 and a.dtype.kind in "uV"
+
+
+def host_f32(a) -> np.ndarray:
+    """Host K/V rows widened to f32 (bf16 bits exactly)."""
+    a = np.asarray(a)
+    if _bf16_bits(a):
+        return (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return a.astype(np.float32)
+
+
+def tensor_from_host(a, device=None) -> torch.Tensor:
+    """The inverse of :func:`host_array`: bf16 bits (also the 2-byte void
+    arrays that ``np.load`` and ml_dtypes give a bf16 array) become a bf16
+    tensor, any other array a tensor of its dtype."""
+    a = np.asarray(a)
+    if _bf16_bits(a):
+        t = torch.from_numpy(np.array(a).view(np.int16))
+        return t.view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
 def _host_rows(group, field, idx):
     """Rows ``idx`` of one field of a layer group as a host array: stacked
     over the group's reps when it has several.  Indexing with a tensor
@@ -711,17 +754,18 @@ def _host_rows(group, field, idx):
     pool (``numpy()`` of a CPU tensor shares its memory)."""
     rows = [c[field][idx] for c in group]
     t = torch.stack(rows) if len(group) > 1 else rows[0]
-    return t.cpu().numpy()
+    return host_array(t)
 
 
 def extract_block_rows(caches, bids, planes: bool = False,
                        scan_layers: bool = True) -> list[dict]:
     """Device-to-host copy of the physical blocks ``bids`` from every paged
-    layer: one dict per reference paged layer with the f32 ``k``/``v``
-    rows and the ``pos`` plane (``[reps, n, ...]`` for a stacked entry,
-    else ``[n, ...]``) and, with ``planes`` and a plane pool, the packed
-    ``kq`` rows.  Full blocks are never rewritten, so the rows stay valid
-    until the block is freed and reused."""
+    layer: one dict per reference paged layer with the ``k``/``v`` rows
+    (f32, or a bf16 cache's bits as uint16) and the ``pos`` plane
+    (``[reps, n, ...]`` for a stacked entry, else ``[n, ...]``) and, with
+    ``planes`` and a plane pool, the packed ``kq`` rows.  Full blocks are
+    never rewritten, so the rows stay valid until the block is freed and
+    reused."""
     groups = paged_layer_groups(caches, scan_layers)
     idx = torch.as_tensor(list(bids), dtype=torch.long,
                           device=groups[0][0]["k"].device)
@@ -753,9 +797,11 @@ def splice_block_rows(caches, bids, layers, sel=None,
         for field in ("k", "v", "pos", "kq"):
             if field not in rows or field not in group[0]:
                 continue
+            # Converted as the reference's ``astype`` converts (bf16 to
+            # f32 exactly, f32 to bf16 to nearest even).
             dst = group[0][field]
-            val = torch.as_tensor(np.asarray(rows[field])).to(
-                device=dst.device, dtype=dst.dtype)
+            val = tensor_from_host(rows[field]).to(device=dst.device,
+                                                   dtype=dst.dtype)
             if len(group) == 1:
                 val = val[None]
             if sel is not None:
@@ -766,9 +812,9 @@ def splice_block_rows(caches, bids, layers, sel=None,
 
 
 def requant_plane_pools(caches):
-    """Rebuild every packed plane pool from its f32 pool under the current
+    """Rebuild every packed plane pool from its K pool under the current
     scales, in place: the fix-up after an operation that moved ``k_amax``
-    under stored planes.  ``pack_pool_planes`` is a function of (f32 pool,
+    under stored planes.  ``pack_pool_planes`` is a function of (K pool,
     amax) alone, so the bytes equal an incrementally kept pool whose last
     requant happened at these scales.  Returns ``caches``."""
     for group in paged_layer_groups(caches):
@@ -823,8 +869,8 @@ def apply_inject_amax_rule(caches, layers, groups, scan_layers: bool = True):
         if "k_amax" not in group[0]:
             continue
         stacked = len(group) > 1
-        k_rows = np.asarray(rows["k"], np.float32)
-        v_rows = np.asarray(rows["v"], np.float32)
+        k_rows = host_f32(rows["k"])
+        v_rows = host_f32(rows["v"])
         k_amax = np.stack([c["k_amax"].cpu().numpy() for c in group])
         v_amax = np.stack([c["v_amax"].cpu().numpy() for c in group])
         if not stacked:

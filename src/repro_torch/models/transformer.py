@@ -17,6 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (PagedLayout, attention,
                                           init_attention, init_cache)
@@ -184,8 +185,7 @@ def _segments_from_numpy(tree, cfg: ModelConfig, device):
             reps = cfg.segments[int(key[3:])][1]
             units = val if isinstance(val, list) else _unstack(val, reps)
             val = units
-        out[key] = _map_tree(
-            lambda a: torch.as_tensor(np.array(a), device=device), val)
+        out[key] = _map_tree(lambda a: A.tensor_from_host(a, device), val)
     return out
 
 
@@ -197,17 +197,19 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
 
 def caches_from_numpy(tree, cfg: ModelConfig, device=None):
     """The reference's cache pytree (numpy leaves; paged or contiguous,
-    a shared cursor's ``length`` a 0-d leaf) -> per-layer caches."""
+    a shared cursor's ``length`` a 0-d leaf; bf16 leaves as ml_dtypes
+    arrays or their bits) -> per-layer caches."""
     return _segments_from_numpy(tree, cfg, device)
 
 
 def caches_to_numpy(caches, cfg: ModelConfig):
     """Per-layer caches -> the reference's layout: segments the reference
-    scans (``scan_layers`` and reps > 1) are stacked along a leading axis."""
+    scans (``scan_layers`` and reps > 1) are stacked along a leading axis;
+    bf16 leaves as their bits (uint16)."""
     out = {}
     for key, units in caches.items():
         reps = cfg.segments[int(key[3:])][1]
-        units = _map_tree(lambda t: t.detach().cpu().numpy(), units)
+        units = _map_tree(lambda t: A.host_array(t.detach()), units)
         if cfg.scan_layers and reps > 1:
             out[key] = _map_tree_n(lambda *xs: np.stack(xs), units)
         else:

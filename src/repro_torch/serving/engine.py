@@ -194,11 +194,6 @@ class ServeConfig:
         if self.cache_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"cache_dtype must be float32|bfloat16, got "
                              f"{self.cache_dtype!r}")
-        if self.cache_dtype != "float32":
-            raise NotImplementedError(
-                f"cache_dtype {self.cache_dtype!r}: the port's paged decode "
-                f"kernel takes an f32 V pool; only float32 is ported "
-                f"(ROADMAP A10)")
         if self.pool_blocks is not None and self.pool_blocks < 2:
             raise ValueError("pool_blocks must be >= 2 (block 0 is the "
                              f"null block), got {self.pool_blocks}")
@@ -271,6 +266,11 @@ class ServeConfig:
 
     def resolved_chunk(self) -> int:
         return self.prefill_chunk or 4 * self.prefill_bucket
+
+    def torch_cache_dtype(self) -> torch.dtype:
+        """The K/V caches' dtype (the scales and planes keep theirs)."""
+        return (torch.bfloat16 if self.cache_dtype == "bfloat16"
+                else torch.float32)
 
 
 @dataclasses.dataclass
@@ -441,9 +441,10 @@ def _attn_configs(cfg: ModelConfig):
                 yield reps, local, cfg.attn_config(local)
 
 
-def _kv_bytes_per_token(cfg: ModelConfig) -> int:
-    """f32 K/V bytes one cached token costs across all attention layers."""
-    return sum(reps * 2 * a.n_kv_heads * a.head_dim * 4
+def _kv_bytes_per_token(cfg: ModelConfig, dtype: torch.dtype) -> int:
+    """K/V bytes one cached token costs across all attention layers."""
+    itemsize = torch.finfo(dtype).bits // 8
+    return sum(reps * 2 * a.n_kv_heads * a.head_dim * itemsize
                for reps, _, a in _attn_configs(cfg))
 
 
@@ -465,15 +466,16 @@ def _amax_static_bytes(cfg: ModelConfig) -> int:
 
 
 def _kv_bytes_contiguous(cfg: ModelConfig, scfg: ServeConfig) -> int:
-    """Resident bytes of a contiguous per-slot f32 cache: max_len rows per
-    slot per layer, except sliding-window layers, whose ring buffers hold
-    min(max_len, window) rows."""
+    """Resident bytes of a contiguous per-slot cache of the configured
+    dtype: max_len rows per slot per layer, except sliding-window layers,
+    whose ring buffers hold min(max_len, window) rows."""
+    itemsize = torch.finfo(scfg.torch_cache_dtype()).bits // 8
     total = 0
     for reps, local, acfg in _attn_configs(cfg):
         rows = scfg.max_len
         if local and acfg.window:
             rows = min(rows, acfg.window)
-        total += reps * rows * 2 * acfg.n_kv_heads * acfg.head_dim * 4
+        total += reps * rows * 2 * acfg.n_kv_heads * acfg.head_dim * itemsize
     return total * scfg.max_slots
 
 
@@ -598,7 +600,8 @@ class ContinuousBatchingEngine(_EngineCommon):
         self.params = params
         self.scfg = scfg
         B = scfg.max_slots
-        self.caches = T.init_caches(cfg, B, scfg.max_len, per_slot=True,
+        self.caches = T.init_caches(cfg, B, scfg.max_len,
+                                    scfg.torch_cache_dtype(), per_slot=True,
                                     device=self.device)
         self.slots: list[Request | None] = [None] * B
         self.queue: collections.deque[Request] = collections.deque()
@@ -652,6 +655,7 @@ class ContinuousBatchingEngine(_EngineCommon):
             positions = np.full((1, Sp), POS_SENTINEL, np.int32)
             positions[0, :L] = np.arange(L, dtype=np.int32)
             small = T.init_caches(self.cfg, 1, self.scfg.max_len,
+                                  self.scfg.torch_cache_dtype(),
                                   per_slot=True, device=self.device)
             logits, small, _ = T.forward(
                 self.params, self._tensor(tokens), self.cfg, caches=small,
@@ -725,7 +729,7 @@ class PagedEngine(_EngineCommon):
             # The pool's V width is head_dim (models/attention.py).
             reason = paged_decode.kernel_refusal(
                 scfg.page_size, cfg.head_dim, cfg.head_dim,
-                cfg.bitstopper.bits)
+                cfg.bitstopper.bits, scfg.torch_cache_dtype())
             if reason is not None:
                 raise ValueError(
                     f"fused_decode: the decode and verify kernels take "
@@ -774,8 +778,9 @@ class PagedEngine(_EngineCommon):
                                 prefix_sharing=scfg.prefix_sharing,
                                 evict_cb=evict_cb)
         B = scfg.max_slots
-        self.caches = T.init_caches(self.cfg, B, paged=self.layout,
-                                    device=self.device)
+        self.caches = T.init_caches(self.cfg, B,
+                                    dtype=scfg.torch_cache_dtype(),
+                                    paged=self.layout, device=self.device)
         self.slots: list[_PagedSlot | None] = [None] * B
         self.queue: collections.deque[Request] = collections.deque()
         self.table = np.zeros((B, self._mb), np.int32)
@@ -862,7 +867,7 @@ class PagedEngine(_EngineCommon):
         """Per-engine circuit breaker: a kernel fault switches the engine to
         the plain oracle for the rest of its life.  The oracle computes the
         kernels' integer observables and reads the same caches (the write
-        path keeps the f32 pool and the plane pool either way), so the
+        path keeps the K/V pools and the plane pool either way), so the
         served tokens do not change.  Counted in ``degradations``."""
         if not self.cfg.fused_decode:
             raise RuntimeError(
@@ -912,11 +917,12 @@ class PagedEngine(_EngineCommon):
 
     def kv_bytes_resident(self, peak: bool = True) -> int:
         """KV memory backed by live blocks (peak over the run by default):
-        f32 K/V rows, the packed plane pool when the kernel is on, and the
-        static per-layer ``k_amax``/``v_amax`` scales."""
+        K/V rows of the cache dtype, the packed plane pool when the kernel is
+        on, and the static per-layer ``k_amax``/``v_amax`` scales."""
         blocks = (self.pool.peak_live_blocks if peak
                   else self.pool.live_blocks())
-        per_tok = _kv_bytes_per_token(self.cfg)
+        per_tok = _kv_bytes_per_token(self.cfg,
+                                      self.scfg.torch_cache_dtype())
         extra = 0
         if self._page % 8 == 0:          # a planeless pool keeps no scales
             per_tok += _plane_bytes_per_token(self.cfg)
@@ -1548,12 +1554,13 @@ class PagedEngine(_EngineCommon):
     def _swap_out(self, slot: int, exclusive: list[int], L: int,
                   req: Request) -> None:
         """Device-to-host copy of a preemption victim's exclusive blocks
-        into the swap pool, under its rid.  The record holds the f32
-        K/V/pos rows, the packed ``kq`` rows and the scales at swap time:
-        what :meth:`_swap_in` needs to splice the context back with no
-        recompute.  An injected ``swap_fail``, exclusive blocks that are
-        not one run up to the fill level, and a refused put skip the
-        record: the victim then resumes by recompute."""
+        into the swap pool, under its rid.  The record holds the K/V/pos
+        rows (a bf16 cache's as their bits), the packed ``kq`` rows and the
+        scales at swap time: what :meth:`_swap_in` needs to splice the
+        context back with no recompute.  An injected ``swap_fail``,
+        exclusive blocks that are not one run up to the fill level, and a
+        refused put skip the record: the victim then resumes by
+        recompute."""
         if (self.chaos is not None
                 and self.chaos.fire("swap_fail", self.ticks)):
             # The host copy died in flight: the victim recomputes.
@@ -2115,6 +2122,7 @@ class StaticBucketEngine:
 
     def init_caches(self, batch: int):
         return T.init_caches(self.cfg, batch, self.scfg.max_len,
+                             self.scfg.torch_cache_dtype(),
                              device=self.device)
 
     def _sample(self, logits: torch.Tensor, key) -> torch.Tensor:

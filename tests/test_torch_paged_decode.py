@@ -429,3 +429,42 @@ def test_runtime_resolution(monkeypatch):
     monkeypatch.setattr(runtime.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         runtime.nvcc_path()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,G,quantize_v,dead", [
+    (16, 2, True, False), (16, 4, False, False), (64, 2, True, False),
+    (512, 4, True, True), (1024, 1, True, False)])
+def test_cuda_kernel_bf16_v_matches_plain(bs, G, quantize_v, dead):
+    """On the card, a bf16 V pool (``cache_dtype="bfloat16"``): the kernel
+    against the plain version on the same tensors, rounds, survivors and
+    V fetches exactly and out within 1e-5; bit for bit the f32 kernel's on
+    the widened pool (V is widened exactly in shared memory); V bytes
+    requested half the f32 form's.  Pages of 512 and 1024 run the striped
+    walk; ``dead`` gives it pages where every row dies, repeated 20
+    times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    ops = _dead_page_inputs(bs) if dead else _inputs(3, G, hot_heads=(0,),
+                                                     bs=bs)
+    k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = (
+        torch.as_tensor(np.array(a), device="cuda") for a in ops)
+    vb = v.to(torch.bfloat16)
+    cfg = TConfig(alpha=0.4, quantize_v=quantize_v)
+    args = (q, kq, vb, table, lengths, q_pos, k_amax, v_amax)
+    ref = pd.paged_bitstopper_decode_plain(*args, cfg=cfg)
+    pd.copied_bytes()
+    wide = pd.paged_bitstopper_decode(q, kq, vb.float(), *args[3:], cfg=cfg)
+    _, v32 = pd.copied_bytes()
+    for i in range(20 if dead else 1):
+        ker = pd.paged_bitstopper_decode(*args, cfg=cfg)
+        _, v16 = pd.copied_bytes()
+        for field in ("rounds", "survivors", "v_fetched"):
+            assert torch.equal(getattr(ker, field), getattr(ref, field)), \
+                (i, field)
+        assert float((ker.out - ref.out).abs().max()) <= 1e-5, i
+        assert torch.equal(ker.out, wide.out), i
+        assert 0 < v16 and 2 * v16 == v32, (i, v16, v32)
+    if dead:
+        live = ker.survivors.reshape(4, 2, 4, 4, bs).any(4).any(2)
+        assert live.int().tolist() == _DEAD_PAGE_LIVE

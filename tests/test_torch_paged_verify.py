@@ -351,3 +351,44 @@ def test_cuda_kernel_copies_reachable_planes(G, window, bs, Sq):
                for b, s0, QG, pages in blocks)
     assert 0 < live < sum(len(p) for *_, p in blocks) * Hkv
     assert v_bytes == live * bs * v.shape[-1] * 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,bs,D,Sq,quantize_v", [
+    (1, 16, 16, 5, True), (2, 16, 16, 3, False), (2, 64, 16, 3, True),
+    (1, 512, 16, 5, True), (2, 1024, 64, 3, True)])
+def test_cuda_kernel_bf16_v_matches_plain_and_decode(G, bs, D, Sq,
+                                                     quantize_v):
+    """On the card, a bf16 V pool (``cache_dtype="bfloat16"``): the verify
+    kernel against the plain version (integer observables exact, out
+    within 1e-5), bit for bit the f32 kernel's on the widened pool, V bytes
+    requested half the f32 form's, and each real query equal to the bf16
+    decode kernel at its position.  Pages of 512 and 1024 run the striped
+    walk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    ops = _draft_inputs(3, G, bs=bs, D=D, Sq=Sq)
+    k, kq, v, table, lengths, q_pos, k_amax, v_amax, q = (
+        torch.as_tensor(np.array(a), device="cuda") for a in ops)
+    vb = v.to(torch.bfloat16)
+    cfg = TConfig(alpha=0.4, quantize_v=quantize_v)
+    args = (q, kq, vb, table, lengths, q_pos, k_amax, v_amax)
+    pv.copied_bytes()
+    wide = pv.paged_bitstopper_verify(q, kq, vb.float(), *args[3:], cfg=cfg)
+    _, v32 = pv.copied_bytes()
+    ker = pv.paged_bitstopper_verify(*args, cfg=cfg)
+    _, v16 = pv.copied_bytes()
+    ref = pv.paged_bitstopper_verify_plain(*args, cfg=cfg)
+    for field in ("rounds", "survivors", "v_fetched"):
+        assert torch.equal(getattr(ker, field), getattr(ref, field)), field
+    assert float((ker.out - ref.out).abs().max()) <= 1e-5
+    assert torch.equal(ker.out, wide.out)
+    assert 0 < v16 and 2 * v16 == v32
+    for s in range(Sq):
+        dec = pd.paged_bitstopper_decode(
+            q[:, s], kq, vb, table, lengths[:, s].contiguous(),
+            q_pos[:, s].contiguous(), k_amax, v_amax, cfg=cfg)
+        real = lengths[:, s] > 0
+        for field in ("out", "rounds", "survivors", "v_fetched"):
+            assert torch.equal(getattr(dec, field)[real],
+                               getattr(ker, field)[:, s][real]), (s, field)

@@ -49,3 +49,20 @@ def test_new_header_changes_the_digest(csrc):
     before = runtime._library_path("paged_verify")
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert runtime._library_path("paged_verify") != before
+
+
+@pytest.mark.parametrize("name", ["paged_decode", "paged_verify"])
+def test_bf16_library_builds_from_the_same_source(csrc, name):
+    """A paged kernel's bf16-V library is its source built with
+    ``-DPAGED_V_BF16``: a library of its own (its own digest), rebuilt when
+    that source or a header changes; the source picks its V type by the
+    macro."""
+    src, extra = runtime._source(f"{name}_bf16")
+    assert src == runtime._source(name)[0] == csrc / f"{name}.cu"
+    assert extra == ("-DPAGED_V_BF16",) and runtime._source(name)[1] == ()
+    assert "#ifdef PAGED_V_BF16" in src.read_text()
+    before = runtime._library_path(f"{name}_bf16")
+    assert before != runtime._library_path(name)
+    assert before.name.startswith(f"lib{name}_bf16_")
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert runtime._library_path(f"{name}_bf16") != before
