@@ -16,8 +16,9 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
 3. main path: serves greedy requests with full-width ``stablelm-1.6b``
    (seeded random weights, built once) through
    ``repro_torch.serving.PagedEngine``, checks that every decode tick
-   launched the decode kernel once per layer, and that a short trace gives
-   the same tokens with the kernel and with the plain oracle;
+   launched the decode kernel once per layer, and that a short trace at
+   cut depth 4 gives the same tokens with the kernel and with the plain
+   oracle;
 4. speculative path: serves the main path's trace again with speculative
    decoding (a drafter that replays the recorded tokens) and a
    repeated-pattern trace with the n-gram drafter; both must give the
@@ -37,15 +38,15 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    every position);
 7. sampled path: (a) the seeded sampler on the card against the CPU on
    [20, 100352] logits (key words, random bits and uniforms bit-equal,
-   tokens equal); (b) the main path's trace sampled at temperature 0.7,
-   uncontended and oversubscribed on a pool too small for the worst-case
-   reservations: at least one preemption, the uncontended run's tokens,
-   one decode launch per layer per decode tick in both runs; (c)
-   speculative serving at temperature 0.7 with drafts replaying (b)'s
-   tokens, and with the n-gram drafter on the speculative phase's
-   repeated-pattern trace, gives the plain sampled tokens.  Prints tokens/s, the sampled and greedy decode
-   ticks, preemptions and recomputed tokens, and the sampler's ms and
-   launches per tick;
+   tokens equal); at cut depth 4, (b) the main path's trace sampled at
+   temperature 0.7, uncontended and oversubscribed on a pool too small
+   for the worst-case reservations: at least one preemption, the
+   uncontended run's tokens, one decode launch per layer per decode tick
+   in both runs; (c) speculative serving at temperature 0.7 with drafts
+   replaying (b)'s uncontended tokens, and with the n-gram drafter on the
+   speculative phase's repeated-pattern trace, gives the plain sampled
+   tokens.  Prints tokens/s, the sampled decode tick, preemptions and
+   recomputed tokens, and the sampler's ms and launches per tick;
 8. chaos path: (a) the main trace, greedy, at cut depth 4 (the plan's
    ticks depend on the schedule alone), through
    ``serving.serve_with_chaos`` on an oversubscribed engine with a snapshot
@@ -62,8 +63,8 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    page_size=12, a planeless pool, with no paged kernel launched.  Prints
    the wall time of each restore and what it recomputed, snapshot bytes
    and ms per write, and degraded against fused tick times;
-9. memory path: (a) the sampled path's oversubscribed run again at cut
-   depth 4 with a swap tier (``swap_host_bytes``): the victim swaps out
+9. memory path, at cut depth 4: (a) the sampled path's oversubscribed
+   run again with a swap tier (``swap_host_bytes``): the victim swaps out
    and back in, with the uncontended tokens at that depth, fewer prefill
    chunks than the sampled path's recompute run (the schedule depends on
    the prompt lengths alone), the swap pool empty at the end and one
@@ -73,7 +74,7 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    a fresh warm engine on that store gives the cold tokens, every scale and
    every plane byte equal, with fewer prefill chunks; (b') the same at four
    slots, measured only (tokens equal or not, the largest relative gap
-   between the grids); (c) at cut depth 4, a snug pool with a host prefix
+   between the grids); (c) a snug pool with a host prefix
    tier of about one record spills to disk, and a warm engine on the store
    gives a cold one's tokens.  Prints ms and bytes per swap-out and
    swap-in and per prefix record written and loaded, and
@@ -105,12 +106,12 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    main path, ``PagedEngine`` at pages of 512 (cut depth 4) serves the
    same tokens with the kernel and with the plain oracle, one launch per
    layer per decode tick;
-12. dense path (last): the main trace at full width and depth through (a)
+12. dense path: the main trace at full width and cut depth 4 through (a)
    ``PagedEngine`` on ``attn_impl="xla"``, (b) ``ContinuousBatchingEngine``
    on ``xla`` (its tokens equal (a)'s, or first differ at a near-tie of
    (a)'s logits: a gap of at most 1e-3 of max |logit|), (c)
-   ``ContinuousBatchingEngine`` on ``bitstopper_xla`` (agreement with the
-   main path printed), (d) ``StaticBucketEngine`` on ``xla`` sampled at
+   ``ContinuousBatchingEngine`` on ``bitstopper_xla``, (d)
+   ``StaticBucketEngine`` on ``xla`` sampled at
    0.7 (its sampler's first key, bits and tokens equal to the CPU's) and
    (e) the contiguous cache's resident bytes against the paged pool's
    peak; no kernel of the port launches on it;
@@ -121,17 +122,40 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    OUT_TOL and bit-equal to the f32 form on the widened pool, every verify
    query equal to the bf16 decode, V bytes requested as designed and half
    the f32 form's), each timed alone beside the f32 form and its bound;
-   after the dense path, (b) the main trace at full width and depth on a
-   bf16 cache (24 decode launches a tick, tokens/s, the decode tick, the
-   byte reports against the f32 main path's; how many requests give its
-   tokens is reported), (c) at cut depth 4 the main trace with the kernel
-   and with the plain oracle (equal tokens), speculatively with replayed
-   drafts, the sampled oversubscribed run with a swap tier and a prefix
+   after the dense path, (b) the main trace at full width and cut depth 4
+   on a bf16 cache (4 decode launches a tick, tokens/s, the decode tick,
+   the byte reports against the f32 main path's per layer), (c) at cut
+   depth 4 a short trace with the kernel and with the plain oracle (equal
+   tokens), the main trace speculatively with replayed drafts, the sampled oversubscribed run with a swap tier and a prefix
    store cold then warm at one slot (equal tokens, scales and planes), (d)
    the contiguous engine on ``xla`` against the paged one (the dense
    path's near-tie rule) and its resident bytes, half the f32 cache's;
-14. prints one JSON line describing each kernel (the bf16 forms under the
-   decode and verify rows), then the device line last.
+14. the model zoo, after the stablelm phases release the card's memory:
+   (a) right after the bf16 kernels, the decode and verify kernels at a
+   qwen2-moe-a2.7b attention layer's shape (B=4, Hq=Hkv=16, D=128, pages
+   of 16) held and timed as at D=64, and the cache-free kernels at one
+   layer of its forward (2 x 16 heads of 128, S=1024; bitstopper_qk's
+   rounds and survivors equal to plain, both outs within UNCACHED_TOL),
+   timed beside their bounds; (b) full-width, full-depth
+   qwen2-moe-a2.7b (f32, about 56 GB of seeded random weights drawn on the
+   card) serving the main trace through ``PagedEngine`` with the decode
+   kernel (24 launches a decode tick; tokens/s, the decode tick and the
+   prefill chunk, dropped (token, expert) pairs per tick kind) and a
+   profile of its decode ticks (device busy share); at cut depth 4, kernel
+   against oracle (equal tokens) and replayed speculation at the config's
+   capacity factor (the plain tokens, or verify forwards that dropped
+   pairs: ROADMAP C9) and at a factor no call can bind (the plain tokens;
+   4 verify launches a verify forward); the cache-free forward of 2 x
+   1024 tokens at every impl (24 launches per kernel impl, argmax equal
+   to the plain impl's at every position); (c) recurrentgemma-2b and
+   mamba2-130m at full depth, deepseek-v3 cut to its three dense MLA
+   layers (bf16): a finite cache-free forward and 12 single-token cached
+   decode steps within 2e-3 of the forward (deepseek on its weights
+   widened to f32; its bf16 run and MLA on ``bitstopper_xla`` reported
+   against that), the MTP head finite;
+15. prints one JSON line describing each kernel (the bf16 forms and the
+   D=128 shapes under each kernel's row), then the device line
+   last.
 
 Any failed check exits non-zero.  Without a card it exits non-zero and
 prints no result.  ``--profile`` instead profiles decode ticks, a prefill
@@ -142,6 +166,7 @@ chunk, verify ticks and one cache-free forward with each attention kernel
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -334,17 +359,31 @@ def decode_plane_bytes(args, rounds_h, window):
             pages * Hkv * bits * bs8 * D)
 
 
+DECODE_SHAPES = dict(B=4, Hq=32, D=64, bs=16, MB=32, P=129)
+DECODE_CASES = [("mha a=0.6", 0.6, 32, None), ("mha a=0.8", 0.8, 32, None),
+                ("gqa Hkv=8", 0.6, 8, None), ("window 100", 0.8, 32, 100)]
+# A qwen2-moe-a2.7b attention layer on the MoE path's decode ticks.
+MOE_SHAPES = dict(B=4, Hq=16, D=128, bs=16, MB=32, P=129)
+MOE_DECODE_CASES = [("qwen2-moe a=0.6", 0.6, 16, None)]
+MOE_VERIFY_CASES = [("qwen2-moe a=0.6", 0.6, 16, 16, None)]
+
+
 @phase("kernels")
 def kernel_phase(torch):
+    return decode_kernel_check(torch, DECODE_SHAPES, DECODE_CASES, 100)
+
+
+def decode_kernel_check(torch, shapes, cases, seed):
+    """paged_decode against its plain version on each case (label, alpha,
+    Hkv, window) at ``shapes``; the first case timed alone, beside its
+    wrapper, its plain version and its bound, with the bytes it counted
+    held to the design's."""
     from repro_torch.core.besf import BitStopperConfig
     from repro_torch.kernels import paged_decode as pd
-    shapes = dict(B=4, Hq=32, D=64, bs=16, MB=32, P=129)
-    cases = [("mha a=0.6", 0.6, 32, None), ("mha a=0.8", 0.8, 32, None),
-             ("gqa Hkv=8", 0.6, 8, None), ("window 100", 0.8, 32, 100)]
     worst = 0.0
     for i, (label, alpha, hkv, window) in enumerate(cases):
         cfg = BitStopperConfig(alpha=alpha)
-        args = decode_case(torch, 100 + i, Hkv=hkv, **shapes)
+        args = decode_case(torch, seed + i, Hkv=hkv, **shapes)
         ker = pd.paged_bitstopper_decode(*args, cfg=cfg, window=window)
         ref = pd.paged_bitstopper_decode_plain(*args, cfg=cfg, window=window)
         torch.cuda.synchronize()
@@ -368,8 +407,8 @@ def kernel_phase(torch):
     # Time the serving shape (stats=False) on the first case.  One launch
     # with stats counts the bytes the kernel requested: the planes of every
     # reachable page and V only of pages with a survivor.
-    cfg = BitStopperConfig(alpha=0.6)
-    args = decode_case(torch, 100, Hkv=32, **shapes)
+    cfg = BitStopperConfig(alpha=cases[0][1])
+    args = decode_case(torch, seed, Hkv=cases[0][2], **shapes)
     pd.copied_bytes()
     _, rounds_h, surv = pd.launch_kernel(*args, cfg=cfg, stats=True)
     physical, v_copied = pd.copied_bytes()
@@ -392,8 +431,9 @@ def kernel_phase(torch):
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = ops / INT8_OPS_PER_S * 1e3
     bound_ms = max(bound_bytes, bound_ops)
-    print(f"[chip_smoke] paged_decode timing (B=4, H=32, D=64, bs=16, "
-          f"MB=32): wrapper {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, "
+    print(f"[chip_smoke] paged_decode timing (B={B}, Hq={Hq}, Hkv={Hkv}, "
+          f"D={D}, bs={bs}, MB={shapes['MB']}): wrapper {ms:.4f} ms, "
+          f"kernel alone {kernel_ms:.4f} ms, "
           f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({nbytes} "
           f"bytes, {ops} ops); plane bytes logical {logical}, physical "
           f"{physical} (measured); V bytes physical {v_copied} (measured)")
@@ -467,17 +507,26 @@ def verify_kernel_phase(torch):
     queries, a row ending mid-page, an idle slot) at G = 1, 3, 4, 5 and 8,
     query by query against the paged_decode kernel at the query's position,
     and its own count of the bytes it copied against the design's."""
-    from repro_torch.core.besf import BitStopperConfig
-    from repro_torch.kernels import paged_decode as pd
-    from repro_torch.kernels import paged_verify as pv
-    shapes = dict(B=4, Sq=SPEC_K + 1, D=64, bs=16, MB=32, P=129)
+    shapes = dict(DECODE_SHAPES, Sq=SPEC_K + 1)
+    del shapes["Hq"]
     cases = [("mha a=0.6", 0.6, 32, 32, None), ("gqa Hkv=8", 0.6, 32, 8, None),
              ("window 100", 0.8, 32, 32, 100), ("G=3", 0.6, 24, 8, None),
              ("G=5", 0.6, 40, 8, None), ("G=8", 0.6, 32, 4, None)]
+    return verify_kernel_check(torch, shapes, cases, 200)
+
+
+def verify_kernel_check(torch, shapes, cases, seed):
+    """paged_verify against its plain version and, query by query, against
+    paged_decode on each case (label, alpha, Hq, Hkv, window) at
+    ``shapes``; the first case timed alone beside its wrapper, its plain
+    version and its bound."""
+    from repro_torch.core.besf import BitStopperConfig
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_verify as pv
     worst, physical = 0.0, None
     for i, (label, alpha, hq, hkv, window) in enumerate(cases):
         cfg = BitStopperConfig(alpha=alpha)
-        args = decode_case(torch, 200 + i, Hq=hq, Hkv=hkv, **shapes)
+        args = decode_case(torch, seed + i, Hq=hq, Hkv=hkv, **shapes)
         ker = pv.paged_bitstopper_verify(*args, cfg=cfg, window=window)
         ref = pv.paged_bitstopper_verify_plain(*args, cfg=cfg, window=window)
         torch.cuda.synchronize()
@@ -525,8 +574,9 @@ def verify_kernel_phase(torch):
               f"{planes} plane and {v_copied} V bytes (measured, as "
               f"designed); survivors {int(ker.survivors.sum())}")
 
-    cfg = BitStopperConfig(alpha=0.6)
-    args = decode_case(torch, 200, Hq=32, Hkv=32, **shapes)
+    _, alpha, hq, hkv, _ = cases[0]
+    cfg = BitStopperConfig(alpha=alpha)
+    args = decode_case(torch, seed, Hq=hq, Hkv=hkv, **shapes)
     _, rounds_h, surv = pv.launch_kernel(*args, cfg=cfg)
     nbytes, ops, _, _ = verify_bytes_ops(args, rounds_h, surv)
     ms = cuda_ms(torch, lambda: pv.paged_bitstopper_verify(
@@ -539,8 +589,10 @@ def verify_kernel_phase(torch):
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = ops / INT8_OPS_PER_S * 1e3
     bound_ms = max(bound_bytes, bound_ops)
-    print(f"[chip_smoke] paged_verify timing (B=4, Sq={shapes['Sq']}, H=32, "
-          f"D=64, bs=16, MB=32): wrapper {ms:.4f} ms, kernel alone "
+    print(f"[chip_smoke] paged_verify timing (B={shapes['B']}, Sq="
+          f"{shapes['Sq']}, Hq={hq}, Hkv={hkv}, D={shapes['D']}, bs="
+          f"{shapes['bs']}, MB={shapes['MB']}): wrapper {ms:.4f} ms, "
+          f"kernel alone "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
           f"{bound_ms:.5f} ms ({nbytes} bytes, {ops} ops); plane bytes "
           f"physical {physical} (measured)")
@@ -768,92 +820,113 @@ def wide_kernel_phase(torch):
     bit for bit on hot inputs, causal and not (its byte counts held to the
     design), flash within UNCACHED_TOL; each timed alone, causal, beside its
     bound (and flash beside scaled_dot_product_attention)."""
+    return [uncached_width_check(torch, 320 + i, WIDE_N, d, dv, "wide",
+                                 exact_out=True)
+            for i, (d, dv) in enumerate(WIDE_WIDTHS)]
+
+
+def uncached_width_check(torch, seed, N, d, dv, label, exact_out):
+    """Both cache-free kernels on hot [N, 1024, d] inputs (V [N, 1024,
+    dv]) against their plain versions: bitstopper_qk's rounds and
+    survivors equal, causal and not, its out equal bit for bit
+    (``exact_out``) or within UNCACHED_TOL, its copies as designed; flash
+    causal within UNCACHED_TOL; each timed alone, causal, beside its bound
+    and their plain versions (flash beside scaled_dot_product_attention).
+    Returns the timings as a row."""
     from repro_torch.core.besf import BitStopperConfig
     from repro_torch.kernels import bitstopper_qk as bq
     from repro_torch.kernels import flash_attention as fa
     cfg = BitStopperConfig(alpha=0.6)
-    rows = []
-    for i, (d, dv) in enumerate(WIDE_WIDTHS):
-        q, k, v = uncached_case(torch, 320 + i, N=WIDE_N, d=d, dv=dv)
-        N, S, _ = q.shape
-        blk = min(128, S)
-        ops = bq.prep(q, k, v, cfg)
-        for causal in (False, True):
-            bq.count_copies(True)
-            try:
-                bq.copied_bytes()
-                ker = bq.launch_kernel(ops, cfg, blk, blk, causal)
-                planes, v_bytes = bq.copied_bytes()
-            finally:
-                bq.count_copies(False)
-            ref = bq.bitstopper_qk_plain(ops, cfg, blk, blk, causal)
-            torch.cuda.synchronize()
-            for field in ("rounds", "survivors", "out"):
-                a, b = getattr(ker, field), getattr(ref, field)
-                if not torch.equal(a, b):
-                    raise SystemExit(
-                        f"[chip_smoke] bitstopper_qk d={d} dv={dv} causal="
-                        f"{causal}: {field} differs in "
-                        f"{int((a != b).sum())} entries")
-            n_qt, n_kb = ker.rounds.shape[1:]
-            live_v = int(ker.survivors.reshape(N, n_qt, blk, n_kb, blk)
-                         .any(4).any(2).sum())
-            design = bq.design_plane_bytes(ker.rounds, cfg.bits, blk, d)
-            if planes != design or v_bytes != live_v * blk * dv * 4:
-                raise SystemExit(f"[chip_smoke] bitstopper_qk d={d} dv={dv}"
-                                 f" copied {planes} plane and {v_bytes} V "
-                                 f"bytes; the design copies {design} and "
-                                 f"{live_v * blk * dv * 4}")
-        kargs, held = bq.kernel_args(ops, cfg, blk, blk, True)
-        qk_ms = cuda_ms(torch, lambda: bq.launch_c(*kargs), iters=5,
-                        warmup=1)
-        qk_plain_ms = cuda_ms(torch, lambda: bq.bitstopper_qk_plain(
-            ops, cfg, blk, blk, True), iters=1, warmup=1)
-        nbytes, plane_ops, pv_ops, live = qk_bytes_ops(ops, ker, blk, blk)
-        qk_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        qk_ops_ms = (plane_ops / FP16_OPS_PER_S + pv_ops / F32_OPS_PER_S) \
-            * 1e3
-        got = fa.flash_attention(q, k, v, causal=True)
-        want = fa.flash_attention_plain(q, k, v, causal=True)
+    tag = f"{label} d={d} dv={dv}"
+    q, k, v = uncached_case(torch, seed, N=N, d=d, dv=dv)
+    N, S, _ = q.shape
+    blk = min(128, S)
+    ops = bq.prep(q, k, v, cfg)
+    qk_err = 0.0
+    for causal in (False, True):
+        bq.count_copies(True)
+        try:
+            bq.copied_bytes()
+            ker = bq.launch_kernel(ops, cfg, blk, blk, causal)
+            planes, v_bytes = bq.copied_bytes()
+        finally:
+            bq.count_copies(False)
+        ref = bq.bitstopper_qk_plain(ops, cfg, blk, blk, causal)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
+        for field in ("rounds", "survivors") + (("out",) if exact_out
+                                                 else ()):
+            a, b = getattr(ker, field), getattr(ref, field)
+            if not torch.equal(a, b):
+                raise SystemExit(
+                    f"[chip_smoke] bitstopper_qk {tag} causal={causal}: "
+                    f"{field} differs in {int((a != b).sum())} entries")
+        err = float((ker.out - ref.out).abs().max())
+        qk_err = max(qk_err, err)
         if not err <= UNCACHED_TOL:
-            raise SystemExit(f"[chip_smoke] flash_attention d={d} dv={dv}: "
-                             f"out differs by {err} > {UNCACHED_TOL}")
-        fl_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v,
-                                                          causal=True),
-                        iters=5, warmup=1)
-        fl_plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
-            q, k, v, causal=True), iters=2, warmup=1)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True),
-                         iters=5, warmup=1)
-        fl_bytes = N * S * (2 * d + 2 * dv) * 4
-        fl_ops = N * S * (S + 1) // 2 * 2 * (d + dv)
-        # The bound of the function is the narrow row's: f32-accurate
-        # products at the split-TF32 rate.  The wide form runs on the CUDA
-        # cores, whose f32 bound is printed beside it.
-        fl_bound = max(fl_bytes / HBM_BYTES_PER_S,
-                       fl_ops / SPLIT_TF32_OPS_PER_S) * 1e3
-        fl_bound_f32 = fl_ops / F32_OPS_PER_S * 1e3
-        print(f"[chip_smoke] wide d={d} dv={dv} (N={N}, S={S}, causal): "
-              f"bitstopper_qk rounds/survivors/out equal to plain, copies "
-              f"as designed ({planes} plane, {v_bytes} V bytes), kernel "
-              f"{qk_ms:.4f} ms, plain {qk_plain_ms:.3f} ms, bound "
-              f"{max(qk_bytes_ms, qk_ops_ms):.5f} ms ({live} live rounds); "
-              f"flash max|out diff| {err:.3e}, kernel {fl_ms:.4f} ms, plain "
-              f"{fl_plain_ms:.3f} ms, scaled_dot_product_attention "
-              f"{lib_ms:.4f} ms, bound {fl_bound:.5f} ms at the split-TF32 "
-              f"rate ({fl_bound_f32:.5f} ms at the f32 CUDA-core rate)")
-        rows.append({"d": d, "dv": dv, "qk_ms": qk_ms,
-                     "qk_plain_ms": qk_plain_ms,
-                     "qk_bound_ms": max(qk_bytes_ms, qk_ops_ms),
-                     "flash_ms": fl_ms, "flash_plain_ms": fl_plain_ms,
-                     "flash_bound_ms": fl_bound,
-                     "flash_bound_f32_ms": fl_bound_f32,
-                     "flash_library_ms": lib_ms,
-                     "flash_max_abs_err": err})
-    return rows
+            raise SystemExit(f"[chip_smoke] bitstopper_qk {tag} causal="
+                             f"{causal}: out differs by {err} > "
+                             f"{UNCACHED_TOL}")
+        n_qt, n_kb = ker.rounds.shape[1:]
+        live_v = int(ker.survivors.reshape(N, n_qt, blk, n_kb, blk)
+                     .any(4).any(2).sum())
+        design = bq.design_plane_bytes(ker.rounds, cfg.bits, blk, d)
+        if planes != design or v_bytes != live_v * blk * dv * 4:
+            raise SystemExit(f"[chip_smoke] bitstopper_qk {tag} copied "
+                             f"{planes} plane and {v_bytes} V bytes; the "
+                             f"design copies {design} and "
+                             f"{live_v * blk * dv * 4}")
+    kargs, held = bq.kernel_args(ops, cfg, blk, blk, True)
+    qk_ms = cuda_ms(torch, lambda: bq.launch_c(*kargs), iters=5, warmup=1)
+    qk_plain_ms = cuda_ms(torch, lambda: bq.bitstopper_qk_plain(
+        ops, cfg, blk, blk, True), iters=1, warmup=1)
+    nbytes, plane_ops, pv_ops, live = qk_bytes_ops(ops, ker, blk, blk)
+    qk_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    qk_ops_ms = (plane_ops / FP16_OPS_PER_S + pv_ops / F32_OPS_PER_S) * 1e3
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not err <= UNCACHED_TOL:
+        raise SystemExit(f"[chip_smoke] flash_attention {tag}: out differs "
+                         f"by {err} > {UNCACHED_TOL}")
+    fl_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True),
+                    iters=5, warmup=1)
+    fl_plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, causal=True), iters=2, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True),
+                     iters=5, warmup=1)
+    fl_bytes = N * S * (2 * d + 2 * dv) * 4
+    fl_ops = N * S * (S + 1) // 2 * 2 * (d + dv)
+    # The bound of the function is the narrow row's: f32-accurate products
+    # at the split-TF32 rate.  The wide form runs on the CUDA cores, whose
+    # f32 bound is printed beside it.
+    fl_bound = max(fl_bytes / HBM_BYTES_PER_S,
+                   fl_ops / SPLIT_TF32_OPS_PER_S) * 1e3
+    fl_bound_f32 = fl_ops / F32_OPS_PER_S * 1e3
+    print(f"[chip_smoke] {tag} (N={N}, S={S}, causal): bitstopper_qk "
+          f"rounds/survivors{'/out' if exact_out else ''} equal to plain "
+          f"(max|out diff| {qk_err:.3e}), copies as designed ({planes} "
+          f"plane, {v_bytes} V bytes), kernel {qk_ms:.4f} ms, plain "
+          f"{qk_plain_ms:.3f} ms, bound {max(qk_bytes_ms, qk_ops_ms):.5f} ms "
+          f"({live} live rounds); flash max|out diff| {err:.3e}, kernel "
+          f"{fl_ms:.4f} ms, plain {fl_plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+          f"{fl_bound:.5f} ms at the split-TF32 rate ({fl_bound_f32:.5f} ms "
+          f"at the f32 CUDA-core rate)")
+    return {"d": d, "dv": dv, "N": N, "S": S, "qk_ms": qk_ms,
+            "qk_plain_ms": qk_plain_ms,
+            "qk_bound_ms": max(qk_bytes_ms, qk_ops_ms),
+            "qk_bound_by": "bytes" if qk_bytes_ms >= qk_ops_ms
+            else "operations",
+            "qk_max_abs_err": qk_err,
+            "flash_ms": fl_ms, "flash_plain_ms": fl_plain_ms,
+            "flash_bound_ms": fl_bound,
+            "flash_bound_by": "bytes" if fl_bytes / HBM_BYTES_PER_S
+            >= fl_ops / SPLIT_TF32_OPS_PER_S else "operations",
+            "flash_bound_f32_ms": fl_bound_f32,
+            "flash_library_ms": lib_ms,
+            "flash_max_abs_err": err}
 
 
 @phase("large pages")
@@ -1017,10 +1090,18 @@ def dead_page_repeats(torch, bs, cfg, repeats=50):
 
 
 @phase("forward path")
-def forward_path_phase(torch, cfg, params):
+def forward_path_phase(torch, cfg, params, name="forward"):
     """transformer.forward with no caches over FWD_B prompts of FWD_S
     tokens at full width and depth, for every attention impl.  Returns the
     launches of bitstopper_qk and flash_attention in their impls' runs."""
+    return cache_free_forwards(torch, cfg, params, name)
+
+
+def cache_free_forwards(torch, cfg, params, name, hold_logits=True):
+    """The forward at every impl; ``hold_logits=False`` holds each kernel
+    impl to its plain impl's argmax at every position and reports the
+    logits' gap (a MoE model: an ulp can move a token across a router
+    tie)."""
     import numpy as np
     from repro_torch.kernels import bitstopper_qk as bq
     from repro_torch.kernels import flash_attention as fa
@@ -1040,10 +1121,10 @@ def forward_path_phase(torch, cfg, params):
         launches[impl] = (bq.LAUNCHES, fa.LAUNCHES)
         if caches is not None or out.shape != (FWD_B, FWD_S, cfg.vocab) \
                 or not bool(torch.isfinite(out).all()):
-            raise SystemExit(f"[chip_smoke] forward {impl}: logits "
+            raise SystemExit(f"[chip_smoke] {name} {impl}: logits "
                              f"{tuple(out.shape)} not finite or caches")
         logits[impl] = out
-        print(f"[chip_smoke] forward {impl}: {dt * 1e3:.1f} ms, "
+        print(f"[chip_smoke] {name} {impl}: {dt * 1e3:.1f} ms, "
               f"{FWD_B * FWD_S / dt:.1f} prompt tokens/s; launches "
               f"bitstopper_qk {launches[impl][0]}, flash_attention "
               f"{launches[impl][1]}")
@@ -1051,7 +1132,7 @@ def forward_path_phase(torch, cfg, params):
     want = {"bitstopper": (n, 0), "bitstopper_xla": (0, 0), "flash": (0, n),
             "xla": (0, 0)}
     if launches != want:
-        raise SystemExit(f"[chip_smoke] forward launches {launches}, "
+        raise SystemExit(f"[chip_smoke] {name} launches {launches}, "
                          f"expected {want} (one per layer)")
     # Each kernel impl against the plain impl it is held to.  Tolerances,
     # relative to the largest |logit|: bitstopper vs bitstopper_xla 1e-3,
@@ -1065,16 +1146,16 @@ def forward_path_phase(torch, cfg, params):
         diff = float((a - b).abs().max())
         scale = float(b.abs().max())
         same = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-        print(f"[chip_smoke] forward {ker} vs {plain}: max|diff| "
+        print(f"[chip_smoke] {name} {ker} vs {plain}: max|diff| "
               f"{diff:.3e} (max|logit| {scale:.3f}, limit {rel:g} of it); "
               f"argmax equal at {same * 100:.2f}% of positions")
-        if not diff <= rel * scale or same != 1.0:
-            raise SystemExit(f"[chip_smoke] forward {ker} disagrees with "
+        if (hold_logits and not diff <= rel * scale) or same != 1.0:
+            raise SystemExit(f"[chip_smoke] {name} {ker} disagrees with "
                              f"{plain}")
     gap = float((logits["bitstopper"] - logits["xla"]).abs().max())
     agree = float((logits["bitstopper"].argmax(-1)
                    == logits["xla"].argmax(-1)).float().mean())
-    print(f"[chip_smoke] forward bitstopper vs dense xla (INT12 quantization"
+    print(f"[chip_smoke] {name} bitstopper vs dense xla (INT12 quantization"
           f" and pruning, reported only): max|diff| {gap:.3e}, argmax equal "
           f"at {agree * 100:.2f}% of positions")
     return launches["bitstopper"][0], launches["flash"][1]
@@ -1088,10 +1169,19 @@ def make_requests(np, Request, seed, n, new_tokens, vocab):
 
 
 def cut_model(cfg, params, depth=4):
-    """The model cut to its first ``depth`` layers (full width)."""
-    depth = min(depth, cfg.n_layers)
-    return (cfg.replace(segments=((cfg.segments[0][0], depth),)),
-            dict(params, seg0=params["seg0"][:depth]))
+    """The model cut to its first ``depth`` layers (full width), segment by
+    segment in whole pattern units; the units past the first one that does
+    not fit are left out.  Leaves outside the segments are kept."""
+    segments, left = [], depth
+    cut = {k: v for k, v in params.items() if not k.startswith("seg")}
+    for si, (unit, reps) in enumerate(cfg.segments):
+        n = min(reps, left // len(unit))
+        if n == 0:
+            break
+        segments.append((unit, n))
+        cut[f"seg{si}"] = params[f"seg{si}"][:n]
+        left -= n * len(unit)
+    return cfg.replace(segments=tuple(segments)), cut
 
 
 def build_model(torch):
@@ -1245,17 +1335,19 @@ def main_path_phase(torch, cfg, params):
             raise SystemExit(f"[chip_smoke] request {r.rid} generated "
                              f"{r.generated}")
 
-    # Fused kernel vs the plain oracle on a short trace: same tokens.
+    # Fused kernel vs the plain oracle on a short trace at cut depth 4 (the
+    # oracle took a minute at full depth): same tokens.
+    cut, cut_params = cut_model(cfg, params)
     streams = []
     for fused in (True, False):
         short = make_requests(np, Request, 1, 4, 8, cfg.vocab)
         t = time.perf_counter()
-        PagedEngine(cfg, params, ServeConfig(
+        PagedEngine(cut, cut_params, ServeConfig(
             max_slots=4, page_size=16, max_len=512,
             fused_decode=fused)).generate(short)
         torch.cuda.synchronize()
-        print(f"[chip_smoke] short trace fused_decode={fused}: "
-              f"{time.perf_counter() - t:.3f} s")
+        print(f"[chip_smoke] short trace, depth {cut.n_layers}, "
+              f"fused_decode={fused}: {time.perf_counter() - t:.3f} s")
         streams.append([r.generated for r in short])
     if streams[0] != streams[1]:
         raise SystemExit(f"[chip_smoke] fused and plain decode disagree: "
@@ -1674,18 +1766,22 @@ def serve_sampled(torch, np, cfg, params, label, probe=None, **kw):
 
 
 @phase("sampled path")
-def sampled_path_phase(torch, cfg, params, greedy_tick_ms):
-    """(a) the sampler on the card against the CPU, (b) the main trace
+def sampled_path_phase(torch, cfg, params):
+    """(a) the sampler on the card against the CPU, at full width; at cut
+    depth 4 (to keep the run inside its time limit): (b) the main trace
     sampled, uncontended and oversubscribed, (c) sampled speculative
-    serving.  Returns the decode kernel's launches in (b), the verify
-    kernel's in (c)'s replay run and the prefill chunks of (b)'s
-    oversubscribed run (which recomputes on resume)."""
+    serving against (b)'s uncontended run.  Returns the decode kernel's
+    launches in (b), the verify kernel's in (c)'s replay run and the
+    prefill chunks of (b)'s oversubscribed run (which recomputes on
+    resume; the schedule depends on the prompt lengths alone)."""
     import numpy as np
     from repro_torch.serving import PagedEngine, Request, ServeConfig
     kernels, copies = sampler_card_vs_cpu(torch, cfg.vocab)
 
+    cfg, params = cut_model(cfg, params)
+    depth = cfg.n_layers
     full, want, l_full, tick_ms, timer = serve_sampled(
-        torch, np, cfg, params, "sampled (b) uncontended")
+        torch, np, cfg, params, f"sampled (b) uncontended, depth {depth}")
     worst = sum(sorted(-(-(len(p) + 31) // 16) for p in
                        (r.prompt for r in full.requests.values()))[-4:])
     print(f"[chip_smoke] sampled (b): oversubscribed pool {OVERSUB_POOL_BLOCKS}"
@@ -1693,7 +1789,7 @@ def sampled_path_phase(torch, cfg, params, greedy_tick_ms):
           f"the four largest worst-case reservations; uncontended pool "
           f"{full.layout.pool_blocks}")
     over, got, l_over, _, _ = serve_sampled(
-        torch, np, cfg, params, "sampled (b) oversubscribed",
+        torch, np, cfg, params, f"sampled (b) oversubscribed, depth {depth}",
         oversubscribe=True, pool_blocks=OVERSUB_POOL_BLOCKS)
     c = over.counters
     recomputed = c["prefill_tokens"] - full.counters["prefill_tokens"]
@@ -1714,18 +1810,19 @@ def sampled_path_phase(torch, cfg, params, greedy_tick_ms):
     per_tick = timer.ms() / len(timer.events)
     print(f"[chip_smoke] sampled (b): oversubscribed tokens equal to the "
           f"uncontended run's; mean pure decode tick sampled {tick_ms:.2f} "
-          f"ms vs greedy {greedy_tick_ms:.2f} ms (main path, this call); "
-          f"sampler {per_tick:.4f} ms per call on the served path (CUDA "
-          f"events), {kernels} kernels + {copies} copies per decode tick")
+          f"ms at depth {depth}; sampler {per_tick:.4f} ms per call on the "
+          f"served path (CUDA events), {kernels} kernels + {copies} copies "
+          f"per decode tick")
 
     # (c) Speculative serving at TEMPERATURE against the plain sampled
-    # runs: the main trace with drafts replaying (b)'s tokens, and the
-    # speculative phase's repeated-pattern trace with the n-gram drafter.
+    # runs: the main trace with drafts replaying (b)'s uncontended tokens,
+    # and the speculative phase's repeated-pattern trace with the n-gram
+    # drafter.
     reqs = [full.requests[rid] for rid in sorted(full.requests)]
     eng, got, verify_launches, _ = serve_speculative(
         torch, np, cfg, params, [r.prompt for r in reqs], 32,
-        ReplayDrafter(np, reqs), "sampled (c) replay", seed=SAMPLE_SEED,
-        speculative="draft", temperature=TEMPERATURE)
+        ReplayDrafter(np, reqs), f"sampled (c) replay, depth {cfg.n_layers}",
+        seed=SAMPLE_SEED, speculative="draft", temperature=TEMPERATURE)
     if got != want:
         raise SystemExit("[chip_smoke] sampled (c): replay speculative "
                          "tokens differ from plain sampled")
@@ -1741,8 +1838,9 @@ def sampled_path_phase(torch, cfg, params, greedy_tick_ms):
         temperature=TEMPERATURE)).generate(plain, SAMPLE_SEED)
     want = [r.generated for r in plain]
     _, got, _, _ = serve_speculative(
-        torch, np, cfg, params, prompts, 16, label="sampled (c) ngram",
-        seed=SAMPLE_SEED, speculative="ngram", temperature=TEMPERATURE)
+        torch, np, cfg, params, prompts, 16,
+        label=f"sampled (c) ngram, depth {cfg.n_layers}", seed=SAMPLE_SEED,
+        speculative="ngram", temperature=TEMPERATURE)
     if got != want:
         raise SystemExit("[chip_smoke] sampled (c): n-gram speculative "
                          "tokens differ from plain sampled")
@@ -2216,11 +2314,11 @@ def store_warm_start(torch, np, cfg, params, store_dir, max_slots, label,
 
 @phase("memory path")
 def memory_path_phase(torch, cfg, params, recompute_chunks):
-    """(a) swap-to-host on the sampled oversubscribed run at cut depth 4
+    """At cut depth 4: (a) swap-to-host on the sampled oversubscribed run
     (its schedule, and so the recompute run's prefill chunks, depends on
     the prompt lengths alone), (b) the prefix store at one slot, by
     construction, (b') at four slots, measured, (c) the host prefix tier
-    spilling to disk at cut depth.  Returns the decode kernel's
+    spilling to disk.  Returns the decode kernel's
     launches."""
     import tempfile
     import numpy as np
@@ -2260,11 +2358,11 @@ def memory_path_phase(torch, cfg, params, recompute_chunks):
 
     with tempfile.TemporaryDirectory() as tmp, tiers.store_patch():
         cold, cold_tok, warm, warm_tok, flushed = store_warm_start(
-            torch, np, cfg, params, f"{tmp}/b", 1, "memory (b)")
+            torch, np, cut, cut_params, f"{tmp}/b", 1, "memory (b)")
         tiers.report(np, "memory (b)", ("record write", "record load"))
         same, planes, _ = grids_and_planes(np, cold, warm)
         cc, wc = cold.counters, warm.counters
-        launches += cfg.n_layers * (cc["decode_steps"] + wc["decode_steps"])
+        launches += cut.n_layers * (cc["decode_steps"] + wc["decode_steps"])
         saved = wc["prefix_store_tokens"] // cold.scfg.resolved_chunk()
         checks = {
             "the cold tokens": warm_tok == cold_tok,
@@ -2283,10 +2381,10 @@ def memory_path_phase(torch, cfg, params, recompute_chunks):
         print(f"[chip_smoke] memory (b): {', '.join(checks)}: all hold")
 
         cold, cold_tok, warm, warm_tok, _ = store_warm_start(
-            torch, np, cfg, params, f"{tmp}/b2", 4, "memory (b')")
+            torch, np, cut, cut_params, f"{tmp}/b2", 4, "memory (b')")
         tiers.report(np, "memory (b')", ("record write", "record load"))
         same, _, gap = grids_and_planes(np, cold, warm)
-        launches += cfg.n_layers * (cold.counters["decode_steps"]
+        launches += cut.n_layers * (cold.counters["decode_steps"]
                                     + warm.counters["decode_steps"])
         # (Plane pools do not compare here: the cold run's four requests
         # each prefilled the system prompt into blocks of their own.)
@@ -2788,12 +2886,13 @@ def near_tie_divergence(label, tap, a_toks, b_toks):
 
 
 @phase("dense path")
-def dense_path_phase(torch, cfg, params, plain_reqs):
-    """The dense serving slice at full width and depth, on the main trace:
+def dense_path_phase(torch, cfg, params):
+    """The dense serving slice at full width and cut depth 4 (the caller
+    cuts it), on the main trace:
     (a) the paged engine on ``attn_impl="xla"``; (b) the contiguous engine
     on ``xla``, whose tokens must equal (a)'s or first differ where (a)'s
-    logits are a near-tie; (c) the contiguous engine on ``bitstopper_xla``,
-    its agreement with the main path printed; (d) the static engine on
+    logits are a near-tie; (c) the contiguous engine on
+    ``bitstopper_xla``; (d) the static engine on
     ``xla``, sampled, its sampler's bits for the first key equal to the
     CPU's; (e) the contiguous cache's resident bytes against the paged
     pool's peak.  The dense path runs no kernel of the port: every count is
@@ -2832,18 +2931,9 @@ def dense_path_phase(torch, cfg, params, plain_reqs):
           f"requests equal token for token"
           + (f"; the others first differ at near-ties {diverged}"
              if diverged else ""))
-    # (c) contiguous on bitstopper_xla, against the main path's tokens.
+    # (c) contiguous on bitstopper_xla.
     serve("(c) contiguous bitstopper_xla",
           ContinuousBatchingEngine(cfg, params, scfg), "prefill_tokens")
-    main = [r.generated for r in plain_reqs]
-    c_toks = out["(c) contiguous bitstopper_xla"]["tokens"]
-    same_req = sum(x == y for x, y in zip(c_toks, main))
-    same_tok = sum(int(a == b) for x, y in zip(c_toks, main)
-                   for a, b in zip(x, y))
-    print(f"[chip_smoke] dense (c) vs the main path (paged BitStopper, "
-          f"pool-wide scales; the contiguous engine scales per row): "
-          f"{same_req} of 8 requests and {same_tok} of 256 tokens equal "
-          f"(measured, not checked)")
     # (d) static on xla, sampled: buckets of two 128-token prompts, then
     # 256 and 384; the sampler's bits for the first key against the CPU.
     rng = np.random.default_rng(7)
@@ -3019,28 +3109,29 @@ def bf16_kernel_phase(torch):
 
 
 @phase("bf16 path")
-def bf16_path_phase(torch, cfg, params, plain_reqs, f32_main):
-    """(b) the main trace at full width and depth on a bf16 cache, (c) at
-    cut depth 4 the kernel against the plain oracle, replayed speculation,
+def bf16_path_phase(torch, cfg, params, f32_main):
+    """(b) the main trace at full width, cut depth 4, on a bf16 cache, (c)
+    at cut depth 4 the kernel against the plain oracle, replayed speculation,
     a sampled oversubscribed run with a swap tier and a prefix store cold
     then warm, all at bf16, (d) the dense engines at bf16.  Returns the
     decode and verify kernels' launches."""
     import numpy as np
-    decode = bf16_main_trace(torch, np, cfg, params, plain_reqs, f32_main)
+    decode = bf16_main_trace(torch, np, cfg, params, f32_main)
     more, verify = bf16_cut_depth(torch, np, cfg, params)
     bf16_dense(torch, np, cfg, params)
     return decode + more, verify
 
 
-def bf16_main_trace(torch, np, cfg, params, plain_reqs, f32_main):
+def bf16_main_trace(torch, np, cfg, params, f32_main):
     """(b): PagedEngine on bitstopper_xla with the decode kernel and a bf16
-    cache: one decode launch per layer per decode tick, tokens/s and the
-    decode tick, the byte reports against the f32 main path's (the same
-    schedule: equal peak blocks, the K/V bytes halved), and how many of
-    the 8 requests give the f32 main path's tokens (reported).  Returns the
-    decode launches."""
+    cache, at cut depth 4: one decode launch per layer per decode tick,
+    tokens/s and the decode tick, the byte reports against the f32 main
+    path's at full depth (the same schedule: equal peak blocks; per layer
+    the K/V bytes halved).  Returns the decode launches."""
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.serving import PagedEngine, ServeConfig
+    n_full = cfg.n_layers
+    cfg, params = cut_model(cfg, params)
     eng = PagedEngine(cfg, params, ServeConfig(
         max_slots=4, page_size=16, max_len=512, cache_dtype=BF16))
     layer = eng.caches["seg0"][0]["b0"]
@@ -3060,24 +3151,21 @@ def bf16_main_trace(torch, np, cfg, params, plain_reqs, f32_main):
     for toks in run["tokens"]:
         if len(toks) != 32 or not all(0 <= x < cfg.vocab for x in toks):
             raise SystemExit(f"[chip_smoke] bf16 (b): generated {toks}")
-    same = sum(t == r.generated for t, r in zip(run["tokens"], plain_reqs))
     kv16 = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2
     peak = eng.kv_bytes_resident()
-    want = f32_main["kv_bytes_resident"] - (
-        f32_main["peak_blocks"] * eng.scfg.page_size * kv16)
+    # Every layer holds the same bytes: the f32 main path's at this depth.
+    f32_peak = f32_main["kv_bytes_resident"] // n_full * cfg.n_layers
+    want = f32_peak - f32_main["peak_blocks"] * eng.scfg.page_size * kv16
     rep = eng.memory_report()
-    print(f"[chip_smoke] bf16 (b): {run['tok_s']:.2f} tok/s and pure decode "
-          f"ticks of {run['decode_ms']:.2f} ms against the f32 main path's "
-          f"{f32_main['tok_s']:.2f} and {f32_main['decode_ms']:.2f} ms (this "
-          f"call); paged_decode launches {launches} = {cfg.n_layers} x "
-          f"{steps} ticks ({timer.ms() / max(launches, 1):.4f} ms per launch,"
-          f" CUDA events); {same} of 8 requests give the f32 main path's "
-          f"tokens (reported, not checked)")
-    ratio = peak / f32_main["kv_bytes_resident"]
+    print(f"[chip_smoke] bf16 (b) at depth {cfg.n_layers}: {run['tok_s']:.2f}"
+          f" tok/s and pure decode ticks of {run['decode_ms']:.2f} ms; "
+          f"paged_decode launches {launches} = {cfg.n_layers} x {steps} "
+          f"ticks ({timer.ms() / max(launches, 1):.4f} ms per launch, CUDA "
+          f"events)")
+    ratio = peak / f32_peak
     print(f"[chip_smoke] bf16 (b): kv_bytes_resident() {peak} against "
-          f"{f32_main['kv_bytes_resident']} at f32 ({ratio:.4f}); {kv16} "
-          f"K/V bytes a token instead of {2 * kv16}; memory_report() {rep} "
-          f"against {f32_main['memory_report']}")
+          f"{f32_peak} at f32 and this depth ({ratio:.4f}); {kv16} K/V "
+          f"bytes a token instead of {2 * kv16}; memory_report() {rep}")
     if (eng.pool.peak_live_blocks != f32_main["peak_blocks"]
             or peak != want):
         raise SystemExit(f"[chip_smoke] bf16 (b): peak blocks "
@@ -3088,23 +3176,28 @@ def bf16_main_trace(torch, np, cfg, params, plain_reqs, f32_main):
 
 
 def bf16_cut_depth(torch, np, cfg, params):
-    """(c) at cut depth 4, bf16 caches: the main trace with the kernel and
-    with the plain oracle (equal tokens), served again speculatively with
-    drafts replaying the kernel run's tokens (equal tokens), the sampled
-    oversubscribed run with a swap tier (the uncontended sampled tokens),
-    and a prefix store cold then warm at one slot (equal tokens, scales
-    and planes).  Returns the decode and verify launches."""
+    """(c) at cut depth 4, bf16 caches: the main trace with the kernel, a
+    short trace with the kernel and with the plain oracle (equal tokens),
+    the main trace served again speculatively with drafts replaying the
+    kernel run's tokens (equal tokens), the sampled oversubscribed run with
+    a swap tier (the uncontended sampled tokens), and a prefix store cold
+    then warm at one slot (equal tokens, scales and planes).  Returns the
+    decode and verify launches."""
     import tempfile
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.serving import PagedEngine, Request, ServeConfig
     cut, cut_params = cut_model(cfg, params)
     depth = cut.n_layers
     streams, launches = {}, 0
-    for fused in (True, False):
+    # The plain oracle serves the short trace only: on the main trace it
+    # took a minute of the run's time limit.
+    for label, fused, seed, n, new in (("main", True, 0, 8, 32),
+                                       ("short", True, 1, 4, 8),
+                                       ("short", False, 1, 4, 8)):
         eng = PagedEngine(cut, cut_params, ServeConfig(
             max_slots=4, page_size=16, max_len=512, cache_dtype=BF16,
             fused_decode=fused))
-        reqs = make_requests(np, Request, 0, 8, 32, cfg.vocab)
+        reqs = make_requests(np, Request, seed, n, new, cfg.vocab)
         pd.LAUNCHES = 0
         t = time.perf_counter()
         eng.generate(reqs)
@@ -3116,17 +3209,19 @@ def bf16_cut_depth(torch, np, cfg, params):
                              f"{pd.LAUNCHES} decode launches for {steps} "
                              f"ticks x {depth} layers")
         launches += pd.LAUNCHES
-        streams[fused] = reqs
+        streams[label, fused] = reqs
         print(f"[chip_smoke] bf16 (c) depth {depth}, fused_decode={fused}: "
-              f"the main trace in {wall:.3f} s, {steps} decode ticks, "
-              f"{pd.LAUNCHES} decode launches")
-    want = [r.generated for r in streams[True]]
-    if want != [r.generated for r in streams[False]]:
+              f"the {label} trace ({n} requests) in {wall:.3f} s, {steps} "
+              f"decode ticks, {pd.LAUNCHES} decode launches")
+    if [r.generated for r in streams["short", True]] != \
+            [r.generated for r in streams["short", False]]:
         raise SystemExit("[chip_smoke] bf16 (c): the kernel and the plain "
                          "oracle disagree")
+    main = streams["main", True]
+    want = [r.generated for r in main]
     eng, got, verify, verify_ticks = serve_speculative(
-        torch, np, cut, cut_params, [r.prompt for r in streams[True]], 32,
-        ReplayDrafter(np, streams[True]),
+        torch, np, cut, cut_params, [r.prompt for r in main], 32,
+        ReplayDrafter(np, main),
         f"bf16 (c) speculative replay, depth {depth}", speculative="draft",
         cache_dtype=BF16)
     launches += pd.LAUNCHES            # the speculative run's decodes
@@ -3213,6 +3308,397 @@ def bf16_dense(torch, np, cfg, params):
         raise SystemExit(f"[chip_smoke] bf16 (d): contiguous bytes {got} "
                          f"(want {want}), kernel launches {pd.LAUNCHES}, "
                          f"{pv.LAUNCHES}")
+
+
+# ---------------------------------------------------------------------------
+# the model zoo: MoE serving of qwen2-moe-a2.7b, then MLA, Mamba-2, RG-LRU
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+
+
+@phase("moe kernels")
+def moe_kernel_phase(torch):
+    """The decode and verify kernels at a qwen2-moe-a2.7b attention layer's
+    shape (B=4, Hq=Hkv=16, D=128, pages of 16, alpha 0.6), as the kernel
+    phases hold them at D=64: integers equal to plain, out within OUT_TOL,
+    every verify query equal to the decode at its position, bytes as
+    designed, each timed alone beside its bound.  Then the cache-free
+    kernels at one layer of the MoE forward (2 prompts x 16 heads of 128,
+    S=1024): bitstopper_qk's rounds and survivors equal to plain, causal
+    and not, its out and flash's within UNCACHED_TOL, each timed beside its
+    bound.  Returns the rows of the four kernels at these shapes."""
+    keep = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "physical_bytes")
+    dec = decode_kernel_check(torch, MOE_SHAPES, MOE_DECODE_CASES, 300)
+    shapes = dict(MOE_SHAPES, Sq=SPEC_K + 1)
+    del shapes["Hq"]
+    ver = verify_kernel_check(torch, shapes, MOE_VERIFY_CASES, 310)
+    shape = {"B": 4, "Hq": 16, "Hkv": 16, "D": 128, "bs": 16}
+    fwd = uncached_width_check(torch, 330, FWD_B * 16, 128, 128, "moe",
+                               exact_out=False)
+    qk = {k[3:]: v for k, v in fwd.items() if k.startswith("qk_")}
+    flash = {k[6:]: v for k, v in fwd.items() if k.startswith("flash_")}
+    cut = {"N": fwd["N"], "S": fwd["S"], "D": 128}
+    return ({k: dec[k] for k in keep} | shape,
+            {k: ver[k] for k in keep} | shape | {"Sq": SPEC_K + 1},
+            qk | {"library_ms": None} | cut,
+            flash | cut)
+
+
+def build_moe_model(torch):
+    """Full-width, full-depth qwen2-moe-a2.7b (f32, as its registry entry
+    says) with seeded random weights drawn on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.besf import BitStopperConfig
+    from repro_torch.models import transformer as T
+    cfg = get_config(MOE_ARCH, attn_impl="bitstopper_xla",
+                     bitstopper=BitStopperConfig(alpha=0.6))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_model(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params = sum(p.numel() for p in leaves)
+    experts = sum(p.numel() for u in params["seg0"]
+                  for k, p in u["b0"]["moe"].items() if k != "shared"
+                  and k != "router")
+    print(f"[chip_smoke] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, {cfg.n_routed} routed experts (top {cfg.top_k}, "
+          f"d_expert {cfg.d_expert}) and {cfg.n_shared} shared (d_shared "
+          f"{cfg.d_shared}), vocab {cfg.vocab}; {n_params} f32 parameters "
+          f"({n_params * 4 / 1e9:.2f} GB; routed experts {experts * 4 / 1e9:.2f}"
+          f" GB), seeded init {time.perf_counter() - t0:.2f} s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB")
+    return cfg, params
+
+
+class DropCounter:
+    """Counts the dropped (token, expert) pairs and the routed rows of
+    every MoE dispatch on the card, into device tensors (no host sync per
+    layer), apart for verify forwards and all other calls; ``take()``
+    reads and resets the counts: {"verify" | "other": (dropped, rows)}."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+        from repro_torch.serving import PagedEngine
+        self.torch, self.moe, self.engine = torch, moe, PagedEngine
+        self.real_plan = moe.dispatch_plan
+        self.real_verify = PagedEngine._verify_forward
+        self.tag, self.counts = "other", {}
+
+    def _plan(self, *a, **kw):
+        plan = self.real_plan(*a, **kw)
+        c = self.counts.setdefault(self.tag, self.torch.zeros(
+            2, dtype=self.torch.int64, device="cuda"))
+        c[0] += (~plan[3]).sum()
+        c[1] += plan[3].numel()
+        return plan
+
+    def __enter__(self):
+        counter = self
+
+        def verify(eng, *a):
+            counter.tag = "verify"
+            try:
+                return counter.real_verify(eng, *a)
+            finally:
+                counter.tag = "other"
+
+        self.moe.dispatch_plan = self._plan
+        self.engine._verify_forward = verify
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch_plan = self.real_plan
+        self.engine._verify_forward = self.real_verify
+
+    def take(self):
+        out = {tag: tuple(int(x) for x in c)
+               for tag, c in self.counts.items()}
+        self.counts = {}
+        return out
+
+
+@phase("moe path")
+def moe_path_phase(torch):
+    """Full-width, full-depth qwen2-moe-a2.7b: (a) the main trace through
+    PagedEngine on bitstopper_xla with the decode kernel (one launch per
+    layer per decode tick), tokens/s, the decode tick and the prefill
+    chunk, dropped (token, expert) pairs per chunk and per tick; (b) at cut
+    depth 4, the kernel against the plain oracle (equal tokens) and
+    replayed speculation (the plain tokens, one verify launch per layer per
+    verify forward); (c) the cache-free forward of 2 x 1024 tokens at every
+    impl (one kernel launch per layer, the plain impl's argmax at every
+    position).  Returns the decode and verify launches of (a)-(b) and the
+    forward's kernel launches."""
+    import numpy as np
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
+    cfg, params = build_moe_model(torch)
+    scfg = ServeConfig(max_slots=4, page_size=16, max_len=512)
+    PagedEngine(cfg, params, scfg).generate(
+        make_requests(np, Request, 99, 1, 2, cfg.vocab))
+    torch.cuda.synchronize()
+
+    eng = PagedEngine(cfg, params, scfg)
+    if not eng.cfg.fused_decode:
+        raise SystemExit("[chip_smoke] moe (a): fused_decode did not "
+                         "resolve to the kernel on the card")
+    ticks = {"prefill": [], "decode": [], "mixed": []}
+    drops = {"prefill": [], "decode": [], "mixed": []}
+    real = eng.step
+
+    with DropCounter(torch) as counter:
+        def step():
+            p, d = eng.counters["prefill_chunks"], \
+                eng.counters["decode_steps"]
+            t = time.perf_counter()
+            out = real()
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t) * 1e3
+            pre = eng.counters["prefill_chunks"] > p
+            dec = eng.counters["decode_steps"] > d
+            kind = "mixed" if pre and dec else "prefill" if pre else \
+                "decode" if dec else None
+            dropped = counter.take().get("other", (0, 0))
+            if kind:
+                ticks[kind].append(dt)
+                drops[kind].append(dropped)
+            return out
+
+        eng.step = step
+        reqs = make_requests(np, Request, 0, 8, 32, cfg.vocab)
+        torch.cuda.reset_peak_memory_stats()
+        with LaunchTimer(torch, pd) as timer:
+            pd.LAUNCHES = 0
+            t = time.perf_counter()
+            eng.generate(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = pd.LAUNCHES
+    steps = eng.counters["decode_steps"]
+    n_tok = sum(len(r.generated) for r in reqs)
+    print(f"[chip_smoke] moe (a) main trace: {len(reqs)} requests, prompts "
+          f"{[len(r.prompt) for r in reqs]}, {n_tok} new tokens in "
+          f"{wall:.3f} s ({n_tok / wall:.2f} tok/s); {steps} decode ticks, "
+          f"{eng.counters['prefill_chunks']} prefill chunks; pure decode "
+          f"ticks {len(ticks['decode'])} at mean "
+          f"{mean_ms(ticks['decode']):.2f} ms, pure prefill ticks "
+          f"{len(ticks['prefill'])} at mean {mean_ms(ticks['prefill']):.2f} "
+          f"ms, mixed {len(ticks['mixed'])} at mean "
+          f"{mean_ms(ticks['mixed']):.2f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for kind in ("prefill", "decode", "mixed"):
+        d = np.array(drops[kind] or [(0, 0)])
+        print(f"[chip_smoke] moe (a) dropped (token, expert) pairs per "
+              f"{kind} tick: mean {d[:, 0].mean():.2f}, max {d[:, 0].max()},"
+              f" total {d[:, 0].sum()} of {d[:, 1].sum()} routed rows "
+              f"({len(drops[kind])} ticks, {cfg.n_layers} layers each)")
+    print(f"[chip_smoke] moe (a): paged_decode launches {launches} = "
+          f"{cfg.n_layers} x {steps} ticks ({timer.ms() / max(launches, 1):.4f}"
+          f" ms per launch, CUDA events); counters {eng.counters}")
+    if launches != cfg.n_layers * steps or steps == 0:
+        raise SystemExit(f"[chip_smoke] moe (a): {launches} decode launches "
+                         f"for {steps} ticks x {cfg.n_layers} layers")
+    for r in reqs:
+        if len(r.generated) != 32 or not all(0 <= x < cfg.vocab
+                                             for x in r.generated):
+            raise SystemExit(f"[chip_smoke] moe (a): request {r.rid} "
+                             f"generated {r.generated}")
+
+    # The device's busy share over steady decode ticks (torch.profiler).
+    from torch.profiler import ProfilerActivity, profile
+    prof = PagedEngine(cfg, params, scfg)
+    for r in make_requests(np, Request, 0, 4, 16, cfg.vocab):
+        prof.submit(r)
+    while prof._prefill_fifo or not prof.counters["decode_steps"]:
+        prof.step()
+    report_profile(torch, ProfilerActivity, profile, "moe decode tick",
+                   prof.step, 4)
+    del prof
+
+    # (b) at cut depth 4: kernel vs plain oracle, then replayed drafts.
+    cut, cut_params = cut_model(cfg, params)
+    streams = []
+    for fused in (True, False):
+        short = make_requests(np, Request, 1, 4, 8, cfg.vocab)
+        pd.LAUNCHES = 0
+        t = time.perf_counter()
+        e = PagedEngine(cut, cut_params, ServeConfig(
+            max_slots=4, page_size=16, max_len=512, fused_decode=fused))
+        e.generate(short)
+        torch.cuda.synchronize()
+        want = cut.n_layers * e.counters["decode_steps"] if fused else 0
+        if pd.LAUNCHES != want:
+            raise SystemExit(f"[chip_smoke] moe (b) fused={fused}: "
+                             f"{pd.LAUNCHES} decode launches, want {want}")
+        launches += pd.LAUNCHES
+        print(f"[chip_smoke] moe (b) cut depth {cut.n_layers}, fused_decode"
+              f"={fused}: {time.perf_counter() - t:.3f} s, "
+              f"{pd.LAUNCHES} decode launches")
+        streams.append(short)
+    if [r.generated for r in streams[0]] != [r.generated for r in
+                                             streams[1]]:
+        raise SystemExit(f"[chip_smoke] moe (b): kernel and plain oracle "
+                         f"disagree: {[r.generated for r in streams[0]]} vs "
+                         f"{[r.generated for r in streams[1]]}")
+    # Replayed drafts at the config's capacity factor, then at one no call
+    # can bind (n_routed / top_k: every expert holds all of a call's
+    # tokens).  A verify forward routes B x (k+1) tokens with that call's
+    # capacity, so it can drop pairs that a decode of the same tokens keeps
+    # (pad rows of idle slots take slots too): then its tokens differ from
+    # plain decoding's, as the reference's do (ROADMAP C9).
+    verify_launches = 0
+    for factor in (cut.moe_capacity_factor, cut.n_routed / cut.top_k):
+        c = cut.replace(moe_capacity_factor=factor)
+        plain = make_requests(np, Request, 1, 4, 8, cfg.vocab)
+        PagedEngine(c, cut_params, ServeConfig(
+            max_slots=4, page_size=16, max_len=512)).generate(plain)
+        with DropCounter(torch) as counter:
+            spec, got, n, _ = serve_speculative(
+                torch, np, c, cut_params, [r.prompt for r in plain], 8,
+                ReplayDrafter(np, plain), f"moe (b) replay, depth "
+                f"{cut.n_layers}, capacity factor {factor:g}",
+                speculative="draft")
+            dropped = counter.take()
+        verify_launches += n
+        want = [r.generated for r in plain]
+        v_drop, v_rows = dropped.get("verify", (0, 0))
+        print(f"[chip_smoke] moe (b) capacity factor {factor:g}: replayed "
+              f"speculation {'gives' if got == want else 'does not give'} "
+              f"the plain tokens; verify forwards dropped {v_drop} of "
+              f"{v_rows} routed rows, other calls {dropped.get('other')}")
+        if spec.counters["spec_accepted"] == 0:
+            raise SystemExit("[chip_smoke] moe (b): no draft accepted")
+        if got != want and (factor != cut.moe_capacity_factor
+                            or v_drop == 0):
+            raise SystemExit(f"[chip_smoke] moe (b) capacity factor "
+                             f"{factor:g}: speculative tokens {got} differ "
+                             f"from plain {want} with {v_drop} verify drops")
+    print(f"[chip_smoke] moe (b): kernel and plain oracle give identical "
+          f"tokens on {len(streams[0])} requests; replayed speculation gives "
+          f"the plain tokens wherever no verify forward drops a pair")
+    del eng, spec, e
+
+    # (c) the cache-free forward at every impl.
+    qk, flash = cache_free_forwards(torch, cfg, params, "moe forward",
+                                    hold_logits=False)
+    return launches, verify_launches, qk, flash
+
+
+ZOO = ("recurrentgemma-2b", "mamba2-130m", "deepseek-v3-671b")
+ZOO_STEPS, ZOO_FWD_S = 12, 256
+
+
+def zoo_decode(torch, T, cfg, params, tokens):
+    """ZOO_STEPS single-token cached decode steps; returns the last
+    logits [B, vocab]."""
+    caches = T.init_caches(cfg, tokens.shape[0], 32, device="cuda")
+    for t in range(ZOO_STEPS):
+        logits, caches, _ = T.forward(
+            params, tokens[:, t:t + 1], cfg, caches=caches,
+            positions=torch.arange(t, t + 1, device="cuda"))
+    return logits[:, 0].float()
+
+
+@phase("zoo")
+def zoo_phase(torch):
+    """recurrentgemma-2b (26 layers) and mamba2-130m at full width and
+    depth, f32, and deepseek-v3 cut to its three dense-FFN MLA layers in
+    bf16 (its 58 MoE layers, about 22.5 GB each, do not fit): a finite
+    cache-free forward of 2 x ZOO_FWD_S tokens, and ZOO_STEPS single-token
+    cached decode steps whose last logits match the forward's within the
+    reference's 2e-3.  DeepSeek is held there on its bf16 weights widened
+    to f32; its bf16 run and the MLA decode on bitstopper_xla (which prunes
+    keys the dense forward keeps) report their gap to it; the MTP head's
+    logits must be finite."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.besf import BitStopperConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    rng = np.random.default_rng(11)
+    for arch in ZOO:
+        cfg = get_config(arch)
+        if arch.startswith("deepseek"):
+            cfg = cfg.replace(segments=cfg.segments[:1])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = T.init_model(cfg, torch.Generator(device="cuda")
+                              .manual_seed(0), "cuda")
+        n_params = sum(p.numel() for p in _leaves(params))
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                              (2, ZOO_FWD_S)), device="cuda")
+        t = time.perf_counter()
+        logits, _, _ = T.forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t) * 1e3
+        if logits.shape != (2, ZOO_FWD_S, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise SystemExit(f"[chip_smoke] zoo {arch}: forward logits "
+                             f"{tuple(logits.shape)} not finite")
+        del logits
+        held = (cfg, params)
+        if cfg.param_dtype == "bfloat16":
+            held = (cfg.replace(dtype="float32", param_dtype="float32"),
+                    T._map_tree(lambda p: p.float(), params))
+        hcfg, hparams = held
+        full, _, _ = T.forward(hparams, tokens[:, :ZOO_STEPS], hcfg)
+        full = full[:, -1].float()
+        t = time.perf_counter()
+        last = zoo_decode(torch, T, hcfg, hparams, tokens)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t) * 1e3 / ZOO_STEPS
+        gap = float((last - full).abs().max())
+        ok = bool(torch.allclose(last, full, atol=2e-3, rtol=2e-3))
+        print(f"[chip_smoke] zoo {arch}: {cfg.n_layers} layers, "
+              f"{n_params} {cfg.param_dtype} parameters, init and forward "
+              f"{time.perf_counter() - t0:.2f} s; cache-free forward 2 x "
+              f"{ZOO_FWD_S} finite in {fwd_ms:.1f} ms; {ZOO_STEPS} decode "
+              f"steps ({dec_ms:.2f} ms each, {hcfg.param_dtype}): last "
+              f"logits max|diff| {gap:.3e} from the forward's (max|logit| "
+              f"{float(full.abs().max()):.3f}), within 2e-3: {ok}; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+              f" GiB")
+        if not ok:
+            raise SystemExit(f"[chip_smoke] zoo {arch}: decode leaves the "
+                             f"forward's logits by {gap}")
+        if hcfg is not cfg:
+            runs = [("bf16 xla", cfg, params)]
+            runs.append(("f32 bitstopper_xla", hcfg.replace(
+                attn_impl="bitstopper_xla",
+                bitstopper=BitStopperConfig(alpha=0.6)), hparams))
+            for label, c, p in runs:
+                other = zoo_decode(torch, T, c, p, tokens)
+                if not bool(torch.isfinite(other).all()):
+                    raise SystemExit(f"[chip_smoke] zoo {arch} {label}: "
+                                     f"decode logits not finite")
+                same = float((other.argmax(-1) == last.argmax(-1))
+                             .float().mean())
+                print(f"[chip_smoke] zoo {arch} decode on {label}: last "
+                      f"logits max|diff| {float((other - last).abs().max()):.3e}"
+                      f" from the f32 xla decode's, argmax equal in "
+                      f"{same * 100:.0f}% of rows (reported, not checked)")
+            h, _, _ = T.run_segments(params, L.embed(
+                params["embed"], tokens[:, :ZOO_STEPS]).to(
+                    cfg.activation_dtype),
+                torch.arange(ZOO_STEPS, device="cuda"), cfg)
+            mtp = T.mtp_logits(params, tokens[:, :ZOO_STEPS], h, cfg,
+                               torch.arange(ZOO_STEPS, device="cuda"))
+            if not bool(torch.isfinite(mtp).all()):
+                raise SystemExit(f"[chip_smoke] zoo {arch}: MTP logits not "
+                                 f"finite")
+            print(f"[chip_smoke] zoo {arch}: MTP head logits "
+                  f"{tuple(mtp.shape)} finite")
+        del params, hparams, held, full, last
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 @phase("profile")
@@ -3341,6 +3827,8 @@ def main(argv=None):
             row.setdefault("pages", []).append(dict(page[row["name"]],
                                                     bs=page["bs"]))
     bf16 = bf16_kernel_phase(torch)
+    (rows[0]["moe"], rows[1]["moe"], rows[2]["moe"],
+     rows[3]["moe"]) = moe_kernel_phase(torch)
     for row in rows[:2]:
         main, *pages = bf16[row["name"]]
         row["bf16"] = dict(
@@ -3350,7 +3838,7 @@ def main(argv=None):
             **{k: main[k] for k in ("ms", "f32_ms", "plain_ms", "bound_ms",
                                     "bound_by", "max_abs_err")})
     cfg, params = build_model(torch)
-    rows[0]["launches"], plain_reqs, greedy_tick_ms, f32_main = \
+    rows[0]["launches"], plain_reqs, _, f32_main = \
         main_path_phase(torch, cfg, params)
     rows[0]["launches_large_page_engine"] = large_page_engine_phase(
         torch, cfg, params)
@@ -3359,8 +3847,7 @@ def main(argv=None):
     rows[2]["launches"], rows[3]["launches"] = forward_path_phase(
         torch, cfg, params)
     (rows[0]["launches_sampled_path"], rows[1]["launches_sampled_path"],
-     recompute_chunks) = sampled_path_phase(torch, cfg, params,
-                                            greedy_tick_ms)
+     recompute_chunks) = sampled_path_phase(torch, cfg, params)
     (rows[0]["launches_chaos_path"],
      rows[1]["launches_chaos_path"]) = chaos_path_phase(
         torch, cfg, params, plain_reqs, ngram_prompts)
@@ -3368,10 +3855,20 @@ def main(argv=None):
         torch, cfg, params, recompute_chunks)
     rows[0]["launches_frontdoor_path"] = frontdoor_path_phase(
         torch, cfg, params, plain_reqs)
-    dense = dense_path_phase(torch, cfg, params, plain_reqs)
+    dense = dense_path_phase(torch, *cut_model(cfg, params))
     print(f"[chip_smoke] dense path summary: {json.dumps(dense)}")
     rows[0]["bf16"]["launches"], rows[1]["bf16"]["launches"] = \
-        bf16_path_phase(torch, cfg, params, plain_reqs, f32_main)
+        bf16_path_phase(torch, cfg, params, f32_main)
+    # The model zoo's phases need the card's memory: stablelm goes first.
+    del params, plain_reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    (rows[0]["launches_moe_path"], rows[1]["launches_moe_path"],
+     rows[2]["launches_moe_forward"],
+     rows[3]["launches_moe_forward"]) = moe_path_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_phase(torch)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """Serving launcher: continuous batching with BitStopper (or dense)
 attention over a mixed-length request trace.
 
-``python -m repro_torch.launch.serve --arch stablelm-1.6b`` (on the card;
+``python -m repro_torch.launch.serve --arch stablelm-1.6b`` (or any
+registry arch whose mixers are all attention, ``qwen2-moe-a2.7b`` with its
+MoE FFN among them; on the card;
 ``--device cpu`` runs the plain PyTorch path; ``--engine
 paged|continuous|static`` picks the paged engine, the contiguous per-slot
 baseline or the static length-bucketed batcher, ``--impl

@@ -2,9 +2,9 @@
 
 Mirror of ``repro/models/config.py`` (which imports jnp and the JAX core,
 so the port keeps its own copy).  A model is a stack of segments; each
-segment repeats a pattern unit of blocks.  This slice builds the
-``attn``/``local_attn`` mixers with a dense FFN; the other fields are kept
-so the architecture entries stay pure data.
+segment repeats a pattern unit of blocks.  Every mixer of the
+registry is built (``attn``, ``local_attn``, ``mla``, ``ssm``, ``rglru``)
+with a dense, MoE or no FFN; each derived config lives beside its module.
 """
 
 from __future__ import annotations
@@ -102,6 +102,40 @@ class ModelConfig:
             impl=self.attn_impl, bitstopper=self.bitstopper,
             chunk_q=self.attn_chunk, chunk_k=self.attn_chunk,
             fused_decode=self.fused_decode, spec_verify=self.spec_verify,
+        )
+
+    def mla_config(self):
+        from repro_torch.models.mla import MLAConfig
+        return MLAConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            q_rank=self.q_rank, kv_rank=self.kv_rank,
+            qk_nope_dim=self.qk_nope_dim, qk_rope_dim=self.qk_rope_dim,
+            v_head_dim=self.v_head_dim, rope_theta=self.rope_theta,
+            impl=self.attn_impl, bitstopper=self.bitstopper,
+        )
+
+    def moe_config(self):
+        from repro_torch.models.moe import MoEConfig
+        return MoEConfig(
+            d_model=self.d_model, n_routed=self.n_routed, top_k=self.top_k,
+            d_expert=self.d_expert, n_shared=self.n_shared,
+            d_shared=self.d_shared, act=self.act,
+            capacity_factor=self.moe_capacity_factor,
+        )
+
+    def ssm_config(self):
+        from repro_torch.models.ssm import SSMConfig
+        return SSMConfig(
+            d_model=self.d_model, d_state=self.ssm_state,
+            d_conv=self.ssm_conv, expand=self.ssm_expand,
+            head_dim=self.ssm_head_dim,
+        )
+
+    def rglru_config(self):
+        from repro_torch.models.rglru import RGLRUConfig
+        return RGLRUConfig(
+            d_model=self.d_model, width=self.lru_width or self.d_model,
+            n_heads=self.n_heads,
         )
 
 

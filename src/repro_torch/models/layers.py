@@ -137,14 +137,14 @@ def init_mlp(generator, d: int, d_ff: int, kind: str = "swiglu",
             "wo": init_linear(generator, d_ff, d, bias, device, dtype)}
 
 
-def _gelu(x):
+def gelu(x):
     # The reference's gelu defaults to the tanh approximation.
     return F.gelu(x, approximate="tanh")
 
 
 def mlp(p, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
     if kind in ("swiglu", "geglu"):
-        act = F.silu if kind == "swiglu" else _gelu
+        act = F.silu if kind == "swiglu" else gelu
         h = act(linear(p["wi_gate"], x)) * linear(p["wi_up"], x)
         return linear(p["wo"], h)
-    return linear(p["wo"], _gelu(linear(p["wi"], x)))
+    return linear(p["wo"], gelu(linear(p["wi"], x)))

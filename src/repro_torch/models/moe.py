@@ -1,0 +1,225 @@
+"""Mixture-of-Experts FFN: shared + routed experts, top-k, capacity-based.
+
+Counterpart of ``repro/models/moe.py`` on one device.  Dispatch is sort +
+capacity buffers: the (token, expert) rows are bucketed into an
+``[E, capacity, D]`` buffer by (expert, position-in-expert), run through
+one batched product per FFN weight and gathered back; rows beyond an
+expert's capacity are dropped, as in the reference.  The reference runs
+these products outside any Pallas kernel, so they are batched torch
+products here.
+
+Which rows drop is an integer observable and equals the reference's: the
+slot within an expert comes from a stable sort of the rows in (token, k)
+order, and every row of the call is routed, pad rows included.  Each row
+that fits is written to a place of its own, and the combine sums each
+token's k rows in a fixed order, so a call gives the same bits on every
+run (a float scatter-add on the card sums in atomic order).  Nothing in
+the dispatch reads a value back to the host.
+
+The reference's expert-parallel and expert-TP ``shard_map`` branches come
+with mesh serving (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    n_routed: int
+    top_k: int
+    d_expert: int                  # per-expert ffn hidden dim
+    n_shared: int = 0              # shared experts (always active)
+    d_shared: int = 0              # shared-expert hidden (total)
+    act: str = "swiglu"
+    norm_topk: bool = True         # renormalize top-k probs to sum 1
+    router_scale: float = 1.0
+    aux_loss_coef: float = 0.001
+    capacity_factor: float = 1.25  # per-expert token capacity multiplier
+
+
+def init_moe(generator, cfg: MoEConfig, device=None, dtype=torch.float32):
+    E, D, H = cfg.n_routed, cfg.d_model, cfg.d_expert
+    p = {
+        "router": L.init_linear(generator, D, E, False, device,
+                                torch.float32),
+        "wi_gate": L.truncated_normal_init(generator, (E, D, H), 1.0, device,
+                                           dtype),
+        "wi_up": L.truncated_normal_init(generator, (E, D, H), 1.0, device,
+                                         dtype),
+        "wo": L.truncated_normal_init(generator, (E, H, D), 1.0, device,
+                                      dtype),
+    }
+    if cfg.n_shared:
+        p["shared"] = L.init_mlp(generator, D, cfg.d_shared, cfg.act, False,
+                                 device, dtype)
+    return p
+
+
+def _route_rows(p, x, cfg: MoEConfig):
+    """x [..., D] -> (probs [..., E], weights [..., k], expert ids [..., k])."""
+    logits = L.linear(p["router"], x.float()) * cfg.router_scale
+    probs = torch.softmax(logits, dim=-1)
+    # A tie inside topk could only reorder one token's k entries; it moves
+    # no slot, because a token meets each expert at most once and slots
+    # follow the (token, k) order of the rows within one expert.
+    top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
+    if cfg.norm_topk:
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_i
+
+
+def _count(key, n: int):
+    """Rows per key in [0, n): an integer scatter-add, exact in any order
+    (``torch.bincount`` reads its input's max back to the host on the
+    card)."""
+    return torch.zeros(n, dtype=torch.int64, device=key.device).scatter_add_(
+        0, key, torch.ones_like(key))
+
+
+def _aux_loss(probs, top_i, cfg: MoEConfig):
+    """Switch-style load-balance loss of probs [T, E], top_i [T, k]."""
+    T = probs.shape[0]
+    counts = _count(top_i.reshape(-1).long(), cfg.n_routed)
+    density = counts.float() / float(T * cfg.top_k)
+    return cfg.n_routed * torch.sum(density * probs.mean(0)) \
+        * cfg.aux_loss_coef
+
+
+MIN_CAPACITY = 8
+
+
+def _capacity(T: int, top_k: int, n_experts: int, factor: float) -> int:
+    c = int(factor * T * top_k / max(n_experts, 1))
+    return max(MIN_CAPACITY, -(-c // 8) * 8)   # a multiple of 8
+
+
+def dispatch_plan(top_i, n_local: int, capacity: int, expert_offset: int = 0):
+    """Where each routed row goes: ``(order, e_idx, s_idx, valid)``.
+
+    Row r = t * k + j is token t's j-th expert; ``order`` sorts the rows
+    stably by local expert (non-local experts last), and sorted row i sits
+    at slot ``s_idx[i]`` of expert ``e_idx[i]`` when ``valid[i]``, else it
+    is dropped (beyond capacity, or not this shard's)."""
+    R = top_i.numel()
+    dev = top_i.device
+    local = top_i.reshape(R).long() - expert_offset
+    is_local = (local >= 0) & (local < n_local)
+    key = torch.where(is_local, local, torch.full_like(local, n_local))
+    order = torch.argsort(key, stable=True)
+    sorted_key = key[order]
+    gs = _count(key, n_local + 1)[:n_local]
+    starts = torch.cat([gs.new_zeros(1), torch.cumsum(gs, 0)])[:-1]
+    slot = torch.arange(R, device=dev) - starts[
+        torch.clamp(sorted_key, 0, n_local - 1)]
+    valid = (sorted_key < n_local) & (slot < capacity)
+    zero = torch.zeros_like(sorted_key)
+    return (order, torch.where(valid, sorted_key, zero),
+            torch.where(valid, slot, zero), valid)
+
+
+def _bmm(a, b):
+    """Batched product with f32 results (the reference's
+    ``preferred_element_type``); narrower operands widen exactly."""
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        a, b = a.float(), b.float()
+    return torch.bmm(a, b)
+
+
+def dispatch(x2d, top_i, cfg: MoEConfig, n_local: int, capacity: int,
+             expert_offset: int = 0):
+    """The capacity buffer [n_local, capacity, D] and the plan that filled
+    it.  Every row is written, with no boolean index (each would sync the
+    host): a row that fits lands at its (expert, slot), one unique place,
+    and every other row at a spare last row that is cut off."""
+    T, D = x2d.shape
+    order, e_idx, s_idx, valid = dispatch_plan(top_i, n_local, capacity,
+                                               expert_offset)
+    tok_sorted = torch.arange(T, device=x2d.device).repeat_interleave(
+        cfg.top_k)[order]
+    spare = n_local * capacity
+    dest = torch.where(valid, e_idx * capacity + s_idx,
+                       torch.full_like(e_idx, spare))
+    buf = x2d.new_zeros((spare + 1, D))
+    buf[dest] = x2d[tok_sorted]
+    return buf[:spare].view(n_local, capacity, D), (order, e_idx, s_idx,
+                                                    valid)
+
+
+def _experts(buf, p_w, cfg: MoEConfig, dtype):
+    a = _bmm(buf, p_w["wi_gate"])
+    b = _bmm(buf, p_w["wi_up"])
+    actf = F.silu if cfg.act == "swiglu" else L.gelu
+    h = (actf(a) * b).to(dtype)
+    return _bmm(h, p_w["wo"])
+
+
+def _local_moe(p_w, x2d, top_p, top_i, cfg: MoEConfig, expert_offset: int,
+               n_local: int, capacity: int, split: bool = False):
+    """One shard's routed-expert compute (also the single-device path).
+
+    With ``split`` (a speculative verify) the expert products run on
+    slices of ``MIN_CAPACITY`` slots, the decode's buffer: on the card a
+    row's bits depend on the product's shape, and this gives each verify
+    row the bits a decode gives it (ROADMAP facts, ``layers.by_column``)."""
+    T, D = x2d.shape
+    k = cfg.top_k
+    buf, (order, e_idx, s_idx, valid) = dispatch(
+        x2d, top_i, cfg, n_local, capacity, expert_offset)
+    if split:
+        y_buf = torch.cat([_experts(buf[:, c:c + MIN_CAPACITY].contiguous(),
+                                    p_w, cfg, x2d.dtype)
+                           for c in range(0, capacity, MIN_CAPACITY)], 1)
+    else:
+        y_buf = _experts(buf, p_w, cfg, x2d.dtype)
+    y_rows = y_buf[e_idx, s_idx] * valid[:, None]
+    y_rows = y_rows * top_p.reshape(-1)[order][:, None]
+    # Back to (token, k) order, then each token's k rows summed in order.
+    y_flat = torch.empty_like(y_rows)
+    y_flat[order] = y_rows
+    y_flat = y_flat.reshape(T, k, D)
+    out = torch.zeros((T, D), dtype=y_rows.dtype, device=x2d.device)
+    for j in range(k):
+        out = out + y_flat[:, j]
+    return out
+
+
+def moe_ffn(p, x, cfg: MoEConfig, mesh=None, split: bool = False):
+    """Full MoE block.  x [B, S, D] -> (out, aux_loss).
+
+    With ``split`` (a speculative verify) the per-token parts, the router
+    and the shared experts, run position by position as a decode makes
+    them (``layers.by_column``); the routed experts see every token of the
+    call with the call's capacity, as in the reference.  So a verify can
+    drop pairs that a decode of the same tokens keeps, and then its tokens
+    differ from plain decoding's, in the reference too (ROADMAP C9)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the MoE FFN's expert-parallel and expert-TP branches come with "
+            "mesh serving (ROADMAP A10)")
+    B, S, D = x.shape
+    if split and S > 1:
+        cols = [_route_rows(p, x[:, s:s + 1].contiguous(), cfg)
+                for s in range(S)]
+        probs, top_p, top_i = (torch.cat(c, 1) for c in zip(*cols))
+    else:
+        probs, top_p, top_i = _route_rows(p, x, cfg)
+    probs = probs.reshape(B * S, -1)
+    top_p = top_p.reshape(B * S, -1)
+    top_i = top_i.reshape(B * S, -1)
+    aux = _aux_loss(probs, top_i, cfg)
+    cap = _capacity(B * S, cfg.top_k, cfg.n_routed, cfg.capacity_factor)
+    out2d = _local_moe(p, x.reshape(B * S, D), top_p, top_i, cfg, 0,
+                       cfg.n_routed, cap, split and S > 1)
+    out = out2d.reshape(B, S, D).to(x.dtype)
+    if "shared" in p:
+        out = out + L.by_column(lambda t: L.mlp(p["shared"], t, cfg.act), x,
+                                split)
+    return out, aux

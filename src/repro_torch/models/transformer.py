@@ -1,13 +1,15 @@
 """The transformer stack: embedding -> block segments -> head.
 
-Counterpart of ``repro/models/transformer.py`` for the ``attn`` /
-``local_attn`` mixers with a dense FFN.  The reference scans stacked
-segment parameters (``seg0`` leaves carry a leading ``[reps]`` axis); the
-port keeps one parameter dict and one cache dict per layer
-(``params["seg0"]`` is a list of units) and loops over them.
-:func:`params_from_numpy`, :func:`caches_from_numpy` and
+Counterpart of ``repro/models/transformer.py``: every block kind of the
+registry (``attn``, ``local_attn``, ``mla``, ``ssm`` and ``rglru`` mixers;
+dense, ``moe`` or no FFN), the MTP head and ``forward(..., embeds=)``.
+The reference scans stacked segment parameters (``seg0`` leaves carry a
+leading ``[reps]`` axis); the port keeps one parameter dict and one cache
+dict per layer (``params["seg0"]`` is a list of units) and loops over
+them.  :func:`params_from_numpy`, :func:`caches_from_numpy` and
 :func:`caches_to_numpy` convert between the two layouts, so tests can carry
-the reference's weights across and compare cache trees.
+the reference's weights across and compare cache trees.  The reference's
+remat policies come with training.
 """
 
 from __future__ import annotations
@@ -22,48 +24,74 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention import (PagedLayout, attention,
                                           init_attention, init_cache)
 from repro_torch.models.config import BlockSpec, ModelConfig
+from repro_torch.models.mla import init_mla, init_mla_cache, mla_attention
+from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.models.rglru import (init_rglru, init_rglru_cache,
+                                      rglru_forward)
+from repro_torch.models.ssm import init_ssm, init_ssm_cache, ssm_forward
 
-_MIXERS = ("attn", "local_attn")
-
-
-def _check_mixer(spec: BlockSpec) -> None:
-    if spec.mixer not in _MIXERS or spec.ffn not in ("dense", "none"):
-        raise NotImplementedError(
-            f"block {spec} is not ported yet: this slice builds attn/"
-            f"local_attn mixers with a dense FFN (ROADMAP A10)")
+_ATTN = ("attn", "local_attn")
 
 
 def init_block(generator, spec: BlockSpec, cfg: ModelConfig, device=None):
-    _check_mixer(spec)
     dt = cfg.parameter_dtype
-    p: dict[str, Any] = {
-        "norm1": L.init_norm(cfg.d_model, cfg.norm, device, dt),
-        "attn": init_attention(
+    p: dict[str, Any] = {"norm1": L.init_norm(cfg.d_model, cfg.norm, device,
+                                              dt)}
+    if spec.mixer in _ATTN:
+        p["attn"] = init_attention(
             generator, cfg.attn_config(spec.mixer == "local_attn"), device,
-            dt),
-    }
+            dt)
+    elif spec.mixer == "mla":
+        p["mla"] = init_mla(generator, cfg.mla_config(), device, dt)
+    elif spec.mixer == "ssm":
+        p["ssm"] = init_ssm(generator, cfg.ssm_config(), device, dt)
+    elif spec.mixer == "rglru":
+        p["rglru"] = init_rglru(generator, cfg.rglru_config(), device, dt)
+    else:
+        raise ValueError(spec.mixer)
     if spec.ffn != "none":
         p["norm2"] = L.init_norm(cfg.d_model, cfg.norm, device, dt)
-        p["ffn"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act,
-                              False, device, dt)
+        if spec.ffn == "moe":
+            p["moe"] = init_moe(generator, cfg.moe_config(), device, dt)
+        else:
+            p["ffn"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act,
+                                  False, device, dt)
     return p
 
 
 def block_forward(p, x, positions, spec: BlockSpec, cfg: ModelConfig,
                   cache=None):
-    """Returns (x, new_cache).  A speculative verify runs the per-token
-    layers position by position (``layers.by_column``)."""
+    """Returns (x, new_cache, aux_loss); aux_loss is None without a MoE
+    FFN (no launch a layer for a zero).  A speculative verify runs the
+    per-token layers position by position (``layers.by_column``); the
+    routed experts of a MoE FFN see the whole call, as in the reference."""
     split = cfg.spec_verify and cache is not None
     h = L.by_column(lambda t: L.norm(p["norm1"], t), x, split)
-    out, new_cache = attention(
-        p["attn"], h, positions, cfg.attn_config(spec.mixer == "local_attn"),
-        cache)
+    if spec.mixer in _ATTN:
+        out, new_cache = attention(
+            p["attn"], h, positions,
+            cfg.attn_config(spec.mixer == "local_attn"), cache)
+    elif spec.mixer == "mla":
+        out, new_cache = mla_attention(p["mla"], h, positions,
+                                       cfg.mla_config(), cache)
+    elif spec.mixer == "ssm":
+        out, new_cache = ssm_forward(p["ssm"], h, cfg.ssm_config(), cache)
+    elif spec.mixer == "rglru":
+        out, new_cache = rglru_forward(p["rglru"], h, cfg.rglru_config(),
+                                       cache)
+    else:
+        raise ValueError(spec.mixer)
     x = x + out
-    if spec.ffn != "none":
+    aux = None
+    if spec.ffn == "moe":
+        h2 = L.by_column(lambda t: L.norm(p["norm2"], t), x, split)
+        y, aux = moe_ffn(p["moe"], h2, cfg.moe_config(), split=split)
+        x = x + y
+    elif spec.ffn != "none":
         x = x + L.by_column(
             lambda t: L.mlp(p["ffn"], L.norm(p["norm2"], t), cfg.act), x,
             split)
-    return x.to(cfg.activation_dtype), new_cache
+    return x.to(cfg.activation_dtype), new_cache, aux
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
@@ -84,12 +112,20 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
             {f"b{i}": init_block(generator, spec, cfg, device)
              for i, spec in enumerate(unit)}
             for _ in range(reps)]
+    if cfg.mtp:
+        params["mtp_block"] = init_block(generator, cfg.segments[-1][0][-1],
+                                         cfg, device)
+        params["mtp_proj"] = L.init_linear(generator, 2 * cfg.d_model,
+                                           cfg.d_model, False, device, dt)
+        params["mtp_norm"] = L.init_norm(cfg.d_model, cfg.norm, device, dt)
     return params
 
 
 def run_segments(params, x, positions, cfg: ModelConfig, caches=None):
-    """``caches``: None or {segN: [per-rep {bI: layer cache}]}."""
+    """``caches``: None or {segN: [per-rep {bI: layer cache}]}.  Returns
+    (x, new_caches, summed aux loss)."""
     new_caches: dict[str, Any] = {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (unit, reps) in enumerate(cfg.segments):
         seg_c = caches.get(f"seg{si}") if caches is not None else None
         seg_new = []
@@ -97,23 +133,30 @@ def run_segments(params, x, positions, cfg: ModelConfig, caches=None):
             ncs = {}
             for i, spec in enumerate(unit):
                 c = seg_c[li][f"b{i}"] if seg_c is not None else None
-                x, nc = block_forward(params[f"seg{si}"][li][f"b{i}"], x,
-                                      positions, spec, cfg, c)
+                x, nc, aux = block_forward(params[f"seg{si}"][li][f"b{i}"],
+                                           x, positions, spec, cfg, c)
+                if aux is not None:
+                    aux_total = aux_total + aux
                 if nc is not None:
                     ncs[f"b{i}"] = nc
             seg_new.append(ncs or None)
         if any(c is not None for c in seg_new):
             new_caches[f"seg{si}"] = seg_new
-    return x, (new_caches or None)
+    return x, (new_caches or None), aux_total
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig, caches=None,
-            positions: torch.Tensor | None = None):
-    """tokens [B, S] -> (logits [B, S, vocab] f32, new_caches, aux_loss)."""
-    x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
+def forward(params, tokens: torch.Tensor | None, cfg: ModelConfig,
+            caches=None, positions: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None):
+    """tokens [B, S] (or ``embeds`` [B, S, D] from a stubbed frontend) ->
+    (logits [B, S, vocab] f32, new_caches, aux_loss)."""
+    if embeds is None:
+        x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
+    else:
+        x = embeds.to(cfg.activation_dtype)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
-    x, new_caches = run_segments(params, x, positions, cfg, caches)
+    x, new_caches, aux = run_segments(params, x, positions, cfg, caches)
 
     def head(t):
         h = L.norm(params["final_norm"], t)
@@ -122,7 +165,18 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, caches=None,
         return L.linear(params["unembed"], h).float()
 
     logits = L.by_column(head, x, cfg.spec_verify and caches is not None)
-    return logits, new_caches, torch.zeros((), device=logits.device)
+    return logits, new_caches, aux
+
+
+def mtp_logits(params, tokens, h, cfg: ModelConfig, positions):
+    """DeepSeek-style MTP: predict token t+2 from [h_t ; emb(token_{t+1})]."""
+    emb_next = L.embed(params["embed"], torch.roll(tokens, -1, 1))
+    cat = torch.cat([L.norm(params["mtp_norm"], h), emb_next.to(h.dtype)],
+                    -1)
+    x = L.linear(params["mtp_proj"], cat)
+    x, _, _ = block_forward(params["mtp_block"], x, positions,
+                            cfg.segments[-1][0][-1], cfg)
+    return L.unembed(params["embed"], L.norm(params["final_norm"], x))
 
 
 def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int,
@@ -130,8 +184,9 @@ def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int,
                      per_slot: bool = False,
                      paged: PagedLayout | None = None, device=None):
     """One layer's cache: ``local_attn`` layers get a ring of
-    ``min(max_len, window)`` slots in a contiguous layout."""
-    if spec.mixer in _MIXERS:
+    ``min(max_len, window)`` slots in a contiguous layout; the per-slot and
+    paged layouts take attention mixers only, as in the reference."""
+    if spec.mixer in _ATTN:
         local = spec.mixer == "local_attn"
         return init_cache(cfg.attn_config(local), batch, max_len, dtype,
                           ring=local, per_slot=per_slot, paged=paged,
@@ -140,8 +195,14 @@ def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int,
         raise NotImplementedError(
             f"per-slot/paged serving caches support attn/local_attn mixers "
             f"only, got {spec.mixer!r}")
-    raise NotImplementedError(f"the {spec.mixer!r} mixer's cache is not "
-                              f"ported yet (ROADMAP A10, the model zoo)")
+    if spec.mixer == "mla":
+        return init_mla_cache(cfg.mla_config(), batch, max_len, dtype,
+                              device)
+    if spec.mixer == "ssm":
+        return init_ssm_cache(cfg.ssm_config(), batch, dtype, device)
+    if spec.mixer == "rglru":
+        return init_rglru_cache(cfg.rglru_config(), batch, dtype, device)
+    raise ValueError(spec.mixer)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int | None = None,
@@ -191,7 +252,9 @@ def _segments_from_numpy(tree, cfg: ModelConfig, device):
 
 def params_from_numpy(tree, cfg: ModelConfig, device=None):
     """The reference's parameter pytree (numpy leaves) -> the port's
-    parameters; scanned segments are un-stacked into per-layer dicts."""
+    parameters; scanned segments (stacked expert leaves [reps, E, ...]
+    too) are un-stacked into per-layer dicts; the MTP leaves carry over
+    as they are."""
     return _segments_from_numpy(tree, cfg, device)
 
 

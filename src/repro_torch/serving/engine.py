@@ -89,8 +89,12 @@ growth bailout).  :class:`ContinuousBatchingEngine` is the contiguous
 per-slot baseline the paged engine equals token for token, and
 :class:`StaticBucketEngine` the static length-bucketed batcher.
 
-Not ported yet (each is a queue A item in ROADMAP.md): mesh sharding and
-the bf16 cache.
+KV caches are f32 or bf16 (``ServeConfig.cache_dtype``).  The paged and
+continuous engines serve models whose mixers are all attention, MoE FFNs
+included; :class:`StaticBucketEngine` also serves MLA models on their
+contiguous latent cache, and refuses recurrent ones (SSM, RG-LRU) at
+prefill, whose caches take one token a call (ROADMAP C8).  Not ported yet
+(a queue A item in ROADMAP.md): mesh sharding.
 """
 
 from __future__ import annotations
