@@ -79,15 +79,15 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    gives a cold one's tokens.  Prints ms and bytes per swap-out and
    swap-in and per prefix record written and loaded, and
    ``memory_report()`` after (a) and (c);
-10. front door path: (a) the main trace submitted to an
-   ``AsyncFrontDoor`` over a paged engine and streamed: the main path's
-   tokens, admission in arrival order, the pool drained, one decode launch
-   per layer per tick; (b) the same through a ``DisaggController`` (a
-   one-slot prefill engine hands detached prefixes to a four-slot decode
-   engine): the main path's tokens, 8 prefixes of 147 blocks and 147 x
-   6,292,992 payload bytes, both pools drained, decode launches 24 x the
-   decode engine's ticks and none by the prefill engine; (c) at cut depth
-   4, the ``prefill -> insert -> generate_step`` loop gives
+10. front door path, at cut depth 4 (widths kept): (a) the main trace
+   submitted to an ``AsyncFrontDoor`` over a paged engine and streamed:
+   the plain tokens at that depth, admission in arrival order, the pool
+   drained, one decode launch per layer per tick; (b) the same through a
+   ``DisaggController`` (a one-slot prefill engine hands detached prefixes
+   to a four-slot decode engine): the same tokens, 8 prefixes of 147
+   blocks and 147 x 1,048,832 payload bytes, both pools drained, decode
+   launches 4 x the decode engine's ticks and none by the prefill engine;
+   (c) the ``prefill -> insert -> generate_step`` loop gives
    ``generate()``'s tokens, and a door stopped by ``shutdown("snapshot")``
    restores in a fresh door whose streams replay to the undisturbed
    tokens; (d) ``sparsity_report`` of the 8 prompts (measured).  Prints
@@ -153,9 +153,24 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    decode steps within 2e-3 of the forward (deepseek on its weights
    widened to f32; its bf16 run and MLA on ``bitstopper_xla`` reported
    against that), the MTP head finite;
-15. prints one JSON line describing each kernel (the bf16 forms and the
-   D=128 shapes under each kernel's row), then the device line
-   last.
+15. mesh serving: (a) right after the MoE kernels, the decode and verify
+   kernels at the main shape and on each shard of a 2x2 (data, model)
+   mesh at its local geometry (2 slots, 16 heads): each shard's out
+   bit-equal to its block of the full run, its per-head rounds, survivors
+   and V pages equal, the full slot-wide rounds the max over the "model"
+   shards, each shard timed alone beside its bound; (b) after the forward
+   path, full-width, full-depth ``stablelm-1.6b`` on a 2x2 mesh of four
+   ranks sharing the card over gloo (``launch/mesh.py``; weights by CUDA
+   IPC, their checksums equal to the parent's): a greedy trace (the main
+   trace's four shortest prompts, 8 new tokens) through the decode kernel
+   and an n-gram trace (two repeated-pattern prompts, k=4) through the
+   verify kernel, each rank with 16 of 32 KV heads: the parent's
+   single-device tokens and bailouts on every rank, and each kernel
+   launched 24 x the rank's forwards of its kind; prints each rank's
+   decode tick and all-gather ms per layer;
+16. prints one JSON line describing each kernel (the bf16 forms, the
+   D=128 shapes and the mesh shards under each kernel's row), then the
+   device line last.
 
 Any failed check exits non-zero.  Without a card it exits non-zero and
 prints no result.  ``--profile`` instead profiles decode ticks, a prefill
@@ -1168,6 +1183,14 @@ def make_requests(np, Request, seed, n, new_tokens, vocab):
                     max_new_tokens=new_tokens) for _ in range(n)]
 
 
+def repeated_prompts(np, vocab):
+    """The speculative phase's four repeated-pattern prompts (96-192
+    tokens), where the n-gram drafter finds drafts."""
+    rng = np.random.default_rng(5)
+    return [np.resize(rng.integers(0, vocab, 6 + 5 * i, dtype=np.int32),
+                      96 + 32 * i) for i in range(4)]
+
+
 def cut_model(cfg, params, depth=4):
     """The model cut to its first ``depth`` layers (full width), segment by
     segment in whole pattern units; the units past the first one that does
@@ -1548,10 +1571,7 @@ def speculative_phase(torch, cfg, params, plain_reqs):
     if eng.counters["spec_accepted"] == 0:
         raise SystemExit("[chip_smoke] speculative (a) accepted no draft")
 
-    rng = np.random.default_rng(5)
-    prompts = [np.resize(rng.integers(0, cfg.vocab, 6 + 5 * i,
-                                      dtype=np.int32), 96 + 32 * i)
-               for i in range(4)]
+    prompts = repeated_prompts(np, cfg.vocab)
     plain = [Request(prompt=p.copy(), max_new_tokens=16) for p in prompts]
     PagedEngine(cfg, params, ServeConfig(max_slots=4, page_size=16,
                                          max_len=512)).generate(plain)
@@ -1828,10 +1848,7 @@ def sampled_path_phase(torch, cfg, params):
                          "tokens differ from plain sampled")
     if eng.counters["spec_accepted"] == 0:
         raise SystemExit("[chip_smoke] sampled (c) replay accepted no draft")
-    rng = np.random.default_rng(5)
-    prompts = [np.resize(rng.integers(0, cfg.vocab, 6 + 5 * i,
-                                      dtype=np.int32), 96 + 32 * i)
-               for i in range(4)]
+    prompts = repeated_prompts(np, cfg.vocab)
     plain = [Request(prompt=p.copy(), max_new_tokens=16) for p in prompts]
     PagedEngine(cfg, params, ServeConfig(
         max_slots=4, page_size=16, max_len=512,
@@ -2531,11 +2548,13 @@ def first_and_finish(door):
 
 @phase("front door path")
 def frontdoor_path_phase(torch, cfg, params, plain_reqs):
-    """(a) the main trace through the async door over a paged engine, (b)
-    disaggregated behind the door (a one-slot prefill engine hands detached
-    prefixes to a four-slot decode engine), (c) at cut depth 4 the engine
-    API loop and a snapshot shutdown with restore, (d) the traffic reports.
-    Returns the decode kernel's launches."""
+    """At cut depth 4 (since the mesh path; widths kept): (c) the engine
+    API loop and a snapshot shutdown with restore, whose plain run gives
+    the tokens (a) and (b) are held to; (a) the main trace through the
+    async door over a paged engine, (b) disaggregated behind the door (a
+    one-slot prefill engine hands detached prefixes to a four-slot decode
+    engine), (d) the traffic reports.  Returns the decode kernel's
+    launches."""
     import numpy as np
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.runtime import SystemClock
@@ -2543,8 +2562,10 @@ def frontdoor_path_phase(torch, cfg, params, plain_reqs):
     from repro_torch.serving.frontdoor import DisaggController, SlaMapper
 
     prompts = [r.prompt for r in plain_reqs]
-    want = [r.generated for r in plain_reqs]
-    new_tokens = len(want[0])
+    new_tokens = len(plain_reqs[0].generated)
+    cfg, params = cut_model(cfg, params)
+    launches_c, want = frontdoor_cut_depth(torch, np, cfg, params, prompts,
+                                           new_tokens)
 
     def scfg(slots):
         return ServeConfig(max_slots=slots, page_size=16, max_len=512)
@@ -2569,11 +2590,11 @@ def frontdoor_path_phase(torch, cfg, params, plain_reqs):
           f"{eng.kv_bytes_resident()} (peak), kv_bytes_contiguous_equiv() "
           f"{eng.kv_bytes_contiguous_equiv()}")
     checks = {
-        "the main path's tokens": got == want,
+        "the plain tokens at this depth": got == want,
         "admission in arrival order": (
             door.admission_log == list(range(len(prompts)))),
         "the pool drained": eng.pool.available() == eng.pool.capacity,
-        "decode launches 24 x ticks": (
+        f"decode launches {cfg.n_layers} x ticks": (
             launches_a == cfg.n_layers * steps and steps > 0),
     }
     failed = [k for k, ok in checks.items() if not ok]
@@ -2610,7 +2631,7 @@ def frontdoor_path_phase(torch, cfg, params, plain_reqs):
           f"{'all equal' if same else 'differ from'} the colocated "
           f"engine's, largest relative gap {gap:.6e}")
     checks = {
-        "the main path's tokens": got_b == want,
+        "the plain tokens at this depth": got_b == want,
         "8 prefixes transferred": x["prefixes_transferred"] == len(prompts),
         f"{blocks} blocks transferred": x["blocks_transferred"] == blocks,
         f"{blocks} x {per_block} payload bytes": (
@@ -2618,7 +2639,8 @@ def frontdoor_path_phase(torch, cfg, params, plain_reqs):
         "both pools drained": (
             pre.pool.available() == pre.pool.capacity
             and dec.pool.available() == dec.pool.capacity),
-        "decode launches 24 x decode-engine ticks, none by prefill": (
+        f"decode launches {cfg.n_layers} x decode-engine ticks, none by "
+        "prefill": (
             launches_b == cfg.n_layers * dec.counters["decode_steps"]
             and pre.counters["decode_steps"] == 0
             and dec.counters["decode_steps"] > 0),
@@ -2634,8 +2656,6 @@ def frontdoor_path_phase(torch, cfg, params, plain_reqs):
         raise SystemExit(f"[chip_smoke] front door (b) failed: {failed}")
     print(f"[chip_smoke] front door (b): {', '.join(checks)}: all hold")
 
-    launches_c = frontdoor_cut_depth(torch, np, cfg, params, prompts,
-                                     new_tokens)
 
     # (d) The traffic reports (measured; the reference test's ranges).
     t = time.perf_counter()
@@ -2658,7 +2678,7 @@ def frontdoor_path_phase(torch, cfg, params, plain_reqs):
 
 
 def frontdoor_cut_depth(torch, np, cfg, params, prompts, new_tokens):
-    """(c) at the cut depth of the speculative fused-vs-plain check: the
+    """(c) on the model as given (the caller's cut depth): the
     prefill -> insert -> generate_step loop gives generate()'s tokens, and
     a door with a snapshot directory stopped by ``shutdown("snapshot")``
     once a stream holds 2 tokens restores in a fresh door whose streams
@@ -2669,9 +2689,7 @@ def frontdoor_cut_depth(torch, np, cfg, params, prompts, new_tokens):
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.serving import PagedEngine, Request, ServeConfig
     from repro_torch.serving.frontdoor import AsyncFrontDoor
-    depth = min(4, cfg.n_layers)
-    cut = cfg.replace(segments=((cfg.segments[0][0], depth),))
-    cut_params = dict(params, seg0=params["seg0"][:depth])
+    depth = cfg.n_layers
     scfg = ServeConfig(max_slots=4, page_size=16, max_len=512)
 
     def reqs():
@@ -2679,14 +2697,14 @@ def frontdoor_cut_depth(torch, np, cfg, params, prompts, new_tokens):
                 for p in prompts]
 
     pd.LAUNCHES = 0
-    ref_eng = PagedEngine(cut, cut_params, scfg)
+    ref_eng = PagedEngine(cfg, params, scfg)
     ref = reqs()
     ref_eng.generate(ref)
     want = [r.generated for r in ref]
     launches = pd.LAUNCHES
     ok = launches == depth * ref_eng.counters["decode_steps"]
 
-    api = PagedEngine(cut, cut_params, scfg)
+    api = PagedEngine(cfg, params, scfg)
     api.begin(0)
     pending, live, out = reqs(), 0, {}
     order = list(pending)
@@ -2720,7 +2738,7 @@ def frontdoor_cut_depth(torch, np, cfg, params, prompts, new_tokens):
     }
 
     with tempfile.TemporaryDirectory() as snap:
-        door = AsyncFrontDoor(PagedEngine(cut, cut_params, scfg),
+        door = AsyncFrontDoor(PagedEngine(cfg, params, scfg),
                               snapshot_dir=snap)
         door.start()
         rids = [door.submit(p, new_tokens) for p in prompts]
@@ -2747,7 +2765,7 @@ def frontdoor_cut_depth(torch, np, cfg, params, prompts, new_tokens):
         ok &= pd.LAUNCHES == depth * door.backend.counters["decode_steps"]
         stopped = door.backend.ticks
         t = time.perf_counter()
-        door2 = AsyncFrontDoor(PagedEngine(cut, cut_params, scfg),
+        door2 = AsyncFrontDoor(PagedEngine(cfg, params, scfg),
                                snapshot_dir=snap)
         restored = door2.start()
         restore_s = time.perf_counter() - t
@@ -2775,7 +2793,7 @@ def frontdoor_cut_depth(torch, np, cfg, params, prompts, new_tokens):
     if failed:
         raise SystemExit(f"[chip_smoke] front door (c) failed: {failed}")
     print(f"[chip_smoke] front door (c): {', '.join(checks)}: all hold")
-    return launches
+    return launches, want
 
 
 class LogitTap:
@@ -3701,6 +3719,317 @@ def zoo_phase(torch):
         torch.cuda.empty_cache()
 
 
+MESH_DP, MESH_TP = 2, 2
+MESH_NEW_TOKENS = 8
+
+
+def _shard_slices(kind, d, m, B, Hq, Hkv):
+    """Index tuples of shard (d, m)'s block in each kernel operand and
+    output (``kind`` decode or verify): its slots over "data", its KV heads
+    (and their query heads) over "model"."""
+    b = slice(d * B // MESH_DP, (d + 1) * B // MESH_DP)
+    hq = slice(m * Hq // MESH_TP, (m + 1) * Hq // MESH_TP)
+    hk = slice(m * Hkv // MESH_TP, (m + 1) * Hkv // MESH_TP)
+    allx = slice(None)
+    if kind == "decode":
+        return dict(q=(b, hq), out=(b, hq), rounds_h=(b, hk), surv=(b, hq),
+                    vf=(b, hk), slots=(b,), hk=hk)
+    return dict(q=(b, allx, hq), out=(b, allx, hq), rounds_h=(b, hk),
+                surv=(b, allx, hq), vf=(b, allx, hk), slots=(b,), hk=hk)
+
+
+def _v_fetched(kind, surv, B, Hkv, G, MB, bs):
+    """V pages read per (slot, KV head[, query]) from per-head survivors."""
+    if kind == "decode":
+        return surv.reshape(B, Hkv, G, MB, bs).any(4).any(2)
+    Sq = surv.shape[1]
+    return surv.reshape(B, Sq, Hkv, G, MB, bs).any(5).any(3)
+
+
+@phase("mesh kernels")
+def mesh_kernel_phase(torch):
+    """The decode and verify kernels at the main shape (B=4, H=32, D=64,
+    bs=16, MB=32, alpha 0.6, hot directions) and on each of the 2x2
+    mesh's four shards at local geometry (2 slots, 16 heads): each shard's
+    out bit-equal to its block of the full run, its per-head rounds,
+    survivors and V pages equal, and the full slot-wide rounds the max over
+    its "model" shards.  Each shard kernel timed alone beside its bound.
+    Returns {kernel: {"shard_ms", "shard_bound_ms", "shard_launches"}}."""
+    from repro_torch.core.besf import BitStopperConfig
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_verify as pv
+    cfg = BitStopperConfig(alpha=0.6)
+    out = {}
+    for kind, mod, sq, seed in (("decode", pd, 1, 100),
+                                ("verify", pv, SPEC_K + 1, 200)):
+        args = decode_case(torch, seed, Hkv=32, Sq=sq, **DECODE_SHAPES)
+        q, kq, v, table, lengths, q_pos, k_amax, v_amax = args
+        B, Hq = q.shape[0], q.shape[-2]
+        P, bits, bs8, Hkv, D = kq.shape
+        bs, MB, G = bs8 * 8, table.shape[1], Hq // Hkv
+        f_out, f_rh, f_surv = mod.launch_kernel(*args, cfg=cfg)
+        if kind == "verify":
+            f_surv = f_surv.reshape(B, sq, Hq, -1)
+        f_vf = _v_fetched(kind, f_surv, B, Hkv, G, MB, bs)
+        shard_rounds = {}
+        times, bounds, launches = [], [], 0
+        for d in range(MESH_DP):
+            for m in range(MESH_TP):
+                ix = _shard_slices(kind, d, m, B, Hq, Hkv)
+                hk, sl = ix["hk"], ix["slots"]
+                sargs = (q[ix["q"]].contiguous(),
+                         kq[:, :, :, hk].contiguous(),
+                         v[:, :, hk].contiguous(), table[sl].contiguous(),
+                         lengths[sl].contiguous(), q_pos[sl].contiguous(),
+                         k_amax[hk].contiguous(), v_amax[hk].contiguous())
+                s_out, s_rh, s_surv = mod.launch_kernel(*sargs, cfg=cfg)
+                launches += 1
+                b = s_out.shape[0]
+                if kind == "verify":
+                    s_surv = s_surv.reshape(b, sq, Hq // MESH_TP, -1)
+                s_vf = _v_fetched(kind, s_surv, b, Hkv // MESH_TP, G, MB, bs)
+                checks = {"out": (s_out, f_out[ix["out"]]),
+                          "rounds per KV head": (s_rh, f_rh[ix["rounds_h"]]),
+                          "survivors": (s_surv, f_surv[ix["surv"]]),
+                          "v_fetched": (s_vf, f_vf[ix["vf"]])}
+                for what, (a, w) in checks.items():
+                    if not torch.equal(a, w):
+                        raise SystemExit(
+                            f"[chip_smoke] mesh kernels: {kind} shard "
+                            f"({d}, {m}) {what} differs from its block of "
+                            f"the full run in {int((a != w).sum())} entries")
+                shard_rounds.setdefault(d, []).append(s_rh.amax(1))
+                kargs, *held = mod.kernel_args(*sargs, cfg=cfg, stats=False)
+                times.append(cuda_ms(torch, lambda: mod.launch_c(*kargs),
+                                     iters=50, warmup=5))
+                if kind == "decode":
+                    nbytes, ops = decode_bytes_ops(sargs, s_rh, s_surv,
+                                                   stats=False)
+                else:
+                    nbytes, ops, _, _ = verify_bytes_ops(
+                        sargs, s_rh, s_surv.reshape(b, sq * Hq // MESH_TP,
+                                                    -1))
+                bounds.append(max(nbytes / HBM_BYTES_PER_S,
+                                  ops / INT8_OPS_PER_S) * 1e3)
+        for d, parts in shard_rounds.items():
+            b = slice(d * B // MESH_DP, (d + 1) * B // MESH_DP)
+            want = f_rh.amax(1)[b]
+            if not torch.equal(torch.stack(parts).amax(0), want):
+                raise SystemExit(f"[chip_smoke] mesh kernels: {kind} full "
+                                 f"rounds are not the max over the model "
+                                 f"shards' of data shard {d}")
+        kargs, *held = mod.kernel_args(*args, cfg=cfg, stats=False)
+        full_ms = cuda_ms(torch, lambda: mod.launch_c(*kargs), iters=50,
+                          warmup=5)
+        print(f"[chip_smoke] mesh kernels: paged_{kind} on 4 shards of "
+              f"(2 slots, 16 heads): out, per-head rounds, survivors and "
+              f"v_fetched equal to the full run's blocks; full rounds the "
+              f"max over model shards; kernel alone per shard "
+              f"{[round(t, 4) for t in times]} ms (bounds "
+              f"{[round(x, 5) for x in bounds]}), full geometry "
+              f"{full_ms:.4f} ms")
+        out[f"paged_{kind}"] = {"shard_ms": times, "shard_bound_ms": bounds,
+                                "shard_launches": launches,
+                                "full_ms": full_ms}
+    return out
+
+
+def params_digest(torch, params):
+    """Per-leaf int64 sums of each parameter's 32-bit words, in leaf
+    order: equal digests mean the same bits (a checksum)."""
+    out = []
+    for t in _leaves(params):
+        w = t.detach().contiguous().view(-1).view(torch.int32)
+        out.append(sum(int(torch.sum(c, dtype=torch.int64))
+                       for c in w.split(1 << 26)))
+    return out
+
+
+def mesh_serve(torch, np, eng, prompts, new_tokens, count_gathers=False):
+    """Serve ``prompts`` on ``eng``; the tokens, counters, launches of both
+    paged kernels, pure decode tick ms, and per attention layer the
+    gather's ms (``gather_shards``: the device-to-host copy, which waits
+    for the rank's queued work, the collective, the copy back) and its
+    collective's alone (``all_gather``, which waits for the slowest
+    rank)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_verify as pv
+    from repro_torch.models import attention as A
+    from repro_torch.serving import Request
+    reqs = [Request(prompt=p.copy(), max_new_tokens=new_tokens)
+            for p in prompts]
+    ticks = []
+    real_step = eng.step
+
+    def timed_step():
+        before = dict(eng.counters)
+        t = time.perf_counter()
+        res = real_step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        if (eng.counters["decode_steps"] > before["decode_steps"]
+                and eng.counters["prefill_chunks"] == before[
+                    "prefill_chunks"]):
+            ticks.append(dt)
+        return res
+
+    gathers, collectives = [], []
+    real_gather, real_all_gather = A.gather_shards, dist.all_gather
+
+    def timed(fn, log):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            res = fn(*a, **kw)
+            log.append((time.perf_counter() - t) * 1e3)
+            return res
+        return run
+
+    eng.step = timed_step
+    A.gather_shards = timed(real_gather, gathers)
+    dist.all_gather = timed(real_all_gather, collectives)
+    pd.LAUNCHES = pv.LAUNCHES = 0
+    t = time.perf_counter()
+    try:
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+    finally:
+        A.gather_shards, dist.all_gather = real_gather, real_all_gather
+    return {"tokens": [list(r.generated) for r in reqs],
+            "wall": time.perf_counter() - t,
+            "counters": dict(eng.counters),
+            "decode_launches": pd.LAUNCHES, "verify_launches": pv.LAUNCHES,
+            "tick_ms": ticks, "gather_ms": gathers,
+            "collective_ms": collectives}
+
+
+def mesh_rank(mesh, device, cfg, params, greedy, ngram, digest):
+    """A rank of the 2x2 mesh phase: the greedy trace through the decode
+    kernel and the n-gram trace through the verify kernel, on this rank's
+    block.  Checks that its weights (CUDA IPC from the parent) are the
+    parent's."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    same = params_digest(torch, params) == digest
+    scfg = ServeConfig(max_slots=4, page_size=16, max_len=512, mesh=mesh)
+    t = time.perf_counter()
+    PagedEngine(cfg, params, scfg, device=device).generate(
+        [Request(prompt=greedy[0][:16].copy(), max_new_tokens=2)])
+    warm = time.perf_counter() - t
+    eng = PagedEngine(cfg, params, scfg, device=device)
+    res = {"coord": tuple(mesh.get_coordinate()), "weights_equal": same,
+           "warmup_s": warm, "fused": eng.cfg.fused_decode,
+           "local_kv_heads": int(eng.caches["seg0"][0]["b0"]["kq"].shape[3])}
+    res["greedy"] = mesh_serve(torch, np, eng, greedy, MESH_NEW_TOKENS)
+    spec = PagedEngine(cfg, params, ServeConfig(
+        max_slots=4, page_size=16, max_len=512, mesh=mesh,
+        speculative="ngram", draft_k=SPEC_K), device=device)
+    res["ngram"] = mesh_serve(torch, np, spec, ngram, MESH_NEW_TOKENS)
+    return res
+
+
+@phase("mesh path")
+def mesh_path_phase(torch, cfg, params, plain_reqs, ngram_prompts):
+    """Full-width, full-depth stablelm-1.6b on a 2x2 (data, model) mesh of
+    four ranks sharing the card over gloo (weights by CUDA IPC): a greedy
+    trace (the main trace's four shortest prompts, 8 new tokens, 4 slots)
+    through the decode kernel and an n-gram speculative trace (two of the
+    repeated-pattern prompts, k=4) through the verify kernel.  The parent
+    serves both on one device while the ranks start, so its first ticks
+    share the card with their start-up.  Every rank must give the parent's
+    tokens and bailouts, launch each kernel 24 x its forwards of that kind,
+    and hold 16 of 32 KV heads.  Returns (decode launches, verify launches)
+    of one rank."""
+    import numpy as np
+    from repro_torch.launch.mesh import start_mesh
+    from repro_torch.serving import PagedEngine, ServeConfig
+    t0 = time.perf_counter()
+    greedy = sorted((r.prompt for r in plain_reqs), key=len)[:4]
+    ngram = list(ngram_prompts[:2])
+    digest = params_digest(torch, params)
+    # The ranks start (spawn, torch import, CUDA context, weights by IPC:
+    # about 16 s) while the parent serves both traces on one device.
+    job = start_mesh(mesh_rank, MESH_DP, MESH_TP, device="cuda",
+                     backend="gloo", args=(cfg, params, greedy, ngram, digest),
+                     timeout=600)
+    base = ServeConfig(max_slots=4, page_size=16, max_len=512)
+    single = {
+        "greedy": mesh_serve(torch, np, PagedEngine(cfg, params, base),
+                             greedy, MESH_NEW_TOKENS),
+        "ngram": mesh_serve(torch, np, PagedEngine(
+            cfg, params, ServeConfig(max_slots=4, page_size=16,
+                                     max_len=512, speculative="ngram",
+                                     draft_k=SPEC_K)),
+            ngram, MESH_NEW_TOKENS)}
+    ranks = job.join()
+    spawned = time.perf_counter() - t0
+    L = cfg.n_layers
+    for trace in ("greedy", "ngram"):
+        s = single[trace]
+        c = s["counters"]
+        print(f"[chip_smoke] mesh path single device, {trace}: "
+              f"{sum(map(len, s['tokens']))} tokens in {s['wall']:.3f} s, "
+              f"{len(s['tick_ms'])} pure decode ticks at mean "
+              f"{np.mean(s['tick_ms'] or [np.nan]):.2f} ms; decode steps "
+              f"{c['decode_steps']}, spec ticks {c['spec_ticks']}, "
+              f"bailouts {c['spec_bailouts']}")
+    failed = []
+    for r, rank in enumerate(ranks):
+        for trace in ("greedy", "ngram"):
+            got, want = rank[trace], single[trace]
+            c = got["counters"]
+            verify_fwd = c["spec_ticks"]
+            decode_fwd = c["decode_steps"] - c["spec_ticks"] + \
+                c["spec_bailouts"]
+            g, coll = got["gather_ms"], got["collective_ms"]
+            print(f"[chip_smoke] mesh path rank {r} {rank['coord']}, "
+                  f"{trace}: {got['wall']:.3f} s, "
+                  f"{len(got['tick_ms'])} pure decode ticks at mean "
+                  f"{np.mean(got['tick_ms'] or [np.nan]):.2f} ms; "
+                  f"gathers {len(g)} at mean {np.mean(g):.3f} ms per "
+                  f"layer (median {np.median(g):.3f}), of which the "
+                  f"all_gather {np.mean(coll):.3f} (median "
+                  f"{np.median(coll):.3f}); launches decode "
+                  f"{got['decode_launches']} = {L} x {decode_fwd}?, verify "
+                  f"{got['verify_launches']} = {L} x {verify_fwd}?; "
+                  f"bailouts {c['spec_bailouts']}")
+            checks = {
+                "tokens": got["tokens"] == want["tokens"],
+                "bailouts": c["spec_bailouts"] == want["counters"][
+                    "spec_bailouts"],
+                "decode launches": got["decode_launches"] == L * decode_fwd,
+                "verify launches": got["verify_launches"] == L * verify_fwd,
+            }
+            failed += [f"rank {r} {trace} {k}" for k, ok in checks.items()
+                       if not ok]
+        if not rank["weights_equal"]:
+            failed.append(f"rank {r} weights differ from the parent's")
+        if rank["local_kv_heads"] != cfg.n_kv_heads // MESH_TP:
+            failed.append(f"rank {r} holds {rank['local_kv_heads']} KV heads")
+        if not rank["fused"]:
+            failed.append(f"rank {r} did not resolve to the kernels")
+    if ranks[0]["ngram"]["counters"]["spec_ticks"] == 0:
+        failed.append("the n-gram trace ran no verify forward")
+    if ranks[0]["greedy"]["counters"]["decode_steps"] == 0:
+        failed.append("the greedy trace ran no decode tick")
+    if failed:
+        raise SystemExit(f"[chip_smoke] mesh path failed: {failed}")
+    print(f"[chip_smoke] mesh path: 4 ranks on one card (gloo), each with "
+          f"{ranks[0]['local_kv_heads']} of {cfg.n_kv_heads} KV heads, "
+          f"weights equal to the parent's, serve the single-device tokens "
+          f"and bailouts; launches {L} x forwards on every rank; ranks "
+          f"started (beside the parent's single-device runs), warmed and "
+          f"served in {spawned:.3f} s (warm-up "
+          f"{[round(x['warmup_s'], 3) for x in ranks]} s); phase "
+          f"{time.perf_counter() - t0:.3f} s")
+    return (ranks[0]["greedy"]["decode_launches"]
+            + ranks[0]["ngram"]["decode_launches"],
+            ranks[0]["ngram"]["verify_launches"])
+
+
 @phase("profile")
 def profile_phase(torch, cfg, params, decode_ticks=8, verify_ticks=3):
     """torch.profiler over steady decode ticks, one prefill chunk,
@@ -3799,12 +4128,26 @@ def _leaves(tree):
         yield tree
 
 
+def release_shared(torch, params):
+    """Free the parent's stablelm weights, which the mesh ranks received by
+    CUDA IPC: the caller's name for them is its last reference (the
+    engines that held them are cycles, which ``gc.collect`` frees).  A
+    process that exits while it still holds tensors it shared makes torch
+    warn at exit, after the result lines."""
+    params.clear()
+    gc.collect()
+    torch.cuda.ipc_collect()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="only profile decode ticks, a prefill chunk, "
                          "verify ticks and cache-free forwards (prints no "
                          "result line)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only the mesh phases: the shard kernels and the "
+                         "2x2 mesh path (prints no result line)")
     args = ap.parse_args(argv)
     import torch
     name, smi = device_phase(torch)
@@ -3812,6 +4155,17 @@ def main(argv=None):
     if args.profile:
         print(smi)
         profile_phase(torch, *build_model(torch))
+        return
+    if args.mesh:
+        import numpy as np
+        from repro_torch.serving import Request
+        print(smi)
+        mesh_kernel_phase(torch)
+        cfg, params = build_model(torch)
+        mesh_path_phase(torch, cfg, params,
+                        make_requests(np, Request, 0, 8, 32, cfg.vocab),
+                        repeated_prompts(np, cfg.vocab))
+        release_shared(torch, params)
         return
     rows = [kernel_phase(torch), verify_kernel_phase(torch),
             qk_kernel_phase(torch), flash_kernel_phase(torch)]
@@ -3829,6 +4183,9 @@ def main(argv=None):
     bf16 = bf16_kernel_phase(torch)
     (rows[0]["moe"], rows[1]["moe"], rows[2]["moe"],
      rows[3]["moe"]) = moe_kernel_phase(torch)
+    shards = mesh_kernel_phase(torch)
+    for row in rows[:2]:
+        row["mesh_shards"] = shards[row["name"]]
     for row in rows[:2]:
         main, *pages = bf16[row["name"]]
         row["bf16"] = dict(
@@ -3846,6 +4203,8 @@ def main(argv=None):
         torch, cfg, params, plain_reqs)
     rows[2]["launches"], rows[3]["launches"] = forward_path_phase(
         torch, cfg, params)
+    rows[0]["launches_mesh_path"], rows[1]["launches_mesh_path"] = \
+        mesh_path_phase(torch, cfg, params, plain_reqs, ngram_prompts)
     (rows[0]["launches_sampled_path"], rows[1]["launches_sampled_path"],
      recompute_chunks) = sampled_path_phase(torch, cfg, params)
     (rows[0]["launches_chaos_path"],
@@ -3860,8 +4219,8 @@ def main(argv=None):
     rows[0]["bf16"]["launches"], rows[1]["bf16"]["launches"] = \
         bf16_path_phase(torch, cfg, params, f32_main)
     # The model zoo's phases need the card's memory: stablelm goes first.
-    del params, plain_reqs
-    gc.collect()
+    del plain_reqs
+    release_shared(torch, params)
     torch.cuda.empty_cache()
     (rows[0]["launches_moe_path"], rows[1]["launches_moe_path"],
      rows[2]["launches_moe_forward"],

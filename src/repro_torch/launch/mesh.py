@@ -1,0 +1,141 @@
+"""Device meshes over ``torch.distributed``, and ranks to run them.
+
+Counterpart of ``repro/launch/mesh.py``.  The reference builds a
+``jax.sharding.Mesh`` over the devices one controller sees; the port runs
+one process per mesh position (SPMD), so a mesh needs an initialized
+process group first.  :func:`make_debug_mesh` builds the ("data", "model")
+``DeviceMesh`` over it; :func:`start_mesh` / :func:`spawn_mesh` start
+``data x model`` ranks, each with its process group (a ``file://``
+rendezvous, so no port is picked), its mesh and its device, run a function
+there and hand back each rank's result.
+
+Backends are explicit: ``gloo`` runs anywhere, several ranks sharing one
+CUDA card included (its collectives stage through host memory,
+``sharding/api.py``); ``nccl`` needs a card per rank.  Every process group
+gets a timeout, so ranks whose host decisions diverge fail instead of
+waiting in a collective for ever.  A CPU rank runs one torch intra-op
+thread: at reduced widths torch's thread pool costs many times the work on
+a shared CPU, and ranks share the host's cores.
+"""
+
+from __future__ import annotations
+
+import datetime
+import gc
+import os
+import shutil
+import tempfile
+import time
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.sharding.api import collective_device
+
+PG_TIMEOUT_S = 60.0
+
+
+def make_debug_mesh(data: int = 2, model: int = 2):
+    """A (data, model) ``DeviceMesh`` over the initialized default process
+    group, whose world it must fill; its device type follows the group's
+    backend (``sharding/api.py:collective_device``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(collective_device(), (data, model),
+                            mesh_dim_names=("data", "model"))
+
+
+def _rank_device(device: str, rank: int) -> torch.device:
+    """The device rank ``rank`` computes on: the CPU, or card ``rank`` mod
+    the cards there are (several ranks share one card under gloo)."""
+    if device == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def _rank_main(rank, fn, data, model, device, backend, workdir, box):
+    # ``box`` is a one-item list holding ``fn``'s arguments.  The process
+    # object keeps its arguments until the interpreter exits, so taking
+    # them out of the box is what lets this rank free the parent's CUDA
+    # tensors (CUDA IPC) before it exits: a consumer that exits holding
+    # them leaves the parent's shared blocks counted as in use.
+    args = box.pop()
+    if device == "cpu":
+        torch.set_num_threads(1)
+    dist.init_process_group(
+        backend, init_method=f"file://{workdir}/rendezvous", rank=rank,
+        world_size=data * model,
+        timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    try:
+        dev = _rank_device(device, rank)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        mesh = make_debug_mesh(data, model)
+        result = fn(mesh, dev, *args)
+        torch.save(result, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        del args
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
+class MeshJob:
+    """Ranks started by :func:`start_mesh`; :meth:`join` waits for them."""
+
+    def __init__(self, ctx, workdir: str, n: int, deadline: float):
+        self._ctx, self._workdir, self._n = ctx, workdir, n
+        self._deadline = deadline
+
+    def join(self) -> list:
+        """Each rank's result, in rank order.  A rank's exception is raised
+        here; past the deadline every rank is killed and TimeoutError
+        raised."""
+        try:
+            while not self._ctx.join(
+                    timeout=max(0.0, self._deadline - time.monotonic())):
+                if time.monotonic() >= self._deadline:
+                    raise TimeoutError(
+                        "mesh ranks still running at their time limit")
+            return [torch.load(os.path.join(self._workdir, f"rank{r}.pt"),
+                               weights_only=False) for r in range(self._n)]
+        finally:
+            for p in self._ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+            shutil.rmtree(self._workdir, ignore_errors=True)
+            if torch.cuda.is_initialized():
+                # Free what the ranks shared and have released.
+                torch.cuda.ipc_collect()
+
+
+def start_mesh(fn, data: int, model: int, *, device: str, backend: str,
+               args: tuple = (), timeout: float = 120.0) -> MeshJob:
+    """Start ``data x model`` ranks on ``device`` ("cpu" or "cuda"), their
+    collectives over ``backend`` ("gloo" or "nccl"), each running
+    ``fn(mesh, device, *args)``; ``fn`` must be importable (a module-level
+    function), and its result picklable.  Tensors in ``args`` reach the
+    ranks through shared memory (CUDA IPC for a card's tensors, which the
+    caller keeps alive until :meth:`MeshJob.join` returns; each rank frees
+    them before it exits).  ``timeout`` bounds the whole job,
+    ``PG_TIMEOUT_S`` each collective."""
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend must be gloo|nccl, got {backend!r}")
+    if device not in ("cpu", "cuda"):
+        raise ValueError(f"device must be cpu|cuda, got {device!r}")
+    workdir = tempfile.mkdtemp(prefix="mesh-")
+    n = data * model
+    ctx = mp.start_processes(
+        _rank_main,
+        args=(fn, data, model, device, backend, workdir, [args]),
+        nprocs=n, join=False, start_method="spawn")
+    return MeshJob(ctx, workdir, n, time.monotonic() + timeout)
+
+
+def spawn_mesh(fn, data: int, model: int, *, device: str, backend: str,
+               **kw) -> list:
+    """:func:`start_mesh` and wait: each rank's result, in rank order."""
+    return start_mesh(fn, data, model, device=device, backend=backend,
+                      **kw).join()

@@ -14,17 +14,19 @@ dry; ``--swap-host-bytes B`` swaps preemption victims to host RAM;
 ``--prefix-store-dir DIR`` keeps a persistent prefix store, flushed at the
 end, that a later launch warms from; ``--fault-plan '[["crash", 3]]'
 --snapshot-dir DIR`` serves through the chaos harness with crash
-snapshots).  Mirror of ``repro/launch/serve.py`` for what this port serves
-(no ``--mesh``: mesh serving is not ported): the three engines, and on the
-paged one deadlines, SLO classes, load shedding, the KV memory hierarchy
-and crash recovery, reduced-width configs with seeded random weights.
-Flags that only the paged engine takes are refused with the reference's
-messages.
+snapshots; ``--mesh 2,2`` serves on a (data, model) mesh of spawned ranks,
+gloo by default, ``--backend nccl`` where each rank has a card of its
+own).  Mirror of ``repro/launch/serve.py``: the three engines, and on the
+paged one deadlines, SLO classes, load shedding, the KV memory hierarchy,
+crash recovery and mesh serving, reduced-width configs with seeded random
+weights.  Flags that only the paged engine takes are refused with the
+reference's messages.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -32,7 +34,9 @@ import torch
 
 from repro_torch.configs import reduced_config
 from repro_torch.core.besf import BitStopperConfig
+from repro_torch.kernels import runtime
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch.mesh import spawn_mesh
 from repro_torch.models import transformer as T
 from repro_torch.serving import (ContinuousBatchingEngine, FaultPlan,
                                  PagedEngine, Request, ServeConfig,
@@ -51,6 +55,68 @@ def make_trace(rng, vocab, n_requests, min_len, max_len, new_tokens,
                             dtype=np.int32)
         reqs.append(Request(prompt=np.concatenate([prefix, tail]),
                             max_new_tokens=new_tokens))
+    return reqs
+
+
+def _serve_rank(mesh, device, cfg, params, scfg, reqs, seed):
+    """One mesh rank: the paged engine on ``mesh`` serves the whole trace
+    (every rank runs the same scheduler).  Parameters on another device
+    (a card per rank) are copied to this rank's."""
+    params = _to_device(params, device)
+    eng = PagedEngine(cfg, params, dataclasses.replace(scfg, mesh=mesh),
+                      device=device)
+    t0 = time.perf_counter()
+    eng.generate(reqs, seed=seed)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    k_pool = eng.caches["seg0"][0]["b0"]["k"]
+    return {"tokens": [list(r.generated) for r in reqs],
+            "wall": time.perf_counter() - t0,
+            "counters": dict(eng.counters),
+            "fused_decode": eng.cfg.fused_decode,
+            "local_kv_heads": int(k_pool.shape[2]),
+            "peak_live": eng.pool.peak_live_blocks,
+            "pool_blocks": eng.layout.pool_blocks}
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _serve_mesh(args, dims, cfg, params, scfg, reqs, device):
+    """Serve the trace on a ``dims`` (data, model) mesh of spawned ranks;
+    prints rank 0's report.  Returns the requests with its tokens."""
+    dp, tp = dims
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        # Build the paged kernels once here, not once in every rank.
+        runtime.build_libraries(["paged_decode", "paged_verify"])
+    ranks = spawn_mesh(_serve_rank, dp, tp, device=device.type,
+                       backend=args.backend,
+                       args=(cfg, params, scfg, reqs, args.seed),
+                       timeout=3600.0)
+    rep = ranks[0]
+    for r, toks in zip(reqs, rep["tokens"]):
+        r.generated = toks
+    n_tok = sum(len(t) for t in rep["tokens"])
+    print(f"[serve] mesh {dp}x{tp} ({args.backend}, device={device}): "
+          f"{len(reqs)} requests / {n_tok} new tokens in "
+          f"{rep['wall']:.2f}s on rank 0 ({n_tok / rep['wall']:.1f} tok/s; "
+          f"{time.perf_counter() - t0:.2f}s with the ranks' start), "
+          f"impl={args.impl}, fused_decode={rep['fused_decode']}")
+    print(f"[serve] counters: {rep['counters']}")
+    same = all(x["tokens"] == rep["tokens"] for x in ranks)
+    print(f"[serve] mesh: {len(ranks)} ranks, the same tokens on every "
+          f"rank: {same}; KV heads per rank {rep['local_kv_heads']} of "
+          f"{cfg.n_kv_heads}")
+    print(f"[serve] kv pool: page_size={args.page_size} "
+          f"blocks={rep['pool_blocks']} peak_live={rep['peak_live']}")
+    if not same:
+        raise SystemExit("[serve] mesh ranks served different tokens")
     return reqs
 
 
@@ -143,6 +209,14 @@ def main(argv=None):
                          "this fault plan: inline JSON [[kind, tick], ...] "
                          "or @file.json.  Crashes need --snapshot-dir to "
                          "restore from")
+    ap.add_argument("--mesh", default=None, metavar="DP,TP",
+                    help="paged engine: serve over a (data, model) mesh of "
+                         "DP x TP spawned ranks: slots split over DP, KV "
+                         "heads (pools and paged attention) over TP; the "
+                         "tokens equal single-device serving's")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="collectives of --mesh: gloo (any device; ranks "
+                         "may share one card) or nccl (a card per rank)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--seed", type=int, default=0)
@@ -166,6 +240,20 @@ def main(argv=None):
         ap.error("--fault-plan/--snapshot-dir/--snapshot-every/--deadline/"
                  "--shed-watermark require --engine paged "
                  "(docs/robustness.md)")
+    dims = None
+    if args.mesh is not None:
+        if args.engine != "paged":
+            ap.error("--mesh requires --engine paged")
+        try:
+            dims = tuple(int(x) for x in args.mesh.split(","))
+        except ValueError:
+            dims = ()
+        if len(dims) != 2 or min(dims) < 1:
+            ap.error(f"--mesh expects 'dp,tp' (got {args.mesh!r})")
+        if (chaos or args.snapshot_every or args.swap_host_bytes
+                or args.prefix_host_bytes or args.prefix_store_dir):
+            ap.error("the KV memory hierarchy and crash snapshots do not "
+                     "run under --mesh (ROADMAP A10, 'Mesh state')")
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch).replace(
         attn_impl=args.impl,
@@ -208,6 +296,8 @@ def main(argv=None):
     if args.besteffort_tail:
         for r in reqs[len(reqs) - args.besteffort_tail:]:
             r.slo = "besteffort"
+    if dims is not None:
+        return _serve_mesh(args, dims, cfg, params, scfg, reqs, device)
 
     if chaos:
         t0 = time.perf_counter()

@@ -25,6 +25,10 @@ and the paths serving runs:
   the paged BESF decode, the CUDA kernel when ``fused_decode`` is set, else
   the plain torch oracle; with ``spec_verify``, a speculative draft block
   per slot through the paged BESF verify in the same way;
+* mesh serving: under serving rules (``sharding/``) whose "model" dim
+  divides the KV heads, a rank's pools hold its KV heads, it writes every
+  slot's K/V for them, and the paged reads run on its block of slots and
+  heads (``_shard_paged_attention``), gathered back before ``wo``;
 * every other paged read (prefill chunks, a planeless pool, whose page
   size is not a multiple of 8 and which carries no scales and no planes,
   and every read of a dense impl) gathers each row's logical view for
@@ -58,6 +62,7 @@ bailout), the port records what a write overwrites and puts it back
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -70,6 +75,8 @@ from repro_torch.core.besf import (BitStopperConfig,
 from repro_torch.core.lats import NEG_INF
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.sharding.api import (current_rules, gather_shards,
+                                      local_shard)
 
 POS_SENTINEL = 2 ** 30
 
@@ -336,8 +343,11 @@ def _update_cache(cache, k, v, positions):
     tokens (trailing bucket padding) are dropped and never advance the
     cursor.  Shared cursor: the block lands at ``length mod n_slots``, its
     start clamped so that it fits, as ``dynamic_update_slice`` clamps it.
-    The reference's ``shard_map`` write for a sequence-sharded cache waits
-    for mesh serving (ROADMAP A10), which brings the mesh it needs."""
+    The reference's ``shard_map`` write for a cache sharded along its
+    sequence over "model" belongs to training's rules (``kv_seq`` in
+    ``AXIS_MAP_1POD``; ROADMAP A10, training); the serving rules never
+    shard a contiguous cache, and mesh serving refuses the contiguous
+    engines."""
     S = k.shape[1]
     n_slots = cache["k"].shape[1]
     kc = k.to(cache["k"].dtype)
@@ -388,7 +398,11 @@ def _update_plane_pool(cache, kc, vc, real, phys, p_safe, ok):
     merged into ``kq``; when a write grows ``k_amax``, every stored plane
     is stale and the whole pool is requantized from the K pool.  The
     growth test is a host branch: one device-to-host sync per layer per
-    write.
+    write.  Under a mesh it reads this rank's KV heads only, so ranks may
+    branch apart here; that is right per head (``pack_pool_planes`` is a
+    function of the K pool and the scales alone, so a head whose scale
+    held gets its bytes back unchanged), and no host counter reads the
+    branch: a count of requants would need the max over "model".
 
     Packing: token at page offset ``t`` owns bit ``t % 8`` of byte
     ``t // 8``.  Pages fill front to back, so a write at bit ``b`` keeps
@@ -516,15 +530,62 @@ def gather_paged_view(cache, active=None):
     return k_view, v_view, pos_view
 
 
+def _paged_shard_rules(cfg: AttnConfig):
+    """The active rules iff the paged pools are split over KV heads under
+    them: a "model" dim of more than one rank that divides ``n_kv_heads``,
+    the divisibility ``PAGED_CACHE_RULES`` applies to the pools, so the two
+    agree.  Otherwise (MQA's one KV head on two ranks) the pools are whole
+    on every rank and the single-device read is already right."""
+    rules = current_rules()
+    if rules is None:
+        return None
+    tp = rules.shape.get("model", 0)
+    if tp <= 1 or cfg.n_kv_heads % tp != 0:
+        return None
+    return rules
+
+
+def _shard_paged_attention(fn, rules, q, kpool, vpool, table, lengths,
+                           q_pos, k_amax, v_amax):
+    """A paged BESF call on this rank's block: its slots over "data" and
+    its KV heads over "model", then the block gathered back.
+
+    Every BESF quantity (LATS thresholds, plane partials, the softmax
+    normalizer, the V sum) reduces within one (slot, KV head), and the
+    grouped query heads go with their KV head (heads are KV-major), so the
+    block's ``out`` is bit for bit the single-device ``out`` there; the
+    gather is data movement, and ``wo`` then sums in single-device order.
+    The pools and scales are this rank's already (the engine placed them);
+    ``q`` and the per-slot operands are full and sliced here.  Only ``out``
+    leaves the shard, so the slot-wide ``rounds`` (a max over KV heads)
+    never meets one.  A slot count "data" does not divide replicates the
+    slots."""
+    verify = q.ndim == 4                                  # [B, Sq, Hq, D]
+    b = rules.pspec(("batch",), (q.shape[0],))[0]
+    qspec = (b, None, "model", None) if verify else (b, "model", None)
+    lspec = (b, None) if verify else (b,)
+    out = fn(local_shard(rules, q, qspec), kpool, vpool,
+             local_shard(rules, table, (b, None)),
+             local_shard(rules, lengths, lspec),
+             local_shard(rules, q_pos, lspec), k_amax, v_amax).out
+    return gather_shards(rules, out, qspec)
+
+
 def _paged_cached_attention(q, cache, positions, cfg: AttnConfig):
     """Attention against the (already updated) paged cache.
 
     A verify draft block or one query per slot with BitStopper goes
     straight at the pool: the CUDA kernel when ``cfg.fused_decode``, else
     the plain oracle.  Prefill chunks and every read of a planeless pool
-    gather the logical view of the active rows."""
+    gather the logical view of the active rows.  Under mesh rules that
+    split the pools (:func:`_paged_shard_rules`) the pool reads run on this
+    rank's block (:func:`_shard_paged_attention`), and a gathered view
+    holds this rank's KV heads, read by their query heads for every slot
+    and gathered over "model"."""
     B, S = q.shape[:2]
     active = (positions != POS_SENTINEL).any(1)
+    rules = _paged_shard_rules(cfg)
+    call = None
     if cfg.spec_verify and cfg.impl in _BITSTOPPER and "k_amax" in cache:
         # Speculative verify: the whole draft block in one paged pass.  The
         # write has already placed the draft tokens, so query i with fill
@@ -533,20 +594,13 @@ def _paged_cached_attention(q, cache, positions, cfg: AttnConfig):
         real = positions != POS_SENTINEL
         q_pos = torch.where(real, positions, torch.zeros_like(positions))
         lengths = torch.where(real, q_pos + 1, torch.zeros_like(q_pos))
+        qt = q
         if cfg.fused_decode:
             from repro_torch.kernels.paged_verify import \
-                paged_bitstopper_verify
-            res = paged_bitstopper_verify(
-                q, cache["kq"], cache["v"], cache["table"], lengths, q_pos,
-                cache["k_amax"], cache["v_amax"], cfg=cfg.bitstopper,
-                window=cfg.window, stats=False)
+                paged_bitstopper_verify as call
         else:
-            res = besf_attention_verify_paged(
-                q, cache["k"], cache["v"], cache["table"], lengths, q_pos,
-                cache["k_amax"], cache["v_amax"], cfg=cfg.bitstopper,
-                window=cfg.window)
-        return res.out.to(q.dtype)                            # [B,S,Hq,Dv]
-    if cfg.impl in _BITSTOPPER and S == 1 and "k_amax" in cache:
+            call = besf_attention_verify_paged
+    elif cfg.impl in _BITSTOPPER and S == 1 and "k_amax" in cache:
         qt = q[:, 0]
         q_pos = positions[:, 0]
         # A slot still prefilling decodes at the pad sentinel; fill level 0
@@ -555,19 +609,27 @@ def _paged_cached_attention(q, cache, positions, cfg: AttnConfig):
                               torch.zeros_like(cache["length"]))
         if cfg.fused_decode:
             from repro_torch.kernels.paged_decode import \
-                paged_bitstopper_decode
-            res = paged_bitstopper_decode(
-                qt, cache["kq"], cache["v"], cache["table"], lengths, q_pos,
-                cache["k_amax"], cache["v_amax"], cfg=cfg.bitstopper,
-                window=cfg.window, stats=False)
+                paged_bitstopper_decode as call
         else:
-            res = besf_attention_decode_paged(
-                qt, cache["k"], cache["v"], cache["table"], lengths, q_pos,
-                cache["k_amax"], cache["v_amax"], cfg=cfg.bitstopper,
-                window=cfg.window)
-        return res.out[:, None].to(q.dtype)                   # [B,1,Hq,Dv]
+            call = besf_attention_decode_paged
+    if call is not None:
+        pool = cache["kq"] if cfg.fused_decode else cache["k"]
+        args = (qt, pool, cache["v"], cache["table"], lengths, q_pos,
+                cache["k_amax"], cache["v_amax"])
+        kw = {"stats": False} if cfg.fused_decode else {}
+        fn = functools.partial(call, cfg=cfg.bitstopper, window=cfg.window,
+                               **kw)
+        out = (_shard_paged_attention(fn, rules, *args) if rules is not None
+               else fn(*args).out)
+        out = out if qt.ndim == 4 else out[:, None]
+        return out.to(q.dtype)                                # [B,S,Hq,Dv]
     k_view, v_view, pos_view = gather_paged_view(cache, active)
-    return _cached_attention(q, k_view, v_view, positions, pos_view, cfg)
+    if rules is None:
+        return _cached_attention(q, k_view, v_view, positions, pos_view, cfg)
+    spec = rules.pspec((None, None, "heads", None), q.shape)
+    out = _cached_attention(local_shard(rules, q, spec), k_view, v_view,
+                            positions, pos_view, cfg)
+    return gather_shards(rules, out, spec)
 
 
 def _cached_attention(q, k_all, v_all, q_positions, k_positions,
@@ -673,6 +735,12 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
                                     chunk_k=cfg.chunk_k)
         new_cache = None
     elif cache_is_paged(cache):
+        rules = _paged_shard_rules(cfg)
+        if rules is not None:
+            # This rank's pools hold its KV heads; it writes every slot's
+            # K/V for them (the pools are replicated over "data").
+            spec = rules.pspec((None, None, "kv_heads", None), k.shape)
+            k, v = local_shard(rules, k, spec), local_shard(rules, v, spec)
         new_cache = _update_paged_cache(cache, k, v, positions)
         out = _paged_cached_attention(q, new_cache, positions, cfg)
     else:

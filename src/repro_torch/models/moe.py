@@ -16,8 +16,10 @@ token's k rows in a fixed order, so a call gives the same bits on every
 run (a float scatter-add on the card sums in atomic order).  Nothing in
 the dispatch reads a value back to the host.
 
-The reference's expert-parallel and expert-TP ``shard_map`` branches come
-with mesh serving (ROADMAP A10).
+Under a mesh whose "model" dim is 1 every rank runs this single-device
+path, as the reference does; a larger "model" dim is refused: the
+reference's expert-parallel, expert-TP and resident ``shard_map`` branches
+are not ported (ROADMAP A10, "Mesh MoE"; C10).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding.api import mesh_shape
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,10 +203,14 @@ def moe_ffn(p, x, cfg: MoEConfig, mesh=None, split: bool = False):
     call with the call's capacity, as in the reference.  So a verify can
     drop pairs that a decode of the same tokens keeps, and then its tokens
     differ from plain decoding's, in the reference too (ROADMAP C9)."""
-    if mesh is not None:
+    if mesh is not None and mesh_shape(mesh).get("model", 1) > 1:
+        # A "model" dim of 1 runs the single-device path on every rank, as
+        # in the reference.
         raise NotImplementedError(
-            "the MoE FFN's expert-parallel and expert-TP branches come with "
-            "mesh serving (ROADMAP A10)")
+            "the MoE FFN under a 'model' mesh dim > 1 (its expert-parallel, "
+            "expert-TP and resident branches) is not ported: ROADMAP A10, "
+            "'Mesh MoE'; the reference's own MoE serving under a mesh fails "
+            "before it reaches them (ROADMAP C10)")
     B, S, D = x.shape
     if split and S > 1:
         cols = [_route_rows(p, x[:, s:s + 1].contiguous(), cfg)

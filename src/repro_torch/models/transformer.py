@@ -6,7 +6,11 @@ dense, ``moe`` or no FFN), the MTP head and ``forward(..., embeds=)``.
 The reference scans stacked segment parameters (``seg0`` leaves carry a
 leading ``[reps]`` axis); the port keeps one parameter dict and one cache
 dict per layer (``params["seg0"]`` is a list of units) and loops over
-them.  :func:`params_from_numpy`, :func:`caches_from_numpy` and
+them.  Under mesh rules (``sharding/``; ``PagedEngine`` with a mesh)
+every dense layer runs replicated on each rank at the full slot count, and
+the attention layers run their paged block per rank
+(``models/attention.py``).  :func:`params_from_numpy`,
+:func:`caches_from_numpy` and
 :func:`caches_to_numpy` convert between the two layouts, so tests can carry
 the reference's weights across and compare cache trees.  The reference's
 remat policies come with training.
@@ -29,6 +33,7 @@ from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.models.rglru import (init_rglru, init_rglru_cache,
                                       rglru_forward)
 from repro_torch.models.ssm import init_ssm, init_ssm_cache, ssm_forward
+from repro_torch.sharding.api import current_rules
 
 _ATTN = ("attn", "local_attn")
 
@@ -85,7 +90,10 @@ def block_forward(p, x, positions, spec: BlockSpec, cfg: ModelConfig,
     aux = None
     if spec.ffn == "moe":
         h2 = L.by_column(lambda t: L.norm(p["norm2"], t), x, split)
-        y, aux = moe_ffn(p["moe"], h2, cfg.moe_config(), split=split)
+        rules = current_rules()
+        y, aux = moe_ffn(p["moe"], h2, cfg.moe_config(),
+                         mesh=rules.mesh if rules is not None else None,
+                         split=split)
         x = x + y
     elif spec.ffn != "none":
         x = x + L.by_column(

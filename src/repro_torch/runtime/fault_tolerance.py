@@ -9,8 +9,8 @@ would.  Every class takes its clock as an argument, so tests drive it with a
 * :class:`ClusterMonitor`: a node missing ``timeout`` seconds of beats is
   declared failed.
 * :class:`ElasticMeshManager`: the largest (data, model) mesh the surviving
-  devices hold, keeping the model-parallel degree.  Building the device
-  mesh itself waits for mesh serving (ROADMAP A10).
+  devices hold, keeping the model-parallel degree, and the
+  ``torch.distributed`` ``DeviceMesh`` over the surviving ranks.
 * :class:`StragglerPolicy`: a per-step deadline from an EMA of step times,
   and a deterministic donor for a straggler's data shard.
 * :class:`EngineWatchdog`: wraps ``PagedEngine.step()`` and raises
@@ -23,6 +23,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from repro_torch.sharding.api import collective_device
 
 
 class ClusterMonitor:
@@ -86,11 +92,29 @@ class ElasticMeshManager:
         data = devices // tp
         return ElasticDecision(data=data, model=tp, dropped_nodes=0)
 
-    def rebuild_mesh(self, decision: ElasticDecision, devices=None):
-        raise NotImplementedError(
-            f"rebuild_mesh({decision.data}x{decision.model}): the port has "
-            f"no device mesh yet; it comes with mesh serving on "
-            f"torch.distributed (ROADMAP A10)")
+    def rebuild_mesh(self, decision: ElasticDecision, ranks=None):
+        """A (data, model) ``DeviceMesh`` over the first ``data x model``
+        surviving ranks (``ranks``, by default every rank of the
+        initialized default process group), row-major as the reference
+        lays out its devices, of the device type the group's backend
+        takes (``sharding/api.py:collective_device``).  Building it makes
+        the mesh's process groups, so every rank of the default group calls
+        it together; a rank left out gets a mesh it is not part of."""
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "rebuild_mesh needs the ranks' torch.distributed process "
+                "group (init_process_group, or launch/mesh.py:start_mesh)")
+        ranks = list(range(dist.get_world_size()) if ranks is None
+                     else ranks)
+        usable = decision.data * decision.model
+        if usable > len(ranks):
+            raise RuntimeError(
+                f"a {decision.data}x{decision.model} mesh needs {usable} "
+                f"ranks, {len(ranks)} survive")
+        grid = torch.tensor(ranks[:usable]).reshape(decision.data,
+                                                    decision.model)
+        return DeviceMesh(collective_device(), grid,
+                          mesh_dim_names=("data", "model"))
 
 
 class StragglerPolicy:

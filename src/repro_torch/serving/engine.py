@@ -93,8 +93,21 @@ KV caches are f32 or bf16 (``ServeConfig.cache_dtype``).  The paged and
 continuous engines serve models whose mixers are all attention, MoE FFNs
 included; :class:`StaticBucketEngine` also serves MLA models on their
 contiguous latent cache, and refuses recurrent ones (SSM, RG-LRU) at
-prefill, whose caches take one token a call (ROADMAP C8).  Not ported yet
-(a queue A item in ROADMAP.md): mesh sharding.
+prefill, whose caches take one token a call (ROADMAP C8).
+
+Mesh serving (``ServeConfig.mesh``, a ``torch.distributed`` ``DeviceMesh``
+over dims "data" and "model"; ``launch/mesh.py`` starts the ranks): every
+rank runs this engine on the same requests, so its host scheduler (block
+tables, allocator, admission, CoW, preemption, sampling keys) takes the
+same decisions on every rank.  The dense layers run replicated at the full
+slot count; a rank's pools hold its KV heads (``sharding/rules.py``), and
+the paged attention runs on its block of slots and heads, gathered back
+before ``wo`` (``models/attention.py``).  Where a host decision reads
+device state that differs between ranks, one collective makes it agree:
+the verify forward's growth flag and the circuit breaker.  The tokens
+equal single-device serving's.  The contiguous and static engines refuse a
+mesh, and so do the memory hierarchy, snapshots and restore, and the
+engine API's ``extract``/``insert`` (ROADMAP A10, "Mesh state").
 """
 
 from __future__ import annotations
@@ -126,6 +139,10 @@ from repro_torch.serving.chaos import CheckpointInterrupted, KernelFault
 from repro_torch.serving.kv_pool import KVBlockPool, SwapPool
 from repro_torch.serving.sampling import (categorical_block, fold_in,
                                          prng_key, sample_tokens)
+from repro_torch.sharding.api import any_rank, use_rules
+from repro_torch.sharding.rules import make_serve_rules, shard_caches
+
+MESH_STATE = "ROADMAP A10, 'Mesh state'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +178,11 @@ class ServeConfig:
                                       # self-drafter) | "draft" (draft
                                       # transformer; defaults to self-draft)
     draft_k: int = 4                  # draft tokens proposed per tick
+    mesh: Any = None                  # torch.distributed DeviceMesh over
+                                      # dims "data" (slots) and "model"
+                                      # (KV heads: pools and paged
+                                      # attention); parameters replicated;
+                                      # tokens equal single-device serving
     deadline_ticks: int | None = None # default per-request deadline in
                                       # scheduler ticks from submission
                                       # (Request.deadline_ticks overrides);
@@ -188,6 +210,18 @@ class ServeConfig:
                                       # spill straight to disk)
 
     def __post_init__(self):
+        if self.mesh is not None:
+            dims = set(getattr(self.mesh, "mesh_dim_names", None) or ())
+            if not dims or not dims <= {"data", "model"}:
+                raise ValueError(
+                    "ServeConfig.mesh must be a DeviceMesh over dims named "
+                    f"'data'/'model', got dims {sorted(dims)}")
+            if (self.swap_host_bytes or self.prefix_host_bytes
+                    or self.prefix_store_dir is not None
+                    or self.snapshot_every):
+                raise ValueError(
+                    "the KV memory hierarchy and crash snapshots under a "
+                    f"mesh are not ported ({MESH_STATE})")
         for name in ("max_len", "max_slots", "prefill_bucket", "page_size"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got "
@@ -599,6 +633,10 @@ class ContinuousBatchingEngine(_EngineCommon):
                 "the KV memory hierarchy (swap_host_bytes / "
                 "prefix_store_dir / prefix_host_bytes) is a PagedEngine "
                 "feature (docs/serving.md); use PagedEngine")
+        if scfg.mesh is not None:
+            raise ValueError(
+                "ServeConfig.mesh is a PagedEngine feature (the contiguous "
+                "per-slot engine is the single-device baseline)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -785,6 +823,13 @@ class PagedEngine(_EngineCommon):
         self.caches = T.init_caches(self.cfg, B,
                                     dtype=scfg.torch_cache_dtype(),
                                     paged=self.layout, device=self.device)
+        # Under a mesh the pools keep this rank's KV heads (a head count
+        # "model" does not divide stays whole); tables and fill levels stay
+        # whole, because every rank writes every slot's K/V.
+        self._rules = None
+        if scfg.mesh is not None:
+            self._rules = make_serve_rules(scfg.mesh)
+            self.caches = shard_caches(self._rules, self.caches)
         self.slots: list[_PagedSlot | None] = [None] * B
         self.queue: collections.deque[Request] = collections.deque()
         self.table = np.zeros((B, self._mb), np.int32)
@@ -828,9 +873,10 @@ class PagedEngine(_EngineCommon):
                  rows: slice):
         caches = _attach_tables(self.caches, self._tensor(self.table[rows]),
                                 self._tensor(self.lengths[rows]))
-        logits, caches, _ = T.forward(self.params, self._tensor(tokens),
-                                      self.cfg, caches=caches,
-                                      positions=self._tensor(positions))
+        with use_rules(self._rules):
+            logits, caches, _ = T.forward(self.params, self._tensor(tokens),
+                                          self.cfg, caches=caches,
+                                          positions=self._tensor(positions))
         self.caches = caches
         return logits
 
@@ -845,16 +891,22 @@ class PagedEngine(_EngineCommon):
                                 self._tensor(self.lengths))
         for c in _layers(caches):
             c["undo"] = []              # the write's undo records
-        logits, new, _ = T.forward(self.params, self._tensor(tokens),
-                                   self.cfg.replace(spec_verify=True),
-                                   caches=caches,
-                                   positions=self._tensor(positions))
+        with use_rules(self._rules):
+            logits, new, _ = T.forward(self.params, self._tensor(tokens),
+                                       self.cfg.replace(spec_verify=True),
+                                       caches=caches,
+                                       positions=self._tensor(positions))
         for c in _layers(new):
             del c["undo"]
         before, after = _amax_leaves(self.caches), _amax_leaves(new)
         # A dense impl's pool has no scales to grow.
         grew = bool(before) and bool(torch.stack([
             (n > o).any() for o, n in zip(before, after)]).any())
+        if bool(before) and self._rules is not None:
+            # Mesh: each rank sees its KV heads' scales.  A scale that grew
+            # on any rank bails every rank out, or they part ways here and
+            # wait in collectives their peers never enter.
+            grew = any_rank(self._rules, grew, "model")
 
         def undo():
             for c in _layers(caches):
@@ -888,26 +940,44 @@ class PagedEngine(_EngineCommon):
             raise KernelFault(
                 f"injected fused-{what} fault at tick {self.ticks}")
 
+    def _breaker(self, what: str) -> None:
+        """Consult for a ``kernel_fail`` before a forward on the kernel and
+        degrade on one.  Under a mesh the ranks agree first (one
+        collective per guarded forward while on the kernel): a fault on any
+        rank degrades every rank, so all of them run the tick on the same
+        path."""
+        fault = None
+        try:
+            self._consult_kernel_fault(what)
+        except KernelFault as e:
+            fault = str(e)
+        if (self._rules is not None and self.cfg.fused_decode
+                and any_rank(self._rules, fault is not None)
+                and fault is None):
+            fault = (f"a fused-{what} fault on another rank at tick "
+                     f"{self.ticks}")
+        if fault is not None:
+            self._degrade(fault)
+
     def _guarded_decode(self, *args):
         """The decode forward behind the circuit breaker.  The fault is
         raised before the forward runs, so the caches are untouched and the
         tick runs once, on the plain oracle.  Only the consult's
         ``KernelFault`` is caught: an error the kernel raises propagates."""
-        try:
-            self._consult_kernel_fault("decode")
-        except KernelFault as e:
-            self._degrade(str(e))
+        self._breaker("decode")
         return self._forward(*args)
 
     def _guarded_verify(self, *args):
         """The verify forward behind the circuit breaker (see
         :meth:`_guarded_decode`); no undo record exists yet when the fault
         is raised."""
-        try:
-            self._consult_kernel_fault("verify")
-        except KernelFault as e:
-            self._degrade(str(e))
+        self._breaker("verify")
         return self._verify_forward(*args)
+
+    def _refuse_mesh(self, what: str) -> None:
+        if self._rules is not None:
+            raise ValueError(f"{what} under a mesh is not ported "
+                             f"({MESH_STATE})")
 
     # ------------------------------------------------------------------
     # capacity accounting
@@ -1292,6 +1362,7 @@ class PagedEngine(_EngineCommon):
         pool and block numbering can ``insert()`` it.  Registered source
         blocks park in the LRU on decref, so this engine's prefix cache
         stays warm for repeated prompts."""
+        self._refuse_mesh("extract()")
         if prefix.finished or prefix.payload is not None:
             return prefix
         if prefix.pool is not self.pool:
@@ -1330,6 +1401,7 @@ class PagedEngine(_EngineCommon):
         (``resumed=True``, next decode input ``prefix.last_token``), so
         decode, speculation, oversubscription and deadlines behave as if
         the request had always lived here."""
+        self._refuse_mesh("insert()")
         if not 0 <= slot < len(self.slots):
             raise ValueError(f"slot {slot} out of range "
                              f"[0, {len(self.slots)})")
@@ -1467,6 +1539,7 @@ class PagedEngine(_EngineCommon):
         Device KV is not kept.  Restore rebuilds it through the resume
         path: in-flight requests requeue with their tokens and recompute
         their context by chunked prefill under the restored scales."""
+        self._refuse_mesh("snapshot()")
         active = sorted(
             (st.seq, st.req.rid) for st in self.slots if st is not None)
         reqs = []
@@ -1512,6 +1585,7 @@ class PagedEngine(_EngineCommon):
         requeue in admission order, followed by the snapshot's queue; the
         ordinary resume path recomputes each context and replays its last
         sampled token."""
+        self._refuse_mesh("restore()")
         if self.requests or self.ticks or self.pool.live_blocks():
             raise RuntimeError(
                 "restore() needs a freshly constructed engine (the crash "
@@ -2119,6 +2193,10 @@ class StaticBucketEngine:
 
     def __init__(self, cfg: ModelConfig, params,
                  scfg: ServeConfig = ServeConfig(), device=None):
+        if scfg.mesh is not None:
+            raise ValueError(
+                "ServeConfig.mesh is a PagedEngine feature (the static "
+                "batcher is a single-device baseline)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

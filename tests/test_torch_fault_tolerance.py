@@ -1,8 +1,9 @@
 """The port's runtime fault-tolerance policies (``repro_torch/runtime``),
 held to the reference's tests (tests/test_fault_tolerance.py) and driven by
 ``ManualClock``: the heartbeat monitor, elastic mesh decisions, the
-straggler EMA and the stuck-tick engine watchdog.  Building the device mesh
-itself waits for mesh serving (ROADMAP A10)."""
+straggler EMA and the stuck-tick engine watchdog.  The device mesh over
+the surviving ranks is built over their process group
+(``tests/test_torch_mesh.py`` builds one on a 2x2 mesh of spawned ranks)."""
 
 import numpy as np
 import pytest
@@ -78,8 +79,10 @@ def test_elastic_mesh_decisions_match_reference(tp, per_node, nodes):
 
 
 def test_elastic_rebuild_mesh_waits_for_mesh_serving():
+    """The mesh is built over the ranks' process group (a 2x2 mesh of
+    spawned ranks: ``tests/test_torch_mesh.py``); without one it raises."""
     mgr = ElasticMeshManager(model_parallel=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(RuntimeError, match="torch.distributed process group"):
         mgr.rebuild_mesh(mgr.decide(healthy_nodes=2))
 
 

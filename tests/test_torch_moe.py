@@ -5,6 +5,8 @@ and reduced qwen2-moe-a2.7b (the same seeded weights in both packages)
 served through PagedEngine beside the reference's engine, greedy and with
 replayed speculative drafts, also where capacity binds."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -191,8 +193,12 @@ def test_dispatch_is_stable_and_split_routing_equal():
     whole, a1 = TM.moe_ffn(tp, x, mcfg)
     split, a2 = TM.moe_ffn(tp, x, mcfg, split=True)
     assert torch.equal(whole, split) and torch.equal(a1, a2)
-    with pytest.raises(NotImplementedError, match="mesh serving"):
-        TM.moe_ffn(tp, x, mcfg, mesh=object())
+    # A mesh with a "model" dim > 1 is refused (ROADMAP A10, "Mesh MoE");
+    # the stand-in carries what moe_ffn reads of a DeviceMesh.
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 mesh=torch.arange(4).reshape(2, 2))
+    with pytest.raises(NotImplementedError, match="Mesh MoE"):
+        TM.moe_ffn(tp, x, mcfg, mesh=mesh)
 
 
 @pytest.fixture(scope="module")
