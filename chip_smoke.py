@@ -158,16 +158,33 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    mesh at its local geometry (2 slots, 16 heads): each shard's out
    bit-equal to its block of the full run, its per-head rounds, survivors
    and V pages equal, the full slot-wide rounds the max over the "model"
-   shards, each shard timed alone beside its bound; (b) after the forward
-   path, full-width, full-depth ``stablelm-1.6b`` on a 2x2 mesh of four
-   ranks sharing the card over gloo (``launch/mesh.py``; weights by CUDA
-   IPC, their checksums equal to the parent's): a greedy trace (the main
-   trace's four shortest prompts, 8 new tokens) through the decode kernel
-   and an n-gram trace (two repeated-pattern prompts, k=4) through the
-   verify kernel, each rank with 16 of 32 KV heads: the parent's
-   single-device tokens and bailouts on every rank, and each kernel
-   launched 24 x the rank's forwards of its kind; prints each rank's
-   decode tick and all-gather ms per layer;
+   shards, each shard timed alone beside its bound, and the same at
+   qwen2-moe-a2.7b's attention shape (shards of 2 slots, 8 heads of 128);
+   (b) after the forward path, full-width ``stablelm-1.6b`` cut to depth
+   4 on a 2x2 mesh of four ranks sharing the card over gloo
+   (``launch/mesh.py``; weights by CUDA IPC, their checksums equal to the
+   parent's): a greedy trace (the main trace's four shortest prompts, 8
+   new tokens) through the decode kernel and the same prompts with drafts
+   replaying its tokens (k=4) through the verify kernel, each rank with
+   16 of 32 KV heads: the parent's single-device tokens and bailouts on
+   every rank, and each kernel launched 4 x the rank's
+   forwards of its kind; then, in the same spawn, the mesh state: the
+   main trace on an oversubscribed pool with a swap tier, the memory
+   path's store trace cold on the mesh and warm from one device's store,
+   the greedy trace through ``serve_with_chaos`` with a crash, its tick-4
+   snapshot restored on a 1x2 mesh, and an ``insert`` of single-device
+   prefills: single-device tokens, counters and reports, store and
+   snapshot files byte-equal to one device's, and one device warming from
+   the mesh's store and restoring its snapshot; prints each rank's decode
+   tick, all-gather ms per layer and swap, record and restore ms; (c)
+   after the MoE path, qwen2-moe-a2.7b at full width cut to depth 4 on the
+   2x2 mesh (its weights by CUDA IPC), under the expert-parallel and the
+   resident branch: single-device tokens, dropped pairs summed over each
+   expert group, 8 of 16 KV heads and views of its experts' block (bytes
+   printed), the first layer's FFN out bit-equal to one device's, 4
+   decode launches a tick, and replayed speculation's
+   single-device tokens with 4 verify launches a verify tick; prints the
+   combine's gather ms per MoE layer;
 16. prints one JSON line describing each kernel (the bf16 forms, the
    D=128 shapes and the mesh shards under each kernel's row), then the
    device line last.
@@ -2294,6 +2311,16 @@ def grids_and_planes(np, cold, warm):
     return same, planes, gap
 
 
+def store_prompts(np, vocab):
+    """(b)'s trace: a ``STORE_PREFIX``-token system prompt and four tails
+    of 16-80 tokens."""
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, vocab, STORE_PREFIX, dtype=np.int32)
+    return [np.concatenate([prefix, rng.integers(
+        0, vocab, int(rng.integers(16, 81)), dtype=np.int32)])
+        for _ in range(4)]
+
+
 def store_warm_start(torch, np, cfg, params, store_dir, max_slots, label,
                      **kw):
     """(b): a cold engine on an empty store serves the trace and flushes
@@ -2301,11 +2328,7 @@ def store_warm_start(torch, np, cfg, params, store_dir, max_slots, label,
     (``kw``: more ServeConfig fields).  Returns the cold and warm engines,
     their tokens and the records flushed."""
     from repro_torch.serving import ServeConfig
-    rng = np.random.default_rng(11)
-    prefix = rng.integers(0, cfg.vocab, STORE_PREFIX, dtype=np.int32)
-    prompts = [np.concatenate([prefix, rng.integers(
-        0, cfg.vocab, int(rng.integers(16, 81)), dtype=np.int32)])
-        for _ in range(4)]
+    prompts = store_prompts(np, cfg.vocab)
     scfg = ServeConfig(max_slots=max_slots, page_size=16, max_len=512,
                        pool_blocks=STORE_POOL_BLOCKS,
                        prefix_store_dir=store_dir, **kw)
@@ -3398,7 +3421,9 @@ class DropCounter:
     """Counts the dropped (token, expert) pairs and the routed rows of
     every MoE dispatch on the card, into device tensors (no host sync per
     layer), apart for verify forwards and all other calls; ``take()``
-    reads and resets the counts: {"verify" | "other": (dropped, rows)}."""
+    reads and resets the counts: {"verify" | "other": (dropped, rows)}.
+    Under a mesh a rank counts the pairs of its own experts that dropped
+    (another rank's pairs are not its to drop)."""
 
     def __init__(self, torch):
         from repro_torch.models import moe
@@ -3408,11 +3433,13 @@ class DropCounter:
         self.real_verify = PagedEngine._verify_forward
         self.tag, self.counts = "other", {}
 
-    def _plan(self, *a, **kw):
-        plan = self.real_plan(*a, **kw)
+    def _plan(self, top_i, n_local, capacity, expert_offset=0):
+        plan = self.real_plan(top_i, n_local, capacity, expert_offset)
+        local = top_i.reshape(-1).long() - expert_offset
+        mine = ((local >= 0) & (local < n_local))[plan[0]]
         c = self.counts.setdefault(self.tag, self.torch.zeros(
             2, dtype=self.torch.int64, device="cuda"))
-        c[0] += (~plan[3]).sum()
+        c[0] += (mine & ~plan[3]).sum()
         c[1] += plan[3].numel()
         return plan
 
@@ -3442,7 +3469,7 @@ class DropCounter:
 
 
 @phase("moe path")
-def moe_path_phase(torch):
+def moe_path_phase(torch, cfg, params):
     """Full-width, full-depth qwen2-moe-a2.7b: (a) the main trace through
     PagedEngine on bitstopper_xla with the decode kernel (one launch per
     layer per decode tick), tokens/s, the decode tick and the prefill
@@ -3456,7 +3483,6 @@ def moe_path_phase(torch):
     import numpy as np
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.serving import PagedEngine, Request, ServeConfig
-    cfg, params = build_moe_model(torch)
     scfg = ServeConfig(max_slots=4, page_size=16, max_len=512)
     PagedEngine(cfg, params, scfg).generate(
         make_requests(np, Request, 99, 1, 2, cfg.vocab))
@@ -3608,6 +3634,241 @@ def moe_path_phase(torch):
     return launches, verify_launches, qk, flash
 
 
+MOE_MESH_VARIANTS = ("ep", "resident")   # 60 experts over 2 and over 4
+
+
+def expert_leaves(params):
+    """Every MoE block's routed-expert weights of a parameter tree."""
+    return [u["b0"]["moe"][k] for u in params["seg0"]
+            for k in ("wi_gate", "wi_up", "wo")]
+
+
+def moe_mesh_rank(mesh, device, cfg, params, prompts, digest, xs):
+    """A rank of the MoE mesh phase: the greedy trace served by the cut
+    qwen2-moe-a2.7b on this rank under each branch, counting the pairs its
+    experts dropped, its decode launches and its combine's gathers; and
+    the first layer's MoE FFN on the inputs ``xs`` (its ``out``)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.models import moe
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"coord": tuple(mesh.get_coordinate()),
+           "weights_equal": params_digest(torch, params) == digest,
+           "variants": {}}
+    full = expert_leaves(params)
+    real_gather = moe.gather_owned
+    for variant in MOE_MESH_VARIANTS:
+        c = cfg.replace(moe_resident=variant == "resident")
+        scfg = ServeConfig(max_slots=4, page_size=16, max_len=512, mesh=mesh)
+        PagedEngine(c, params, scfg, device=device).generate(
+            [Request(prompt=prompts[0][:16].copy(), max_new_tokens=2)])
+        eng = PagedEngine(c, params, scfg, device=device)
+        mine = expert_leaves(eng.params)
+        gathers = []
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            res = real_gather(*a, **kw)
+            gathers.append((time.perf_counter() - t) * 1e3)
+            return res
+
+        reqs = [Request(prompt=p.copy(), max_new_tokens=MESH_NEW_TOKENS)
+                for p in prompts]
+        moe.gather_owned = timed
+        try:
+            with DropCounter(torch) as counter:
+                pd.LAUNCHES = 0
+                t = time.perf_counter()
+                eng.generate(reqs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                dropped = counter.take()
+        finally:
+            moe.gather_owned = real_gather
+        res = {
+            "tokens": [list(r.generated) for r in reqs],
+            "counters": dict(eng.counters), "launches": pd.LAUNCHES,
+            "dropped": dropped.get("other", (0, 0))[0], "wall": wall,
+            "gather_ms": gathers,
+            "expert_bytes": sum(t.numel() * t.element_size() for t in mine),
+            "views": all(m.untyped_storage().data_ptr()
+                         == f.untyped_storage().data_ptr()
+                         for m, f in zip(mine, full)),
+            "local_kv_heads": int(eng.caches["seg0"][0]["b0"]["kq"]
+                                  .shape[3])}
+        res["spec"] = moe_replay(torch, np, c, params, prompts, reqs, mesh,
+                                 device)
+        with torch.no_grad():
+            p0 = eng.params["seg0"][0]["b0"]["moe"]
+            res["ffn"] = {k: moe.moe_ffn(p0, x, c.moe_config(),
+                                         mesh=mesh)[0].cpu()
+                          for k, x in xs.items()}
+        out["variants"][variant] = res
+    return out
+
+
+def moe_replay(torch, np, cfg, params, prompts, plain, mesh=None,
+               device=None):
+    """The prompts served speculatively, drafts replaying ``plain``'s
+    tokens: tokens, counters and both kernels' launches."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_verify as pv
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
+    eng = PagedEngine(cfg, params, ServeConfig(
+        max_slots=4, page_size=16, max_len=512, mesh=mesh,
+        speculative="draft", draft_k=SPEC_K), device=device,
+        drafter=ReplayDrafter(np, plain))
+    reqs = [Request(prompt=p.copy(), max_new_tokens=MESH_NEW_TOKENS)
+            for p in prompts]
+    pd.LAUNCHES = pv.LAUNCHES = 0
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    return {"tokens": [list(r.generated) for r in reqs],
+            "counters": dict(eng.counters), "decode": pd.LAUNCHES,
+            "verify": pv.LAUNCHES}
+
+
+@phase("moe mesh")
+def moe_mesh_phase(torch, cfg, params):
+    """qwen2-moe-a2.7b at full width, cut to depth 4 (its weights shared
+    with four ranks by CUDA IPC), on a 2x2 (data, model) mesh of ranks
+    sharing the card over gloo: the main trace's four shortest prompts, 8
+    new tokens, 4 slots, capacity factor 1.25, under the expert-parallel
+    branch (30 experts a rank) and the resident one (15).  Every rank must
+    give the single-device tokens, its experts' dropped pairs must sum
+    over the ranks that split the experts to one device's, it must launch
+    the decode kernel 4 x its decode ticks, hold 8 of 16 KV heads and
+    views of its experts' block only, and give the first layer's MoE FFN
+    out of one device bit for bit at a decode tick's and a prefill chunk's
+    shape.  Then the same prompts with drafts
+    replaying the plain tokens: one device's speculative tokens and
+    counters on every rank (C9: a verify may drop pairs that decoding
+    keeps, on one device as on the mesh), the verify kernel launched 4 x
+    its verify ticks.  Returns one rank's (decode, verify) launches."""
+    import numpy as np
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.launch.mesh import start_mesh
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
+    t0 = time.perf_counter()
+    cut, cut_params = cut_model(cfg, params, MESH_DEPTH)
+    leaves = list(_leaves(cut_params))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    experts = sum(t.numel() * t.element_size()
+                  for t in expert_leaves(cut_params))
+    prompts = sorted((r.prompt for r in make_requests(
+        np, Request, 0, 8, 32, cfg.vocab)), key=len)[:4]
+    digest = params_digest(torch, cut_params)
+    # The first layer's MoE FFN at a decode tick's shape and a prefill
+    # chunk's: each rank's out must be one device's, bit for bit.
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xs = {"decode 4 x 1": torch.randn(4, 1, cut.d_model, generator=g,
+                                      device="cuda"),
+          "chunk 1 x 64": torch.randn(1, 64, cut.d_model, generator=g,
+                                      device="cuda")}
+    print(f"[chip_smoke] moe mesh: {cut.name} cut to {cut.n_layers} "
+          f"layers: {nbytes / 1e9:.3f} GB of f32 leaves shared with the "
+          f"ranks (routed experts {experts / 1e9:.3f} GB), prompts "
+          f"{[len(p) for p in prompts]}, capacity factor "
+          f"{cut.moe_capacity_factor}")
+    job = start_mesh(moe_mesh_rank, MESH_DP, MESH_TP, device="cuda",
+                     backend="gloo",
+                     args=(cut, cut_params, prompts, digest, xs),
+                     timeout=600)
+    eng = PagedEngine(cut, cut_params, ServeConfig(max_slots=4, page_size=16,
+                                                   max_len=512))
+    reqs = [Request(prompt=p.copy(), max_new_tokens=MESH_NEW_TOKENS)
+            for p in prompts]
+    with DropCounter(torch) as counter:
+        pd.LAUNCHES = 0
+        t = time.perf_counter()
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        single_drops = counter.take().get("other", (0, 0))[0]
+    single_launches = pd.LAUNCHES
+    single = [list(r.generated) for r in reqs]
+    single_spec = moe_replay(torch, np, cut, cut_params, prompts, reqs)
+    from repro_torch.models.moe import moe_ffn
+    with torch.no_grad():
+        ffn = {k: moe_ffn(cut_params["seg0"][0]["b0"]["moe"], x,
+                          cut.moe_config())[0].cpu() for k, x in xs.items()}
+    ranks = job.join()
+    L = cut.n_layers
+    print(f"[chip_smoke] moe mesh single device: {wall:.3f} s, "
+          f"{eng.counters['decode_steps']} decode ticks, {single_launches} "
+          f"decode launches, {single_drops} dropped pairs; replayed "
+          f"speculation {single_spec['counters']['spec_ticks']} verify "
+          f"ticks, {single_spec['counters']['spec_accepted']} drafts "
+          f"accepted, the plain tokens: {single_spec['tokens'] == single}")
+    by_coord = {r["coord"]: r for r in ranks}
+    owners = {"ep": lambda d, m: [(d, 0), (d, 1)],
+              "resident": lambda d, m: list(by_coord)}
+    share = {"ep": MESH_TP, "resident": MESH_DP * MESH_TP}
+    failed = []
+    for r, rank in enumerate(ranks):
+        d, m = rank["coord"]
+        if not rank["weights_equal"]:
+            failed.append(f"rank {r} weights differ from the parent's")
+        for variant in MOE_MESH_VARIANTS:
+            got = rank["variants"][variant]
+            c = got["counters"]
+            summed = sum(by_coord[o]["variants"][variant]["dropped"]
+                         for o in owners[variant](d, m))
+            g = got["gather_ms"]
+            print(f"[chip_smoke] moe mesh rank {r} {rank['coord']}, "
+                  f"{variant}: {got['wall']:.3f} s, {c['decode_steps']} "
+                  f"decode ticks, decode launches {got['launches']}; "
+                  f"{got['dropped']} pairs of its experts dropped ({summed} "
+                  f"over its expert group, one device {single_drops}); "
+                  f"{got['local_kv_heads']} KV heads; routed-expert bytes "
+                  f"{got['expert_bytes']} of {experts} (views: "
+                  f"{got['views']}); {len(g)} combine gathers at mean "
+                  f"{np.mean(g or [np.nan]):.3f} ms per MoE layer (median "
+                  f"{np.median(g or [np.nan]):.3f})")
+            checks = {
+                "tokens": got["tokens"] == single,
+                "dropped pairs": summed == single_drops,
+                "decode launches": (got["launches"] == L * c["decode_steps"]
+                                    and c["decode_steps"] > 0),
+                "KV heads": got["local_kv_heads"] == cut.n_kv_heads // MESH_TP,
+                "expert block": (got["expert_bytes"] * share[variant]
+                                 == experts and got["views"]),
+                "counters": c == dict(eng.counters),
+                "speculative tokens": (got["spec"]["tokens"]
+                                       == single_spec["tokens"]),
+                "speculative counters": (got["spec"]["counters"]
+                                         == single_spec["counters"]),
+                "verify launches": (
+                    got["spec"]["verify"]
+                    == L * got["spec"]["counters"]["spec_ticks"] > 0),
+            }
+            for k, want in ffn.items():
+                checks[f"FFN out ({k}) bit-equal"] = torch.equal(
+                    got["ffn"][k], want)
+            gaps = [float((got["ffn"][k] - want).abs().max())
+                    for k, want in ffn.items()]
+            print(f"[chip_smoke] moe mesh rank {r}, {variant}: first "
+                  f"layer's FFN out, max |mesh - one device| {gaps} at "
+                  f"{list(ffn)}")
+            failed += [f"rank {r} {variant} {k}" for k, ok in checks.items()
+                       if not ok]
+    if failed:
+        raise SystemExit(f"[chip_smoke] moe mesh failed: {failed}")
+    print(f"[chip_smoke] moe mesh: 4 ranks on one card (gloo) serve the "
+          f"single-device tokens under EP and resident, with its dropped "
+          f"pairs summed over each expert group; the first layer's FFN out "
+          f"bit-equal to one device's at {list(ffn)}; launches {L} x "
+          f"decode ticks; phase {time.perf_counter() - t0:.3f} s")
+    release_shared(torch, cut_params)
+    first = ranks[0]["variants"]
+    return (sum(first[v]["launches"] + first[v]["spec"]["decode"]
+                for v in MOE_MESH_VARIANTS),
+            sum(first[v]["spec"]["verify"] for v in MOE_MESH_VARIANTS))
+
+
 ZOO = ("recurrentgemma-2b", "mamba2-130m", "deepseek-v3-671b")
 ZOO_STEPS, ZOO_FWD_S = 12, 256
 
@@ -3721,6 +3982,13 @@ def zoo_phase(torch):
 
 MESH_DP, MESH_TP = 2, 2
 MESH_NEW_TOKENS = 8
+MESH_DEPTH = 4                   # the stablelm and MoE mesh paths' cut
+# The mesh-state scenario's plan on the greedy trace (four prompts of the
+# main trace, 8 new tokens): a crash after the tick-8 snapshot, restored
+# from it; the 1x2 mesh restores the tick-4 one.
+MESH_CHAOS_PLAN = (("crash", 10),)
+MESH_SNAPSHOT_EVERY = 4
+MESH_RESTORE_STEP = 4
 
 
 def _shard_slices(kind, d, m, B, Hq, Hkv):
@@ -3746,91 +4014,104 @@ def _v_fetched(kind, surv, B, Hkv, G, MB, bs):
     return surv.reshape(B, Sq, Hkv, G, MB, bs).any(5).any(3)
 
 
+def shard_kernel_check(torch, kind, mod, sq, seed, shapes, Hkv, label):
+    """One paged kernel (``kind`` decode or verify, module ``mod``) at
+    ``shapes`` and on each of the 2x2 mesh's four shards at local geometry
+    (half the slots, half the heads): each shard's out bit-equal to its
+    block of the full run, its per-head rounds, survivors and V pages
+    equal, and the full slot-wide rounds the max over its "model" shards.
+    Each shard kernel timed alone beside its bound (from the kernel's own
+    byte and operation counts).  Returns {"shard_ms", "shard_bound_ms",
+    "shard_launches", "full_ms"}."""
+    from repro_torch.core.besf import BitStopperConfig
+    cfg = BitStopperConfig(alpha=0.6)
+    args = decode_case(torch, seed, Hkv=Hkv, Sq=sq, **shapes)
+    q, kq, v, table, lengths, q_pos, k_amax, v_amax = args
+    B, Hq = q.shape[0], q.shape[-2]
+    P, bits, bs8, Hkv, D = kq.shape
+    bs, MB, G = bs8 * 8, table.shape[1], Hq // Hkv
+    f_out, f_rh, f_surv = mod.launch_kernel(*args, cfg=cfg)
+    if kind == "verify":
+        f_surv = f_surv.reshape(B, sq, Hq, -1)
+    f_vf = _v_fetched(kind, f_surv, B, Hkv, G, MB, bs)
+    shard_rounds = {}
+    times, bounds, launches = [], [], 0
+    for d in range(MESH_DP):
+        for m in range(MESH_TP):
+            ix = _shard_slices(kind, d, m, B, Hq, Hkv)
+            hk, sl = ix["hk"], ix["slots"]
+            sargs = (q[ix["q"]].contiguous(),
+                     kq[:, :, :, hk].contiguous(),
+                     v[:, :, hk].contiguous(), table[sl].contiguous(),
+                     lengths[sl].contiguous(), q_pos[sl].contiguous(),
+                     k_amax[hk].contiguous(), v_amax[hk].contiguous())
+            s_out, s_rh, s_surv = mod.launch_kernel(*sargs, cfg=cfg)
+            launches += 1
+            b = s_out.shape[0]
+            if kind == "verify":
+                s_surv = s_surv.reshape(b, sq, Hq // MESH_TP, -1)
+            s_vf = _v_fetched(kind, s_surv, b, Hkv // MESH_TP, G, MB, bs)
+            checks = {"out": (s_out, f_out[ix["out"]]),
+                      "rounds per KV head": (s_rh, f_rh[ix["rounds_h"]]),
+                      "survivors": (s_surv, f_surv[ix["surv"]]),
+                      "v_fetched": (s_vf, f_vf[ix["vf"]])}
+            for what, (a, w) in checks.items():
+                if not torch.equal(a, w):
+                    raise SystemExit(
+                        f"[chip_smoke] mesh kernels: {kind} {label} shard "
+                        f"({d}, {m}) {what} differs from its block of "
+                        f"the full run in {int((a != w).sum())} entries")
+            shard_rounds.setdefault(d, []).append(s_rh.amax(1))
+            kargs, *held = mod.kernel_args(*sargs, cfg=cfg, stats=False)
+            times.append(cuda_ms(torch, lambda: mod.launch_c(*kargs),
+                                 iters=50, warmup=5))
+            if kind == "decode":
+                nbytes, ops = decode_bytes_ops(sargs, s_rh, s_surv,
+                                               stats=False)
+            else:
+                nbytes, ops, _, _ = verify_bytes_ops(
+                    sargs, s_rh, s_surv.reshape(b, sq * Hq // MESH_TP, -1))
+            bounds.append(max(nbytes / HBM_BYTES_PER_S,
+                              ops / INT8_OPS_PER_S) * 1e3)
+    for d, parts in shard_rounds.items():
+        b = slice(d * B // MESH_DP, (d + 1) * B // MESH_DP)
+        want = f_rh.amax(1)[b]
+        if not torch.equal(torch.stack(parts).amax(0), want):
+            raise SystemExit(f"[chip_smoke] mesh kernels: {kind} {label} "
+                             f"full rounds are not the max over the model "
+                             f"shards' of data shard {d}")
+    kargs, *held = mod.kernel_args(*args, cfg=cfg, stats=False)
+    full_ms = cuda_ms(torch, lambda: mod.launch_c(*kargs), iters=50,
+                      warmup=5)
+    print(f"[chip_smoke] mesh kernels: paged_{kind} {label} on 4 shards of "
+          f"({B // MESH_DP} slots, {Hq // MESH_TP} heads of {D}): out, "
+          f"per-head rounds, survivors and v_fetched equal to the full "
+          f"run's blocks; full rounds the max over model shards; kernel "
+          f"alone per shard {[round(t, 4) for t in times]} ms (bounds "
+          f"{[round(x, 5) for x in bounds]}), full geometry "
+          f"{full_ms:.4f} ms")
+    return {"shard_ms": times, "shard_bound_ms": bounds,
+            "shard_launches": launches, "full_ms": full_ms}
+
+
 @phase("mesh kernels")
 def mesh_kernel_phase(torch):
-    """The decode and verify kernels at the main shape (B=4, H=32, D=64,
-    bs=16, MB=32, alpha 0.6, hot directions) and on each of the 2x2
-    mesh's four shards at local geometry (2 slots, 16 heads): each shard's
-    out bit-equal to its block of the full run, its per-head rounds,
-    survivors and V pages equal, and the full slot-wide rounds the max over
-    its "model" shards.  Each shard kernel timed alone beside its bound.
-    Returns {kernel: {"shard_ms", "shard_bound_ms", "shard_launches"}}."""
-    from repro_torch.core.besf import BitStopperConfig
+    """The decode and verify kernels on each of the 2x2 mesh's four shards
+    at local geometry (:func:`shard_kernel_check`): at the main shape
+    (B=4, H=32, D=64, bs=16, MB=32, alpha 0.6, hot directions; shards of 2
+    slots and 16 heads) and at qwen2-moe-a2.7b's attention shape (B=4,
+    H=16, D=128; shards of 2 slots and 8 heads, what each rank of the MoE
+    mesh runs).  Returns {kernel: {D=64 fields, "d128": {...}}}."""
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import paged_verify as pv
-    cfg = BitStopperConfig(alpha=0.6)
     out = {}
     for kind, mod, sq, seed in (("decode", pd, 1, 100),
                                 ("verify", pv, SPEC_K + 1, 200)):
-        args = decode_case(torch, seed, Hkv=32, Sq=sq, **DECODE_SHAPES)
-        q, kq, v, table, lengths, q_pos, k_amax, v_amax = args
-        B, Hq = q.shape[0], q.shape[-2]
-        P, bits, bs8, Hkv, D = kq.shape
-        bs, MB, G = bs8 * 8, table.shape[1], Hq // Hkv
-        f_out, f_rh, f_surv = mod.launch_kernel(*args, cfg=cfg)
-        if kind == "verify":
-            f_surv = f_surv.reshape(B, sq, Hq, -1)
-        f_vf = _v_fetched(kind, f_surv, B, Hkv, G, MB, bs)
-        shard_rounds = {}
-        times, bounds, launches = [], [], 0
-        for d in range(MESH_DP):
-            for m in range(MESH_TP):
-                ix = _shard_slices(kind, d, m, B, Hq, Hkv)
-                hk, sl = ix["hk"], ix["slots"]
-                sargs = (q[ix["q"]].contiguous(),
-                         kq[:, :, :, hk].contiguous(),
-                         v[:, :, hk].contiguous(), table[sl].contiguous(),
-                         lengths[sl].contiguous(), q_pos[sl].contiguous(),
-                         k_amax[hk].contiguous(), v_amax[hk].contiguous())
-                s_out, s_rh, s_surv = mod.launch_kernel(*sargs, cfg=cfg)
-                launches += 1
-                b = s_out.shape[0]
-                if kind == "verify":
-                    s_surv = s_surv.reshape(b, sq, Hq // MESH_TP, -1)
-                s_vf = _v_fetched(kind, s_surv, b, Hkv // MESH_TP, G, MB, bs)
-                checks = {"out": (s_out, f_out[ix["out"]]),
-                          "rounds per KV head": (s_rh, f_rh[ix["rounds_h"]]),
-                          "survivors": (s_surv, f_surv[ix["surv"]]),
-                          "v_fetched": (s_vf, f_vf[ix["vf"]])}
-                for what, (a, w) in checks.items():
-                    if not torch.equal(a, w):
-                        raise SystemExit(
-                            f"[chip_smoke] mesh kernels: {kind} shard "
-                            f"({d}, {m}) {what} differs from its block of "
-                            f"the full run in {int((a != w).sum())} entries")
-                shard_rounds.setdefault(d, []).append(s_rh.amax(1))
-                kargs, *held = mod.kernel_args(*sargs, cfg=cfg, stats=False)
-                times.append(cuda_ms(torch, lambda: mod.launch_c(*kargs),
-                                     iters=50, warmup=5))
-                if kind == "decode":
-                    nbytes, ops = decode_bytes_ops(sargs, s_rh, s_surv,
-                                                   stats=False)
-                else:
-                    nbytes, ops, _, _ = verify_bytes_ops(
-                        sargs, s_rh, s_surv.reshape(b, sq * Hq // MESH_TP,
-                                                    -1))
-                bounds.append(max(nbytes / HBM_BYTES_PER_S,
-                                  ops / INT8_OPS_PER_S) * 1e3)
-        for d, parts in shard_rounds.items():
-            b = slice(d * B // MESH_DP, (d + 1) * B // MESH_DP)
-            want = f_rh.amax(1)[b]
-            if not torch.equal(torch.stack(parts).amax(0), want):
-                raise SystemExit(f"[chip_smoke] mesh kernels: {kind} full "
-                                 f"rounds are not the max over the model "
-                                 f"shards' of data shard {d}")
-        kargs, *held = mod.kernel_args(*args, cfg=cfg, stats=False)
-        full_ms = cuda_ms(torch, lambda: mod.launch_c(*kargs), iters=50,
-                          warmup=5)
-        print(f"[chip_smoke] mesh kernels: paged_{kind} on 4 shards of "
-              f"(2 slots, 16 heads): out, per-head rounds, survivors and "
-              f"v_fetched equal to the full run's blocks; full rounds the "
-              f"max over model shards; kernel alone per shard "
-              f"{[round(t, 4) for t in times]} ms (bounds "
-              f"{[round(x, 5) for x in bounds]}), full geometry "
-              f"{full_ms:.4f} ms")
-        out[f"paged_{kind}"] = {"shard_ms": times, "shard_bound_ms": bounds,
-                                "shard_launches": launches,
-                                "full_ms": full_ms}
+        row = shard_kernel_check(torch, kind, mod, sq, seed, DECODE_SHAPES,
+                                 32, "D=64")
+        row["d128"] = shard_kernel_check(torch, kind, mod, sq, seed + 50,
+                                         MOE_SHAPES, 16, "D=128")
+        out[f"paged_{kind}"] = row
     return out
 
 
@@ -3903,11 +4184,134 @@ def mesh_serve(torch, np, eng, prompts, new_tokens, count_gathers=False):
             "collective_ms": collectives}
 
 
-def mesh_rank(mesh, device, cfg, params, greedy, ngram, digest):
+def mesh_state_rank(torch, np, mesh, device, cfg, params, greedy, dirs):
+    """The mesh-state scenario on this rank: (a) the main trace on an
+    oversubscribed pool with a swap tier; (b) (b)'s prefix-store trace
+    cold on the mesh (its flushed store the parent warms one device from)
+    and warm from the store a single device flushed; (c) the greedy trace
+    through ``serve_with_chaos`` under ``MESH_CHAOS_PLAN``, then the
+    snapshot of step ``MESH_RESTORE_STEP`` restored on a 1x2 mesh of ranks
+    0-1; (d) the greedy trace disaggregated from a single-device prefill
+    engine into a mesh decode engine (``insert``)."""
+    from repro_torch.checkpoint.store import load_snapshot
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.runtime.fault_tolerance import ElasticMeshManager
+    from repro_torch.serving import (FaultPlan, PagedEngine, Request,
+                                     ServeConfig, serve_with_chaos)
+    from repro_torch.serving.frontdoor import DisaggController
+    from repro_torch.sharding.api import mesh_group
+    base = dict(max_slots=4, page_size=16, max_len=512)
+    out, tiers = {}, TierLog(torch)
+
+    def served(eng, reqs, seed=0):
+        pd.LAUNCHES = 0
+        t = time.perf_counter()
+        eng.generate(reqs, seed)
+        torch.cuda.synchronize()
+        return {"tokens": [list(r.generated) for r in reqs],
+                "counters": dict(eng.counters), "launches": pd.LAUNCHES,
+                "wall": time.perf_counter() - t}
+
+    eng = PagedEngine(cfg, params, ServeConfig(
+        mesh=mesh, oversubscribe=True, pool_blocks=OVERSUB_POOL_BLOCKS,
+        swap_host_bytes=SWAP_HOST_BYTES, **base), device=device)
+    tiers.watch(eng)
+    out["swap"] = served(eng, make_requests(np, Request, 0, 8, 32,
+                                            cfg.vocab))
+    out["swap"]["memory"] = eng.memory_report()
+    out["swap"]["events"] = {k: list(v) for k, v in tiers.events.items()}
+    prompts = store_prompts(np, cfg.vocab)
+    store = dict(base, max_slots=1, pool_blocks=STORE_POOL_BLOCKS)
+    with tiers.store_patch():
+        for name, d in (("store_cold", dirs["mesh_store"]),
+                        ("store_warm", dirs["single_store"])):
+            for k in tiers.events:
+                tiers.events[k].clear()
+            eng = PagedEngine(cfg, params, ServeConfig(
+                mesh=mesh, prefix_store_dir=d, **store), device=device)
+            out[name] = served(eng, [Request(prompt=p.copy(),
+                                             max_new_tokens=STORE_NEW)
+                                     for p in prompts])
+            if name == "store_cold":
+                t = time.perf_counter()
+                out[name]["flushed"] = eng.flush_prefixes()
+                out[name]["flush_s"] = time.perf_counter() - t
+            out[name]["events"] = {k: list(v)
+                                   for k, v in tiers.events.items()}
+
+    def make():
+        return PagedEngine(cfg, params, ServeConfig(mesh=mesh, **base),
+                           device=device)
+
+    pd.LAUNCHES = 0
+    t = time.perf_counter()
+    reqs, rep = serve_with_chaos(
+        make, [Request(prompt=p.copy(), max_new_tokens=MESH_NEW_TOKENS)
+               for p in greedy],
+        plan=FaultPlan.scripted(list(MESH_CHAOS_PLAN)),
+        snapshot_dir=dirs["mesh_snaps"], snapshot_every=MESH_SNAPSHOT_EVERY)
+    torch.cuda.synchronize()
+    out["chaos"] = {"tokens": [list(r.generated) for r in reqs],
+                    "report": {k: v for k, v in rep.items()
+                               if k != "engine_counters"},
+                    "launches": pd.LAUNCHES,
+                    "wall": time.perf_counter() - t}
+    mgr = ElasticMeshManager(model_parallel=MESH_TP, devices_per_node=1)
+    sub = mgr.rebuild_mesh(mgr.decide(healthy_nodes=MESH_TP))
+    mesh_group(sub)
+    out["restore"] = None
+    if sub.get_coordinate() is not None:
+        snap, _ = load_snapshot(dirs["mesh_snaps"], MESH_RESTORE_STEP)
+        eng = PagedEngine(cfg, params, ServeConfig(mesh=sub, **base),
+                          device=device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.restore(snap)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t) * 1e3
+        pd.LAUNCHES = 0
+        eng.run(0)
+        torch.cuda.synchronize()
+        out["restore"] = {
+            "tokens": [list(eng.requests[r].generated)
+                       for r in sorted(eng.requests)],
+            "restore_ms": restore_ms, "launches": pd.LAUNCHES,
+            "counters": dict(eng.counters)}
+    ctl = DisaggController(
+        PagedEngine(cfg, params, ServeConfig(**dict(base, max_slots=1)),
+                    device=device),
+        PagedEngine(cfg, params, ServeConfig(mesh=mesh, **base),
+                    device=device))
+    pd.LAUNCHES = 0
+    reqs = [Request(prompt=p.copy(), max_new_tokens=MESH_NEW_TOKENS)
+            for p in greedy]
+    ctl.generate(reqs)
+    torch.cuda.synchronize()
+    out["insert"] = {"tokens": [list(r.generated) for r in reqs],
+                     "launches": pd.LAUNCHES,
+                     "decode_steps": ctl.decode_engine.counters[
+                         "decode_steps"],
+                     "prefill_steps": ctl.prefill_engine.counters[
+                         "decode_steps"],
+                     "inserted": ctl.decode_engine.counters[
+                         "prefixes_inserted"]}
+    return out
+
+
+def replay_of(prompts, tokens):
+    """A :class:`ReplayDrafter` of a served trace's prompts and tokens."""
+    import types
+    import numpy as np
+    return ReplayDrafter(np, [types.SimpleNamespace(prompt=p, generated=t)
+                              for p, t in zip(prompts, tokens)])
+
+
+def mesh_rank(mesh, device, cfg, params, greedy, digest, dirs):
     """A rank of the 2x2 mesh phase: the greedy trace through the decode
-    kernel and the n-gram trace through the verify kernel, on this rank's
-    block.  Checks that its weights (CUDA IPC from the parent) are the
-    parent's."""
+    kernel and again speculatively, drafts replaying its tokens, through
+    the verify kernel, on this rank's block, then the mesh-state scenario
+    (:func:`mesh_state_rank`).  Checks that its weights (CUDA IPC from the
+    parent) are the parent's."""
     import numpy as np
     import torch
     from repro_torch.serving import PagedEngine, Request, ServeConfig
@@ -3926,48 +4330,218 @@ def mesh_rank(mesh, device, cfg, params, greedy, ngram, digest):
     res["greedy"] = mesh_serve(torch, np, eng, greedy, MESH_NEW_TOKENS)
     spec = PagedEngine(cfg, params, ServeConfig(
         max_slots=4, page_size=16, max_len=512, mesh=mesh,
-        speculative="ngram", draft_k=SPEC_K), device=device)
-    res["ngram"] = mesh_serve(torch, np, spec, ngram, MESH_NEW_TOKENS)
+        speculative="draft", draft_k=SPEC_K), device=device,
+        drafter=replay_of(greedy, res["greedy"]["tokens"]))
+    res["replay"] = mesh_serve(torch, np, spec, greedy, MESH_NEW_TOKENS)
+    t = time.perf_counter()
+    res["state"] = mesh_state_rank(torch, np, mesh, device, cfg, params,
+                                   greedy, dirs)
+    res["state_s"] = time.perf_counter() - t
     return res
 
 
+def same_files(a, b):
+    """Whether the directory trees ``a`` and ``b`` hold the same files with
+    the same bytes; and how many files."""
+    import filecmp
+    import os
+
+    def listing(root):
+        return sorted(os.path.relpath(os.path.join(d, n), root)
+                      for d, _, names in os.walk(root) for n in names)
+
+    files = listing(a)
+    return (files == listing(b) and all(
+        filecmp.cmp(os.path.join(a, f), os.path.join(b, f), shallow=False)
+        for f in files)), len(files)
+
+
+def mesh_state_single(torch, np, cfg, params, greedy, dirs):
+    """The mesh-state scenario's single-device runs beside the ranks: (a)
+    the swap trace, (c) the chaos trace (its snapshots the mesh's must
+    equal byte for byte)."""
+    from repro_torch.serving import (FaultPlan, PagedEngine, Request,
+                                     ServeConfig, serve_with_chaos)
+    base = dict(max_slots=4, page_size=16, max_len=512)
+    eng = PagedEngine(cfg, params, ServeConfig(
+        oversubscribe=True, pool_blocks=OVERSUB_POOL_BLOCKS,
+        swap_host_bytes=SWAP_HOST_BYTES, **base))
+    reqs = make_requests(np, Request, 0, 8, 32, cfg.vocab)
+    eng.generate(reqs)
+    out = {"swap": {"tokens": [list(r.generated) for r in reqs],
+                    "counters": dict(eng.counters),
+                    "memory": eng.memory_report()}}
+    reqs, rep = serve_with_chaos(
+        lambda: PagedEngine(cfg, params, ServeConfig(**base)),
+        [Request(prompt=p.copy(), max_new_tokens=MESH_NEW_TOKENS)
+         for p in greedy],
+        plan=FaultPlan.scripted(list(MESH_CHAOS_PLAN)),
+        snapshot_dir=dirs["single_snaps"],
+        snapshot_every=MESH_SNAPSHOT_EVERY)
+    out["chaos"] = {"tokens": [list(r.generated) for r in reqs],
+                    "report": {k: v for k, v in rep.items()
+                               if k != "engine_counters"}}
+    return out
+
+
+def mesh_state_report(torch, np, cfg, params, ranks, single, greedy_tokens,
+                      dirs, store_cold):
+    """Holds the ranks' mesh-state results to one device's and prints
+    them; after the spawn one device warms from the mesh's store and
+    restores the mesh's snapshot.  Returns the failed checks and the
+    decode launches of rank 0's state runs."""
+    from repro_torch.checkpoint.store import load_snapshot
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
+    base = dict(max_slots=4, page_size=16, max_len=512)
+    L = cfg.n_layers
+    warm = PagedEngine(cfg, params, ServeConfig(
+        prefix_store_dir=dirs["mesh_store"], **dict(
+            base, max_slots=1, pool_blocks=STORE_POOL_BLOCKS)))
+    reqs = [Request(prompt=p.copy(), max_new_tokens=STORE_NEW)
+            for p in store_prompts(np, cfg.vocab)]
+    warm.generate(reqs)
+    warm_single = [list(r.generated) for r in reqs]
+    snap, _ = load_snapshot(dirs["mesh_snaps"], MESH_RESTORE_STEP)
+    eng = PagedEngine(cfg, params, ServeConfig(**base))
+    eng.restore(snap)
+    eng.run(0)
+    restored_single = [list(eng.requests[r].generated)
+                       for r in sorted(eng.requests)]
+    store_same, n_store = same_files(dirs["mesh_store"],
+                                     dirs["single_store"])
+    snaps_same, n_snaps = same_files(dirs["mesh_snaps"],
+                                     dirs["single_snaps"])
+    warmed = (warm_single == store_cold
+              and warm.counters["prefix_store_hits"] > 0)
+    restored = restored_single == greedy_tokens
+    checks = {
+        "store records byte-equal": store_same and n_store > 0,
+        "snapshots byte-equal": snaps_same and n_snaps > 0,
+        "one device warms from the mesh's store": warmed,
+        "one device restores the mesh's snapshot": restored,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    for r, rank in enumerate(ranks):
+        st = rank["state"]
+        sw, cold, wm = st["swap"], st["store_cold"], st["store_warm"]
+        c = sw["counters"]
+        rchecks = {
+            "swap tokens": sw["tokens"] == single["swap"]["tokens"],
+            "swap counters": c == single["swap"]["counters"],
+            "swapped out and in": c["swap_outs"] >= 1 and c["swap_ins"] >= 1,
+            "swap launches": sw["launches"] == L * c["decode_steps"],
+            "store cold tokens": cold["tokens"] == store_cold,
+            "warm from one device's store": (
+                wm["tokens"] == store_cold
+                and wm["counters"]["prefix_store_hits"] > 0),
+            "warm launches": wm["launches"] == L * wm["counters"][
+                "decode_steps"],
+            "chaos tokens": st["chaos"]["tokens"] == greedy_tokens,
+            "chaos report": st["chaos"]["report"] == single["chaos"][
+                "report"],
+            "crashed and restored": st["chaos"]["report"]["restores"] == 1,
+            "insert tokens": st["insert"]["tokens"] == greedy_tokens,
+            "insert launches": (
+                st["insert"]["inserted"] == len(greedy_tokens)
+                and st["insert"]["launches"]
+                == L * st["insert"]["decode_steps"]),
+        }
+        if r < MESH_TP:
+            rchecks["1x2 restore tokens"] = (
+                st["restore"]["tokens"] == greedy_tokens)
+        failed += [f"rank {r} {k}" for k, ok in rchecks.items() if not ok]
+        ev = sw["events"]
+        rec = cold["events"]["record write"] + wm["events"]["record load"]
+        print(f"[chip_smoke] mesh state rank {r} {rank['coord']}: (a) swap "
+              f"{sw['wall']:.3f} s, {c['preemptions']} preemptions, "
+              f"{c['swap_outs']} swap-outs at "
+              f"{[round(e[0], 3) for e in ev['swap-out']]} ms "
+              f"({[e[1] for e in ev['swap-out']]} whole bytes), "
+              f"{c['swap_ins']} swap-ins at "
+              f"{[round(e[0], 3) for e in ev['swap-in']]} ms; "
+              f"memory_report {sw['memory']}; (b) cold {cold['wall']:.3f} "
+              f"s, flush {cold['flushed']} records in "
+              f"{cold['flush_s']:.3f} s (gather and, on the leader, write: "
+              f"{len(cold['events']['record write'])} writes here), warm "
+              f"{wm['wall']:.3f} s with {wm['counters']['prefix_store_hits']}"
+              f" store hits ({len(wm['events']['record load'])} loads, mean "
+              f"{np.mean([e[0] for e in rec] or [np.nan]):.3f} ms a record "
+              f"op); (c) chaos {st['chaos']['wall']:.3f} s, report "
+              f"{st['chaos']['report']}; (d) insert: "
+              f"{st['insert']['inserted']} prefixes, decode launches "
+              f"{st['insert']['launches']}; state {rank['state_s']:.3f} s")
+        if st["restore"] is not None:
+            print(f"[chip_smoke] mesh state rank {r}: 1x2 restore of the "
+                  f"step-{MESH_RESTORE_STEP} snapshot in "
+                  f"{st['restore']['restore_ms']:.3f} ms, then "
+                  f"{st['restore']['launches']} decode launches")
+    print(f"[chip_smoke] mesh state: {n_store} store files and {n_snaps} "
+          f"snapshot files byte-equal to one device's: "
+          f"{store_same and snaps_same}; one device warms from the mesh's "
+          f"store and restores its snapshot with the mesh's tokens: "
+          f"{warmed}, {restored}")
+    st = ranks[0]["state"]
+    launches = (st["swap"]["launches"] + st["store_cold"]["launches"]
+                + st["store_warm"]["launches"] + st["chaos"]["launches"]
+                + st["insert"]["launches"] + st["restore"]["launches"])
+    return failed, launches
+
+
 @phase("mesh path")
-def mesh_path_phase(torch, cfg, params, plain_reqs, ngram_prompts):
-    """Full-width, full-depth stablelm-1.6b on a 2x2 (data, model) mesh of
-    four ranks sharing the card over gloo (weights by CUDA IPC): a greedy
-    trace (the main trace's four shortest prompts, 8 new tokens, 4 slots)
-    through the decode kernel and an n-gram speculative trace (two of the
-    repeated-pattern prompts, k=4) through the verify kernel.  The parent
-    serves both on one device while the ranks start, so its first ticks
-    share the card with their start-up.  Every rank must give the parent's
-    tokens and bailouts, launch each kernel 24 x its forwards of that kind,
-    and hold 16 of 32 KV heads.  Returns (decode launches, verify launches)
-    of one rank."""
+def mesh_path_phase(torch, cfg, params, plain_reqs):
+    """Full-width stablelm-1.6b at cut depth 4 on a 2x2 (data, model) mesh
+    of four ranks sharing the card over gloo (weights by CUDA IPC): a
+    greedy trace (the main trace's four shortest prompts, 8 new tokens, 4
+    slots) through the decode kernel and the same prompts speculatively
+    (drafts replaying the greedy tokens, k=4; at depth 4 the n-gram
+    drafter's repeated-pattern prompts give no draft on random weights)
+    through the verify kernel, then
+    the mesh-state scenario (swap, prefix-store warm starts both ways, a
+    crash and restore, a 1x2 restore, an insert; ``mesh_state_rank``).  The
+    parent serves each on one device while the ranks start.  Every rank
+    must give the parent's tokens and bailouts, launch each kernel 4 x its
+    forwards of that kind, hold 16 of 32 KV heads, and write records with
+    one device's bytes.  Returns (decode launches, verify launches) of one
+    rank."""
+    import tempfile
     import numpy as np
     from repro_torch.launch.mesh import start_mesh
-    from repro_torch.serving import PagedEngine, ServeConfig
+    from repro_torch.serving import PagedEngine, Request, ServeConfig
     t0 = time.perf_counter()
+    cfg, params = cut_model(cfg, params, MESH_DEPTH)
     greedy = sorted((r.prompt for r in plain_reqs), key=len)[:4]
-    ngram = list(ngram_prompts[:2])
     digest = params_digest(torch, params)
+    tmp = tempfile.TemporaryDirectory()
+    dirs = {n: f"{tmp.name}/{n}" for n in ("single_store", "mesh_store",
+                                           "mesh_snaps", "single_snaps")}
+    # The single-device store the mesh warms from, before the spawn.
+    cold = PagedEngine(cfg, params, ServeConfig(
+        max_slots=1, page_size=16, max_len=512, pool_blocks=STORE_POOL_BLOCKS,
+        prefix_store_dir=dirs["single_store"]))
+    reqs = [Request(prompt=p.copy(), max_new_tokens=STORE_NEW)
+            for p in store_prompts(np, cfg.vocab)]
+    cold.generate(reqs)
+    cold.flush_prefixes()
+    store_cold = [list(r.generated) for r in reqs]
     # The ranks start (spawn, torch import, CUDA context, weights by IPC:
-    # about 16 s) while the parent serves both traces on one device.
+    # about 16 s) while the parent serves the traces on one device.
     job = start_mesh(mesh_rank, MESH_DP, MESH_TP, device="cuda",
-                     backend="gloo", args=(cfg, params, greedy, ngram, digest),
+                     backend="gloo",
+                     args=(cfg, params, greedy, digest, dirs),
                      timeout=600)
     base = ServeConfig(max_slots=4, page_size=16, max_len=512)
-    single = {
-        "greedy": mesh_serve(torch, np, PagedEngine(cfg, params, base),
-                             greedy, MESH_NEW_TOKENS),
-        "ngram": mesh_serve(torch, np, PagedEngine(
-            cfg, params, ServeConfig(max_slots=4, page_size=16,
-                                     max_len=512, speculative="ngram",
-                                     draft_k=SPEC_K)),
-            ngram, MESH_NEW_TOKENS)}
+    single = {"greedy": mesh_serve(torch, np, PagedEngine(cfg, params, base),
+                                   greedy, MESH_NEW_TOKENS)}
+    single["replay"] = mesh_serve(torch, np, PagedEngine(
+        cfg, params, ServeConfig(max_slots=4, page_size=16, max_len=512,
+                                 speculative="draft", draft_k=SPEC_K),
+        drafter=replay_of(greedy, single["greedy"]["tokens"])),
+        greedy, MESH_NEW_TOKENS)
+    state_single = mesh_state_single(torch, np, cfg, params, greedy, dirs)
     ranks = job.join()
     spawned = time.perf_counter() - t0
     L = cfg.n_layers
-    for trace in ("greedy", "ngram"):
+    for trace in ("greedy", "replay"):
         s = single[trace]
         c = s["counters"]
         print(f"[chip_smoke] mesh path single device, {trace}: "
@@ -3978,7 +4552,7 @@ def mesh_path_phase(torch, cfg, params, plain_reqs, ngram_prompts):
               f"bailouts {c['spec_bailouts']}")
     failed = []
     for r, rank in enumerate(ranks):
-        for trace in ("greedy", "ngram"):
+        for trace in ("greedy", "replay"):
             got, want = rank[trace], single[trace]
             c = got["counters"]
             verify_fwd = c["spec_ticks"]
@@ -4011,23 +4585,28 @@ def mesh_path_phase(torch, cfg, params, plain_reqs, ngram_prompts):
             failed.append(f"rank {r} holds {rank['local_kv_heads']} KV heads")
         if not rank["fused"]:
             failed.append(f"rank {r} did not resolve to the kernels")
-    if ranks[0]["ngram"]["counters"]["spec_ticks"] == 0:
-        failed.append("the n-gram trace ran no verify forward")
+    if ranks[0]["replay"]["counters"]["spec_ticks"] == 0:
+        failed.append("the replayed trace ran no verify forward")
     if ranks[0]["greedy"]["counters"]["decode_steps"] == 0:
         failed.append("the greedy trace ran no decode tick")
+    state_failed, state_launches = mesh_state_report(
+        torch, np, cfg, params, ranks, state_single,
+        single["greedy"]["tokens"], dirs, store_cold)
+    failed += state_failed
+    tmp.cleanup()
     if failed:
         raise SystemExit(f"[chip_smoke] mesh path failed: {failed}")
-    print(f"[chip_smoke] mesh path: 4 ranks on one card (gloo), each with "
-          f"{ranks[0]['local_kv_heads']} of {cfg.n_kv_heads} KV heads, "
-          f"weights equal to the parent's, serve the single-device tokens "
-          f"and bailouts; launches {L} x forwards on every rank; ranks "
-          f"started (beside the parent's single-device runs), warmed and "
-          f"served in {spawned:.3f} s (warm-up "
-          f"{[round(x['warmup_s'], 3) for x in ranks]} s); phase "
+    print(f"[chip_smoke] mesh path (depth {L}): 4 ranks on one card (gloo), "
+          f"each with {ranks[0]['local_kv_heads']} of {cfg.n_kv_heads} KV "
+          f"heads, weights equal to the parent's, serve the single-device "
+          f"tokens and bailouts; launches {L} x forwards on every rank; the "
+          f"mesh-state scenario holds; ranks started (beside the parent's "
+          f"single-device runs), warmed and served in {spawned:.3f} s "
+          f"(warm-up {[round(x['warmup_s'], 3) for x in ranks]} s); phase "
           f"{time.perf_counter() - t0:.3f} s")
     return (ranks[0]["greedy"]["decode_launches"]
-            + ranks[0]["ngram"]["decode_launches"],
-            ranks[0]["ngram"]["verify_launches"])
+            + ranks[0]["replay"]["decode_launches"] + state_launches,
+            ranks[0]["replay"]["verify_launches"])
 
 
 @phase("profile")
@@ -4163,9 +4742,12 @@ def main(argv=None):
         mesh_kernel_phase(torch)
         cfg, params = build_model(torch)
         mesh_path_phase(torch, cfg, params,
-                        make_requests(np, Request, 0, 8, 32, cfg.vocab),
-                        repeated_prompts(np, cfg.vocab))
+                        make_requests(np, Request, 0, 8, 32, cfg.vocab))
         release_shared(torch, params)
+        torch.cuda.empty_cache()
+        moe_cfg, moe_params = build_moe_model(torch)
+        moe_mesh_phase(torch, moe_cfg, moe_params)
+        release_shared(torch, moe_params)
         return
     rows = [kernel_phase(torch), verify_kernel_phase(torch),
             qk_kernel_phase(torch), flash_kernel_phase(torch)]
@@ -4204,7 +4786,7 @@ def main(argv=None):
     rows[2]["launches"], rows[3]["launches"] = forward_path_phase(
         torch, cfg, params)
     rows[0]["launches_mesh_path"], rows[1]["launches_mesh_path"] = \
-        mesh_path_phase(torch, cfg, params, plain_reqs, ngram_prompts)
+        mesh_path_phase(torch, cfg, params, plain_reqs)
     (rows[0]["launches_sampled_path"], rows[1]["launches_sampled_path"],
      recompute_chunks) = sampled_path_phase(torch, cfg, params)
     (rows[0]["launches_chaos_path"],
@@ -4222,9 +4804,16 @@ def main(argv=None):
     del plain_reqs
     release_shared(torch, params)
     torch.cuda.empty_cache()
+    moe_cfg, moe_params = build_moe_model(torch)
     (rows[0]["launches_moe_path"], rows[1]["launches_moe_path"],
      rows[2]["launches_moe_forward"],
-     rows[3]["launches_moe_forward"]) = moe_path_phase(torch)
+     rows[3]["launches_moe_forward"]) = moe_path_phase(torch, moe_cfg,
+                                                       moe_params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows[0]["launches_moe_mesh"], rows[1]["launches_moe_mesh"] = \
+        moe_mesh_phase(torch, moe_cfg, moe_params)
+    release_shared(torch, moe_params)
     gc.collect()
     torch.cuda.empty_cache()
     zoo_phase(torch)

@@ -32,6 +32,11 @@ holds the same bytes whichever package wrote it, and a load gives any
 a record (its ``astype`` refuses the void type; ROADMAP C7); the port
 loads both packages' records.
 
+Under a mesh the serving engine writes whole records, the bytes one
+device writes: it gathers a record from the ranks' KV heads, and the rank
+at the mesh's first position alone writes it, handing the outcome to the
+others (``sharding/api.py:write_once``) before any of them reads.
+
 The pytree checkpoints of the reference (``save_checkpoint``,
 ``load_checkpoint``, ``CheckpointManager``) come with training (ROADMAP).
 """

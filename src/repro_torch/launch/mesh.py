@@ -9,6 +9,11 @@ process group first.  :func:`make_debug_mesh` builds the ("data", "model")
 rendezvous, so no port is picked), its mesh and its device, run a function
 there and hand back each rank's result.
 
+Tensors in a job's arguments reach the ranks by shared memory (CUDA IPC
+for a card's), so the ranks hold no copy of the weights; a rank's engine
+keeps views of its block of the routed MoE experts
+(``sharding/rules.py:shard_params``), and only that block is its to read.
+
 Backends are explicit: ``gloo`` runs anywhere, several ranks sharing one
 CUDA card included (its collectives stage through host memory,
 ``sharding/api.py``); ``nccl`` needs a card per rank.  Every process group

@@ -15,8 +15,8 @@ dry; ``--swap-host-bytes B`` swaps preemption victims to host RAM;
 end, that a later launch warms from; ``--fault-plan '[["crash", 3]]'
 --snapshot-dir DIR`` serves through the chaos harness with crash
 snapshots; ``--mesh 2,2`` serves on a (data, model) mesh of spawned ranks,
-gloo by default, ``--backend nccl`` where each rank has a card of its
-own).  Mirror of ``repro/launch/serve.py``: the three engines, and on the
+with any of the options above and any arch above, MoE included, gloo by
+default, ``--backend nccl`` where each rank has a card of its own).  Mirror of ``repro/launch/serve.py``: the three engines, and on the
 paged one deadlines, SLO classes, load shedding, the KV memory hierarchy,
 crash recovery and mesh serving, reduced-width configs with seeded random
 weights.  Flags that only the paged engine takes are refused with the
@@ -58,25 +58,60 @@ def make_trace(rng, vocab, n_requests, min_len, max_len, new_tokens,
     return reqs
 
 
-def _serve_rank(mesh, device, cfg, params, scfg, reqs, seed):
+def _serve_rank(mesh, device, cfg, params, scfg, reqs, seed, plan,
+                snapshot_dir):
     """One mesh rank: the paged engine on ``mesh`` serves the whole trace
-    (every rank runs the same scheduler).  Parameters on another device
-    (a card per rank) are copied to this rank's."""
+    (every rank runs the same scheduler), through the chaos harness when
+    there is a plan or a snapshot directory, and flushes the prefix store
+    at the end when there is one.  Parameters on another device (a card
+    per rank) are copied to this rank's; a rank keeps its block of the
+    routed experts."""
     params = _to_device(params, device)
-    eng = PagedEngine(cfg, params, dataclasses.replace(scfg, mesh=mesh),
-                      device=device)
+    scfg = dataclasses.replace(scfg, mesh=mesh)
+
+    def make_engine():
+        return PagedEngine(cfg, params, scfg, device=device)
+
     t0 = time.perf_counter()
-    eng.generate(reqs, seed=seed)
+    chaos = None
+    if plan is not None or snapshot_dir is not None:
+        reqs, chaos = serve_with_chaos(make_engine, reqs, seed=seed,
+                                       plan=plan, snapshot_dir=snapshot_dir)
+        counters = chaos.pop("engine_counters")
+        eng = None
+    else:
+        eng = make_engine()
+        eng.generate(reqs, seed=seed)
+        counters = dict(eng.counters)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    k_pool = eng.caches["seg0"][0]["b0"]["k"]
-    return {"tokens": [list(r.generated) for r in reqs],
-            "wall": time.perf_counter() - t0,
-            "counters": dict(eng.counters),
-            "fused_decode": eng.cfg.fused_decode,
-            "local_kv_heads": int(k_pool.shape[2]),
-            "peak_live": eng.pool.peak_live_blocks,
-            "pool_blocks": eng.layout.pool_blocks}
+    wall = time.perf_counter() - t0
+    res = {"tokens": [list(r.generated) for r in reqs], "wall": wall,
+           "counters": counters, "chaos": chaos}
+    if eng is not None:
+        k_pool = eng.caches["seg0"][0]["b0"]["k"]
+        res.update(fused_decode=eng.cfg.fused_decode,
+                   local_kv_heads=int(k_pool.shape[2]),
+                   peak_live=eng.pool.peak_live_blocks,
+                   pool_blocks=eng.layout.pool_blocks,
+                   expert_bytes=expert_bytes(eng.params),
+                   flushed=(eng.flush_prefixes()
+                            if scfg.prefix_store_dir is not None else None),
+                   memory=eng.memory_report())
+    return res
+
+
+def expert_bytes(params) -> int:
+    """Bytes of the routed-expert weights a parameter tree holds (a mesh
+    rank's engine: its block of them)."""
+    total = 0
+    for unit in params.get("seg0", []):
+        for block in unit.values():
+            moe = block.get("moe") if isinstance(block, dict) else None
+            if moe is not None:
+                total += sum(moe[k].numel() * moe[k].element_size()
+                             for k in ("wi_gate", "wi_up", "wo"))
+    return total
 
 
 def _to_device(tree, device):
@@ -87,7 +122,7 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-def _serve_mesh(args, dims, cfg, params, scfg, reqs, device):
+def _serve_mesh(args, dims, cfg, params, scfg, reqs, device, plan):
     """Serve the trace on a ``dims`` (data, model) mesh of spawned ranks;
     prints rank 0's report.  Returns the requests with its tokens."""
     dp, tp = dims
@@ -97,24 +132,49 @@ def _serve_mesh(args, dims, cfg, params, scfg, reqs, device):
         runtime.build_libraries(["paged_decode", "paged_verify"])
     ranks = spawn_mesh(_serve_rank, dp, tp, device=device.type,
                        backend=args.backend,
-                       args=(cfg, params, scfg, reqs, args.seed),
+                       args=(cfg, params, scfg, reqs, args.seed, plan,
+                             args.snapshot_dir),
                        timeout=3600.0)
     rep = ranks[0]
     for r, toks in zip(reqs, rep["tokens"]):
         r.generated = toks
     n_tok = sum(len(t) for t in rep["tokens"])
+    c = rep["counters"]
     print(f"[serve] mesh {dp}x{tp} ({args.backend}, device={device}): "
           f"{len(reqs)} requests / {n_tok} new tokens in "
           f"{rep['wall']:.2f}s on rank 0 ({n_tok / rep['wall']:.1f} tok/s; "
           f"{time.perf_counter() - t0:.2f}s with the ranks' start), "
-          f"impl={args.impl}, fused_decode={rep['fused_decode']}")
-    print(f"[serve] counters: {rep['counters']}")
+          f"impl={args.impl}"
+          + ("" if rep["chaos"] else
+             f", fused_decode={rep['fused_decode']}"))
+    print(f"[serve] counters: {c}")
     same = all(x["tokens"] == rep["tokens"] for x in ranks)
     print(f"[serve] mesh: {len(ranks)} ranks, the same tokens on every "
-          f"rank: {same}; KV heads per rank {rep['local_kv_heads']} of "
-          f"{cfg.n_kv_heads}")
-    print(f"[serve] kv pool: page_size={args.page_size} "
-          f"blocks={rep['pool_blocks']} peak_live={rep['peak_live']}")
+          f"rank: {same}")
+    if rep["chaos"] is not None:
+        ch = rep["chaos"]
+        print(f"[serve] chaos: {ch['crashes']} crashes / {ch['restores']} "
+              f"restores, {ch['snapshots_taken']} snapshots "
+              f"({ch['snapshots_interrupted']} interrupted), "
+              f"fired={ch['fired_by_kind']}, unfired={ch['unfired']}")
+    else:
+        print(f"[serve] mesh: KV heads per rank {rep['local_kv_heads']} of "
+              f"{cfg.n_kv_heads}; routed-expert bytes per rank "
+              f"{[x['expert_bytes'] for x in ranks]}")
+        print(f"[serve] kv pool: page_size={args.page_size} "
+              f"blocks={rep['pool_blocks']} peak_live={rep['peak_live']}")
+        if (args.swap_host_bytes or args.prefix_host_bytes
+                or args.prefix_store_dir is not None):
+            if rep["flushed"] is not None:
+                print(f"[serve] prefix store: flushed {rep['flushed']} "
+                      f"record(s) to {args.prefix_store_dir}")
+            print(f"[serve] hierarchy: {c['swap_outs']} swap-outs / "
+                  f"{c['swap_ins']} swap-ins ({c['swap_in_tokens']} tokens "
+                  f"spliced, {c['swap_fallbacks']} recompute fallbacks), "
+                  f"{c['prefix_spills']} prefix spills, "
+                  f"{c['prefix_store_hits']} store hits "
+                  f"({c['prefix_store_tokens']} tokens warmed); "
+                  f"tiers={rep['memory']}")
     if not same:
         raise SystemExit("[serve] mesh ranks served different tokens")
     return reqs
@@ -250,10 +310,6 @@ def main(argv=None):
             dims = ()
         if len(dims) != 2 or min(dims) < 1:
             ap.error(f"--mesh expects 'dp,tp' (got {args.mesh!r})")
-        if (chaos or args.snapshot_every or args.swap_host_bytes
-                or args.prefix_host_bytes or args.prefix_store_dir):
-            ap.error("the KV memory hierarchy and crash snapshots do not "
-                     "run under --mesh (ROADMAP A10, 'Mesh state')")
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch).replace(
         attn_impl=args.impl,
@@ -297,7 +353,7 @@ def main(argv=None):
         for r in reqs[len(reqs) - args.besteffort_tail:]:
             r.slo = "besteffort"
     if dims is not None:
-        return _serve_mesh(args, dims, cfg, params, scfg, reqs, device)
+        return _serve_mesh(args, dims, cfg, params, scfg, reqs, device, plan)
 
     if chaos:
         t0 = time.perf_counter()

@@ -76,7 +76,8 @@ from repro_torch.core.lats import NEG_INF
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.sharding.api import (current_rules, gather_shards,
-                                      local_shard)
+                                      local_shard, local_view)
+from repro_torch.sharding.rules import splits_heads
 
 POS_SENTINEL = 2 ** 30
 
@@ -532,15 +533,11 @@ def gather_paged_view(cache, active=None):
 
 def _paged_shard_rules(cfg: AttnConfig):
     """The active rules iff the paged pools are split over KV heads under
-    them: a "model" dim of more than one rank that divides ``n_kv_heads``,
-    the divisibility ``PAGED_CACHE_RULES`` applies to the pools, so the two
-    agree.  Otherwise (MQA's one KV head on two ranks) the pools are whole
-    on every rank and the single-device read is already right."""
+    them (``sharding/rules.py:splits_heads``).  Otherwise (MQA's one KV
+    head on two ranks) the pools are whole on every rank and the
+    single-device read is already right."""
     rules = current_rules()
-    if rules is None:
-        return None
-    tp = rules.shape.get("model", 0)
-    if tp <= 1 or cfg.n_kv_heads % tp != 0:
+    if rules is None or not splits_heads(rules, cfg.n_kv_heads):
         return None
     return rules
 
@@ -764,6 +761,24 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
 # port keeps one cache dict per layer, so each entry maps to the list of
 # layer dicts it holds (:func:`paged_layer_groups`).  Splices write the pool
 # tensors in place; records are host copies, never views of a pool.
+#
+# Under a mesh whose "model" dim splits the KV heads, a rank's pools hold its
+# heads.  Given those ``rules`` (``heads=``), the transport speaks whole
+# records, the bytes a single-device engine moves: an extract gathers the
+# heads (one all-gather a field), a splice and the inject scale rule take
+# this rank's heads of a whole record.  Without it a record holds what the
+# pools hold (a rank's private swap records).
+
+_HEAD_FIELDS = ("k", "v", "kq")       # their heads axis is the second last
+
+
+def heads_spec(ndim: int, axis: int = -2) -> tuple:
+    """The spec of an array whose axis ``axis`` is the KV heads, split over
+    "model": a record's K/V/planes (the second last axis), a scale leaf
+    (``axis=-1``)."""
+    spec = [None] * ndim
+    spec[axis] = "model"
+    return tuple(spec)
 
 
 def paged_layer_groups(caches, scan_layers: bool = True) -> list[list[dict]]:
@@ -815,24 +830,29 @@ def tensor_from_host(a, device=None) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device)
 
 
-def _host_rows(group, field, idx):
+def _host_rows(group, field, idx, heads=None):
     """Rows ``idx`` of one field of a layer group as a host array: stacked
-    over the group's reps when it has several.  Indexing with a tensor
-    gathers into new storage, so the array is a copy, never a view of the
-    pool (``numpy()`` of a CPU tensor shares its memory)."""
+    over the group's reps when it has several, and with ``heads`` gathered
+    to every KV head.  Indexing with a tensor gathers into new storage, so
+    the array is a copy, never a view of the pool (``numpy()`` of a CPU
+    tensor shares its memory)."""
     rows = [c[field][idx] for c in group]
     t = torch.stack(rows) if len(group) > 1 else rows[0]
+    if heads is not None and field in _HEAD_FIELDS:
+        t = gather_shards(heads, t, heads_spec(t.ndim))
     return host_array(t)
 
 
 def extract_block_rows(caches, bids, planes: bool = False,
-                       scan_layers: bool = True) -> list[dict]:
+                       scan_layers: bool = True, heads=None) -> list[dict]:
     """Device-to-host copy of the physical blocks ``bids`` from every paged
     layer: one dict per reference paged layer with the ``k``/``v`` rows
     (f32, or a bf16 cache's bits as uint16) and the ``pos`` plane
     (``[reps, n, ...]`` for a stacked entry, else ``[n, ...]``) and, with
-    ``planes`` and a plane pool, the packed ``kq`` rows.  Full blocks are
-    never rewritten, so the rows stay valid until the block is freed and
+    ``planes`` and a plane pool, the packed ``kq`` rows.  With ``heads``
+    (the mesh rules under which the pools hold this rank's KV heads) the
+    rows are gathered whole, on every rank.  Full blocks are never
+    rewritten, so the rows stay valid until the block is freed and
     reused."""
     groups = paged_layer_groups(caches, scan_layers)
     idx = torch.as_tensor(list(bids), dtype=torch.long,
@@ -842,19 +862,20 @@ def extract_block_rows(caches, bids, planes: bool = False,
         fields = ("k", "v", "pos")
         if planes and "kq" in group[0]:
             fields += ("kq",)
-        layers.append({f: _host_rows(group, f, idx) for f in fields})
+        layers.append({f: _host_rows(group, f, idx, heads) for f in fields})
     return layers
 
 
 def splice_block_rows(caches, bids, layers, sel=None,
-                      scan_layers: bool = True):
+                      scan_layers: bool = True, heads=None):
     """Write rows from :func:`extract_block_rows` into the physical blocks
     ``bids`` of every paged layer, in place.  ``sel`` picks which record
     rows feed which block (``bids[i] <- rows[sel[i]]``; by default all rows
     in order).  ``kq`` rows are written only where both the record and the
     cache carry them: a caller whose scales moved since the extraction
-    strips them and repacks instead (:func:`repack_block_planes`).
-    Returns ``caches``."""
+    strips them and repacks instead (:func:`repack_block_planes`).  With
+    ``heads`` the record is whole and this rank's KV heads of it are
+    written.  Returns ``caches``."""
     groups = paged_layer_groups(caches, scan_layers)
     if len(layers) != len(groups):
         raise ValueError(f"record holds {len(layers)} paged layers, the "
@@ -868,8 +889,10 @@ def splice_block_rows(caches, bids, layers, sel=None,
             # Converted as the reference's ``astype`` converts (bf16 to
             # f32 exactly, f32 to bf16 to nearest even).
             dst = group[0][field]
-            val = tensor_from_host(rows[field]).to(device=dst.device,
-                                                   dtype=dst.dtype)
+            val = tensor_from_host(rows[field])
+            if heads is not None and field in _HEAD_FIELDS:
+                val = local_view(heads, val, heads_spec(val.ndim))
+            val = val.to(device=dst.device, dtype=dst.dtype)
             if len(group) == 1:
                 val = val[None]
             if sel is not None:
@@ -908,7 +931,8 @@ def repack_block_planes(caches, bids):
     return caches
 
 
-def apply_inject_amax_rule(caches, layers, groups, scan_layers: bool = True):
+def apply_inject_amax_rule(caches, layers, groups, scan_layers: bool = True,
+                           heads=None):
     """Replay the cache write's scale rule for injected rows, once per
     chunk group: the trajectory chunked prefill of the same tokens takes.
 
@@ -920,9 +944,13 @@ def apply_inject_amax_rule(caches, layers, groups, scan_layers: bool = True):
     ``AMAX_HEADROOM`` rounds as the device rule's in
     :func:`_update_plane_pool`.  The scales are written back in place.
 
+    With ``heads`` the records are whole and the rule runs on this rank's
+    KV heads of them (every quantity is per head), against its scales.
+
     Returns ``(caches, k_grew)``; ``k_grew`` says whether any K scale moved,
     in which case the caller requantizes every plane pool
-    (:func:`requant_plane_pools`), else repacks the injected blocks."""
+    (:func:`requant_plane_pools`), else repacks the injected blocks.  Under
+    a mesh it is this rank's answer; the caller makes the ranks agree."""
     headroom = np.float32(AMAX_HEADROOM)
     k_grew = False
 
@@ -939,6 +967,10 @@ def apply_inject_amax_rule(caches, layers, groups, scan_layers: bool = True):
         stacked = len(group) > 1
         k_rows = host_f32(rows["k"])
         v_rows = host_f32(rows["v"])
+        if heads is not None:
+            k_rows, v_rows = (local_view(heads, torch.from_numpy(a),
+                                         heads_spec(a.ndim)).numpy()
+                              for a in (k_rows, v_rows))
         k_amax = np.stack([c["k_amax"].cpu().numpy() for c in group])
         v_amax = np.stack([c["v_amax"].cpu().numpy() for c in group])
         if not stacked:

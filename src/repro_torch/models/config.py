@@ -121,6 +121,7 @@ class ModelConfig:
             d_expert=self.d_expert, n_shared=self.n_shared,
             d_shared=self.d_shared, act=self.act,
             capacity_factor=self.moe_capacity_factor,
+            resident=self.moe_resident,
         )
 
     def ssm_config(self):

@@ -16,10 +16,34 @@ token's k rows in a fixed order, so a call gives the same bits on every
 run (a float scatter-add on the card sums in atomic order).  Nothing in
 the dispatch reads a value back to the host.
 
-Under a mesh whose "model" dim is 1 every rank runs this single-device
-path, as the reference does; a larger "model" dim is refused: the
-reference's expert-parallel, expert-TP and resident ``shard_map`` branches
-are not ported (ROADMAP A10, "Mesh MoE"; C10).
+Under a mesh (``PagedEngine`` with ``ServeConfig.mesh``) every rank holds
+every token's rows (the dense layers run replicated), so every rank
+routes the same tokens to the same experts with the same bits, and the
+capacity is the single-device one.  A "model" dim of 1 runs the
+single-device path on every rank, as the reference does; a larger one runs
+the reference's branch (``sharding/rules.py:moe_branch``):
+
+* **resident** (``MoEConfig.resident`` and data x model divides
+  ``n_routed``): this rank holds experts ``[(d * tp + m) * n_local, ...)``;
+* **EP** ("model" divides ``n_routed``): this rank holds experts
+  ``[m * n_local, ...)``;
+* **expert-TP** (otherwise): this rank holds every expert with its
+  1/tp share of the hidden units (``wi_gate``/``wi_up`` columns, ``wo``
+  rows).
+
+A rank runs the dispatch at its expert offset on all rows.  In EP and
+resident each (token, k) pair is computed by exactly one rank (its
+expert's), at the single-device capacity, so its row has the
+single-device bits; the rows are put together by one all-gather, each
+taken from its owner (``sharding/api.py:gather_owned``; no float sum
+crosses ranks), and each token's k rows summed in the single-device
+order: ``out`` equals one device's bit for bit wherever each expert's
+product does.  Expert-TP splits the hidden contraction: its partial rows
+are all-gathered and summed in rank order (the same result on every rank,
+within float rounding of one device's), then weighted and summed over k.
+The reference's EP and expert-TP branches split the tokens over "data"
+and take the capacity of a data shard's rows, so where capacity binds its
+drops differ from its own single device (ROADMAP C11).
 """
 
 from __future__ import annotations
@@ -30,7 +54,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.sharding.api import mesh_shape
+from repro_torch.sharding.api import (block_index, gather_owned,
+                                      gather_shards, mesh_shape)
+from repro_torch.sharding.rules import (expert_slice, make_serve_rules,
+                                        moe_branch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +73,8 @@ class MoEConfig:
     router_scale: float = 1.0
     aux_loss_coef: float = 0.001
     capacity_factor: float = 1.25  # per-expert token capacity multiplier
+    resident: bool = False         # decode under a mesh: experts over
+                                   # data x model, one block per rank
 
 
 def init_moe(generator, cfg: MoEConfig, device=None, dtype=torch.float32):
@@ -156,17 +185,36 @@ def dispatch(x2d, top_i, cfg: MoEConfig, n_local: int, capacity: int,
                                                     valid)
 
 
+# The batched expert products run in calls of ``n_routed / EXPERT_SHARDS``
+# experts (all of them where that does not divide): on the card cuBLAS picks
+# its kernel by the batch count too (at 8-slot buffers 15 or 30 experts get
+# other bits than 60, measured on the H100), so a call of a fixed number of
+# experts gives an expert the same bits on one device and on a rank that
+# holds a 1/2 or 1/4 block of the experts (EP, resident).
+EXPERT_SHARDS = 4
+
+
 def _experts(buf, p_w, cfg: MoEConfig, dtype):
-    a = _bmm(buf, p_w["wi_gate"])
-    b = _bmm(buf, p_w["wi_up"])
+    n = cfg.n_routed // EXPERT_SHARDS
+    if cfg.n_routed % EXPERT_SHARDS or buf.shape[0] % n:
+        n = buf.shape[0]
     actf = F.silu if cfg.act == "swiglu" else L.gelu
-    h = (actf(a) * b).to(dtype)
-    return _bmm(h, p_w["wo"])
+    out = []
+    for e in range(0, buf.shape[0], n):
+        x = buf[e:e + n]
+        a = _bmm(x, p_w["wi_gate"][e:e + n])
+        b = _bmm(x, p_w["wi_up"][e:e + n])
+        h = (actf(a) * b).to(dtype)
+        out.append(_bmm(h, p_w["wo"][e:e + n]))
+    return out[0] if len(out) == 1 else torch.cat(out)
 
 
-def _local_moe(p_w, x2d, top_p, top_i, cfg: MoEConfig, expert_offset: int,
+def _pair_rows(p_w, x2d, top_p, top_i, cfg: MoEConfig, expert_offset: int,
                n_local: int, capacity: int, split: bool = False):
-    """One shard's routed-expert compute (also the single-device path).
+    """One shard's routed-expert compute: each (token, k) pair's expert
+    output ``[T, k, D]``, weighted by its routing probability (unweighted
+    with ``top_p`` None), zero where the pair is dropped or another
+    shard's.
 
     With ``split`` (a speculative verify) the expert products run on
     slices of ``MIN_CAPACITY`` slots, the decode's buffer: on the card a
@@ -183,15 +231,55 @@ def _local_moe(p_w, x2d, top_p, top_i, cfg: MoEConfig, expert_offset: int,
     else:
         y_buf = _experts(buf, p_w, cfg, x2d.dtype)
     y_rows = y_buf[e_idx, s_idx] * valid[:, None]
-    y_rows = y_rows * top_p.reshape(-1)[order][:, None]
-    # Back to (token, k) order, then each token's k rows summed in order.
+    if top_p is not None:
+        y_rows = y_rows * top_p.reshape(-1)[order][:, None]
+    # Back to (token, k) order.
     y_flat = torch.empty_like(y_rows)
     y_flat[order] = y_rows
-    y_flat = y_flat.reshape(T, k, D)
-    out = torch.zeros((T, D), dtype=y_rows.dtype, device=x2d.device)
-    for j in range(k):
+    return y_flat.reshape(T, k, D)
+
+
+def _sum_pairs(y_flat):
+    """Each token's k rows summed in k order: [T, k, D] -> [T, D]."""
+    out = torch.zeros_like(y_flat[:, 0])
+    for j in range(y_flat.shape[1]):
         out = out + y_flat[:, j]
     return out
+
+
+def _local_moe(p_w, x2d, top_p, top_i, cfg: MoEConfig, expert_offset: int,
+               n_local: int, capacity: int, split: bool = False):
+    """One shard's routed-expert compute summed per token (the
+    single-device path): ``[T, D]``."""
+    return _sum_pairs(_pair_rows(p_w, x2d, top_p, top_i, cfg, expert_offset,
+                                 n_local, capacity, split))
+
+
+def _mesh_moe(p, x2d, top_p, top_i, cfg: MoEConfig, mesh, branch: str,
+              capacity: int, split: bool):
+    """The routed experts on this rank of ``mesh`` under ``branch`` ("ep",
+    "resident" or "tp"), combined across ranks: ``[T, D]`` on every rank."""
+    rules = make_serve_rules(mesh, cfg.n_routed, cfg.resident)
+    tp = rules.shape["model"]
+    if branch == "tp" and cfg.d_expert % tp:
+        raise ValueError(
+            f"expert-TP splits d_expert={cfg.d_expert} over a 'model' dim "
+            f"of {tp}, which does not divide it")
+    w = expert_slice(rules, p, cfg.n_routed, cfg.d_expert)
+    if branch == "tp":
+        part = _pair_rows(w, x2d, None, top_i, cfg, 0, cfg.n_routed,
+                          capacity, split)
+        parts = gather_shards(rules, part[None], ("model", None, None, None))
+        y = parts[0]
+        for r in range(1, tp):
+            y = y + parts[r]
+        return _sum_pairs(y * top_p[..., None])
+    dims = ("data", "model") if branch == "resident" else "model"
+    n_local = w["wi_gate"].shape[0]
+    idx, _ = block_index(rules, dims)
+    part = _pair_rows(w, x2d, top_p, top_i, cfg, idx * n_local, n_local,
+                      capacity, split)
+    return _sum_pairs(gather_owned(rules, part, top_i // n_local, dims))
 
 
 def moe_ffn(p, x, cfg: MoEConfig, mesh=None, split: bool = False):
@@ -203,14 +291,6 @@ def moe_ffn(p, x, cfg: MoEConfig, mesh=None, split: bool = False):
     call with the call's capacity, as in the reference.  So a verify can
     drop pairs that a decode of the same tokens keeps, and then its tokens
     differ from plain decoding's, in the reference too (ROADMAP C9)."""
-    if mesh is not None and mesh_shape(mesh).get("model", 1) > 1:
-        # A "model" dim of 1 runs the single-device path on every rank, as
-        # in the reference.
-        raise NotImplementedError(
-            "the MoE FFN under a 'model' mesh dim > 1 (its expert-parallel, "
-            "expert-TP and resident branches) is not ported: ROADMAP A10, "
-            "'Mesh MoE'; the reference's own MoE serving under a mesh fails "
-            "before it reaches them (ROADMAP C10)")
     B, S, D = x.shape
     if split and S > 1:
         cols = [_route_rows(p, x[:, s:s + 1].contiguous(), cfg)
@@ -223,8 +303,14 @@ def moe_ffn(p, x, cfg: MoEConfig, mesh=None, split: bool = False):
     top_i = top_i.reshape(B * S, -1)
     aux = _aux_loss(probs, top_i, cfg)
     cap = _capacity(B * S, cfg.top_k, cfg.n_routed, cfg.capacity_factor)
-    out2d = _local_moe(p, x.reshape(B * S, D), top_p, top_i, cfg, 0,
-                       cfg.n_routed, cap, split and S > 1)
+    branch = ("single" if mesh is None else
+              moe_branch(mesh_shape(mesh), cfg.n_routed, cfg.resident))
+    if branch == "single":
+        out2d = _local_moe(p, x.reshape(B * S, D), top_p, top_i, cfg, 0,
+                           cfg.n_routed, cap, split and S > 1)
+    else:
+        out2d = _mesh_moe(p, x.reshape(B * S, D), top_p, top_i, cfg, mesh,
+                          branch, cap, split and S > 1)
     out = out2d.reshape(B, S, D).to(x.dtype)
     if "shared" in p:
         out = out + L.by_column(lambda t: L.mlp(p["shared"], t, cfg.act), x,

@@ -99,7 +99,10 @@ class ElasticMeshManager:
         lays out its devices, of the device type the group's backend
         takes (``sharding/api.py:collective_device``).  Building it makes
         the mesh's process groups, so every rank of the default group calls
-        it together; a rank left out gets a mesh it is not part of."""
+        it together; a rank left out gets a mesh it is not part of.  A
+        ``PagedEngine`` on the rebuilt mesh restores a snapshot taken on
+        the larger one: snapshots are whole, and each rank takes its KV
+        heads of the scales."""
         if not dist.is_initialized():
             raise RuntimeError(
                 "rebuild_mesh needs the ranks' torch.distributed process "

@@ -35,6 +35,13 @@ again.
 
 Nothing in ``serving/`` reads a wall clock; the engine keys every fault,
 deadline and snapshot on its tick counter.
+
+Under a mesh (``ServeConfig.mesh``) every rank runs this harness over its
+own engine with its own injector of the same plan, so every rank fires the
+same faults at the same ticks: all ranks crash and restore together.  A
+snapshot is whole (the engine gathers its scales), the leader alone writes
+it and every rank consults the plan as the writer did
+(``sharding/api.py:write_once``); after a crash every rank loads it.
 """
 
 from __future__ import annotations
@@ -176,6 +183,7 @@ def serve_with_chaos(make_engine, requests, seed: int = 0,
     fault, snapshot and restore accounting."""
     from repro_torch.checkpoint.store import (gc_staging, load_snapshot,
                                               save_snapshot)
+    from repro_torch.sharding.api import write_once
 
     injector = FaultInjector(plan)
     engine = make_engine()
@@ -192,22 +200,34 @@ def serve_with_chaos(make_engine, requests, seed: int = 0,
         if snapshot_dir is None:
             return
         state = engine.snapshot()
+        consulted = []
 
         def interrupt():
+            consulted.append(True)
             if injector.fire("checkpoint_interrupt", engine.ticks):
                 raise CheckpointInterrupted(
                     f"snapshot write killed at tick {engine.ticks}")
 
-        try:
-            save_snapshot(state, snapshot_dir, step=engine.ticks,
-                          interrupt=interrupt)
+        def write():
+            try:
+                save_snapshot(state, snapshot_dir, step=engine.ticks,
+                              interrupt=interrupt)
+                return [1, 0]
+            except CheckpointInterrupted:
+                # The harness is the only writer, so the orphan is
+                # reclaimable at once.
+                return [0, len(gc_staging(snapshot_dir, grace=0.0))]
+
+        taken, reclaimed = write_once(getattr(engine, "_rules", None),
+                                     write, 2)
+        if not consulted:
+            # A rank that did not write: the writer's consult, as it fired.
+            injector.fire("checkpoint_interrupt", engine.ticks)
+        if taken:
             report["snapshots_taken"] += 1
-        except CheckpointInterrupted:
+        else:
             report["snapshots_interrupted"] += 1
-            # The harness is the only writer, so the orphan is reclaimable
-            # at once.
-            report["staging_reclaimed"] += len(
-                gc_staging(snapshot_dir, grace=0.0))
+            report["staging_reclaimed"] += reclaimed
 
     take_snapshot()
     while engine.pending():

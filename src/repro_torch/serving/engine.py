@@ -105,9 +105,24 @@ the paged attention runs on its block of slots and heads, gathered back
 before ``wo`` (``models/attention.py``).  Where a host decision reads
 device state that differs between ranks, one collective makes it agree:
 the verify forward's growth flag and the circuit breaker.  The tokens
-equal single-device serving's.  The contiguous and static engines refuse a
-mesh, and so do the memory hierarchy, snapshots and restore, and the
-engine API's ``extract``/``insert`` (ROADMAP A10, "Mesh state").
+equal single-device serving's.  MoE FFNs run their mesh branch
+(``models/moe.py``), a rank keeping its block of the routed experts.
+
+State under a mesh sorts by whether it leaves the engine.  Records that
+outlive it or cross engines are whole, the bytes one device writes: prefix
+records (the host tier and the disk store), snapshots and the payloads of
+``extract``/``insert``.  They are gathered from the ranks' KV heads, a disk
+record is written once, by the rank at the mesh's first position, which
+hands its outcome to the others (``sharding/api.py:write_once``), and a
+rank takes its heads of a record it reads.  So a mesh record warm-starts
+or restores a single-device engine, and the reverse.  Swap records are
+private to the engine: each rank keeps its own heads' rows on the host,
+with no collective, and sizes them as the whole record so that the swap
+budget takes the single-device decisions.  Where a host decision reads a
+rank's scales (a swap-in's unchanged-scales test, a warm start's growth)
+the ranks agree by one collective, so every rank takes the branch one
+device takes and its pools equal that device's at its heads.  The
+contiguous and static engines refuse a mesh.
 """
 
 from __future__ import annotations
@@ -127,7 +142,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.attention import (POS_SENTINEL, PagedLayout,
                                           apply_inject_amax_rule,
                                           attention_block_shape,
-                                          extract_block_rows,
+                                          extract_block_rows, heads_spec,
                                           paged_layer_groups,
                                           repack_block_planes,
                                           requant_plane_pools,
@@ -139,11 +154,10 @@ from repro_torch.serving.chaos import CheckpointInterrupted, KernelFault
 from repro_torch.serving.kv_pool import KVBlockPool, SwapPool
 from repro_torch.serving.sampling import (categorical_block, fold_in,
                                          prng_key, sample_tokens)
-from repro_torch.sharding.api import any_rank, use_rules
-from repro_torch.sharding.rules import make_serve_rules, shard_caches
-
-MESH_STATE = "ROADMAP A10, 'Mesh state'"
-
+from repro_torch.sharding.api import (any_rank, gather_shards, local_view,
+                                      use_rules, write_once)
+from repro_torch.sharding.rules import (make_serve_rules, shard_caches,
+                                        shard_params, splits_heads)
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
@@ -216,12 +230,6 @@ class ServeConfig:
                 raise ValueError(
                     "ServeConfig.mesh must be a DeviceMesh over dims named "
                     f"'data'/'model', got dims {sorted(dims)}")
-            if (self.swap_host_bytes or self.prefix_host_bytes
-                    or self.prefix_store_dir is not None
-                    or self.snapshot_every):
-                raise ValueError(
-                    "the KV memory hierarchy and crash snapshots under a "
-                    f"mesh are not ported ({MESH_STATE})")
         for name in ("max_len", "max_slots", "prefill_bucket", "page_size"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got "
@@ -433,15 +441,9 @@ def _amax_arrays(caches, scan_layers: bool) -> list[np.ndarray]:
     return out
 
 
-def _amax_state(caches, scan_layers: bool) -> list:
-    """The scales as the reference's snapshot holds them: one f32 list per
-    leaf of :func:`_amax_groups` (nested over reps where it stacks)."""
-    return [a.tolist() for a in _amax_arrays(caches, scan_layers)]
-
-
 def _set_amax_leaves(caches, values: list, scan_layers: bool) -> None:
     """Write a snapshot's scales back, in place and on the caches' device,
-    in the order :func:`_amax_state` reads them: the restore half of engine
+    in the order :func:`_amax_arrays` reads them: the restore half of engine
     snapshotting.  The running scales are monotone and depend on the order
     of writes (growth overshoots by ``AMAX_HEADROOM``), so a restored
     engine inherits the crash-time scales instead of re-deriving them from
@@ -827,9 +829,18 @@ class PagedEngine(_EngineCommon):
         # "model" does not divide stays whole); tables and fill levels stay
         # whole, because every rank writes every slot's K/V.
         self._rules = None
+        # The rules under which the pools hold this rank's KV heads (None
+        # when they hold every head): whole records gather and slice by it.
+        self._heads = None
         if scfg.mesh is not None:
-            self._rules = make_serve_rules(scfg.mesh)
+            self._rules = make_serve_rules(scfg.mesh, cfg.n_routed,
+                                           cfg.moe_resident)
             self.caches = shard_caches(self._rules, self.caches)
+            # A rank keeps its block of the routed experts (views).
+            self.params = shard_params(self._rules, params, cfg.n_routed,
+                                       cfg.d_expert)
+            if splits_heads(self._rules, cfg.n_kv_heads):
+                self._heads = self._rules
         self.slots: list[_PagedSlot | None] = [None] * B
         self.queue: collections.deque[Request] = collections.deque()
         self.table = np.zeros((B, self._mb), np.int32)
@@ -974,10 +985,47 @@ class PagedEngine(_EngineCommon):
         self._breaker("verify")
         return self._verify_forward(*args)
 
-    def _refuse_mesh(self, what: str) -> None:
-        if self._rules is not None:
-            raise ValueError(f"{what} under a mesh is not ported "
-                             f"({MESH_STATE})")
+    # ------------------------------------------------------------------
+    # whole records under a mesh
+    # ------------------------------------------------------------------
+
+    def _whole_amax(self) -> list[np.ndarray]:
+        """The quant scales as host arrays in the reference's leaf order
+        (:func:`_amax_arrays`), every KV head's: under a mesh gathered from
+        the ranks' heads."""
+        arrs = _amax_arrays(self.caches, self.cfg.scan_layers)
+        if self._heads is None:
+            return arrs
+        return [gather_shards(self._heads, torch.from_numpy(a),
+                              heads_spec(a.ndim, -1)).numpy() for a in arrs]
+
+    def _rank_amax(self, whole: list) -> list[np.ndarray]:
+        """This rank's KV heads of whole scale leaves (a snapshot's, a
+        payload's); all of them without a split."""
+        out = [np.asarray(a, np.float32) for a in whole]
+        if self._heads is None:
+            return out
+        return [local_view(self._heads, torch.from_numpy(a),
+                           heads_spec(a.ndim, -1)).numpy() for a in out]
+
+    def _heads_agree(self, flag: bool) -> bool:
+        """``flag`` on any rank that holds other KV heads of the same
+        slots (one collective over "model"); the flag itself where the
+        pools hold every head.  For a host branch on a rank's scales."""
+        if self._heads is None:
+            return flag
+        return any_rank(self._heads, flag, "model")
+
+    def _record_nbytes(self, layers, amax) -> int:
+        """Host bytes of a record as one device holds it: a rank's private
+        swap record (its heads) is sized as the whole record, so that the
+        swap budget refuses and admits what it does on one device."""
+        n = (sum(int(a.nbytes) for lay in layers for a in lay.values())
+             + sum(int(a.nbytes) for a in amax))
+        if self._heads is None:
+            return n
+        pos = sum(int(lay["pos"].nbytes) for lay in layers)
+        return (n - pos) * self._heads.shape["model"] + pos
 
     # ------------------------------------------------------------------
     # capacity accounting
@@ -1362,15 +1410,15 @@ class PagedEngine(_EngineCommon):
         pool and block numbering can ``insert()`` it.  Registered source
         blocks park in the LRU on decref, so this engine's prefix cache
         stays warm for repeated prompts."""
-        self._refuse_mesh("extract()")
         if prefix.finished or prefix.payload is not None:
             return prefix
         if prefix.pool is not self.pool:
             raise ValueError(
                 "extract() must run on the engine owning the prefix")
         layers = extract_block_rows(self.caches, prefix.blocks,
-                                    scan_layers=self.cfg.scan_layers)
-        amax = _amax_arrays(self.caches, self.cfg.scan_layers)
+                                    scan_layers=self.cfg.scan_layers,
+                                    heads=self._heads)
+        amax = self._whole_amax()
         for bid in prefix.blocks:
             self.pool.decref(bid)
         self.counters["prefix_transfers"] += 1
@@ -1400,8 +1448,8 @@ class PagedEngine(_EngineCommon):
         The slot then holds the post-preemption resume state
         (``resumed=True``, next decode input ``prefix.last_token``), so
         decode, speculation, oversubscription and deadlines behave as if
-        the request had always lived here."""
-        self._refuse_mesh("insert()")
+        the request had always lived here.  Under a mesh every rank
+        inserts the same (whole) payload and splices its KV heads of it."""
         if not 0 <= slot < len(self.slots):
             raise ValueError(f"slot {slot} out of range "
                              f"[0, {len(self.slots)})")
@@ -1450,7 +1498,8 @@ class PagedEngine(_EngineCommon):
             if fresh:
                 splice_block_rows(self.caches, fresh,
                                   prefix.payload["layers"], sel,
-                                  scan_layers=self.cfg.scan_layers)
+                                  scan_layers=self.cfg.scan_layers,
+                                  heads=self._heads)
             self._merge_amax(prefix.payload["amax"])
             # Full transferred blocks register under their chain keys; the
             # partial tail block stays exclusively owned and unregistered.
@@ -1481,7 +1530,8 @@ class PagedEngine(_EngineCommon):
         (elementwise max) and rebuild the packed plane pools.  It runs on
         every detached insert even when nothing grew: the spliced pages
         carry no plane rows until the requant writes them.  A planeless
-        pool has no scales and nothing to do."""
+        pool has no scales and nothing to do.  Under a mesh a rank merges
+        its KV heads of the (whole) incoming scales."""
         cur = _amax_arrays(self.caches, self.cfg.scan_layers)
         if len(cur) != len(incoming):
             raise ValueError(
@@ -1489,8 +1539,10 @@ class PagedEngine(_EngineCommon):
                 f"leaves, cache has {len(cur)}")
         if not cur:
             return
-        merged = [np.maximum(c, np.asarray(p, np.float32).reshape(c.shape))
-                  for c, p in zip(cur, incoming)]
+        incoming = self._rank_amax(
+            [np.asarray(p, np.float32).reshape(c.shape[:-1] + (-1,))
+             for c, p in zip(cur, incoming)])
+        merged = [np.maximum(c, p) for c, p in zip(cur, incoming)]
         _set_amax_leaves(self.caches, merged, self.cfg.scan_layers)
         requant_plane_pools(self.caches)
 
@@ -1538,8 +1590,9 @@ class PagedEngine(_EngineCommon):
 
         Device KV is not kept.  Restore rebuilds it through the resume
         path: in-flight requests requeue with their tokens and recompute
-        their context by chunked prefill under the restored scales."""
-        self._refuse_mesh("snapshot()")
+        their context by chunked prefill under the restored scales.  Under
+        a mesh the scales are gathered from the ranks' KV heads, so every
+        rank returns the snapshot one device takes."""
         active = sorted(
             (st.seq, st.req.rid) for st in self.slots if st is not None)
         reqs = []
@@ -1571,7 +1624,7 @@ class PagedEngine(_EngineCommon):
             "requests": reqs,
             "queue": [r.rid for r in self.queue],
             "active": [rid for _, rid in active],
-            "amax": _amax_state(self.caches, self.cfg.scan_layers),
+            "amax": [a.tolist() for a in self._whole_amax()],
             "pool": self.pool.snapshot(),
         }
 
@@ -1584,8 +1637,8 @@ class PagedEngine(_EngineCommon):
         (:func:`_set_amax_leaves`).  Then the requests that held a slot
         requeue in admission order, followed by the snapshot's queue; the
         ordinary resume path recomputes each context and replays its last
-        sampled token."""
-        self._refuse_mesh("restore()")
+        sampled token.  Under a mesh (of any shape) each rank takes its KV
+        heads of the snapshot's scales."""
         if self.requests or self.ticks or self.pool.live_blocks():
             raise RuntimeError(
                 "restore() needs a freshly constructed engine (the crash "
@@ -1621,7 +1674,8 @@ class PagedEngine(_EngineCommon):
                 shed_reason=d["shed_reason"],
                 deadline_hit=d["deadline_hit"],
             )
-        _set_amax_leaves(self.caches, state["amax"], self.cfg.scan_layers)
+        _set_amax_leaves(self.caches, self._rank_amax(state["amax"]),
+                         self.cfg.scan_layers)
         for rid in list(state["active"]) + list(state["queue"]):
             self.queue.append(self.requests[rid])
 
@@ -1638,7 +1692,8 @@ class PagedEngine(_EngineCommon):
         context back with no recompute.  An injected ``swap_fail``,
         exclusive blocks that are not one run up to the fill level, and a
         refused put skip the record: the victim then resumes by
-        recompute."""
+        recompute.  Under a mesh the record is this rank's (its KV heads'
+        rows and scales), sized as the whole record."""
         if (self.chaos is not None
                 and self.chaos.fire("swap_fail", self.ticks)):
             # The host copy died in flight: the victim recomputes.
@@ -1662,9 +1717,7 @@ class PagedEngine(_EngineCommon):
                                     scan_layers=self.cfg.scan_layers)
         amax = _amax_arrays(self.caches, self.cfg.scan_layers)
         rec = {"js": js, "length": int(L), "layers": layers, "amax": amax}
-        nbytes = (sum(int(a.nbytes) for lay in layers for a in lay.values())
-                  + sum(int(a.nbytes) for a in amax))
-        if self._swap.put(req.rid, rec, nbytes):
+        if self._swap.put(req.rid, rec, self._record_nbytes(layers, amax)):
             self.counters["swap_outs"] += 1
         else:
             self.counters["swap_fallbacks"] += 1
@@ -1693,7 +1746,10 @@ class PagedEngine(_EngineCommon):
         the stored ``kq`` rows are what incremental packing holds and
         splice as they are; if one grew, recompute's growth requantized the
         whole pool, so repacking the spliced blocks under the current
-        scales gives its bytes."""
+        scales gives its bytes.  Under a mesh a rank splices its own
+        record; the scales test reads its heads, so the ranks agree on it
+        (a scale that grew on any rank repacks on every rank, as one device
+        repacks every head)."""
         rec = self._swap.take(req.rid)
         if rec is None:
             return None
@@ -1706,8 +1762,9 @@ class PagedEngine(_EngineCommon):
         bids = [int(row[j]) for j in range(m, m + len(js))]
         layers = rec["layers"]
         cur = _amax_arrays(self.caches, self.cfg.scan_layers)
-        same_scales = (len(cur) == len(rec["amax"]) and all(
-            np.array_equal(a, b) for a, b in zip(cur, rec["amax"])))
+        same_scales = not self._heads_agree(not (
+            len(cur) == len(rec["amax"]) and all(
+                np.array_equal(a, b) for a, b in zip(cur, rec["amax"]))))
         if same_scales:
             splice_block_rows(self.caches, bids, layers,
                               scan_layers=self.cfg.scan_layers)
@@ -1735,7 +1792,9 @@ class PagedEngine(_EngineCommon):
         scale rule on the host with the chunk boundaries chunked prefill
         would use.  Injection stops at the largest chunk boundary that
         stored blocks cover; a fresh request keeps at least one token to
-        prefill (its forward samples the first new token)."""
+        prefill (its forward samples the first new token).  Records are
+        whole: under a mesh a rank splices and replays the rule on its KV
+        heads, and the ranks agree on whether a K scale grew."""
         bs = self._page
         Lc = len(ctx)
         tier, sdir = self._prefix_host, self.scfg.prefix_store_dir
@@ -1781,7 +1840,8 @@ class PagedEngine(_EngineCommon):
                 for f in ("k", "v", "pos")})
         bids = [int(row[jj]) for jj in range(m, jend)]
         splice_block_rows(self.caches, bids, merged,
-                          scan_layers=self.cfg.scan_layers)
+                          scan_layers=self.cfg.scan_layers,
+                          heads=self._heads)
         # The stored values may be new to this engine and growth depends on
         # the order of writes, so the scale rule replays per chunk group.
         groups = []
@@ -1793,8 +1853,9 @@ class PagedEngine(_EngineCommon):
                            for jj in range(s // bs, -(-e // bs))])
             s = e
         _, k_grew = apply_inject_amax_rule(self.caches, merged, groups,
-                                           scan_layers=self.cfg.scan_layers)
-        if k_grew:
+                                           scan_layers=self.cfg.scan_layers,
+                                           heads=self._heads)
+        if self._heads_agree(k_grew):
             # Recompute's last growth requantizes the whole pool.
             requant_plane_pools(self.caches)
         else:
@@ -1809,11 +1870,14 @@ class PagedEngine(_EngineCommon):
     def _on_prefix_evict(self, key: tuple, bid: int) -> None:
         """The pool's evict hook: a parked registered block is taken for
         reuse, so its rows copy down the hierarchy (the host tier, which
-        cascades to disk) before the new owner writes them."""
+        cascades to disk) before the new owner writes them.  Under a mesh
+        every rank evicts the same block at the same point, gathers the
+        whole record and keeps it in its host tier."""
         if getattr(self, "caches", None) is None:
             return
         layers = extract_block_rows(self.caches, [bid],
-                                    scan_layers=self.cfg.scan_layers)
+                                    scan_layers=self.cfg.scan_layers,
+                                    heads=self._heads)
         rec = {"chain": key, "layers": layers}
         nbytes = sum(int(a.nbytes) for lay in layers for a in lay.values())
         self.counters["prefix_spills"] += 1
@@ -1831,14 +1895,35 @@ class PagedEngine(_EngineCommon):
 
     def _persist(self, key, layers) -> bool:
         """Save one prefix record to the disk store; False when an injected
-        ``checkpoint_interrupt`` killed the write (counted)."""
-        try:
-            store.save_prefix_record(self.scfg.prefix_store_dir, list(key),
-                                     layers, interrupt=self._store_interrupt)
-            return True
-        except CheckpointInterrupted:
+        ``checkpoint_interrupt`` killed the write (counted).  Under a mesh
+        the leader writes it and hands every rank the outcome; a rank that
+        did not write consults the fault plan as the writer did, so every
+        rank's plan stays the same."""
+        consulted = []
+
+        def interrupt():
+            consulted.append(True)
+            self._store_interrupt()
+
+        def write():
+            try:
+                store.save_prefix_record(self.scfg.prefix_store_dir,
+                                         list(key), layers,
+                                         interrupt=interrupt)
+                return [int(bool(consulted))]
+            except CheckpointInterrupted:
+                return [2]
+
+        (code,) = write_once(self._rules, write)
+        if code and not consulted:
+            try:
+                self._store_interrupt()
+            except CheckpointInterrupted:
+                pass
+        if code == 2:
             self.counters["prefix_store_interrupts"] += 1
             return False
+        return True
 
     def _store_interrupt(self) -> None:
         if (self.chaos is not None
@@ -1857,7 +1942,8 @@ class PagedEngine(_EngineCommon):
         n = 0
         for key, bid in self.pool.registered_items():
             n += self._persist(key, extract_block_rows(
-                self.caches, [bid], scan_layers=self.cfg.scan_layers))
+                self.caches, [bid], scan_layers=self.cfg.scan_layers,
+                heads=self._heads))
         if self._prefix_host is not None:
             for key, rec in self._prefix_host.items():
                 n += self._persist(key, rec["layers"])
@@ -1866,7 +1952,11 @@ class PagedEngine(_EngineCommon):
     def memory_report(self) -> dict:
         """Bytes held at each tier of the KV memory hierarchy.
         :meth:`kv_bytes_resident` counts the device alone; the host and
-        disk tiers report on their own, so no token's bytes count twice."""
+        disk tiers report on their own, so no token's bytes count twice.
+        The tiers' bytes are the whole engine's (one device's, under a mesh
+        too); under a mesh the ``rank_*`` entries add what this rank holds:
+        its pools' KV heads and its private swap records (the host prefix
+        tier keeps whole records on every rank)."""
         def tier(pool, field):
             return int(getattr(pool, field)) if pool is not None else 0
 
@@ -1882,6 +1972,15 @@ class PagedEngine(_EngineCommon):
         if self.scfg.prefix_store_dir is not None:
             rep["disk_prefix_bytes"] = int(
                 store.prefix_store_bytes(self.scfg.prefix_store_dir))
+        if self._rules is not None:
+            # K, V, planes and scales all split over the KV heads.
+            split = self._heads.shape["model"] if self._heads else 1
+            rep["rank_device_bytes"] = rep["device_bytes"] // split
+            rep["rank_device_bytes_peak"] = rep["device_bytes_peak"] // split
+            rep["rank_host_swap_bytes"] = 0 if self._swap is None else sum(
+                int(a.nbytes) for _, rec in self._swap.items()
+                for a in ([x for lay in rec["layers"] for x in lay.values()]
+                          + list(rec["amax"])))
         return rep
 
     # ------------------------------------------------------------------

@@ -329,6 +329,11 @@ class SwapPool:
       recently used records, handing each to ``f(key, record, nbytes)``
       (the warm prefix tier: cold records spill down to the disk store
       instead of vanishing).
+
+    Under a mesh every rank keeps its own pools.  A swap record holds the
+    rank's KV heads and is sized by the caller as the whole record, so the
+    budget admits and refuses what it does on one device; the prefix tier
+    keeps whole records on every rank (``PagedEngine``).
     """
 
     def __init__(self, budget_bytes: int = 0, evict_cb=None):

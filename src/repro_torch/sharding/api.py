@@ -5,12 +5,15 @@ Counterpart of ``repro/sharding/api.py``.  The reference names activation
 axes logically and lets GSPMD place arrays on a ``jax.sharding.Mesh``; the
 port runs SPMD over ``torch.distributed``, one process per mesh position,
 on a ``DeviceMesh`` with the same dim names.  A shard is a plain local
-tensor: :func:`local_shard` slices this rank's block of a full tensor, and
+tensor: :func:`local_shard` slices this rank's block of a full tensor
+(:func:`local_view` without a copy: a rank's MoE expert weights), and
 :func:`gather_shards` undoes it with one ``all_gather`` over the whole mesh.
-The reference's ``constrain`` has no counterpart: every activation is a
-full local tensor, replicated on each rank, and the one sharded region (the
-paged attention block, ``models/attention.py:_shard_paged_attention``) is
-sliced and gathered explicitly.
+:func:`gather_owned` gathers rows that each rank computed for its own
+pairs (the MoE combine).  The reference's ``constrain`` has no
+counterpart: every activation is a full local tensor, replicated on each
+rank, and the sharded regions (the paged attention block,
+``models/attention.py:_shard_paged_attention``; the routed experts,
+``models/moe.py``) are sliced and gathered explicitly.
 
 A spec (the counterpart of a ``PartitionSpec``) is a tuple with one entry
 per axis: None (replicated), a mesh dim name, or a tuple of names
@@ -19,8 +22,12 @@ axes to a spec, replicating a dim that the product of its mapped mesh dims
 does not divide (MQA's single KV head over a 2-way "model" dim), as the
 reference does.
 
-Serving has no parameter rules (its parameters are replicated), so the
+Serving's parameters are replicated but for MoE expert weights, which a
+rank holds a block of (``sharding/rules.py:MOE_PARAM_RULES``); the
 reference's ``param_rules`` and parameter-tree specs come with training.
+Disk records that several ranks would write are written once, by the rank
+at the mesh's first position (:func:`is_leader`), which hands its outcome
+to the others (:func:`from_leader`).
 Collectives use the backend the process group was made with (gloo or
 nccl, an explicit choice of its creator).  gloo's support for CUDA tensors
 differs between builds, so the collectives here stage a CUDA tensor
@@ -111,16 +118,29 @@ def _coordinate(mesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, coord))
 
 
-def local_shard(rules: MeshRules, x: torch.Tensor, spec) -> torch.Tensor:
-    """This rank's block of the full tensor ``x`` under ``spec``, as a new
-    contiguous tensor (the kernels take contiguous operands)."""
+def block_index(rules: MeshRules, entry) -> tuple[int, int]:
+    """``(index, count)`` of this rank's block along an axis whose spec
+    entry is ``entry`` (a mesh dim, a tuple of them, or None)."""
+    return _block_index(entry, _coordinate(rules.mesh), rules.shape)
+
+
+def local_view(rules: MeshRules, x: torch.Tensor, spec) -> torch.Tensor:
+    """This rank's block of the full tensor ``x`` under ``spec``, as a view
+    of ``x`` (no copy; contiguous where only the leading split axis is
+    cut)."""
     coord, shape = _coordinate(rules.mesh), rules.shape
     for axis, entry in enumerate(spec):
         i, n = _block_index(entry, coord, shape)
         if n > 1:
             step = x.shape[axis] // n
             x = x.narrow(axis, i * step, step)
-    return x.contiguous()
+    return x
+
+
+def local_shard(rules: MeshRules, x: torch.Tensor, spec) -> torch.Tensor:
+    """This rank's block of the full tensor ``x`` under ``spec``, as a new
+    contiguous tensor (the kernels take contiguous operands)."""
+    return local_view(rules, x, spec).contiguous()
 
 
 _GROUPS: dict[tuple, tuple] = {}
@@ -169,6 +189,10 @@ def gather_shards(rules: MeshRules, x: torch.Tensor, spec) -> torch.Tensor:
     counts = [_block_index(e, {}, shape)[1] for e in spec]
     if all(n == 1 for n in counts):
         return x
+    if x.dtype == torch.bfloat16:
+        # Moved as its 16-bit words: gloo builds differ in bf16 support.
+        return gather_shards(rules, x.view(torch.int16), spec).view(
+            torch.bfloat16)
     group, order = mesh_group(mesh)
     staged = _staged(x, group)
     src = x.cpu() if staged else x.contiguous()
@@ -197,3 +221,53 @@ def any_rank(rules: MeshRules, flag: bool, dim: str | None = None) -> bool:
                      device=collective_device(group))
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return bool(t.item())
+
+
+def gather_owned(rules: MeshRules, x: torch.Tensor, owner: torch.Tensor,
+                 dims) -> torch.Tensor:
+    """Rows that each rank computed for the entries it owns, put together:
+    ``x`` is this rank's ``[*owner.shape, ...]`` tensor, right where this
+    rank owns an entry (its block index along ``dims``, a mesh dim or a
+    tuple of them, equals ``owner`` there) and anything elsewhere.  One
+    ``all_gather`` (:func:`gather_shards` over ``dims`` of ``x`` on a new
+    leading axis), then each entry taken from its owner's block: pure data
+    movement, so every entry has the bits its owner computed, on every
+    rank."""
+    spec = (dims,) + (None,) * x.ndim
+    every = gather_shards(rules, x[None], spec)       # [n_owners, *x.shape]
+    idx = owner.long().reshape((1,) + owner.shape
+                               + (1,) * (x.ndim - owner.ndim))
+    return torch.gather(every, 0, idx.expand((1,) + tuple(x.shape)))[0]
+
+
+def is_leader(rules: MeshRules) -> bool:
+    """Whether this rank sits at the mesh's first position: the one rank
+    that writes a record the whole mesh shares (a snapshot, a prefix-store
+    record)."""
+    return all(c == 0 for c in _coordinate(rules.mesh).values())
+
+
+def from_leader(rules: MeshRules, values: Sequence[int]) -> list[int]:
+    """The leader's ``values`` on every rank (one ``broadcast`` over the
+    mesh; what the others pass is ignored).  A rank past it knows that
+    whatever the leader did before the call is done: the collective is a
+    barrier too."""
+    group, order = mesh_group(rules.mesh)
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64,
+                     device=collective_device(group))
+    dist.broadcast(t, group=group,
+                   src=dist.get_global_rank(group, order[0]))
+    return [int(v) for v in t.tolist()]
+
+
+def write_once(rules: MeshRules | None, write, n: int = 1) -> list[int]:
+    """Run ``write()``, which returns its outcome as ``n`` ints, on the
+    mesh's leader alone and return that outcome on every rank (one
+    :func:`from_leader`, which is also the barrier that makes the write
+    visible before any rank reads it).  Without rules it just runs
+    ``write()``.  What is written must be whole (the same on every
+    rank)."""
+    if rules is None:
+        return list(write())
+    out = list(write()) if is_leader(rules) else [0] * n
+    return from_leader(rules, out)

@@ -5,14 +5,18 @@ Counterpart of the serving subset of ``repro/sharding/rules.py``:
 ``AXIS_MAP_SERVE``, ``make_serve_rules``, ``PAGED_CACHE_RULES`` and
 ``cache_pspecs``; :func:`shard_caches` takes the place of
 ``cache_shardings``: it slices a full cache tree to this rank's shards.
-Training's parameter rules, axis maps and contiguous-cache rules
-(``PARAM_RULES``, ``AXIS_MAP_1POD``, ``CACHE_RULES``, ``make_rules``) come
-with training: mesh serving runs the paged engine only.
+``make_rules``' expert axes (its ``n_routed`` and ``moe_resident``) come
+into :func:`make_serve_rules`, which places MoE expert weights as the
+branch ``models/moe.py`` runs needs them (:func:`moe_branch`,
+:func:`shard_params`).  Training's parameter rules, axis maps and
+contiguous-cache rules (``PARAM_RULES``, ``AXIS_MAP_1POD``,
+``CACHE_RULES``, the rest of ``make_rules``) come with training: mesh
+serving runs the paged engine only.
 """
 
 from __future__ import annotations
 
-from repro_torch.sharding.api import MeshRules, local_shard
+from repro_torch.sharding.api import MeshRules, local_shard, local_view
 
 # Paged block-pool caches reuse contiguous leaf names ("k", "v", "pos") at
 # pool shapes, so they have their own table, chosen by the "table" leaf in
@@ -49,12 +53,103 @@ AXIS_MAP_SERVE = {
 }
 
 
-def make_serve_rules(mesh) -> MeshRules:
+# MoE expert weights ([E, D, H] in, [E, H, D] out): experts over "expert",
+# each expert's hidden units over "expert_ffn".  Which mesh dims those map
+# to depends on the branch (:func:`moe_branch`).
+MOE_PARAM_RULES: dict[str, tuple] = {
+    "wi_gate": ("expert", None, "expert_ffn"),
+    "wi_up": ("expert", None, "expert_ffn"),
+    "wo": ("expert", "expert_ffn", None),
+}
+
+
+def moe_branch(shape: dict[str, int], n_routed: int,
+               resident: bool = False) -> str:
+    """The MoE branch a mesh of dims ``shape`` runs, the reference's choice
+    (``repro/models/moe.py:153-166``): "single" without routed experts or
+    with a "model" dim of 1; "resident" (experts over data x model) when
+    asked for and data x model divides ``n_routed``; "ep" (experts over
+    "model") when "model" divides it; else "tp" (every expert on every
+    rank, its hidden units over "model")."""
+    tp, data = shape.get("model", 1), shape.get("data", 1)
+    if not n_routed or tp == 1:
+        return "single"
+    if resident and n_routed % (data * tp) == 0:
+        return "resident"
+    return "ep" if n_routed % tp == 0 else "tp"
+
+
+def _expert_axes(shape: dict[str, int], n_routed: int,
+                 resident: bool) -> dict:
+    """``make_rules``' expert axes for serving: resident experts over
+    ("data", "model"), EP experts over "model", expert-TP hidden units over
+    "model".  Serving keeps no optimizer state, so the reference's
+    FSDP placement of EP's hidden units over "data" has no counterpart."""
+    branch = moe_branch(shape, n_routed, resident)
+    return {"expert": {"resident": ("data", "model"),
+                       "ep": "model"}.get(branch),
+            "expert_ffn": "model" if branch == "tp" else None}
+
+
+def splits_heads(rules: MeshRules, n_kv_heads: int) -> bool:
+    """Whether the paged pools hold a block of the KV heads under
+    ``rules``: a "model" dim of more than one rank that divides
+    ``n_kv_heads``, the divisibility ``PAGED_CACHE_RULES`` applies (MQA's
+    one KV head on two ranks stays whole)."""
+    tp = rules.shape.get("model", 1)
+    return tp > 1 and n_kv_heads % tp == 0
+
+
+def make_serve_rules(mesh, n_routed: int = 0,
+                     moe_resident: bool = False) -> MeshRules:
     """Rules for mesh serving (``PagedEngine`` with ``ServeConfig.mesh``):
     parameters replicated (replicated weights keep every product's
-    contraction in single-device order), activations split over slots and
-    attention heads only."""
-    return MeshRules(mesh=mesh, axis_map=dict(AXIS_MAP_SERVE))
+    contraction in single-device order) but for routed MoE experts, which
+    a rank holds a block of (:func:`_expert_axes`); activations split over
+    slots and attention heads only.  Only expert-TP splits a contraction:
+    its partial products are summed in rank order (``models/moe.py``)."""
+    axis_map = dict(AXIS_MAP_SERVE)
+    if n_routed:
+        axis_map.update(_expert_axes(
+            dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)), n_routed,
+            moe_resident))
+    return MeshRules(mesh=mesh, axis_map=axis_map)
+
+
+def expert_slice(rules: MeshRules, p: dict, n_routed: int,
+                 d_expert: int) -> dict:
+    """An MoE block's parameters with this rank's block of the expert
+    weights, as views of the full ones (no copy): the branch's layout under
+    ``rules``.  Leaves already at the rank's shape (the engine's
+    :func:`shard_params`) stay as they are."""
+    out = dict(p)
+    for name, axes in MOE_PARAM_RULES.items():
+        w = p[name]
+        full = (n_routed, d_expert) == (
+            (w.shape[0], w.shape[2]) if name != "wo" else
+            (w.shape[0], w.shape[1]))
+        if full:
+            out[name] = local_view(rules, w, rules.pspec(axes, w.shape))
+    return out
+
+
+def shard_params(rules: MeshRules, params, n_routed: int, d_expert: int):
+    """A parameter tree with every MoE block's expert weights cut to this
+    rank's block (views: a rank that received the weights by shared memory
+    or CUDA IPC holds no copy); every other leaf as it is."""
+    if not n_routed:
+        return params
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            if key == "moe":
+                return expert_slice(rules, node, n_routed, d_expert)
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params)
 
 
 def cache_pspecs(rules: MeshRules, cache_tree):

@@ -1,7 +1,8 @@
-"""What a rank of ``tests/test_torch_mesh.py``'s 2x2 mesh runs, and the
-single-device runs it is held to.  Imports torch and the port only: the
-ranks are spawned processes, and the JAX reference stays in the pytest
-process."""
+"""What a rank of the 2x2 mesh of ``tests/test_torch_mesh.py``,
+``tests/test_torch_mesh_state.py`` and ``tests/test_torch_mesh_moe.py``
+runs, and the single-device runs it is held to.  Imports torch and the
+port only: the ranks are spawned processes, and the JAX reference stays
+in the pytest process or its subprocesses."""
 
 from __future__ import annotations
 
@@ -107,21 +108,31 @@ def serve(scen: dict, params, mesh=None, device="cpu", chaos=None) -> dict:
                        for c in layers]}
 
 
-def _refusals(mesh, device, params) -> dict:
-    """The engine API's refusals under a mesh: name -> (type, message)."""
-    eng = PagedEngine(model_config("base"), params,
-                      ServeConfig(mesh=mesh, **SERVE_KW), device=device)
-    out = {}
-    for name, call in (("snapshot", eng.snapshot),
-                       ("restore", lambda: eng.restore({})),
-                       ("extract", lambda: eng.extract(None)),
-                       ("insert", lambda: eng.insert(None, 0))):
-        try:
-            call()
-            out[name] = (None, "")
-        except Exception as e:                    # noqa: BLE001
-            out[name] = (type(e).__name__, str(e))
-    return out
+def c10_moe_config():
+    """Reduced qwen2-moe-a2.7b at the prelude's settings (the reference's
+    C10 case)."""
+    return reduced_config(MOE_ARCH).replace(
+        attn_impl="bitstopper_xla", bitstopper=BitStopperConfig(alpha=0.85))
+
+
+def c10_moe_serve(params, mesh=None, device="cpu") -> list:
+    """The prelude's trace served by reduced qwen2-moe: its tokens."""
+    eng = PagedEngine(c10_moe_config(), params,
+                      ServeConfig(mesh=mesh, fused_decode=False, **SERVE_KW),
+                      device=device)
+    reqs = [Request(prompt=p, max_new_tokens=NEW_TOKENS)
+            for p in prompts(256, {})]
+    eng.generate(reqs, seed=0)
+    return [list(r.generated) for r in reqs]
+
+
+def moe_branches(mesh) -> dict:
+    """``moe_ffn`` on the mesh for the EP, resident and expert-TP
+    function-level cases: name -> out."""
+    from repro_torch.models.moe import moe_ffn
+    return {name: moe_ffn(p, x, cfg, mesh=mesh)[0]
+            for name, (cfg, p, x) in moe_fn_inputs().items()
+            if name != "c11"}
 
 
 def _survivor_mesh() -> dict:
@@ -163,8 +174,11 @@ def _one_by_one(device, params) -> dict | None:
 
 
 def run_rank(mesh, device, params_by_model) -> dict:
-    """Rank body: every scenario on the mesh, the engine API's refusals,
-    a mesh rebuilt over surviving ranks and a 1x1 mesh."""
+    """Rank body: every scenario on the mesh, the MoE branches, the engine
+    API both ways (disaggregated serving from a single-device prefill
+    engine into a mesh decode engine and the reverse), reduced qwen2-moe
+    on the prelude's trace, a mesh rebuilt over surviving ranks and a 1x1
+    mesh."""
     rank = dist.get_rank()
     out = {"coord": tuple(mesh.get_coordinate()), "scenarios": {}}
     for name, scen in SCENARIOS.items():
@@ -175,7 +189,363 @@ def run_rank(mesh, device, params_by_model) -> dict:
         out["scenarios"][name] = serve(
             scen, params_by_model[scen.get("model", "base")], mesh, device,
             chaos)
-    out["refusals"] = _refusals(mesh, device, params_by_model["base"])
+    out["moe_branches"] = moe_branches(mesh)
+    out["api"] = {"in": disagg_serve("base", params_by_model["base"], None,
+                                     mesh, device)["tokens"],
+                  "out": disagg_serve("base", params_by_model["base"], mesh,
+                                      None, device)["tokens"]}
+    out["c10_moe"] = c10_moe_serve(params_by_model["moe"], mesh, device)
     out["survivors"] = _survivor_mesh()
     out["one"] = _one_by_one(device, params_by_model["base"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# State under the mesh (tests/test_torch_mesh_state.py): the memory
+# hierarchy, snapshots and restore, and the engine API's extract/insert.
+# ---------------------------------------------------------------------------
+
+# tests/test_swap.py's oversubscribed shape and budget, and its store
+# geometry (prefill chunks of one 8-token page) at one slot, where a warm
+# start leaves the order of writes as the cold run had it (ROADMAP C5).
+SWAP_KW = dict(max_len=64, max_slots=3, prefill_bucket=8, page_size=8,
+               pool_blocks=10, oversubscribe=True, swap_host_bytes=1 << 22)
+STORE_KW = dict(max_len=64, max_slots=1, prefill_bucket=8, page_size=8,
+                prefill_chunk=8)
+# tests/test_prefix_store.py's host tier: a snug pool under two slots and
+# a tier of 16 KiB, so evicted prefix blocks spill to the tier and on to
+# disk.
+TIER_KW = dict(max_len=64, max_slots=2, prefill_bucket=8, page_size=8,
+               prefill_chunk=8, pool_blocks=8, prefix_host_bytes=1 << 14)
+CHAOS_KW = dict(max_len=64, max_slots=2, prefill_bucket=4, page_size=8,
+                fused_decode=True)
+# A crash after the tick-4 snapshot, whose write an interrupt kills first:
+# the restore takes the tick-2 snapshot.
+CHAOS_PLAN = (("checkpoint_interrupt", 4), ("crash", 5))
+CHAOS_EVERY = 2
+RESTORE_AT = 6                      # ticks on the 2x2 mesh before the
+                                    # snapshot the 1x2 mesh restores
+# Disaggregation serves the chaos trace: a one-slot prefill engine and a
+# two-slot decode engine, the chaos engine's geometry.
+DISAGG_KW = dict(max_len=64, page_size=8, prefill_bucket=4,
+                 fused_decode=True)
+STATE_MODELS = ("base", "unscanned")
+
+
+def state_prompts(kind: str) -> list[np.ndarray]:
+    """The prompts of a state scenario (vocab 256)."""
+    if kind == "swap":                     # tests/test_swap.py's greedy
+        rng = np.random.default_rng(0)
+        return [rng.integers(0, 256, n, dtype=np.int32) for n in (12, 9, 11)]
+    if kind in ("store", "tier"):          # a system prompt, then tails
+        sys_prompt = np.random.default_rng(42).integers(0, 256, 16,
+                                                        dtype=np.int32)
+        rng = np.random.default_rng(3 if kind == "store" else 8)
+        lens = (6, 9, 4) if kind == "store" else (9, 11, 10, 9, 11)
+        out = [np.concatenate([sys_prompt, rng.integers(0, 256, n,
+                                                        dtype=np.int32)])
+               for n in lens]
+        # The tier's trace ends with its first prompt again, whose blocks
+        # have left the pool by then: it warms from the tier.
+        return out if kind == "store" else out + [out[0]]
+    rng = np.random.default_rng(0)         # the chaos and disaggregation
+    return [rng.integers(0, 256, n, dtype=np.int32)  # trace: tests/
+            for n in (5, 11, 7)]                     # test_frontdoor.py's
+
+
+STATE_NEW = {"swap": 16, "store": 8, "tier": 16, "chaos": 6}
+
+
+def state_requests(kind: str) -> list:
+    return [Request(prompt=p, max_new_tokens=STATE_NEW[kind])
+            for p in state_prompts(kind)]
+
+
+def heads_axis(name: str):
+    """The KV-heads axis of a pool leaf (None for a whole leaf)."""
+    from repro_torch.sharding.rules import PAGED_CACHE_RULES
+    axes = PAGED_CACHE_RULES[name]
+    return axes.index("kv_heads") if "kv_heads" in axes else None
+
+
+def leaves_of(eng) -> list[dict]:
+    """Every layer's cache leaves as host arrays, in layer order."""
+    layers = [unit[b] for seg in sorted(eng.caches)
+              for unit in eng.caches[seg] for b in sorted(unit)]
+    return [{k: host_array(c[k]) for k in LEAVES if k in c} for c in layers]
+
+
+def state_engine(key, params, mesh, device="cpu", **kw):
+    return PagedEngine(model_config(key), params,
+                       ServeConfig(mesh=mesh, **kw), device=device)
+
+
+def state_serve(key, params, kind, mesh=None, device="cpu", seed=0, **kw):
+    """Serve a scenario's requests; (engine, tokens)."""
+    eng = state_engine(key, params, mesh, device, **kw)
+    reqs = state_requests(kind)
+    eng.generate(reqs, seed=seed)
+    return eng, [list(r.generated) for r in reqs]
+
+
+def chaos_serve(key, params, snap_dir, mesh=None, device="cpu"):
+    """The chaos scenario: the disagg prompts through ``serve_with_chaos``
+    under ``CHAOS_PLAN`` with a snapshot every ``CHAOS_EVERY`` ticks.
+    Returns (tokens, report, the last engine's leaves)."""
+    from repro_torch.serving import serve_with_chaos
+    made = []
+
+    def make():
+        made.append(state_engine(key, params, mesh, device, **CHAOS_KW))
+        return made[-1]
+
+    reqs, rep = serve_with_chaos(make, state_requests("chaos"), seed=0,
+                                 plan=FaultPlan.scripted(list(CHAOS_PLAN)),
+                                 snapshot_dir=snap_dir,
+                                 snapshot_every=CHAOS_EVERY)
+    return [list(r.generated) for r in reqs], rep, leaves_of(made[-1])
+
+
+def snapshot_at(key, params, mesh=None, device="cpu"):
+    """The chaos prompts served for ``RESTORE_AT`` ticks on an undisturbed
+    engine: its snapshot there."""
+    eng = state_engine(key, params, mesh, device, **CHAOS_KW)
+    for r in state_requests("chaos"):
+        eng.submit(r)
+    eng.begin(0)
+    while eng.ticks < RESTORE_AT:
+        eng.step()
+    return eng.snapshot()
+
+
+def restore_serve(key, params, snap, mesh=None, device="cpu"):
+    """A fresh engine restored from ``snap`` and run to the end: its tokens
+    by rid and its leaves."""
+    eng = state_engine(key, params, mesh, device, **CHAOS_KW)
+    eng.restore(snap)
+    eng.run(0)
+    return ([list(eng.requests[rid].generated) for rid in sorted(
+        eng.requests)], leaves_of(eng))
+
+
+def disagg_serve(key, params, prefill_mesh, decode_mesh, device="cpu"):
+    """Disaggregated serving: a one-slot prefill engine hands detached
+    prefixes to a two-slot decode engine.  Returns the tokens, the
+    payloads the prefill engine extracted, the decode engine's leaves and
+    both engines' counters."""
+    from repro_torch.serving.frontdoor import DisaggController
+    pre = state_engine(key, params, prefill_mesh, device, max_slots=1,
+                       **DISAGG_KW)
+    dec = state_engine(key, params, decode_mesh, device, max_slots=2,
+                       **DISAGG_KW)
+    payloads = []
+    real = pre.extract
+
+    def extract(prefix):
+        out = real(prefix)
+        payloads.append(out.payload)
+        return out
+
+    pre.extract = extract
+    ctl = DisaggController(pre, dec)
+    reqs = state_requests("chaos")
+    ctl.generate(reqs, seed=0)
+    return {"tokens": [list(r.generated) for r in reqs],
+            "payloads": payloads, "leaves": leaves_of(dec),
+            "counters": ctl.counters}
+
+
+def state_rank(mesh, device, params_by_model, dirs) -> dict:
+    """Rank body of the state spawn: every scenario on the 2x2 mesh for
+    each model, then the restore of a 2x2 snapshot on a 1x2 mesh of the
+    first two ranks.  ``dirs[key]`` holds the directories: "single_store"
+    (written by a single-device engine before the spawn), and the mesh's
+    own "store", "tier" and "snaps"."""
+    out = {"coord": tuple(mesh.get_coordinate())}
+    for key in STATE_MODELS:
+        params, d = params_by_model[key], dirs[key]
+        res = {}
+        eng, toks = state_serve(key, params, "swap", mesh, device,
+                                fused_decode=True, **SWAP_KW)
+        res["swap"] = {"tokens": toks, "counters": dict(eng.counters),
+                       "leaves": leaves_of(eng),
+                       "memory": eng.memory_report()}
+        # The store: cold on the mesh, flushed (the record set a single
+        # device warms from after the spawn); warm from a single device's.
+        eng, toks = state_serve(key, params, "store", mesh, device,
+                                fused_decode=True, prefix_store_dir=d["store"],
+                                **STORE_KW)
+        flushed = eng.flush_prefixes()
+        res["store_cold"] = {"tokens": toks, "flushed": flushed,
+                             "leaves": leaves_of(eng)}
+        eng, toks = state_serve(key, params, "store", mesh, device,
+                                fused_decode=True,
+                                prefix_store_dir=d["single_store"],
+                                **STORE_KW)
+        res["store_warm"] = {"tokens": toks, "counters": dict(eng.counters),
+                             "leaves": leaves_of(eng)}
+        eng, toks = state_serve(key, params, "tier", mesh, device,
+                                fused_decode=False, prefix_store_dir=d["tier"],
+                                **TIER_KW)
+        res["tier"] = {"tokens": toks, "counters": dict(eng.counters),
+                       "flushed": eng.flush_prefixes(),
+                       "memory": eng.memory_report(),
+                       "leaves": leaves_of(eng)}
+        toks, rep, leaves = chaos_serve(key, params, d["snaps"], mesh, device)
+        res["chaos"] = {"tokens": toks, "report": rep, "leaves": leaves}
+        res["snapshot"] = snapshot_at(key, params, mesh, device)
+        res["disagg_in"] = disagg_serve(key, params, None, mesh, device)
+        res["disagg_out"] = disagg_serve(key, params, mesh, None, device)
+        out[key] = res
+    # The 2x2 snapshot restored on a 1x2 mesh of the surviving ranks 0-1.
+    mgr = ElasticMeshManager(model_parallel=2, devices_per_node=1)
+    sub = mgr.rebuild_mesh(mgr.decide(healthy_nodes=2))
+    mesh_group(sub)
+    out["sub"] = None
+    if sub.get_coordinate() is not None:
+        out["sub"] = {key: restore_serve(key, params_by_model[key],
+                                         out[key]["snapshot"], sub, device)
+                      for key in STATE_MODELS}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MoE under the mesh (tests/test_torch_mesh_moe.py): the three branches at
+# function level, and reduced qwen2-moe served through PagedEngine.
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+# Serving variants: the branch a 2x2 mesh runs for each.  Reduced
+# qwen2-moe has 8 routed experts: "model" divides them (EP), and so does
+# data x model (resident, when asked for); 7 experts run expert-TP.
+MOE_VARIANTS = {"ep": {}, "resident": {"moe_resident": True},
+                "tp": {"n_routed": 7}}
+# The reference's tests/test_serving.py paged geometry; capacity factor 1,
+# where capacity binds (pairs drop) at these batches.
+MOE_KW = dict(max_len=64, max_slots=2, prefill_bucket=8, page_size=8)
+MOE_NEW = 8
+MOE_FACTOR = 1.0
+MOE_MODES = ("greedy", "sampled", "spec")
+# Function-level cases: tests/test_sharding_multidev.py's shapes (d_model
+# 32, top 2 of experts of 16 hidden units, x [2, 16, 32]) at capacity
+# factor 8, where nothing drops; "c11" routes 2 x 64 tokens at factor 1.
+FN_CASES = {"ep": dict(n_routed=8),
+            "resident": dict(n_routed=8, resident=True),
+            "tp": dict(n_routed=7),
+            "c11": dict(n_routed=8, capacity_factor=1.0)}
+
+
+def moe_model_config(variant: str):
+    return reduced_config(MOE_ARCH).replace(
+        attn_impl="bitstopper_xla", bitstopper=BitStopperConfig(alpha=0.8),
+        moe_capacity_factor=MOE_FACTOR, **MOE_VARIANTS[variant])
+
+
+def moe_prompts() -> list[np.ndarray]:
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 256, n, dtype=np.int32) for n in (5, 11, 14, 9)]
+
+
+class Replay:
+    """Drafts the tokens a recorded plain run generated after the same
+    context (either package's engine calls ``propose``)."""
+
+    def __init__(self, prompts, generated):
+        self.runs = [(np.asarray(p), list(g))
+                     for p, g in zip(prompts, generated)]
+
+    def propose(self, context, k):
+        for prompt, gen in self.runs:
+            n = len(context) - len(prompt)
+            if (0 < n <= len(gen) and np.array_equal(context[:len(prompt)],
+                                                     prompt)
+                    and list(context[len(prompt):]) == gen[:n]):
+                return gen[n:n + k]
+        return []
+
+
+class DropSpy:
+    """Counts, over every MoE dispatch, the (token, expert) pairs of this
+    rank's experts that capacity dropped (another rank's pairs are not
+    this rank's to drop)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.dropped = moe, moe.dispatch_plan, 0
+
+    def _plan(self, top_i, n_local, capacity, expert_offset=0):
+        plan = self.real(top_i, n_local, capacity, expert_offset)
+        local = top_i.reshape(-1).long() - expert_offset
+        mine = ((local >= 0) & (local < n_local))[plan[0]]
+        self.dropped += int((mine & ~plan[3]).sum())
+        return plan
+
+    def __enter__(self):
+        self.moe.dispatch_plan = self._plan
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch_plan = self.real
+
+
+def moe_serve(variant, params, mode, mesh=None, device="cpu",
+              greedy_tokens=None) -> dict:
+    """Serve the MoE prompts in ``mode``; tokens, counters, the dropped
+    pairs of this rank's experts, the pool leaves and the expert bytes
+    the engine holds."""
+    cfg = moe_model_config(variant)
+    kw = dict(MOE_KW, fused_decode=True)
+    drafter = None
+    if mode == "sampled":
+        kw["temperature"] = 0.8
+    if mode == "spec":
+        kw.update(speculative="draft", draft_k=4)
+        drafter = Replay(moe_prompts(), greedy_tokens)
+    eng = PagedEngine(cfg, params, ServeConfig(mesh=mesh, **kw),
+                      device=device, drafter=drafter)
+    reqs = [Request(prompt=p, max_new_tokens=MOE_NEW) for p in moe_prompts()]
+    with DropSpy() as spy:
+        eng.generate(reqs, seed=3 if mode == "sampled" else 0)
+    experts = sum(t.numel() * t.element_size() for unit in eng.params["seg0"]
+                  for t in (unit["b0"]["moe"][k]
+                            for k in ("wi_gate", "wi_up", "wo")))
+    return {"tokens": [list(r.generated) for r in reqs],
+            "counters": dict(eng.counters), "dropped": spy.dropped,
+            "leaves": leaves_of(eng), "expert_bytes": experts}
+
+
+def moe_fn_inputs():
+    """The function-level cases: (MoEConfig, parameters, x) by name, drawn
+    from seeds by the port's init."""
+    from repro_torch.models.moe import MoEConfig, init_moe
+    out = {}
+    for i, (name, kw) in enumerate(FN_CASES.items()):
+        cfg = MoEConfig(**(dict(d_model=32, top_k=2, d_expert=16,
+                                capacity_factor=8.0) | kw))
+        g = torch.Generator().manual_seed(10 + i)
+        p = init_moe(g, cfg)
+        S = 64 if name == "c11" else 16
+        out[name] = (cfg, p, torch.randn(2, S, 32, generator=g))
+    return out
+
+
+def moe_rank(mesh, device, params_by_variant) -> dict:
+    """Rank body of the MoE spawn: each function-level case through
+    ``moe_ffn`` on the mesh (whole call and a verify's split call), then
+    every serving variant in every mode."""
+    from repro_torch.models.moe import moe_ffn
+    out = {"coord": tuple(mesh.get_coordinate()), "fn": {}, "serve": {}}
+    for name, (cfg, p, x) in moe_fn_inputs().items():
+        with DropSpy() as spy:
+            y, aux = moe_ffn(p, x, cfg, mesh=mesh)
+        ys, _ = moe_ffn(p, x, cfg, mesh=mesh, split=True)
+        out["fn"][name] = {"out": y, "aux": aux, "split": ys,
+                           "dropped": spy.dropped}
+    for variant, params in params_by_variant.items():
+        res = {}
+        for mode in MOE_MODES:
+            res[mode] = moe_serve(
+                variant, params, mode, mesh, device,
+                res["greedy"]["tokens"] if mode == "spec" else None)
+        out["serve"][variant] = res
     return out

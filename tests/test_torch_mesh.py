@@ -120,6 +120,24 @@ def _reference_params(params, key):
     return jax.tree.map(jax.numpy.asarray, tree)
 
 
+def _reference_moe_tokens(params):
+    """The reference's single-device serving of the prelude's trace by
+    reduced qwen2-moe, on the port's seeded parameters (stacked)."""
+    def host(tree):
+        return jax.tree.map(lambda t: t.numpy(), tree)
+    tree = {k: host(v) for k, v in params.items() if k != "seg0"}
+    tree["seg0"] = jax.tree.map(lambda *xs: np.stack(xs),
+                                *[host(u) for u in params["seg0"]])
+    cfg = jreduced("qwen2-moe-a2.7b").replace(
+        attn_impl="bitstopper_xla", bitstopper=JConfig(alpha=0.85))
+    eng = JEngine(cfg, jax.tree.map(jax.numpy.asarray, tree),
+                  JServe(fused_decode=False, **W.SERVE_KW))
+    reqs = [JRequest(prompt=p, max_new_tokens=W.NEW_TOKENS)
+            for p in W.prompts(cfg.vocab, {})]
+    eng.generate(reqs, seed=0)
+    return [list(map(int, r.generated)) for r in reqs]
+
+
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """One torch intra-op thread for the module, as the spawned CPU ranks
@@ -140,6 +158,8 @@ def run():
     params = {key: TT.init_model(W.model_config(key),
                                  torch.Generator().manual_seed(0), "cpu")
               for key in ("base", "mqa", "unscanned")}
+    params["moe"] = TT.init_model(W.c10_moe_config(),
+                                  torch.Generator().manual_seed(0), "cpu")
     t0 = time.monotonic()
     job = start_mesh(W.run_rank, 2, 2, device="cpu", backend="gloo",
                      args=(params,), timeout=JOIN_S)
@@ -151,7 +171,7 @@ def run():
         # the kernel do not change the reference's tokens; its own tests
         # hold each to its plain run).
         jparams = {key: _reference_params(params[key], key)
-                   for key in params}
+                   for key in ("base", "mqa", "unscanned")}
         streams = {}
         for n in MESHED:
             scen = W.SCENARIOS[n]
@@ -161,6 +181,11 @@ def run():
                     scen, jparams[scen.get("model", "base")])
         reference = {n: streams[W.stream_key(W.SCENARIOS[n])]
                      for n in W.SCENARIOS}
+        moe_single = {name: TM.moe_ffn(p, x, cfg)[0] for name, (cfg, p, x)
+                      in W.moe_fn_inputs().items() if name != "c11"}
+        api_single = W.disagg_serve("base", params["base"], None,
+                                    None)["tokens"]
+        c10_moe = _reference_moe_tokens(params["moe"])
         ranks = job.join()
     finally:
         try:
@@ -171,7 +196,9 @@ def run():
             raise
     return types.SimpleNamespace(single=single, reference=reference,
                                  ranks=ranks, one=ranks[0]["one"],
-                                 c10=(c10.returncode, out, err))
+                                 c10=(c10.returncode, out, err),
+                                 moe_single=moe_single,
+                                 api_single=api_single, c10_moe=c10_moe)
 
 
 def _heads_axis(name):
@@ -272,10 +299,15 @@ def test_serve_cli_mesh_on_cpu(run, capsys):
 
 
 def test_engine_api_refuses_under_a_mesh(run):
+    """The engine API's ``extract``/``insert`` no longer refuse a mesh
+    (its refusal went with ROADMAP A10 "Mesh state"): a single-device
+    engine's prefill inserted into a mesh decode engine, and a mesh
+    engine's prefill extracted into a single-device decode engine, both
+    give single-device disaggregated serving's tokens on every rank."""
+    assert all(run.api_single)
     for rank in run.ranks:
-        for name, (kind, msg) in rank["refusals"].items():
-            assert kind == "ValueError", (name, kind, msg)
-            assert "ROADMAP A10, 'Mesh state'" in msg, (name, msg)
+        assert rank["api"]["in"] == run.api_single
+        assert rank["api"]["out"] == run.api_single
 
 
 def test_rebuild_mesh_over_surviving_ranks(run):
@@ -296,9 +328,8 @@ def test_c10_reference_raises_where_the_port_serves(run):
     """ROADMAP C10: under its 2x2 debug mesh the reference raises
     ValueError at the first prefill for reduced stablelm-1.6b with
     ``scan_layers=False`` and for reduced qwen2-moe-a2.7b; the port serves
-    the unscanned config on its 2x2 mesh with single-device tokens (MoE
-    under a "model" dim > 1 it refuses: ``test_moe_ffn_refuses_a_model_dim``
-    below)."""
+    both on its 2x2 mesh with the reference's single-device tokens (MoE
+    through its expert-parallel branch, ``models/moe.py``)."""
     rc, out, err = run.c10
     assert rc == 0, err
     lines = dict(line.split(" ", 1) for line in out.strip().splitlines())
@@ -306,8 +337,10 @@ def test_c10_reference_raises_where_the_port_serves(run):
         assert lines[arch].startswith("ValueError"), lines[arch]
         assert "with_sharding_constraint" in lines[arch]
     want = run.reference["unscanned"]
+    assert all(run.c10_moe)
     for rank in run.ranks:
         assert rank["scenarios"]["unscanned"]["tokens"] == want
+        assert rank["c10_moe"] == run.c10_moe
 
 
 # ---------------------------------------------------------------------------
@@ -367,11 +400,12 @@ def test_serve_config_refuses_other_mesh_dims():
     with pytest.raises(ValueError, match="'data'/'model'"):
         ServeConfig(mesh=bad)
     ServeConfig(mesh=types.SimpleNamespace(mesh_dim_names=("model",)))
+    # The memory hierarchy and snapshots run under a mesh
+    # (tests/test_torch_mesh_state.py); their refusal is gone.
     for kw in (dict(oversubscribe=True, swap_host_bytes=1 << 20),
                dict(prefix_host_bytes=1 << 20), dict(prefix_store_dir="x"),
                dict(snapshot_every=2)):
-        with pytest.raises(ValueError, match="ROADMAP A10, 'Mesh state'"):
-            ServeConfig(mesh=_mesh(), **kw)
+        assert ServeConfig(mesh=_mesh(), **kw).mesh is not None
 
 
 def test_contiguous_and_static_engines_refuse_a_mesh():
@@ -382,16 +416,24 @@ def test_contiguous_and_static_engines_refuse_a_mesh():
             engine(cfg, None, scfg, device="cpu")
 
 
-def test_moe_ffn_refuses_a_model_dim():
-    """A "model" dim > 1 is refused (ROADMAP A10 "Mesh MoE", C10); a mesh
-    of "data" alone runs the single-device path."""
+def test_moe_ffn_refuses_a_model_dim(run):
+    """A "model" dim > 1 is no longer refused (ROADMAP A10 "Mesh MoE"):
+    on every rank of the 2x2 mesh the EP and resident branches give the
+    single-device ``out`` bit for bit, expert-TP within 1e-5 (its partial
+    products summed in rank order); a mesh of "data" alone runs the
+    single-device path."""
+    for rank in run.ranks:
+        for name, want in run.moe_single.items():
+            got = rank["moe_branches"][name]
+            if name == "tp":
+                torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            else:
+                assert torch.equal(got, want), name
     cfg = reduced_config("qwen2-moe-a2.7b")
     params = TT.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     p = params["seg0"][0]["b0"]["moe"]
     x = torch.randn(2, 3, cfg.d_model, generator=torch.Generator()
                     .manual_seed(1))
-    with pytest.raises(NotImplementedError, match="Mesh MoE.*C10"):
-        TM.moe_ffn(p, x, cfg.moe_config(), mesh=_mesh(2, 2))
     whole, aux = TM.moe_ffn(p, x, cfg.moe_config())
     dp, aux_dp = TM.moe_ffn(p, x, cfg.moe_config(), mesh=_mesh(2, 1))
     assert torch.equal(whole, dp) and torch.equal(aux, aux_dp)

@@ -26,6 +26,8 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import moe as TM
 from repro_torch.models import transformer as TT
 from repro_torch.serving import PagedEngine, Request, ServeConfig
+from repro_torch.sharding.api import mesh_shape
+from repro_torch.sharding.rules import moe_branch
 
 ARCH = "qwen2-moe-a2.7b"
 
@@ -178,7 +180,7 @@ def test_capacity_matches_reference(T, k, E, f):
 def test_dispatch_is_stable_and_split_routing_equal():
     """Slots follow the (token, k) order within an expert (a stable
     sort); a verify's per-column routing gives the bits of the whole-call
-    routing; a mesh is refused, naming mesh serving."""
+    routing; a mesh picks the reference's branch."""
     cfg = reduced_config(ARCH).replace(moe_capacity_factor=1.0)
     mcfg = cfg.moe_config()
     top_i = torch.tensor([[0, 1]] * 12)
@@ -193,12 +195,15 @@ def test_dispatch_is_stable_and_split_routing_equal():
     whole, a1 = TM.moe_ffn(tp, x, mcfg)
     split, a2 = TM.moe_ffn(tp, x, mcfg, split=True)
     assert torch.equal(whole, split) and torch.equal(a1, a2)
-    # A mesh with a "model" dim > 1 is refused (ROADMAP A10, "Mesh MoE");
-    # the stand-in carries what moe_ffn reads of a DeviceMesh.
+    # A mesh with a "model" dim > 1 runs the reference's branch for the
+    # config (tests/test_torch_mesh_moe.py holds each on a 2x2 mesh); the
+    # stand-in carries what the choice reads of a DeviceMesh.
     mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
                                  mesh=torch.arange(4).reshape(2, 2))
-    with pytest.raises(NotImplementedError, match="Mesh MoE"):
-        TM.moe_ffn(tp, x, mcfg, mesh=mesh)
+    shape = mesh_shape(mesh)
+    assert moe_branch(shape, mcfg.n_routed, mcfg.resident) == "ep"
+    assert moe_branch(shape, mcfg.n_routed, True) == "resident"
+    assert moe_branch(shape, 7, False) == "tp"
 
 
 @pytest.fixture(scope="module")
