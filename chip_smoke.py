@@ -185,14 +185,33 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    decode launches a tick, and replayed speculation's
    single-device tokens with 4 verify launches a verify tick; prints the
    combine's gather ms per MoE layer;
-16. prints one JSON line describing each kernel (the bf16 forms, the
+16. baselines, right after the forward path: the paper's comparison on
+   layer 0's q, k and v of full-width stablelm-1.6b over one 1024-token
+   prompt (32 heads of 64, causal): dense INT12, Sanger, SOFA, TokenPicker
+   and BESF (``core/baselines.py``, ``core/besf.py``) on the card and on
+   the CPU, every mask and fetch counter equal and ``out`` within
+   OUT_TOL; prints each method's ``core/stats.py`` Complexity in both
+   accounting modes and BESF's K+V bytes and bit-MACs relative to the
+   others (counts on random weights, not times);
+17. train, last: stablelm-1.6b at its published width, f32, AdamW in f32:
+   (a) full depth through ``train.trainer.Trainer`` at the launcher's
+   defaults (batch 8, seq 256, 4 steps; ms per step, tokens/s, peak
+   memory, loss and grad norm per step, the final checkpoint's bytes and
+   ms), then one forward and backward under each remat policy from the
+   trained state (losses and grad norms equal; peak memory of each); (b)
+   depth 2, one 1 x 128 batch: the card's loss and global grad norm within
+   TRAIN_CPU_TOL of the CPU's; (c) depth 2 under
+   ``torch.use_deterministic_algorithms``: train(4) equal bit for bit to
+   train(2) and a resumed train(2) (checkpoint bytes, save and load ms);
+18. prints one JSON line describing each kernel (the bf16 forms, the
    D=128 shapes and the mesh shards under each kernel's row), then the
    device line last.
 
 Any failed check exits non-zero.  Without a card it exits non-zero and
 prints no result.  ``--profile`` instead profiles decode ticks, a prefill
 chunk, verify ticks and one cache-free forward with each attention kernel
-(device time by kernel, busy share).
+(device time by kernel, busy share); ``--train`` runs only the baselines
+and train phases (no kernel build, no result line).
 """
 
 from __future__ import annotations
@@ -3980,6 +3999,338 @@ def zoo_phase(torch):
         torch.cuda.empty_cache()
 
 
+BASELINE_S = 1024                # the baselines phase's prompt
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 256   # the launcher's defaults
+TRAIN_CUT = 2                    # depth of the train phase's (b) and (c)
+TRAIN_CPU_TOL = 1e-4             # card vs CPU loss and grad norm, relative
+
+
+def layer0_qkv(torch, cfg, params, tokens):
+    """Layer 0's rotated q and k and its v over ``tokens`` [1, S], head
+    major: [H, S, D] each."""
+    from repro_torch.models import layers as L
+    p = params["seg0"][0]["b0"]
+    h = L.norm(p["norm1"], L.embed(params["embed"], tokens))
+    pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    q = L.rope(L.linear(p["attn"]["wq"], h), pos, cfg.rope_theta)
+    k = L.rope(L.linear(p["attn"]["wk"], h), pos, cfg.rope_theta)
+    v = L.linear(p["attn"]["wv"], h)
+    return tuple(t[0].transpose(0, 1).contiguous() for t in (q, k, v))
+
+
+def baseline_runs(torch, q, k, v):
+    """The paper's comparison on one device: (out, integer info) of dense
+    INT12, Sanger, SOFA, TokenPicker and BESF, causal, and each call's ms."""
+    from repro_torch.core import baselines as B
+    from repro_torch.core.besf import besf_attention
+    runs = {}
+    for name, fn in (("dense", B.dense_attention),
+                     ("sanger", B.sanger_attention),
+                     ("sofa", B.sofa_attention),
+                     ("tokenpicker", B.tokenpicker_attention)):
+        t = time.perf_counter()
+        out, info = fn(q, k, v, causal=True)
+        keys = [key for key in ("mask", "kept", "valid", "chunks_fetched")
+                if info.get(key) is not None]
+        runs[name] = (out, {key: info[key] for key in keys})
+        if q.is_cuda:
+            torch.cuda.synchronize()
+        runs[name] += ((time.perf_counter() - t) * 1e3,)
+    t = time.perf_counter()
+    res = besf_attention(q, k, v, causal=True)
+    if q.is_cuda:
+        torch.cuda.synchronize()
+    runs["besf"] = (res.out, res.stats._asdict(),
+                    (time.perf_counter() - t) * 1e3)
+    return runs
+
+
+@phase("baselines")
+def baselines_phase(torch, cfg, params):
+    """The paper's baselines and traffic statistics on layer 0 of
+    full-width stablelm-1.6b over one 1024-token prompt (32 heads of 64,
+    causal): dense INT12, Sanger, SOFA, TokenPicker and BESF on the card
+    and on the CPU; every mask and counter equal, ``out`` within OUT_TOL;
+    then each method's Complexity in both accounting modes and BESF's K+V
+    bytes and bit-MACs relative to Sanger and SOFA (counts, not times)."""
+    import numpy as np
+    from repro_torch.core import stats as ST
+    tokens = torch.as_tensor(np.random.default_rng(13).integers(
+        0, cfg.vocab, (1, BASELINE_S)), device="cuda")
+    with torch.no_grad():
+        q, k, v = layer0_qkv(torch, cfg, params, tokens)
+        card = baseline_runs(torch, q, k, v)
+        cpu = baseline_runs(torch, q.cpu(), k.cpu(), v.cpu())
+    H, S, d = q.shape
+    failed = []
+    for name, (out, info, ms) in card.items():
+        c_out, c_info, c_ms = cpu[name]
+        same = {key: bool(torch.equal(val.cpu(), c_info[key]))
+                for key, val in info.items()}
+        err = float((out.cpu() - c_out).abs().max())
+        failed += [f"{name} {key}" for key, ok in same.items() if not ok]
+        if not err <= OUT_TOL:
+            failed.append(f"{name} out {err}")
+        print(f"[chip_smoke] baselines {name}: card {ms:.1f} ms, CPU "
+              f"{c_ms:.1f} ms; integers equal to the CPU's {same}; out "
+              f"max|diff| {err:.3e}")
+    if failed:
+        raise SystemExit(f"[chip_smoke] baselines: card and CPU differ: "
+                         f"{failed}")
+    summary = {}
+    for mode in ("per_pair", "shared"):
+        dn = ST.dense_complexity(S, S, d, d)
+        cx = {"dense": ST.Complexity(dn.k_bytes * H, dn.v_bytes * H,
+                                     dn.compute_bitmacs * H)}
+        for name in ("sanger", "sofa"):
+            cx[name] = ST.predictor_complexity(S, S, d, d,
+                                               card[name][1]["kept"], 4,
+                                               mode=mode, batch=H)
+        tp = card["tokenpicker"][1]
+        cx["tokenpicker"] = ST.chunk_progressive_complexity(
+            tp["chunks_fetched"], tp["kept"], d, d, mode=mode)
+        bs = card["besf"][1]
+        cx["besf"] = ST.besf_complexity(bs["planes_fetched"],
+                                        bs["survivors"], d, d, mode=mode)
+        summary[mode] = {
+            "complexity": {n: {"k_bytes": c.k_bytes, "v_bytes": c.v_bytes,
+                               "bitmacs": c.compute_bitmacs}
+                           for n, c in cx.items()},
+            "besf_vs": {n: cx["besf"].normalized_to(cx[n])
+                        for n in ("dense", "sanger", "sofa", "tokenpicker")}}
+        for n, c in cx.items():
+            print(f"[chip_smoke] baselines {mode} {n}: K {c.k_bytes:.0f} B, "
+                  f"V {c.v_bytes:.0f} B, {c.compute_bitmacs:.0f} bit-MACs")
+        for n, r in summary[mode]["besf_vs"].items():
+            print(f"[chip_smoke] baselines {mode}: BESF / {n}: K+V bytes "
+                  f"{r['mem']:.4f}, bit-MACs {r['compute']:.4f}")
+    print(f"[chip_smoke] baselines summary: {json.dumps(summary)}")
+    return summary
+
+
+def tree_bytes(root):
+    import os
+    return sum(os.path.getsize(os.path.join(d, n))
+               for d, _, names in os.walk(root) for n in names)
+
+
+def train_remat_step(torch, TS, O, cfg, tcfg, params, batch):
+    """Loss, global grad norm, peak bytes above the state and ms of one
+    forward and backward under each remat policy, from the same params."""
+    out = {}
+    for policy in ("none", "full", "dots"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss, grads = TS.value_and_grad(params, batch,
+                                        cfg.replace(remat=policy), tcfg)
+        gnorm = O.global_norm(grads)
+        torch.cuda.synchronize()
+        out[policy] = {"loss": float(loss), "grad_norm": float(gnorm),
+                       "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                       "ms": (time.perf_counter() - t) * 1e3}
+        del grads
+    return out
+
+
+@phase("train")
+def train_phase(torch):
+    """Single-device training of stablelm-1.6b at its published width (f32,
+    AdamW in f32): (a) full depth through ``Trainer`` at the launcher's
+    defaults (batch 8, seq 256, 4 steps): ms per step after the first,
+    tokens/s, peak memory, loss and grad norm per step, its final
+    checkpoint's bytes and ms; then one forward and backward under each
+    remat policy from the trained state (losses and grad norms equal, peak
+    memory of each); (b) depth 2, one 1x128 batch: the card's loss and
+    global grad norm within TRAIN_CPU_TOL of the CPU's; (c) depth 2 under
+    deterministic algorithms: train(4) straight equals train(2) and a
+    resumed train(2) bit for bit, with checkpoint bytes and save and load
+    ms."""
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config("stablelm-1.6b")
+    tcfg = TS.TrainConfig(optimizer=O.AdamWConfig(lr=3e-4),
+                          total_steps=TRAIN_STEPS,
+                          warmup_steps=max(TRAIN_STEPS // 10, 1))
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    print(f"[chip_smoke] train checkpoints under {root}: "
+          f"{shutil.disk_usage(root).free / 2**30:.1f} GiB free")
+
+    def trainer(c, d, steps):
+        return Trainer(c, tcfg, TrainerConfig(steps=steps, ckpt_every=100,
+                                              ckpt_dir=f"{root}/{d}",
+                                              log_every=0),
+                       data_cfg=data, device="cuda")
+
+    summary, failed = {}, []
+    try:
+        # (a) full depth through the Trainer.
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = trainer(cfg, "a", TRAIN_STEPS)
+        state = tr.train()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(p.numel() for p in O.tree_leaves(state["params"]))
+        ms = [m["step_time"] * 1e3 for m in tr.metrics_log]
+        steady = float(np.mean(ms[1:]))
+        ck = f"{root}/a/step_{TRAIN_STEPS:08d}"
+        summary["a"] = {
+            "params": n_params, "step_ms": ms, "steady_step_ms": steady,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
+            "peak_bytes": peak,
+            "loss": [m["loss"] for m in tr.metrics_log],
+            "grad_norm": [m["grad_norm"] for m in tr.metrics_log],
+            "ckpt_bytes": tree_bytes(ck),
+            "ckpt_save_ms": [e[2] * 1e3 for e in tr.ckpt_events]}
+        shutil.rmtree(f"{root}/a", ignore_errors=True)
+        if not all(np.isfinite(summary["a"]["loss"] +
+                               summary["a"]["grad_norm"])):
+            failed.append("(a) losses or grad norms not finite")
+        batch = torch.as_tensor(tr.dataset.batch_at(TRAIN_STEPS),
+                                device="cuda")
+        rem = train_remat_step(torch, TS, O, cfg, tcfg, state["params"],
+                               batch)
+        summary["remat"] = rem
+        for policy in ("full", "dots"):
+            for key in ("loss", "grad_norm"):
+                if rem[policy][key] != rem["none"][key]:
+                    failed.append(f"remat {policy} {key} "
+                                  f"{rem[policy][key]!r} != "
+                                  f"{rem['none'][key]!r}")
+        a = summary["a"]
+        print(f"[chip_smoke] train (a) {cfg.name} full depth "
+              f"({cfg.n_layers} layers, {n_params} f32 parameters), batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}: step ms "
+              f"{[round(x, 3) for x in ms]}"
+              f", {steady:.3f} ms a step after the first, "
+              f"{a['tokens_per_s']:.1f} tokens/s, peak "
+              f"{peak / 2**30:.3f} GiB; loss {a['loss']}, grad norm "
+              f"{a['grad_norm']}; final checkpoint {a['ckpt_bytes']} bytes "
+              f"in {a['ckpt_save_ms']} ms")
+        for policy, r in rem.items():
+            print(f"[chip_smoke] train (a) remat {policy}: loss "
+                  f"{r['loss']!r}, grad norm {r['grad_norm']!r}, peak "
+                  f"{r['peak_bytes'] / 2**30:.3f} GiB above the state, "
+                  f"{r['ms']:.1f} ms")
+        del tr, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the card against the CPU, depth TRAIN_CUT.
+        cut = cfg.replace(segments=((cfg.segments[0][0], TRAIN_CUT),))
+        params = TS.trainable(T.init_model(
+            cut, torch.Generator(device="cuda").manual_seed(1), "cuda"))
+        host = O.tree_map(lambda p: p.detach().cpu().requires_grad_(True),
+                          params)
+        tokens = np.random.default_rng(3).integers(0, cfg.vocab, (1, 128))
+        res = {}
+        for label, dev, p in (("card", "cuda", params), ("host", "cpu", host)):
+            t = time.perf_counter()
+            loss, grads = TS.value_and_grad(
+                p, torch.as_tensor(tokens, device=dev), cut, tcfg)
+            res[label] = (float(loss), float(O.global_norm(grads)),
+                          (time.perf_counter() - t) * 1e3, grads)
+        leaf_gap = max(
+            float((g.cpu() - h).abs().max()) / max(float(h.abs().max()),
+                                                   1e-30)
+            for g, h in zip(O.tree_leaves(res["card"][3]),
+                            O.tree_leaves(res["host"][3])))
+        rel = {key: abs(res["card"][i] - res["host"][i])
+               / abs(res["host"][i])
+               for i, key in enumerate(("loss", "grad_norm"))}
+        summary["b"] = {"card": res["card"][:3], "cpu": res["host"][:3],
+                        "rel": rel, "max_leaf_gap": leaf_gap}
+        failed += [f"(b) {k} {v:.3e}" for k, v in rel.items()
+                   if not v <= TRAIN_CPU_TOL]
+        print(f"[chip_smoke] train (b) depth {TRAIN_CUT}, 1 x 128: card "
+              f"loss {res['card'][0]!r}, grad norm {res['card'][1]!r} "
+              f"({res['card'][2]:.1f} ms); CPU loss {res['host'][0]!r}, "
+              f"grad norm {res['host'][1]!r} ({res['host'][2]:.1f} ms); "
+              f"relative gaps {rel}, largest leaf gap {leaf_gap:.3e} of "
+              f"that leaf's max |g| (tolerance {TRAIN_CPU_TOL} on loss and "
+              f"grad norm)")
+        del params, host, res, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) resume, bit for bit, under deterministic algorithms.
+        env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        prev = (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                straight = trainer(cut, "c1", TRAIN_STEPS).train()
+                first = trainer(cut, "c2", TRAIN_STEPS // 2)
+                first.train()
+                resumed = trainer(cut, "c2", TRAIN_STEPS)
+                state = resumed.train()
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+            if env is None:
+                os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        refused = sorted({str(w.message)[:160] for w in caught
+                          if "determinis" in str(w.message)})
+        pairs = [(x, y) for key in ("params",)
+                 for x, y in zip(O.tree_leaves(state[key]),
+                                 O.tree_leaves(straight[key]))]
+        pairs += list(zip(O.tree_leaves([state["opt"]["m"],
+                                         state["opt"]["v"]]),
+                          O.tree_leaves([straight["opt"]["m"],
+                                         straight["opt"]["v"]])))
+        differ = sum(not torch.equal(x, y) for x, y in pairs)
+        same_step = int(state["opt"]["step"]) == TRAIN_STEPS
+        if differ or not same_step:
+            failed.append(f"(c) resumed state differs from the straight "
+                          f"run's in {differ} of {len(pairs)} leaves")
+        events = first.ckpt_events + resumed.ckpt_events
+        summary["c"] = {
+            "leaves": len(pairs), "differ": differ,
+            "ckpt_bytes": tree_bytes(f"{root}/c2/step_"
+                                     f"{TRAIN_STEPS // 2:08d}"),
+            "save_ms": [e[2] * 1e3 for e in events if e[0] == "save"],
+            "load_ms": [e[2] * 1e3 for e in events if e[0] == "load"],
+            "nondeterministic_ops": refused}
+        c = summary["c"]
+        print(f"[chip_smoke] train (c) depth {TRAIN_CUT}: train("
+              f"{TRAIN_STEPS}) against train({TRAIN_STEPS // 2}) + resumed "
+              f"train({TRAIN_STEPS // 2}): {len(pairs) - differ} of "
+              f"{len(pairs)} parameter and moment leaves bit-equal; a "
+              f"checkpoint {c['ckpt_bytes']} bytes, saves "
+              f"{[round(x, 1) for x in c['save_ms']]} ms, load "
+              f"{[round(x, 1) for x in c['load_ms']]} ms; ops without a "
+              f"deterministic form: {refused or 'none'}")
+        del straight, state, first, resumed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[chip_smoke] train summary: {json.dumps(summary)}")
+    if failed:
+        raise SystemExit(f"[chip_smoke] train failed: {failed}")
+    return summary
+
+
 MESH_DP, MESH_TP = 2, 2
 MESH_NEW_TOKENS = 8
 MESH_DEPTH = 4                   # the stablelm and MoE mesh paths' cut
@@ -4727,9 +5078,21 @@ def main(argv=None):
     ap.add_argument("--mesh", action="store_true",
                     help="only the mesh phases: the shard kernels and the "
                          "2x2 mesh path (prints no result line)")
+    ap.add_argument("--train", action="store_true",
+                    help="only the baselines and train phases (prints no "
+                         "result line)")
     args = ap.parse_args(argv)
     import torch
     name, smi = device_phase(torch)
+    if args.train:
+        print(smi)
+        cfg, params = build_model(torch)
+        baselines_phase(torch, cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_phase(torch)
+        return
     build_phase()
     if args.profile:
         print(smi)
@@ -4785,6 +5148,7 @@ def main(argv=None):
         torch, cfg, params, plain_reqs)
     rows[2]["launches"], rows[3]["launches"] = forward_path_phase(
         torch, cfg, params)
+    baselines_phase(torch, cfg, params)
     rows[0]["launches_mesh_path"], rows[1]["launches_mesh_path"] = \
         mesh_path_phase(torch, cfg, params, plain_reqs)
     (rows[0]["launches_sampled_path"], rows[1]["launches_sampled_path"],
@@ -4817,6 +5181,7 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     zoo_phase(torch)
+    train_phase(torch)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
-"""Atomic crash snapshots and the persistent prefix store (the serving
-half of the reference's ``checkpoint/`` package)."""
+"""Atomic pytree checkpoints, crash snapshots and the persistent prefix
+store."""
 
 from repro_torch.checkpoint.store import (  # noqa: F401
-    gc_staging, latest_step, list_prefix_records, load_prefix_record,
-    load_snapshot, prefix_record_name, prefix_store_bytes,
-    save_prefix_record, save_snapshot,
+    CheckpointManager, gc_staging, latest_step, list_prefix_records,
+    load_checkpoint, load_prefix_record, load_snapshot, prefix_record_name,
+    prefix_store_bytes, save_checkpoint, save_prefix_record, save_snapshot,
 )

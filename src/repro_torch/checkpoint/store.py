@@ -1,9 +1,12 @@
-"""Crash snapshots and the persistent prefix store, staged then promoted.
+"""Pytree checkpoints, crash snapshots and the persistent prefix store,
+staged then promoted.
 
-Counterpart of the snapshot and prefix-record halves of
-``repro/checkpoint/store.py``, with the same on-disk layout, so a
-directory written by either package loads in the other::
+Counterpart of ``repro/checkpoint/store.py``, with the same on-disk
+layout, so a directory written by either package loads in the other::
 
+    <dir>/step_<NNNNNNNN>/shard_<i>.npz    a checkpoint's leaves, round robin
+    <dir>/step_<NNNNNNNN>/MANIFEST.json    {"step": N, "n_shards": n,
+                                            "paths": [leaf paths]}
     <dir>/step_<NNNNNNNN>/snapshot.json    the engine's snapshot()
     <dir>/step_<NNNNNNNN>/MANIFEST.json    {"step": N, "kind": "snapshot"}
     <dir>/prefix_<digest>/record.npz       one prefix block's rows,
@@ -37,8 +40,15 @@ device writes: it gathers a record from the ranks' KV heads, and the rank
 at the mesh's first position alone writes it, handing the outcome to the
 others (``sharding/api.py:write_once``) before any of them reads.
 
-The pytree checkpoints of the reference (``save_checkpoint``,
-``load_checkpoint``, ``CheckpointManager``) come with training (ROADMAP).
+A checkpoint is a tree of nested dicts and lists with tensor or numpy
+leaves.  Its leaf paths are the reference's (``jax.tree_util`` order: dict
+keys sorted, list entries by index, joined with "/"), and an npz key is
+its path with "/" written "__".  The train state goes to disk in the
+reference's layout (``train/train_step.py:state_to_numpy``: scanned
+segments stacked), so ``params/seg0/b0/attn/wq/w``, ``opt/m/...`` and
+``opt/step`` name the same arrays in both packages.  :class:`CheckpointManager`
+saves in a background thread from a host copy taken at the call, keeps the
+newest ``keep`` steps and reclaims staging orphans.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ import json
 import os
 import shutil
 import tempfile
+import threading
 import time
 import zipfile
 
@@ -86,6 +97,150 @@ def _promote(tmp: str, final: str) -> None:
         # Another writer promoted the same step between the rmtree and the
         # replace; its copy is equivalent.
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Pytree checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _leaf_paths(tree, prefix=()):
+    """(path, leaf) pairs in ``jax.tree_util`` order: dict keys sorted, list
+    entries by index; None is an empty subtree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, prefix + (str(i),))
+    elif tree is not None:
+        yield "/".join(prefix), tree
+
+
+def _map_paths(fn, tree, prefix=()):
+    """``fn(path, leaf)`` over a tree, keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, prefix + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_paths(fn, v, prefix + (str(i),))
+                for i, v in enumerate(tree)]
+    if tree is None:
+        return None
+    return fn("/".join(prefix), tree)
+
+
+def _host_copy(leaf) -> np.ndarray:
+    """A leaf as a host array that owns its memory (a CPU tensor's
+    ``numpy()`` shares it): bf16 as its bits, uint16."""
+    import torch
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        a = t.cpu().numpy()
+        if t.device.type == "cpu":
+            a = a.copy()
+        return a.view(np.uint16) if leaf.dtype == torch.bfloat16 else a
+    return np.array(leaf, copy=True)
+
+
+def save_checkpoint(tree, directory: str, step: int, n_shards: int = 4):
+    """Write ``tree`` as ``step_<N>/`` (staged, then promoted): leaf i goes
+    to ``shard_{i % n_shards}.npz``, in leaf-path order."""
+    pairs = list(_leaf_paths(tree))
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = _stage(directory, step)
+    shards: list[dict] = [dict() for _ in range(n_shards)]
+    for i, (p, leaf) in enumerate(pairs):
+        a = leaf if isinstance(leaf, np.ndarray) else _host_copy(leaf)
+        shards[i % n_shards][p.replace("/", "__")] = a
+    for si, shard in enumerate(shards):
+        _savez(os.path.join(tmp, f"shard_{si}.npz"), shard)
+    manifest = {"step": step, "n_shards": n_shards,
+                "paths": [p for p, _ in pairs]}
+    with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
+        json.dump(manifest, f)
+    _promote(tmp, final)
+    return final
+
+
+def load_checkpoint(tree_like, directory: str, step: int | None = None):
+    """Restore into the structure of ``tree_like``; ``step=None`` takes the
+    latest.  A tensor leaf of ``tree_like`` gives a tensor of its dtype on
+    its device, a numpy leaf an array of its dtype (bf16 bits as uint16).
+    bf16 leaves load from either package's files (the reference cannot
+    load them, not even its own: ROADMAP C13).  Returns ``(tree, step)``."""
+    import torch
+    from repro_torch.models.attention import tensor_from_host
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {directory}")
+    d = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(d, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    data: dict[str, np.ndarray] = {}
+    for si in range(manifest["n_shards"]):
+        with np.load(os.path.join(d, f"shard_{si}.npz")) as z:
+            for k in z.files:
+                data[k.replace("__", "/")] = z[k]
+
+    def restore(path, ref):
+        arr = data[path]
+        if isinstance(ref, torch.Tensor):
+            return tensor_from_host(arr, ref.device).to(ref.dtype)
+        if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+            arr = arr.view(np.uint16)                # bf16 bits
+        return np.asarray(arr, dtype=np.asarray(ref).dtype)
+
+    return _map_paths(restore, tree_like), step
+
+
+class CheckpointManager:
+    """Async save and retention; ``wait()`` before the process exits."""
+
+    def __init__(self, directory: str, keep: int = 3, n_shards: int = 4):
+        self.directory = directory
+        self.keep = keep
+        self.n_shards = n_shards
+        self._thread: threading.Thread | None = None
+        os.makedirs(directory, exist_ok=True)
+
+    def save_async(self, tree, step: int):
+        """Snapshot ``tree`` to host memory now, write it in a thread."""
+        host_tree = _map_paths(lambda _, leaf: _host_copy(leaf), tree)
+        self.wait()
+
+        def worker():
+            save_checkpoint(host_tree, self.directory, step, self.n_shards)
+            self._gc()
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def save_sync(self, tree, step: int):
+        save_checkpoint(tree, self.directory, step, self.n_shards)
+        self._gc()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def restore(self, tree_like, step: int | None = None):
+        return load_checkpoint(tree_like, self.directory, step)
+
+    def _gc(self):
+        steps = sorted(
+            int(n.split("_")[1]) for n in os.listdir(self.directory)
+            if n.startswith("step_") and ".tmp" not in n)
+        for s in steps[: -self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
+                          ignore_errors=True)
+        # Staging dirs orphaned by a crash, once older than any save in
+        # flight could be.
+        gc_staging(self.directory, grace=600.0)
 
 
 def save_snapshot(obj, directory: str, step: int, interrupt=None) -> str:

@@ -9,11 +9,20 @@ survives, also at alpha = 0).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 # A finite "minus infinity": the online softmax tests ``m == NEG_INF`` to
 # recognise a row that has seen no survivor yet.
 NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class LATSConfig:
+    alpha: float = 0.6          # pruning aggressiveness (paper: 0.2..0.8)
+    radius: float = 5.0         # logit-domain radius (paper default)
+    bits: int = 12              # quantization width
 
 
 def lats_threshold(lower: torch.Tensor, valid: torch.Tensor, alpha: float,

@@ -14,9 +14,34 @@ scale and bf16 quotients, each a correctly rounded bf16 operation.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 DEFAULT_BITS = 12
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantParams:
+    """Symmetric per-tensor quantization parameters."""
+
+    scale: torch.Tensor  # scalar f32: x_float ~= x_int * scale
+    bits: int = DEFAULT_BITS
+
+    @property
+    def qmax(self) -> int:
+        return 2 ** (self.bits - 1) - 1
+
+    @property
+    def qmin(self) -> int:
+        return -(2 ** (self.bits - 1))
+
+
+def plane_weights(bits: int = DEFAULT_BITS, dtype=torch.float32,
+                  device=None) -> torch.Tensor:
+    """Weight of each bit plane, MSB (sign) first: [-2^(b-1), 2^(b-2), ...,
+    1]."""
+    return plane_weights_int(bits, device).to(dtype)
 
 
 def plane_weights_int(bits: int = DEFAULT_BITS,
@@ -38,6 +63,29 @@ def quantize(x: torch.Tensor, bits: int = DEFAULT_BITS, dims=None):
     scale = torch.clamp(amax, min=1e-12) / qmax
     q = torch.clamp(torch.round(x / scale), -(qmax + 1), qmax)
     return q.to(torch.int32), scale.float()
+
+
+def reciprocal(c: float) -> torch.Tensor:
+    """``1 / f32(c)`` in f32: inside ``jax.jit`` XLA turns a division by a
+    constant into a product with this reciprocal, so the reference's jitted
+    callers get ``x * reciprocal(c)`` where their source says ``x / c``."""
+    return torch.tensor(1.0) / torch.tensor(c, dtype=torch.float32)
+
+
+def quantize_folded(x: torch.Tensor, bits: int = DEFAULT_BITS):
+    """The reference's ``quantize`` as its jitted callers (the baselines,
+    ``quantize_and_pack``) compute it: the scale is ``max(max|x|, 1e-12) *
+    reciprocal(qmax)``, which can differ from :func:`quantize`'s quotient
+    in the last bit.  Returns (int32 values, :class:`QuantParams`)."""
+    qmax = 2 ** (bits - 1) - 1
+    scale = torch.clamp(x.abs().amax(), min=1e-12) * reciprocal(qmax).to(
+        x.device)
+    q = torch.clamp(torch.round(x / scale), -(qmax + 1), qmax)
+    return q.to(torch.int32), QuantParams(scale=scale.float(), bits=bits)
+
+
+def dequantize(q: torch.Tensor, params: QuantParams) -> torch.Tensor:
+    return q.float() * params.scale
 
 
 def scale_from_amax(amax: torch.Tensor, bits: int = DEFAULT_BITS):
@@ -68,6 +116,15 @@ def from_bitplanes(planes: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`to_bitplanes` -> int32 values."""
     bits = planes.shape[0]
     w = plane_weights_int(bits, planes.device).to(torch.int64)
+    w = w.reshape((bits,) + (1,) * (planes.ndim - 1))
+    return (w * planes.to(torch.int64)).sum(0).to(torch.int32)
+
+
+def partial_value(planes: torch.Tensor, r: int) -> torch.Tensor:
+    """Value reconstructed from planes 0..r inclusive (later bits 0)."""
+    bits = planes.shape[0]
+    w = plane_weights_int(bits, planes.device).to(torch.int64)
+    w = w * (torch.arange(bits, device=planes.device) <= r)
     w = w.reshape((bits,) + (1,) * (planes.ndim - 1))
     return (w * planes.to(torch.int64)).sum(0).to(torch.int32)
 
@@ -111,3 +168,10 @@ def pack_pool_planes(pool: torch.Tensor, amax: torch.Tensor,
     w = (1 << torch.arange(8, dtype=torch.int32, device=pool.device))
     packed = (pk * w.reshape(1, 1, 1, 8, 1, 1)).sum(3)
     return packed.to(torch.uint8).permute(1, 0, 2, 3, 4).contiguous()
+
+
+def quantize_and_pack(k: torch.Tensor, bits: int = DEFAULT_BITS):
+    """Float K [S, d] -> (packed planes uint8[bits, S//8, d], scale), as
+    the reference's jitted function computes them (:func:`quantize_folded`)."""
+    q, params = quantize_folded(k, bits)
+    return pack_planes_seq(to_bitplanes(q, bits)), params.scale

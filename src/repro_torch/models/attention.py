@@ -4,8 +4,9 @@ Counterpart of ``repro/models/attention.py`` for the cache-free forward
 and the paths serving runs:
 
 * the cache-free forward (``cache=None``) for every score path: ``xla``,
-  chunked online-softmax attention in plain torch (``chunked_attention``,
-  forward only; grouped GQA, no KV repetition); ``flash``, the dense CUDA
+  chunked online-softmax attention in plain torch (``chunked_attention``;
+  grouped GQA, no KV repetition; with the reference's manual backward,
+  the training path); ``flash``, the dense CUDA
   kernel ``kernels/flash_attention``; ``bitstopper``, the fused BESF CUDA
   kernel ``kernels/bitstopper_qk``; ``bitstopper_xla``, the block oracle
   in plain torch.  The two kernel paths run their plain versions for CPU
@@ -140,14 +141,15 @@ def _mask_block(q_pos, k_pos, causal: bool, window: int | None):
 
 
 def _chunked_fwd(q, k, v, q_pos, k_pos, causal, window, cq, ck):
-    """Forward of the reference's ``_fwd_impl`` at padded shapes: q
-    [B, Sq, Hkv, G, D] grouped, k/v [B, Sk, Hkv, D] -> out [B, Sq, Hkv, G,
-    Dv].  (The log-sum-exp it also returns there feeds the manual
-    backward, which comes with training.)"""
+    """The reference's ``_fwd_impl`` at padded shapes: q [B, Sq, Hkv, G, D]
+    grouped, k/v [B, Sk, Hkv, D] -> (out [B, Sq, Hkv, G, Dv] f32, lse [B,
+    Hkv, G, Sq]).  ``lse`` is each row's log-sum-exp ``m + log l`` (0 for a
+    row with no valid key), the normalizer the manual backward recomputes
+    the probabilities from."""
     B, Sq, Hkv, G, D = q.shape
     Sk = k.shape[1]
     sm_scale = 1.0 / D ** 0.5
-    outs = []
+    outs, lses = [], []
     for q0 in range(0, Sq, cq):
         qc = q[:, q0:q0 + cq].float()
         m_run = torch.full((B, Hkv, G, cq), NEG_INF, dtype=torch.float32,
@@ -171,9 +173,76 @@ def _chunked_fwd(q, k, v, q_pos, k_pos, causal, window, cq, ck):
             acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
                                                        p, vc)
             m_run = m_new
-        out = acc / torch.clamp(l_run, min=1e-30)[..., None]
+        l_safe = torch.clamp(l_run, min=1e-30)
+        out = acc / l_safe[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4))            # [B,cq,Hkv,G,Dv]
-    return torch.cat(outs, 1)
+        lses.append(torch.where(l_run > 0, m_run + torch.log(l_safe),
+                                torch.zeros_like(l_run)))
+    return torch.cat(outs, 1), torch.cat(lses, -1)
+
+
+def _chunked_bwd(q, k, v, q_pos, k_pos, out, lse, dout, causal, window, cq,
+                 ck):
+    """The reference's manual flash-style backward (``_make_chunked_attn``'s
+    ``bwd``): every tile's probabilities are recomputed from (q, k, lse),
+    so nothing larger than one tile lives beyond O(S x D).  An outer loop
+    over KV chunks carries ``dq``; an inner loop over Q chunks accumulates
+    the chunk's ``dk``/``dv``, summed over the G query heads of each KV head.
+    Masked pairs (causal, window, pad positions) get probability 0, so pad
+    rows receive and give no gradient."""
+    B, Sq, Hkv, G, D = q.shape
+    Sk = k.shape[1]
+    sm_scale = 1.0 / D ** 0.5
+    dout = dout.float()
+    # Per-row correction term delta_i = sum_d dout_i . out_i.
+    delta = torch.einsum("bqhgd,bqhgd->bhgq", dout, out.float())
+    qf = q.float()
+    dq = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for k0 in range(0, Sk, ck):
+        kc, vc = k[:, k0:k0 + ck].float(), v[:, k0:k0 + ck].float()
+        dk_c = torch.zeros(kc.shape, dtype=torch.float32, device=q.device)
+        dv_c = torch.zeros(vc.shape, dtype=torch.float32, device=q.device)
+        dq_parts = []
+        for q0 in range(0, Sq, cq):
+            qi, doi = qf[:, q0:q0 + cq], dout[:, q0:q0 + cq]
+            lsei, deli = lse[..., q0:q0 + cq], delta[..., q0:q0 + cq]
+            logits = torch.einsum("bqhgd,bkhd->bhgqk", qi, kc) * sm_scale
+            mask = _mask_block(q_pos[q0:q0 + cq], k_pos[k0:k0 + ck], causal,
+                               window)
+            p = torch.where(mask, torch.exp(logits - lsei[..., None]),
+                            torch.zeros_like(logits))
+            dv_c = dv_c + torch.einsum("bhgqk,bqhgd->bkhd", p, doi)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", doi, vc)
+            ds = p * (dp - deli[..., None]) * sm_scale
+            dq_parts.append(torch.einsum("bhgqk,bkhd->bqhgd", ds, kc))
+            dk_c = dk_c + torch.einsum("bhgqk,bqhgd->bkhd", ds, qi)
+        dq = dq + torch.cat(dq_parts, 1)
+        dks.append(dk_c)
+        dvs.append(dv_c)
+    return (dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """Chunked attention with the manual backward (the reference's
+    ``jax.custom_vjp``).  Autograd through the forward's loops would keep
+    every tile's softmax; this saves only (q, k, v, positions, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, cq, ck):
+        out, lse = _chunked_fwd(q, k, v, q_pos, k_pos, causal, window, cq,
+                                ck)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
+        ctx.geometry = (causal, window, cq, ck)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
+        dq, dk, dv = _chunked_bwd(q, k, v, q_pos, k_pos, out, lse, dout,
+                                  *ctx.geometry)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def chunked_attention(q, k, v, q_positions, k_positions, causal: bool,
@@ -181,7 +250,8 @@ def chunked_attention(q, k, v, q_positions, k_positions, causal: bool,
     """q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], positions [Sq] / [Sk] ->
     [B, Sq, Hq, Dv] in ``q.dtype``.  Sequences pad up to whole chunks; pad
     queries sit at position -1 and pad keys at ``POS_SENTINEL``, which
-    every mask rejects."""
+    every mask rejects.  Where a gradient is needed the call goes through
+    the manual backward (:class:`_ChunkedAttention`)."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -196,8 +266,12 @@ def chunked_attention(q, k, v, q_positions, k_positions, causal: bool,
         v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
         k_positions = F.pad(k_positions, (0, pad_k), value=POS_SENTINEL)
     qg = q.reshape(B, q.shape[1], Hkv, G, D)
-    out = _chunked_fwd(qg, k, v, q_positions, k_positions, causal, window,
-                       cq, ck)
+    if L.needs_grad(q, k, v):
+        out = _ChunkedAttention.apply(qg, k, v, q_positions, k_positions,
+                                      causal, window, cq, ck)
+    else:
+        out, _ = _chunked_fwd(qg, k, v, q_positions, k_positions, causal,
+                              window, cq, ck)
     out = out.reshape(B, q.shape[1], Hq, v.shape[-1])
     return out[:, :Sq].to(q.dtype)
 

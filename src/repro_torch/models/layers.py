@@ -51,6 +51,13 @@ def by_column(fn, x: torch.Tensor, split: bool) -> torch.Tensor:
                       for s in range(x.shape[1])], 1)
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd will record an op on ``tensors``: the training
+    paths (manual backwards, recomputation) switch on this, so a forward of
+    parameters that do not require gradients (serving) runs as it is."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     w = p["w"]
     y = (x.reshape(-1, x.shape[-1]) @ w.reshape(w.shape[0], -1)).reshape(
@@ -67,7 +74,10 @@ def init_embedding(generator, vocab: int, d: int, device=None,
 
 
 def embed(p, ids: torch.Tensor) -> torch.Tensor:
-    return p["table"][ids]
+    """Row lookup.  ``F.embedding`` rather than an index: its backward on
+    the card sums each row's gradients in a fixed order (an index's
+    backward is an accumulating scatter whose order varies run to run)."""
+    return F.embedding(ids, p["table"])
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:

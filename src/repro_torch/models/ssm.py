@@ -94,11 +94,36 @@ def _segsum_decay(log_a):
                                                              -torch.inf)))
 
 
+def _ssd_chunk(state, xq, dtq, la, Bq, Cq, hg: int):
+    """One SSD chunk: (state [b, h, n, p] f32, the chunk's inputs) ->
+    (new state, y [b, Q, h, p] in ``xq.dtype``)."""
+    la, Bq, Cq = la.float(), Bq.float(), Cq.float()
+    xd = xq.float() * dtq[..., None]
+    cum = torch.cumsum(la, dim=1)                              # [b,Q,h]
+    # Intra-chunk (attention-like): scores_ij = (C_i . B_j) * L_ij.
+    Lm = _segsum_decay(la.transpose(1, 2))                     # [b,h,Q,Q]
+    CB = torch.einsum("bqgn,bkgn->bgqk", Cq, Bq)
+    CB = CB.repeat_interleave(hg, dim=1)                       # [b,h,Q,Q]
+    y_intra = torch.einsum("bhqk,bkhp->bqhp", CB * Lm, xd)
+    # Chunk summary: S_c = sum_j exp(cum_Q - cum_j) B_j xdt_j^T.
+    decay_tail = torch.exp(cum[:, -1:, :] - cum)               # [b,Q,h]
+    Bh = Bq.repeat_interleave(hg, dim=2)                       # [b,Q,h,n]
+    S_c = torch.einsum("bqhn,bqhp,bqh->bhnp", Bh, xd, decay_tail)
+    # Inter-chunk: y_t += (C_t . state_prev) * exp(cum_t).
+    Ch = Cq.repeat_interleave(hg, dim=2)
+    y_inter = torch.einsum("bqhn,bhnp,bqh->bqhp", Ch, state, torch.exp(cum))
+    new_state = state * torch.exp(cum[:, -1])[..., None, None] + S_c
+    return new_state, (y_intra + y_inter).to(xq.dtype)
+
+
 def ssd_chunked(x, dt, A, B, C, chunk: int):
     """SSD over a full sequence, one loop step per chunk.
 
     x [b, S, h, p], dt [b, S, h] (post-softplus), A [h] (negative),
-    B, C [b, S, g, n] -> (y [b, S, h, p], final state [b, h, n, p])."""
+    B, C [b, S, g, n] -> (y [b, S, h, p], final state [b, h, n, p]).  Where
+    a gradient is needed, each chunk step is recomputed in backward (the
+    reference's ``jax.checkpoint``): only one chunk's O(Q^2) decay and
+    score matrices are ever alive."""
     b, S, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     hg = h // g
@@ -107,25 +132,18 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
         raise ValueError(f"SSD chunk {Q} does not tile a sequence of {S}")
     log_a = dt * A[None, None, :]
     state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    step = _ssd_chunk
+    if L.needs_grad(x, dt, B, C):
+        from torch.utils.checkpoint import checkpoint
+
+        def step(*a):
+            return checkpoint(_ssd_chunk, *a, use_reentrant=False)
     ys = []
     for c0 in range(0, S, Q):
-        xq, dtq = x[:, c0:c0 + Q], dt[:, c0:c0 + Q]
-        la = log_a[:, c0:c0 + Q].float()
-        Bq, Cq = B[:, c0:c0 + Q].float(), C[:, c0:c0 + Q].float()
-        xd = xq.float() * dtq[..., None]
-        cum = torch.cumsum(la, dim=1)                          # [b,Q,h]
-        Lm = _segsum_decay(la.transpose(1, 2))                 # [b,h,Q,Q]
-        CB = torch.einsum("bqgn,bkgn->bgqk", Cq, Bq)
-        CB = CB.repeat_interleave(hg, dim=1)                   # [b,h,Q,Q]
-        y_intra = torch.einsum("bhqk,bkhp->bqhp", CB * Lm, xd)
-        decay_tail = torch.exp(cum[:, -1:, :] - cum)           # [b,Q,h]
-        Bh = Bq.repeat_interleave(hg, dim=2)                   # [b,Q,h,n]
-        S_c = torch.einsum("bqhn,bqhp,bqh->bhnp", Bh, xd, decay_tail)
-        Ch = Cq.repeat_interleave(hg, dim=2)
-        y_inter = torch.einsum("bqhn,bhnp,bqh->bqhp", Ch, state,
-                               torch.exp(cum))
-        state = state * torch.exp(cum[:, -1])[..., None, None] + S_c
-        ys.append((y_intra + y_inter).to(xq.dtype))
+        sl = slice(c0, c0 + Q)
+        state, y = step(state, x[:, sl], dt[:, sl], log_a[:, sl], B[:, sl],
+                        C[:, sl], hg)
+        ys.append(y)
     return torch.cat(ys, 1).to(x.dtype), state
 
 

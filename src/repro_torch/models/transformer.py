@@ -10,10 +10,16 @@ them.  Under mesh rules (``sharding/``; ``PagedEngine`` with a mesh)
 every dense layer runs replicated on each rank at the full slot count, and
 the attention layers run their paged block per rank
 (``models/attention.py``).  :func:`params_from_numpy`,
-:func:`caches_from_numpy` and
-:func:`caches_to_numpy` convert between the two layouts, so tests can carry
-the reference's weights across and compare cache trees.  The reference's
-remat policies come with training.
+:func:`caches_from_numpy`, :func:`caches_to_numpy` and
+:func:`params_to_numpy` convert between the two layouts, so tests can carry
+weights across both ways and compare cache trees, and checkpoints are
+written in the reference's layout.
+
+Training remats as the reference does: ``cfg.remat`` wraps each unit of a
+segment the reference scans (``scan_layers`` and reps > 1) in
+``torch.utils.checkpoint`` (:func:`_remat_wrap`): "none", "full" (keep
+only the unit's input, recompute the rest in backward) or "dots" (keep the
+matmul outputs, recompute the rest).
 """
 
 from __future__ import annotations
@@ -129,25 +135,80 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
     return params
 
 
+_DOTS = ("mm", "bmm", "addmm")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of matrix products, recompute
+    everything else.  Products run without autograd (inside the chunked
+    attention's own forward, whose backward recomputes its tiles) are not
+    kept, so that attention stays O(S x D)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    name = getattr(op, "__name__", "").split(".")[0]
+    if name in _DOTS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, policy: str):
+    """``fn`` under the reference's remat ``policy``: "none", "full" or
+    "dots" (non-reentrant ``torch.utils.checkpoint``)."""
+    if policy == "none":
+        return fn
+    from torch.utils import checkpoint as ckpt
+    if policy == "dots":
+        def context():
+            return ckpt.create_selective_checkpoint_contexts(_save_dots)
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                          context_fn=context)
+    if policy == "full":
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
 def run_segments(params, x, positions, cfg: ModelConfig, caches=None):
     """``caches``: None or {segN: [per-rep {bI: layer cache}]}.  Returns
-    (x, new_caches, summed aux loss)."""
+    (x, new_caches, summed aux loss).  Without caches and where a gradient
+    is needed, each unit of a scanned segment runs under ``cfg.remat``."""
     new_caches: dict[str, Any] = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (unit, reps) in enumerate(cfg.segments):
         seg_c = caches.get(f"seg{si}") if caches is not None else None
-        seg_new = []
-        for li in range(reps):
+
+        def unit_fwd(x, p_unit, c_unit, unit=unit):
+            aux = None
             ncs = {}
             for i, spec in enumerate(unit):
-                c = seg_c[li][f"b{i}"] if seg_c is not None else None
-                x, nc, aux = block_forward(params[f"seg{si}"][li][f"b{i}"],
-                                           x, positions, spec, cfg, c)
-                if aux is not None:
-                    aux_total = aux_total + aux
+                c = c_unit[f"b{i}"] if c_unit is not None else None
+                x, nc, a = block_forward(p_unit[f"b{i}"], x, positions,
+                                         spec, cfg, c)
+                if a is not None:
+                    aux = a if aux is None else aux + a
                 if nc is not None:
                     ncs[f"b{i}"] = nc
-            seg_new.append(ncs or None)
+            return x, (ncs or None), aux
+
+        remat = (cfg.remat != "none" and cfg.scan_layers and reps > 1
+                 and seg_c is None and L.needs_grad(x))
+        if remat:
+            def unit_remat(x, p_unit, unit_fwd=unit_fwd):
+                y, _, aux = unit_fwd(x, p_unit, None)
+                return y, (aux if aux is not None else torch.zeros(
+                    (), dtype=torch.float32, device=x.device))
+            body = _remat_wrap(unit_remat, cfg.remat)
+        seg_new = []
+        for li in range(reps):
+            p_unit = params[f"seg{si}"][li]
+            if remat:
+                x, aux = body(x, p_unit)
+                ncs = None
+            else:
+                x, ncs, aux = unit_fwd(x, p_unit,
+                                       seg_c[li] if seg_c is not None
+                                       else None)
+            if aux is not None:
+                aux_total = aux_total + aux
+            seg_new.append(ncs)
         if any(c is not None for c in seg_new):
             new_caches[f"seg{si}"] = seg_new
     return x, (new_caches or None), aux_total
@@ -273,14 +334,23 @@ def caches_from_numpy(tree, cfg: ModelConfig, device=None):
     return _segments_from_numpy(tree, cfg, device)
 
 
+def params_to_numpy(params, cfg: ModelConfig):
+    """The port's parameters -> the reference's parameter pytree (numpy
+    leaves; segments it scans stacked along a leading axis)."""
+    return caches_to_numpy(params, cfg)
+
+
 def caches_to_numpy(caches, cfg: ModelConfig):
     """Per-layer caches -> the reference's layout: segments the reference
     scans (``scan_layers`` and reps > 1) are stacked along a leading axis;
     bf16 leaves as their bits (uint16)."""
     out = {}
     for key, units in caches.items():
-        reps = cfg.segments[int(key[3:])][1]
         units = _map_tree(lambda t: A.host_array(t.detach()), units)
+        if not key.startswith("seg"):
+            out[key] = units
+            continue
+        reps = cfg.segments[int(key[3:])][1]
         if cfg.scan_layers and reps > 1:
             out[key] = _map_tree_n(lambda *xs: np.stack(xs), units)
         else:
