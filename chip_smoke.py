@@ -19,12 +19,13 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    launched the decode kernel once per layer, and that a short trace at
    cut depth 4 gives the same tokens with the kernel and with the plain
    oracle;
-4. speculative path: serves the main path's trace again with speculative
-   decoding (a drafter that replays the recorded tokens) and a
+4. speculative path: at cut depth 4 (widths kept; since the mesh train
+   phase) serves the main path's prompts plain, then speculatively (a
+   drafter that replays the recorded tokens), and at full depth a
    repeated-pattern trace with the n-gram drafter; both must give the
    plain run's tokens, and every verify forward must launch the verify
-   kernel once per layer.  A short trace at cut depth gives the same tokens
-   with the kernels and with the plain oracles;
+   kernel once per layer.  A short trace at cut depth gives the same
+   tokens with the kernels and with the plain oracles;
 5. uncached kernels: ``bitstopper_qk`` and ``flash_attention`` against
    their plain versions at one layer's shapes of the cache-free forward
    (B=2 x 32 heads, S=1024, d=64), timed beside their bounds and, for
@@ -136,12 +137,14 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    of 16) held and timed as at D=64, and the cache-free kernels at one
    layer of its forward (2 x 16 heads of 128, S=1024; bitstopper_qk's
    rounds and survivors equal to plain, both outs within UNCACHED_TOL),
-   timed beside their bounds; (b) full-width, full-depth
-   qwen2-moe-a2.7b (f32, about 56 GB of seeded random weights drawn on the
-   card) serving the main trace through ``PagedEngine`` with the decode
-   kernel (24 launches a decode tick; tokens/s, the decode tick and the
-   prefill chunk, dropped (token, expert) pairs per tick kind) and a
-   profile of its decode ticks (device busy share); at cut depth 4, kernel
+   timed beside their bounds; (b) full-width qwen2-moe-a2.7b (f32, about
+   56 GB of seeded random weights drawn on the card) cut to depth 6 (full
+   depth until the mesh train phase, then 12, then 6 to pay for its
+   Trainer checks) serving the main trace through
+   ``PagedEngine`` with the decode kernel (6 launches a decode tick;
+   tokens/s, the decode tick and the prefill chunk, dropped (token,
+   expert) pairs per tick kind) and a profile of its decode ticks (device
+   busy share); at cut depth 4, kernel
    against oracle (equal tokens) and replayed speculation at the config's
    capacity factor (the plain tokens, or verify forwards that dropped
    pairs: ROADMAP C9) and at a factor no call can bind (the plain tokens;
@@ -193,8 +196,9 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    OUT_TOL; prints each method's ``core/stats.py`` Complexity in both
    accounting modes and BESF's K+V bytes and bit-MACs relative to the
    others (counts on random weights, not times);
-17. train, last: stablelm-1.6b at its published width, f32, AdamW in f32:
-   (a) full depth through ``train.trainer.Trainer`` at the launcher's
+17. train: stablelm-1.6b at its published width, f32, AdamW in f32:
+   (a) cut to depth 4 (since the mesh train phase; widths kept) through
+   ``train.trainer.Trainer`` at the launcher's
    defaults (batch 8, seq 256, 4 steps; ms per step, tokens/s, peak
    memory, loss and grad norm per step, the final checkpoint's bytes and
    ms), then one forward and backward under each remat policy from the
@@ -203,15 +207,27 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    TRAIN_CPU_TOL of the CPU's; (c) depth 2 under
    ``torch.use_deterministic_algorithms``: train(4) equal bit for bit to
    train(2) and a resumed train(2) (checkpoint bytes, save and load ms);
-18. prints one JSON line describing each kernel (the bf16 forms, the
+18. mesh train, after train: full-width stablelm-1.6b cut to depth 4
+   (f32) trained on a 2x2 (data, model) mesh of four ranks sharing the
+   card over gloo under the reference's training rules (FSDP over "data",
+   Megatron TP over "model"; ``sharding/rules.py:make_rules``), initial
+   weights by CUDA IPC (checksums equal), three steps at 8 x 256 beside
+   the same steps on one device: each loss within 2e-4 of one device's,
+   blocks that several ranks hold bit-equal, the leader's checkpoint
+   loaded on one device bit-equal to the gathered state and within 2e-3
+   of one device's parameters, then one int8_ef step (every leaf's
+   all-reduce result equal on every rank, residuals within max|g + e| /
+   127); prints the gaps, each rank's bytes of parameters and moments
+   beside one device's, ms per step per rank and the collectives' ms;
+19. prints one JSON line describing each kernel (the bf16 forms, the
    D=128 shapes and the mesh shards under each kernel's row), then the
    device line last.
 
 Any failed check exits non-zero.  Without a card it exits non-zero and
 prints no result.  ``--profile`` instead profiles decode ticks, a prefill
 chunk, verify ticks and one cache-free forward with each attention kernel
-(device time by kernel, busy share); ``--train`` runs only the baselines
-and train phases (no kernel build, no result line).
+(device time by kernel, busy share); ``--train`` runs only the baselines,
+train and mesh train phases (no kernel build, no result line).
 """
 
 from __future__ import annotations
@@ -239,6 +255,7 @@ OUT_TOL = 1e-5                   # kernel vs plain output: expf and the sum
                                  # order differ, integers are exact
 L2_FLUSH_BYTES = 128 * 2**20     # written before each timed call (L2: 50 MB)
 SPEC_K = 4                       # drafts per slot and tick
+SPEC_DEPTH = 4                   # the speculative path's cut (time limit)
 UNCACHED_TOL = 2e-5              # bitstopper_qk / flash vs plain output
 FWD_B, FWD_S = 2, 1024           # the forward path's prompts
 KERNELS = ("paged_decode", "paged_verify", "bitstopper_qk",
@@ -1584,11 +1601,13 @@ def rows_depend_on_batch(torch, params, B=4, Sq=SPEC_K + 1):
 
 @phase("speculative path")
 def speculative_phase(torch, cfg, params, plain_reqs):
-    """(a) the main path's trace with a drafter replaying its tokens, (b) a
-    repeated-pattern trace with the n-gram drafter against its plain run,
-    (c) at cut depth, the kernels against the plain oracles.  Returns the
-    verify kernel's launches in (a) and (b)'s prompts (for the chaos
-    path)."""
+    """(a) at cut depth SPEC_DEPTH (widths kept; since the mesh train
+    phase) the main path's prompts served plain, then with a drafter
+    replaying those tokens, (b) at full depth a repeated-pattern trace
+    with the n-gram drafter against its plain run (at depth 4 the n-gram
+    drafter proposes nothing on random weights), (c) at cut depth, the
+    kernels against the plain oracles.  Returns the verify kernel's
+    launches in (a) and (b)'s prompts (for the chaos path)."""
     import numpy as np
     from repro_torch.serving import PagedEngine, Request, ServeConfig
     diff = rows_depend_on_batch(torch, params)
@@ -1596,9 +1615,17 @@ def speculative_phase(torch, cfg, params, plain_reqs):
           f"{cfg.d_model}] product vs {SPEC_K + 1} products of [4, "
           f"{cfg.d_model}]: max |diff| {diff:.3e} (the verify forward runs "
           f"its dense layers per position)")
+    # (a) at cut depth SPEC_DEPTH (widths kept), against plain greedy at
+    # that depth.
+    cut_a, cut_a_params = cut_model(cfg, params, SPEC_DEPTH)
+    plain_reqs = [Request(prompt=r.prompt.copy(),
+                          max_new_tokens=len(r.generated))
+                  for r in plain_reqs]
+    PagedEngine(cut_a, cut_a_params, ServeConfig(
+        max_slots=4, page_size=16, max_len=512)).generate(plain_reqs)
     want = [r.generated for r in plain_reqs]
     eng, got, verify_launches, _ = serve_speculative(
-        torch, np, cfg, params, [r.prompt for r in plain_reqs],
+        torch, np, cut_a, cut_a_params, [r.prompt for r in plain_reqs],
         len(want[0]), ReplayDrafter(np, plain_reqs), "speculative (a) replay",
         speculative="draft")
     if got != want:
@@ -1617,8 +1644,8 @@ def speculative_phase(torch, cfg, params, plain_reqs):
     if got != [r.generated for r in plain]:
         raise SystemExit("[chip_smoke] speculative (b) serves other tokens "
                          "than plain greedy")
-    print("[chip_smoke] speculative (a) and (b) serve the plain greedy "
-          "tokens")
+    print(f"[chip_smoke] speculative (a) at depth {cut_a.n_layers} and (b) "
+          f"at depth {cfg.n_layers} serve the plain greedy tokens")
 
     # (c) Kernels vs plain oracles, speculative, at cut depth (width kept).
     depth = min(4, cfg.n_layers)
@@ -3375,6 +3402,7 @@ def bf16_dense(torch, np, cfg, params):
 # ---------------------------------------------------------------------------
 
 MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_A_DEPTH = 6                  # moe (a)'s cut since the mesh train phase
 
 
 @phase("moe kernels")
@@ -3489,19 +3517,23 @@ class DropCounter:
 
 @phase("moe path")
 def moe_path_phase(torch, cfg, params):
-    """Full-width, full-depth qwen2-moe-a2.7b: (a) the main trace through
-    PagedEngine on bitstopper_xla with the decode kernel (one launch per
-    layer per decode tick), tokens/s, the decode tick and the prefill
-    chunk, dropped (token, expert) pairs per chunk and per tick; (b) at cut
+    """Full-width qwen2-moe-a2.7b: (a) at cut depth MOE_A_DEPTH (full
+    depth until the mesh train phase) the main trace through PagedEngine
+    on bitstopper_xla with the decode kernel (one launch per layer per
+    decode tick), tokens/s, the decode tick and the prefill chunk, dropped
+    (token, expert) pairs per chunk and per tick, and a profiled decode
+    tick; (b) at cut
     depth 4, the kernel against the plain oracle (equal tokens) and
     replayed speculation (the plain tokens, one verify launch per layer per
-    verify forward); (c) the cache-free forward of 2 x 1024 tokens at every
-    impl (one kernel launch per layer, the plain impl's argmax at every
+    verify forward); (c) at full depth the cache-free forward of 2 x 1024
+    tokens at every impl (one kernel launch per layer, the plain impl's argmax at every
     position).  Returns the decode and verify launches of (a)-(b) and the
     forward's kernel launches."""
     import numpy as np
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.serving import PagedEngine, Request, ServeConfig
+    full_cfg, full_params = cfg, params
+    cfg, params = cut_model(cfg, params, MOE_A_DEPTH)      # (a) and profile
     scfg = ServeConfig(max_slots=4, page_size=16, max_len=512)
     PagedEngine(cfg, params, scfg).generate(
         make_requests(np, Request, 99, 1, 2, cfg.vocab))
@@ -3583,6 +3615,7 @@ def moe_path_phase(torch, cfg, params):
     report_profile(torch, ProfilerActivity, profile, "moe decode tick",
                    prof.step, 4)
     del prof
+    cfg, params = full_cfg, full_params
 
     # (b) at cut depth 4: kernel vs plain oracle, then replayed drafts.
     cut, cut_params = cut_model(cfg, params)
@@ -4002,6 +4035,7 @@ def zoo_phase(torch):
 BASELINE_S = 1024                # the baselines phase's prompt
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 256   # the launcher's defaults
 TRAIN_CUT = 2                    # depth of the train phase's (b) and (c)
+TRAIN_A_DEPTH = 4                # (a)'s cut since the mesh train phase
 TRAIN_CPU_TOL = 1e-4             # card vs CPU loss and grad norm, relative
 
 
@@ -4139,7 +4173,8 @@ def train_remat_step(torch, TS, O, cfg, tcfg, params, batch):
 @phase("train")
 def train_phase(torch):
     """Single-device training of stablelm-1.6b at its published width (f32,
-    AdamW in f32): (a) full depth through ``Trainer`` at the launcher's
+    AdamW in f32): (a) cut to depth TRAIN_A_DEPTH (since the mesh train
+    phase; widths kept) through ``Trainer`` at the launcher's
     defaults (batch 8, seq 256, 4 steps): ms per step after the first,
     tokens/s, peak memory, loss and grad norm per step, its final
     checkpoint's bytes and ms; then one forward and backward under each
@@ -4179,11 +4214,12 @@ def train_phase(torch):
 
     summary, failed = {}, []
     try:
-        # (a) full depth through the Trainer.
+        # (a) at depth TRAIN_A_DEPTH through the Trainer.
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        tr = trainer(cfg, "a", TRAIN_STEPS)
+        cut_a = cfg.replace(segments=((cfg.segments[0][0], TRAIN_A_DEPTH),))
+        tr = trainer(cut_a, "a", TRAIN_STEPS)
         state = tr.train()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
@@ -4205,7 +4241,7 @@ def train_phase(torch):
             failed.append("(a) losses or grad norms not finite")
         batch = torch.as_tensor(tr.dataset.batch_at(TRAIN_STEPS),
                                 device="cuda")
-        rem = train_remat_step(torch, TS, O, cfg, tcfg, state["params"],
+        rem = train_remat_step(torch, TS, O, cut_a, tcfg, state["params"],
                                batch)
         summary["remat"] = rem
         for policy in ("full", "dots"):
@@ -4215,8 +4251,8 @@ def train_phase(torch):
                                   f"{rem[policy][key]!r} != "
                                   f"{rem['none'][key]!r}")
         a = summary["a"]
-        print(f"[chip_smoke] train (a) {cfg.name} full depth "
-              f"({cfg.n_layers} layers, {n_params} f32 parameters), batch "
+        print(f"[chip_smoke] train (a) {cfg.name} depth {cut_a.n_layers} "
+              f"of {cfg.n_layers} ({n_params} f32 parameters), batch "
               f"{TRAIN_BATCH} x {TRAIN_SEQ}: step ms "
               f"{[round(x, 3) for x in ms]}"
               f", {steady:.3f} ms a step after the first, "
@@ -4467,11 +4503,13 @@ def mesh_kernel_phase(torch):
 
 
 def params_digest(torch, params):
-    """Per-leaf int64 sums of each parameter's 32-bit words, in leaf
-    order: equal digests mean the same bits (a checksum)."""
+    """Per-leaf int64 sums of each leaf's 32-bit words (16-bit words for
+    a 2-byte dtype), in leaf order, for a tree or a list of tensors: equal
+    digests mean the same bits (a checksum)."""
     out = []
     for t in _leaves(params):
-        w = t.detach().contiguous().view(-1).view(torch.int32)
+        t = t.detach().contiguous().view(-1)
+        w = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
         out.append(sum(int(torch.sum(c, dtype=torch.int64))
                        for c in w.split(1 << 26)))
     return out
@@ -4960,6 +4998,357 @@ def mesh_path_phase(torch, cfg, params, plain_reqs):
             ranks[0]["replay"]["verify_launches"])
 
 
+MESH_TRAIN_STEPS = 3
+# Against one device's steps (lr 3e-4, no warm-up, so every step moves
+# the parameters).  The reference's sharded test allows loss 2e-4 and
+# parameters 2e-3; measured on the card: loss 8e-8 relative, grad norm
+# 1.4e-7 relative, parameters 2.4e-6.  Every leaf moves by more than
+# MESH_TRAIN_MOVED_MIN, twice the parameter limit, so a mesh that did not
+# update fails.
+MESH_TRAIN_LOSS_TOL = 2e-4
+MESH_TRAIN_GNORM_RTOL = 1e-5
+MESH_TRAIN_PARAM_TOL = 1e-4
+MESH_TRAIN_MOVED_MIN = 2e-4
+
+
+def mesh_train_rank(mesh, device, cfg, tcfg, data, params, digest, root):
+    """A rank of the mesh train phase: its blocks of the parent's initial
+    parameters (CUDA IPC; checksums first), MESH_TRAIN_STEPS steps under
+    ``make_rules`` on its shard of each batch (ms and collective ms per
+    step), its blocks' checksums, the state gathered onto the leader and
+    written once as a checkpoint, then one int8_ef step with
+    ``allreduce_int8_ef`` watched: every leaf's result's checksum and
+    whether its residual stays within max|g + e| / 127; last the
+    Trainer's own state handling under the rules, a fresh init (drawn part
+    by part) and a resume from the leader's checkpoint (read leaf by
+    leaf), each one's peak device bytes beside the blocks it keeps, and
+    the resumed blocks' checksums.  Collective ms are
+    ``sharding/api.py``'s ``COLLECTIVE_S`` (the torch.distributed calls'
+    wall time; host staging outside it)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import store as CS
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.sharding import api as A
+    from repro_torch.sharding.api import (block_index, gather_state,
+                                          is_leader, shard_state, use_rules,
+                                          write_once)
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    same = params_digest(torch, params) == digest
+    rules = make_rules(mesh, n_routed=cfg.n_routed)
+    specs = TS.state_specs(cfg, tcfg, rules)
+    local = TS.trainable(shard_state(rules, params, specs["params"]))
+    state = {"params": local, "opt": O.init_opt_state(local, tcfg.optimizer)}
+    shard, n_shards = block_index(rules, "data")
+    ds = SyntheticLMDataset(data, shard=shard, num_shards=n_shards)
+    step = TS.make_train_step(cfg, tcfg)
+    res = {"coord": tuple(mesh.get_coordinate()), "weights_equal": same,
+           "steps": []}
+    with use_rules(rules):
+        for i in range(MESH_TRAIN_STEPS):
+            batch = torch.as_tensor(ds.batch_at(i), device=device)
+            torch.cuda.synchronize()
+            c0, t = A.COLLECTIVE_S, time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            res["steps"].append({
+                "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "ms": (time.perf_counter() - t) * 1e3,
+                "collective_ms": (A.COLLECTIVE_S - c0) * 1e3})
+        res["bytes"] = sum(t.numel() * t.element_size()
+                           for t in O.tree_leaves([state["params"],
+                                                   state["opt"]["m"],
+                                                   state["opt"]["v"]]))
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        res["blocks"] = list(zip(
+            [tuple(coord[e] if e else 0 for e in spec)
+             for spec in O.tree_leaves(specs["params"])],
+            params_digest(torch, O.tree_leaves(state["params"]))))
+        held = O.tree_leaves([state["params"], state["opt"]["m"],
+                              state["opt"]["v"]])
+        after_steps = params_digest(torch, held)
+        t = time.perf_counter()
+        whole = gather_state(rules, state, specs, leader_only=True)
+        res["gathered_digest"] = None if whole is None else \
+            params_digest(torch, O.tree_leaves(whole))
+        write_once(rules, lambda: (CS.save_checkpoint(
+            TS.state_to_numpy(whole, cfg), root, MESH_TRAIN_STEPS),
+            [1])[1])
+        res["ckpt_ms"] = (time.perf_counter() - t) * 1e3
+        res["leader"] = is_leader(rules)
+        del whole
+        # One int8_ef step, allreduce_int8_ef watched leaf by leaf.
+        real_ar, seen = TS.allreduce_int8_ef, []
+
+        def watch(g, e, mesh_, axes):
+            # One whole leaf a call (train_step's per-leaf reduction).
+            bound = float((g.float() + e).abs().max()) / 127
+            out, e_new = real_ar(g, e, mesh_, axes)
+            seen.append((params_digest(torch, [out])[0],
+                         float(e_new.abs().max()) <= bound * (1 + 1e-6)))
+            return out, e_new
+
+        TS.allreduce_int8_ef = watch
+        state["err"] = O.tree_map(torch.zeros_like, state["params"])
+        tcfg8 = dataclasses.replace(tcfg, grad_compression="int8_ef")
+        batch = torch.as_tensor(ds.batch_at(MESH_TRAIN_STEPS),
+                                device=device)
+        torch.cuda.synchronize()
+        c0, t = A.COLLECTIVE_S, time.perf_counter()
+        try:
+            state, m = TS.make_train_step(cfg, tcfg8)(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            TS.allreduce_int8_ef = real_ar
+        res["int8"] = {"loss": float(m["loss"]), "leaves": seen,
+                       "ms": (time.perf_counter() - t) * 1e3,
+                       "collective_ms": (A.COLLECTIVE_S - c0) * 1e3}
+    del state, m, held
+    fresh = tempfile.mkdtemp(prefix="chip_smoke_mesh_fresh_")
+    try:
+        for name, where in (("trainer_init", fresh), ("trainer_resume",
+                                                      root)):
+            tr = Trainer(cfg, tcfg, TrainerConfig(
+                steps=MESH_TRAIN_STEPS, ckpt_dir=where, log_every=0),
+                data_cfg=data, device=device, rules=rules)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            st, start = tr.init_or_resume()
+            torch.cuda.synchronize()
+            kept = O.tree_leaves([st["params"], st["opt"]["m"],
+                                  st["opt"]["v"]])
+            res[name] = {
+                "s": time.perf_counter() - t, "start": start,
+                "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                "kept_bytes": sum(x.numel() * x.element_size()
+                                  for x in kept),
+                "equal": params_digest(torch, kept) == after_steps}
+            del st, kept, tr
+    finally:
+        shutil.rmtree(fresh, ignore_errors=True)
+    return res
+
+
+@phase("mesh train")
+def mesh_train_phase(torch):
+    """Full-width stablelm-1.6b cut to depth MESH_DEPTH, f32, trained on a
+    2x2 (data, model) mesh of four ranks sharing the card over gloo under
+    the reference's training rules (FSDP over "data", Megatron TP over
+    "model"): the initial parameters reach the ranks by CUDA IPC
+    (checksums equal to the parent's), each rank trains MESH_TRAIN_STEPS
+    steps at the launcher's batch (8 x 256; 4 rows a data rank) while the
+    parent trains the same steps on one device.  Every step's loss within
+    MESH_TRAIN_LOSS_TOL of one device's and its grad norm within
+    MESH_TRAIN_GNORM_RTOL, ranks that hold the same block of a leaf hold
+    the same bits, the leader's checkpoint (the gathered state) loaded on
+    one device equals the gathered state bit for bit and one device's
+    parameters within MESH_TRAIN_PARAM_TOL, every leaf having moved more
+    than MESH_TRAIN_MOVED_MIN from the initial ones, and one int8_ef
+    step gives every leaf's all-reduce result equal on every rank with the
+    residual within max|g + e| / 127; on every rank the Trainer's fresh
+    init and its resume from the leader's checkpoint peak below the blocks
+    they keep plus a quarter of one device's state (drawing or loading
+    the whole state would take all of it), and the resumed blocks equal
+    the rank's own bit for bit.  Prints the gaps, each rank's bytes
+    of parameters and moments beside one device's, ms per step per rank
+    and the collectives' ms."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint import store as CS
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.mesh import start_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    t0 = time.perf_counter()
+    full = get_config("stablelm-1.6b")
+    cfg = full.replace(segments=((full.segments[0][0], MESH_DEPTH),))
+    tcfg = TS.TrainConfig(optimizer=O.AdamWConfig(lr=3e-4),
+                          total_steps=MESH_TRAIN_STEPS, warmup_steps=0)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    shared = T.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          "cuda")
+    n_params = sum(t.numel() for t in O.tree_leaves(shared))
+    digest = params_digest(torch, shared)
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
+    failed = []
+    try:
+        job = start_mesh(mesh_train_rank, MESH_DP, MESH_TP, device="cuda",
+                         backend="gloo",
+                         args=(cfg, tcfg, data, shared, digest, root),
+                         timeout=600)
+        # One device, on its own copy, while the ranks start.
+        p = TS.trainable(O.tree_map(lambda t: t.detach().clone(), shared))
+        state = {"params": p, "opt": O.init_opt_state(p, tcfg.optimizer)}
+        step = TS.make_train_step(cfg, tcfg)
+        ds = SyntheticLMDataset(data)
+        one = []
+        for i in range(MESH_TRAIN_STEPS):
+            batch = torch.as_tensor(ds.batch_at(i), device="cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            one.append({"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "ms": (time.perf_counter() - t) * 1e3})
+        one_bytes = sum(t.numel() * t.element_size() for t in O.tree_leaves(
+            [state["params"], state["opt"]["m"], state["opt"]["v"]]))
+        # The leader's checkpoint on one device, while the ranks run their
+        # int8_ef step (it is promoted whole: a listed step is complete).
+        while CS.latest_step(root) is None and job.running():
+            time.sleep(0.2)
+        t = time.perf_counter()
+        loaded, ck_step = None, CS.latest_step(root)
+        if ck_step is not None:
+            like = TS.state_to_numpy(O.tree_map(
+                lambda x: x.detach().reshape(-1)[:0], state), cfg)
+            tree, ck_step = CS.load_checkpoint(like, root)
+            loaded = TS.state_from_numpy(tree, cfg, "cuda")
+            del tree
+        load_s = time.perf_counter() - t
+        ranks = job.join()
+        spawned = time.perf_counter() - t0
+        leader = next(r for r in ranks if r["leader"])
+        bit_equal, param_gap, moved = False, float("inf"), 0.0
+        if loaded is not None:
+            bit_equal = (params_digest(torch, O.tree_leaves(loaded))
+                         == leader["gathered_digest"])
+            param_gap = max(float((a - b).detach().abs().max())
+                            for a, b in zip(O.tree_leaves(loaded["params"]),
+                                            O.tree_leaves(state["params"])))
+            # The least that any leaf moved from the initial parameters.
+            moved = min(float((a - b).detach().abs().max())
+                        for a, b in zip(O.tree_leaves(loaded["params"]),
+                                        O.tree_leaves(shared)))
+        del loaded, state, p
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        release_shared(torch, shared)
+    loss_gap = max(abs(r["steps"][i]["loss"] - one[i]["loss"])
+                   for r in ranks for i in range(MESH_TRAIN_STEPS))
+    gnorm_gap = max(abs(r["steps"][i]["grad_norm"] - one[i]["grad_norm"])
+                    / one[i]["grad_norm"]
+                    for r in ranks for i in range(MESH_TRAIN_STEPS))
+    for r in ranks:
+        if not r["weights_equal"]:
+            failed.append(f"rank {r['coord']} weights differ from the "
+                          f"parent's")
+        for i, s in enumerate(r["steps"]):
+            w, wg = one[i]["loss"], one[i]["grad_norm"]
+            if not abs(s["loss"] - w) <= MESH_TRAIN_LOSS_TOL * (1 + abs(w)):
+                failed.append(f"rank {r['coord']} step {i + 1} loss "
+                              f"{s['loss']!r} vs {w!r}")
+            if not abs(s["grad_norm"] - wg) <= MESH_TRAIN_GNORM_RTOL * wg:
+                failed.append(f"rank {r['coord']} step {i + 1} grad norm "
+                              f"{s['grad_norm']!r} vs {wg!r}")
+    if ck_step != MESH_TRAIN_STEPS or not bit_equal:
+        failed.append(f"checkpoint step {ck_step}, bit-equal to the "
+                      f"gathered state: {bit_equal}")
+    if not param_gap <= MESH_TRAIN_PARAM_TOL:
+        failed.append(f"parameters {param_gap:.3e} from one device's")
+    if not moved > MESH_TRAIN_MOVED_MIN:
+        failed.append(f"a parameter leaf moved {moved:.3e} in "
+                      f"{MESH_TRAIN_STEPS} steps")
+    copies: dict = {}
+    for r in ranks:
+        for i, (idx, d) in enumerate(r["blocks"]):
+            copies.setdefault((i, idx), []).append(d)
+    drift = sum(len(set(v)) > 1 for v in copies.values())
+    shared_blocks = sum(len(v) > 1 for v in copies.values())
+    if drift or not shared_blocks:
+        failed.append(f"{drift} blocks differ between the ranks that hold "
+                      f"them ({shared_blocks} held by more than one)")
+    for r in ranks:
+        ti, tr_ = r["trainer_init"], r["trainer_resume"]
+        if not (ti["start"] == 0 and tr_["start"] == MESH_TRAIN_STEPS
+                and tr_["equal"]):
+            failed.append(f"rank {r['coord']}: Trainer init from step "
+                          f"{ti['start']}, resume from {tr_['start']}, "
+                          f"resumed blocks bit-equal {tr_['equal']}")
+        for name, x in (("init", ti), ("resume", tr_)):
+            # Its blocks and one whole part or leaf at a time (the
+            # embedding's 0.82 GB the largest), never the whole state.
+            if not x["peak_bytes"] < x["kept_bytes"] + one_bytes // 4:
+                failed.append(f"rank {r['coord']}: Trainer {name} peak "
+                              f"{x['peak_bytes']} bytes, blocks "
+                              f"{x['kept_bytes']}")
+    outs = [[d for d, _ in r["int8"]["leaves"]] for r in ranks]
+    within = all(ok for r in ranks for _, ok in r["int8"]["leaves"])
+    if any(o != outs[0] for o in outs) or not within or not outs[0]:
+        failed.append(f"int8_ef: results equal on every rank "
+                      f"{all(o == outs[0] for o in outs)}, residuals "
+                      f"within max|g + e| / 127 {within}")
+    for r in ranks:
+        st = r["steps"]
+        print(f"[chip_smoke] mesh train rank {r['coord']}: step ms "
+              f"{[round(s['ms'], 1) for s in st]}, collectives "
+              f"{[round(s['collective_ms'], 1) for s in st]} ms; loss "
+              f"{[s['loss'] for s in st]}; parameters and moments "
+              f"{r['bytes']} bytes (one device {one_bytes}); int8_ef step "
+              f"{r['int8']['ms']:.1f} ms (collectives "
+              f"{r['int8']['collective_ms']:.1f}), "
+              f"{len(r['int8']['leaves'])} leaves; checkpoint gather and "
+              f"write {r['ckpt_ms']:.1f} ms; Trainer init "
+              f"{r['trainer_init']['s']:.1f} s, peak "
+              f"{r['trainer_init']['peak_bytes']} bytes for "
+              f"{r['trainer_init']['kept_bytes']} kept; Trainer resume "
+              f"{r['trainer_resume']['s']:.1f} s, peak "
+              f"{r['trainer_resume']['peak_bytes']} bytes for "
+              f"{r['trainer_resume']['kept_bytes']} kept")
+    print(f"[chip_smoke] mesh train one device: step ms "
+          f"{[round(s['ms'], 1) for s in one]}; loss "
+          f"{[s['loss'] for s in one]}; grad norm "
+          f"{[s['grad_norm'] for s in one]}")
+    summary = {"n_params": n_params, "one": one, "one_bytes": one_bytes,
+               "ranks": [{k: r[k] for k in ("coord", "steps", "bytes",
+                                            "ckpt_ms")}
+                         | {"int8_ms": r["int8"]["ms"],
+                            "int8_collective_ms": r["int8"]["collective_ms"],
+                            "trainer_init": r["trainer_init"],
+                            "trainer_resume": r["trainer_resume"]}
+                         for r in ranks],
+               "loss_gap": loss_gap, "grad_norm_rel_gap": gnorm_gap,
+               "param_gap": param_gap, "least_leaf_move": moved,
+               "load_s": load_s,
+               "spawned_s": spawned}
+    print(f"[chip_smoke] mesh train summary: {json.dumps(summary)}")
+    if failed:
+        raise SystemExit(f"[chip_smoke] mesh train failed: {failed}")
+    print(f"[chip_smoke] mesh train: {cfg.name} depth {cfg.n_layers} "
+          f"({n_params} f32 parameters) on a {MESH_DP}x{MESH_TP} mesh of "
+          f"four ranks on one card (gloo): losses within "
+          f"{MESH_TRAIN_LOSS_TOL} of one device's (largest gap "
+          f"{loss_gap:.3e}), grad norms within {MESH_TRAIN_GNORM_RTOL} "
+          f"relative ({gnorm_gap:.3e}), parameters after step "
+          f"{MESH_TRAIN_STEPS} within {MESH_TRAIN_PARAM_TOL} (largest gap "
+          f"{param_gap:.3e}; every leaf moved more than "
+          f"{MESH_TRAIN_MOVED_MIN}: {moved:.3e} the least), shared "
+          f"blocks bit-equal on their ranks ({shared_blocks}), the leader's "
+          f"checkpoint loaded on one device bit-equal to the gathered "
+          f"state ({load_s:.1f} s to load), int8_ef results equal on every "
+          f"rank with residuals in bound, the Trainer's init (part by "
+          f"part) and resume (leaf by leaf) on every rank below its blocks "
+          f"plus a quarter of one device's state at peak, the resumed "
+          f"blocks bit-equal; phase "
+          f"{time.perf_counter() - t0:.3f} s")
+    return summary
+
+
 @phase("profile")
 def profile_phase(torch, cfg, params, decode_ticks=8, verify_ticks=3):
     """torch.profiler over steady decode ticks, one prefill chunk,
@@ -5079,8 +5468,8 @@ def main(argv=None):
                     help="only the mesh phases: the shard kernels and the "
                          "2x2 mesh path (prints no result line)")
     ap.add_argument("--train", action="store_true",
-                    help="only the baselines and train phases (prints no "
-                         "result line)")
+                    help="only the baselines, train and mesh train phases "
+                         "(prints no result line)")
     args = ap.parse_args(argv)
     import torch
     name, smi = device_phase(torch)
@@ -5092,6 +5481,9 @@ def main(argv=None):
         gc.collect()
         torch.cuda.empty_cache()
         train_phase(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_train_phase(torch)
         return
     build_phase()
     if args.profile:
@@ -5182,6 +5574,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     zoo_phase(torch)
     train_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_train_phase(torch)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,7 @@ newest ``keep`` steps and reclaims staging orphans.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -165,12 +166,16 @@ def save_checkpoint(tree, directory: str, step: int, n_shards: int = 4):
     return final
 
 
-def load_checkpoint(tree_like, directory: str, step: int | None = None):
+def load_checkpoint(tree_like, directory: str, step: int | None = None,
+                    place=None):
     """Restore into the structure of ``tree_like``; ``step=None`` takes the
     latest.  A tensor leaf of ``tree_like`` gives a tensor of its dtype on
     its device, a numpy leaf an array of its dtype (bf16 bits as uint16).
     bf16 leaves load from either package's files (the reference cannot
-    load them, not even its own: ROADMAP C13).  Returns ``(tree, step)``."""
+    load them, not even its own: ROADMAP C13).  Leaves are read one at a
+    time; ``place(path, leaf)``, where given, takes each as it is read and
+    returns what is kept of it (a mesh rank's block), so no more than one
+    whole leaf is held.  Returns ``(tree, step)``."""
     import torch
     from repro_torch.models.attention import tensor_from_host
     if step is None:
@@ -180,21 +185,26 @@ def load_checkpoint(tree_like, directory: str, step: int | None = None):
     d = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(d, "MANIFEST.json")) as f:
         manifest = json.load(f)
-    data: dict[str, np.ndarray] = {}
-    for si in range(manifest["n_shards"]):
-        with np.load(os.path.join(d, f"shard_{si}.npz")) as z:
+    put = place or (lambda path, leaf: leaf)
+    with contextlib.ExitStack() as files:
+        where: dict[str, tuple] = {}
+        for si in range(manifest["n_shards"]):
+            z = files.enter_context(np.load(os.path.join(
+                d, f"shard_{si}.npz")))
             for k in z.files:
-                data[k.replace("__", "/")] = z[k]
+                where[k.replace("__", "/")] = (z, k)
 
-    def restore(path, ref):
-        arr = data[path]
-        if isinstance(ref, torch.Tensor):
-            return tensor_from_host(arr, ref.device).to(ref.dtype)
-        if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
-            arr = arr.view(np.uint16)                # bf16 bits
-        return np.asarray(arr, dtype=np.asarray(ref).dtype)
+        def restore(path, ref):
+            z, key = where[path]
+            arr = z[key]
+            if isinstance(ref, torch.Tensor):
+                return put(path, tensor_from_host(arr, ref.device)
+                           .to(ref.dtype))
+            if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+                arr = arr.view(np.uint16)                # bf16 bits
+            return put(path, np.asarray(arr, dtype=np.asarray(ref).dtype))
 
-    return _map_paths(restore, tree_like), step
+        return _map_paths(restore, tree_like), step
 
 
 class CheckpointManager:
@@ -228,8 +238,8 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def restore(self, tree_like, step: int | None = None):
-        return load_checkpoint(tree_like, self.directory, step)
+    def restore(self, tree_like, step: int | None = None, place=None):
+        return load_checkpoint(tree_like, self.directory, step, place)
 
     def _gc(self):
         steps = sorted(

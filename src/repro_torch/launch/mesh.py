@@ -4,7 +4,9 @@ Counterpart of ``repro/launch/mesh.py``.  The reference builds a
 ``jax.sharding.Mesh`` over the devices one controller sees; the port runs
 one process per mesh position (SPMD), so a mesh needs an initialized
 process group first.  :func:`make_debug_mesh` builds the ("data", "model")
-``DeviceMesh`` over it; :func:`start_mesh` / :func:`spawn_mesh` start
+``DeviceMesh`` over it, :func:`make_production_mesh` the reference's
+(16, 16) or (2, 16, 16) production mesh over a world of that size (a
+``torchrun`` launch); :func:`start_mesh` / :func:`spawn_mesh` start
 ``data x model`` ranks, each with its process group (a ``file://``
 rendezvous, so no port is picked), its mesh and its device, run a function
 there and hand back each rank's result.
@@ -50,6 +52,29 @@ def make_debug_mesh(data: int = 2, model: int = 2):
                             mesh_dim_names=("data", "model"))
 
 
+def make_production_mesh(multi_pod: bool = False):
+    """The reference's production mesh over the initialized default process
+    group: (data=16, model=16), 256 ranks, or with ``multi_pod`` (pod=2,
+    data=16, model=16), 512 ranks ("pod" the outer data dim).  The world
+    must be exactly that size (``torchrun --nproc-per-node`` over the
+    hosts); anything else raises ``ValueError``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 512 if multi_pod else 256
+    if not dist.is_initialized():
+        raise ValueError(
+            f"the production mesh {dict(zip(names, shape))} needs an "
+            f"initialized process group of {n} ranks (a torchrun launch); "
+            f"none is initialized")
+    if dist.get_world_size() != n:
+        raise ValueError(
+            f"the production mesh {dict(zip(names, shape))} needs {n} "
+            f"ranks; this world has {dist.get_world_size()}")
+    return init_device_mesh(collective_device(), shape,
+                            mesh_dim_names=names)
+
+
 def _rank_device(device: str, rank: int) -> torch.device:
     """The device rank ``rank`` computes on: the CPU, or card ``rank`` mod
     the cards there are (several ranks share one card under gloo)."""
@@ -92,6 +117,10 @@ class MeshJob:
     def __init__(self, ctx, workdir: str, n: int, deadline: float):
         self._ctx, self._workdir, self._n = ctx, workdir, n
         self._deadline = deadline
+
+    def running(self) -> bool:
+        """Whether any rank is still running."""
+        return any(p.is_alive() for p in self._ctx.processes)
 
     def join(self) -> list:
         """Each rank's result, in rank order.  A rank's exception is raised

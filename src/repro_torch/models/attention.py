@@ -26,6 +26,12 @@ and the paths serving runs:
   the paged BESF decode, the CUDA kernel when ``fused_decode`` is set, else
   the plain torch oracle; with ``spec_verify``, a speculative draft block
   per slot through the paged BESF verify in the same way;
+* mesh training: under training's rules (``sharding/rules.py:make_rules``)
+  whose "model" dim splits the query heads, the cache-free forward runs
+  Megatron's split (:func:`_train_split`): the rank's q heads and its KV
+  heads (every KV head its q heads read, where "model" does not divide
+  the KV heads, as MQA's one), the chunked attention per local head, and
+  ``wo``'s rows summed over "model";
 * mesh serving: under serving rules (``sharding/``) whose "model" dim
   divides the KV heads, a rank's pools hold its KV heads, it writes every
   slot's K/V for them, and the paged reads run on its block of slots and
@@ -76,8 +82,10 @@ from repro_torch.core.besf import (BitStopperConfig,
 from repro_torch.core.lats import NEG_INF
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
-from repro_torch.sharding.api import (current_rules, gather_shards,
-                                      local_shard, local_view)
+from repro_torch.sharding.api import (block_index, copy_to_model,
+                                      current_rules, gather_shards,
+                                      local_shard, local_view, model_split,
+                                      reduce_from_model, training_rules)
 from repro_torch.sharding.rules import splits_heads
 
 POS_SENTINEL = 2 ** 30
@@ -770,6 +778,10 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
     at ``POS_SENTINEL``).  A speculative verify (``cfg.spec_verify``) runs
     the projections position by position (``layers.by_column``)."""
     B, S, _ = x.shape
+    tp = _train_split(cfg, cache)
+    if tp is not None:
+        rules, group, cfg = tp
+        x = copy_to_model(x, rules)
     if cache is not None and cache_is_per_slot(cache) and \
             positions.ndim == 1:
         positions = positions[None].expand(B, S)
@@ -777,6 +789,13 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
     q = L.by_column(lambda t: L.linear(p["wq"], t), x, split)  # [B,S,Hq,D]
     k = L.by_column(lambda t: L.linear(p["wk"], t), x, split)  # [B,S,Hkv,D]
     v = L.by_column(lambda t: L.linear(p["wv"], t), x, split)
+    if tp is not None and group:
+        # "model" does not divide the KV heads (they are whole on every
+        # rank): each local q head reads its group's KV head.
+        m = block_index(rules, "model")[0]
+        heads = torch.arange(m * cfg.n_heads, (m + 1) * cfg.n_heads,
+                             device=k.device) // group
+        k, v = k.index_select(2, heads), v.index_select(2, heads)
     rope_pos = positions if positions.ndim == 2 else positions[None, :]
     q = L.rope(q, rope_pos, cfg.rope_theta)
     k = L.rope(k, rope_pos, cfg.rope_theta)
@@ -819,7 +838,33 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
                                                        positions)
         out = _cached_attention(q, k_all, v_all, positions, k_pos, cfg)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return L.by_column(lambda t: L.linear(p["wo"], t), out, split), new_cache
+    y = L.by_column(lambda t: L.linear(p["wo"], t), out, split)
+    if tp is not None:
+        y = reduce_from_model(y, rules)
+    return y, new_cache
+
+
+def _train_split(cfg: AttnConfig, cache):
+    """``(rules, group, local cfg)`` where training's rules split this
+    layer's q heads over "model" (``sharding/api.py:model_split`` of
+    ``wq``), else None.  The local cfg counts the rank's q heads and its
+    KV heads: its block where the rules split them too (``group`` 0), else
+    one per q head (``group`` the q heads per KV head; :func:`attention`
+    picks each q head's)."""
+    rules = training_rules()
+    d, hd = cfg.d_model, cfg.head_dim
+    if rules is None or not model_split(rules, "attn/wq/w",
+                                        (d, cfg.n_heads, hd), 1):
+        return None
+    if cache is not None:
+        raise ValueError("training's rules split the attention heads of a "
+                         "cache-free forward only")
+    tp = rules.shape["model"]
+    hl = cfg.n_heads // tp
+    whole = not model_split(rules, "attn/wk/w", (d, cfg.n_kv_heads, hd), 1)
+    return (rules, cfg.n_heads // cfg.n_kv_heads if whole else 0,
+            dataclasses.replace(cfg, n_heads=hl, n_kv_heads=hl if whole
+                                else cfg.n_kv_heads // tp))
 
 
 # ---------------------------------------------------------------------------

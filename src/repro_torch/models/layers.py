@@ -4,6 +4,12 @@ Counterpart of ``repro/models/layers.py``.  Parameters are plain nested
 dicts of tensors in the reference's layout (a linear ``w`` is
 ``[d_in, *d_out]``), so parameters carry across from the JAX package as
 they are.  Norms compute in f32.
+
+Under training's mesh rules the MLP and the embedding run Megatron's
+split when their weights hold a "model" block (``sharding/rules.py``):
+the MLP's hidden units column-split in and row-split out
+(:func:`mlp` with ``tp``), the embedding over its vocab rows
+(:func:`embed_vocab_parallel`).
 """
 
 from __future__ import annotations
@@ -13,13 +19,19 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.api import (block_index, copy_to_model,
+                                      reduce_from_model)
+
 
 def truncated_normal_init(generator: torch.Generator, shape, scale: float,
                           device=None, dtype=torch.float32) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], then scaled by
     ``scale / sqrt(shape[0])`` (the reference's order).  Sampled on the
-    generator's device, returned on ``device``."""
+    generator's device, returned on ``device``; on "meta", shapes only
+    (nothing is drawn)."""
     stddev = scale / max(1.0, math.sqrt(shape[0] if shape else 1))
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")   # shape only
     x = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (x * stddev).to(device=device, dtype=dtype)
@@ -78,6 +90,21 @@ def embed(p, ids: torch.Tensor) -> torch.Tensor:
     the card sums each row's gradients in a fixed order (an index's
     backward is an accumulating scatter whose order varies run to run)."""
     return F.embedding(ids, p["table"])
+
+
+def embed_vocab_parallel(p, ids: torch.Tensor, rules) -> torch.Tensor:
+    """The embedding of a rank that holds vocab rows ``[m * Vl, (m + 1) *
+    Vl)`` of the table (m its "model" coordinate): its rows where an id
+    falls in them, zeros elsewhere, summed over "model".  Exactly one
+    rank's term is not zero, so the sum is the row itself."""
+    table = p["table"]
+    vl = table.shape[0]
+    local = ids - block_index(rules, "model")[0] * vl
+    inside = (local >= 0) & (local < vl)
+    rows = F.embedding(torch.where(inside, local, torch.zeros_like(local)),
+                       table)
+    rows = rows * inside[..., None].to(rows.dtype)
+    return reduce_from_model(rows, rules)
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
@@ -152,7 +179,13 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(p, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+def mlp(p, x: torch.Tensor, kind: str = "swiglu", tp=None) -> torch.Tensor:
+    """``tp``: training's rules where this rank holds a "model" block of
+    the hidden units (Megatron): the input enters the region
+    (``copy_to_model``), the row-split ``wo``'s partial products are summed
+    over "model" (``reduce_from_model``)."""
+    if tp is not None:
+        return reduce_from_model(mlp(p, copy_to_model(x, tp), kind), tp)
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else gelu
         h = act(linear(p["wi_gate"], x)) * linear(p["wi_up"], x)

@@ -9,7 +9,11 @@ dict per layer (``params["seg0"]`` is a list of units) and loops over
 them.  Under mesh rules (``sharding/``; ``PagedEngine`` with a mesh)
 every dense layer runs replicated on each rank at the full slot count, and
 the attention layers run their paged block per rank
-(``models/attention.py``).  :func:`params_from_numpy`,
+(``models/attention.py``).  Under training's rules (``make_rules``) a
+rank holds its blocks of the weights; :func:`gather_weights` gathers
+their "data" blocks before the forward (FSDP) and the layers run
+Megatron's split over "model" (attention heads, the MLP's hidden units,
+the vocab).  :func:`params_from_numpy`,
 :func:`caches_from_numpy`, :func:`caches_to_numpy` and
 :func:`params_to_numpy` convert between the two layouts, so tests can carry
 weights across both ways and compare cache trees, and checkpoints are
@@ -39,7 +43,9 @@ from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.models.rglru import (init_rglru, init_rglru_cache,
                                       rglru_forward)
 from repro_torch.models.ssm import init_ssm, init_ssm_cache, ssm_forward
-from repro_torch.sharding.api import current_rules
+from repro_torch.sharding.api import (current_rules, gather_param,
+                                      model_split, splits_model,
+                                      training_rules)
 
 _ATTN = ("attn", "local_attn")
 
@@ -102,37 +108,79 @@ def block_forward(p, x, positions, spec: BlockSpec, cfg: ModelConfig,
                          split=split)
         x = x + y
     elif spec.ffn != "none":
+        rules = training_rules()
+        tp = (rules if rules is not None and model_split(
+            rules, "ffn/wo/w", (cfg.d_ff, cfg.d_model), 0) else None)
         x = x + L.by_column(
-            lambda t: L.mlp(p["ffn"], L.norm(p["norm2"], t), cfg.act), x,
-            split)
+            lambda t: L.mlp(p["ffn"], L.norm(p["norm2"], t), cfg.act, tp),
+            x, split)
     return x.to(cfg.activation_dtype), new_cache, aux
 
 
-def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
+def init_model(cfg: ModelConfig, generator: torch.Generator, device=None,
+               place=None):
     """Seeded parameters with the reference's shapes and init
     distributions (not its values: the two frameworks draw different
-    numbers from one seed)."""
+    numbers from one seed).  ``place(path, subtree)``, where given, takes
+    each part as it is drawn (the embedding, a norm, one layer's block:
+    ``path`` its keys, e.g. ``("seg0", 3, "b0")``) and returns what is
+    kept of it, so a rank keeps its blocks and at most one part is held
+    whole; the draws are the same."""
     dt = cfg.parameter_dtype
+    put = place or (lambda path, tree: tree)
     params: dict[str, Any] = {
-        "embed": L.init_embedding(generator, cfg.vocab, cfg.d_model, device,
-                                  dt),
-        "final_norm": L.init_norm(cfg.d_model, cfg.norm, device, dt),
+        "embed": put(("embed",), L.init_embedding(
+            generator, cfg.vocab, cfg.d_model, device, dt)),
+        "final_norm": put(("final_norm",), L.init_norm(
+            cfg.d_model, cfg.norm, device, dt)),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = L.init_linear(generator, cfg.d_model, cfg.vocab,
-                                          False, device, dt)
+        params["unembed"] = put(("unembed",), L.init_linear(
+            generator, cfg.d_model, cfg.vocab, False, device, dt))
     for si, (unit, reps) in enumerate(cfg.segments):
         params[f"seg{si}"] = [
-            {f"b{i}": init_block(generator, spec, cfg, device)
+            {f"b{i}": put((f"seg{si}", r, f"b{i}"),
+                          init_block(generator, spec, cfg, device))
              for i, spec in enumerate(unit)}
-            for _ in range(reps)]
+            for r in range(reps)]
     if cfg.mtp:
-        params["mtp_block"] = init_block(generator, cfg.segments[-1][0][-1],
-                                         cfg, device)
-        params["mtp_proj"] = L.init_linear(generator, 2 * cfg.d_model,
-                                           cfg.d_model, False, device, dt)
-        params["mtp_norm"] = L.init_norm(cfg.d_model, cfg.norm, device, dt)
+        params["mtp_block"] = put(("mtp_block",), init_block(
+            generator, cfg.segments[-1][0][-1], cfg, device))
+        params["mtp_proj"] = put(("mtp_proj",), L.init_linear(
+            generator, 2 * cfg.d_model, cfg.d_model, False, device, dt))
+        params["mtp_norm"] = put(("mtp_norm",), L.init_norm(
+            cfg.d_model, cfg.norm, device, dt))
     return params
+
+
+def gather_weights(rules, params, specs):
+    """Training's weights as the layers read them under ``rules``: every
+    leaf of this rank's ``params`` (blocks, with ``specs``) through
+    ``sharding/api.py:gather_param``, so its "data" blocks are gathered
+    (FSDP) and its gradient lands on the block summed over the batch.
+    "model" blocks stay split (Megatron), except where an attention layer's
+    heads are whole (indivisible): its ``wo`` rows are gathered too.  Where
+    the q heads split and the KV heads do not (MQA), the KV projections are
+    whole inside the split region and their gradients are summed over
+    "model"."""
+
+    def attn_flags(node_specs):
+        heads_split = splits_model(rules, node_specs["wq"]["w"][1])
+        kv_split = splits_model(rules, node_specs["wk"]["w"][1])
+        return {"wo": (not heads_split, False),
+                "wk": (False, heads_split and not kv_split),
+                "wv": (False, heads_split and not kv_split)}
+
+    def walk(node, spec, flags=(False, False)):
+        if isinstance(node, dict):
+            sub = attn_flags(spec) if "wq" in node and "wo" in node else {}
+            return {k: walk(v, spec[k], sub.get(k, flags))
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, s, flags) for v, s in zip(node, spec)]
+        return gather_param(rules, node, spec, *flags)
+
+    return walk(params, specs)
 
 
 _DOTS = ("mm", "bmm", "addmm")

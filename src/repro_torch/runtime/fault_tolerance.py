@@ -9,8 +9,10 @@ would.  Every class takes its clock as an argument, so tests drive it with a
 * :class:`ClusterMonitor`: a node missing ``timeout`` seconds of beats is
   declared failed.
 * :class:`ElasticMeshManager`: the largest (data, model) mesh the surviving
-  devices hold, keeping the model-parallel degree, and the
-  ``torch.distributed`` ``DeviceMesh`` over the surviving ranks.
+  devices hold, keeping the model-parallel degree, the
+  ``torch.distributed`` ``DeviceMesh`` over the surviving ranks, and a
+  host tree resharded onto it with training's rules
+  (:meth:`ElasticMeshManager.reshard`).
 * :class:`StragglerPolicy`: a per-step deadline from an EMA of step times,
   and a deterministic donor for a straggler's data shard.
 * :class:`EngineWatchdog`: wraps ``PagedEngine.step()`` and raises
@@ -118,6 +120,18 @@ class ElasticMeshManager:
                                                     decision.model)
         return DeviceMesh(collective_device(), grid,
                           mesh_dim_names=("data", "model"))
+
+    @staticmethod
+    def reshard(mesh, host_tree, n_routed: int = 0):
+        """This rank's blocks of a full (host) tree on the rebuilt
+        ``mesh`` under training's rules (``sharding/rules.py:make_rules``),
+        as the reference re-places a host tree after a re-mesh; None on a
+        rank the mesh left out.  Local slicing: no collective."""
+        from repro_torch.sharding.api import shard_state
+        from repro_torch.sharding.rules import make_rules
+        if mesh.get_coordinate() is None:
+            return None
+        return shard_state(make_rules(mesh, n_routed=n_routed), host_tree)
 
 
 class StragglerPolicy:

@@ -23,8 +23,18 @@ does not divide (MQA's single KV head over a 2-way "model" dim), as the
 reference does.
 
 Serving's parameters are replicated but for MoE expert weights, which a
-rank holds a block of (``sharding/rules.py:MOE_PARAM_RULES``); the
-reference's ``param_rules`` and parameter-tree specs come with training.
+rank holds a block of (``sharding/rules.py:MOE_PARAM_RULES``).  Training's
+rules carry the reference's ``param_rules``: :meth:`MeshRules.tree_pspecs`
+gives every leaf of a parameter or train-state tree its spec,
+:func:`shard_state` cuts a full tree to this rank's blocks and
+:func:`gather_state` puts them back together (on every rank, or on the
+leader for a checkpoint).  The training forward runs on those blocks
+through three autograd collectives: :func:`gather_param` (a weight's
+"data" blocks gathered before use; its gradient summed over the batch
+dims and cut back to the block), and the Megatron pair
+:func:`copy_to_model` / :func:`reduce_from_model`.  Every sum over ranks
+is an ``all_gather`` followed by a sum in mesh order, so every rank holds
+the same bits and a run repeats.
 Disk records that several ranks would write are written once, by the rank
 at the mesh's first position (:func:`is_leader`), which hands its outcome
 to the others (:func:`from_leader`).
@@ -38,8 +48,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import math
+import re
+import time
 from typing import Any, Sequence
 
 import torch
@@ -47,9 +60,35 @@ import torch.distributed as dist
 
 _ACTIVE: list["MeshRules"] = []
 
+# Wall seconds this process has spent in the torch.distributed calls of
+# this module's collectives (host staging copies are outside it): read it
+# before and after a step to time the step's collectives.
+COLLECTIVE_S = 0.0
+
+
+def _collective(fn, *args, **kw):
+    """``fn(*args, **kw)``, a torch.distributed call, its wall time added
+    to ``COLLECTIVE_S``."""
+    global COLLECTIVE_S
+    t = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        COLLECTIVE_S += time.perf_counter() - t
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Mesh dims without ranks (the reference's ``AbstractMesh``): enough
+    for layouts (:meth:`MeshRules.tree_pspecs`), no collective."""
+    shape_tuple: tuple[int, ...]
+    mesh_dim_names: tuple[str, ...]
+
 
 def mesh_shape(mesh) -> dict[str, int]:
-    """``{dim name: size}`` of a ``DeviceMesh``."""
+    """``{dim name: size}`` of a ``DeviceMesh`` or an :class:`AbstractMesh`."""
+    if isinstance(mesh, AbstractMesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape_tuple))
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
@@ -57,6 +96,8 @@ def mesh_shape(mesh) -> dict[str, int]:
 class MeshRules:
     mesh: Any                      # torch.distributed DeviceMesh
     axis_map: dict[str, Any]       # logical name -> mesh dim | tuple | None
+    # (path regex, logical axes): training's parameter rules
+    param_rules: tuple[tuple[str, tuple], ...] = ()
 
     @property
     def shape(self) -> dict[str, int]:
@@ -82,6 +123,60 @@ class MeshRules:
                     mesh_axes = None          # replicate indivisible dims
             entries.append(mesh_axes)
         return tuple(entries)
+
+    # -- parameter trees ----------------------------------------------------
+
+    def param_pspec(self, path: str, shape: Sequence[int]) -> tuple:
+        """The spec of the leaf at ``path`` ("/"-joined): the first rule
+        whose pattern it matches, with unsplit axes prepended where the
+        leaf has more dims than the rule names (a stacked layer axis);
+        ``()`` where no rule matches."""
+        for pattern, axes in self.param_rules:
+            if re.search(pattern, path):
+                if len(shape) > len(axes):
+                    axes = (None,) * (len(shape) - len(axes)) + tuple(axes)
+                return self.pspec(axes, shape)
+        return ()
+
+    def tree_pspecs(self, tree, prefix: str = ""):
+        """The spec of every leaf of a tree of nested dicts and lists, by
+        its "/"-joined path (list items by index): ``opt/m/.../attn/wq/w``
+        matches the parameter's pattern, so moments split as their
+        parameter does.  Leaves are read for their shape only."""
+        if isinstance(tree, dict):
+            return {k: self.tree_pspecs(v, f"{prefix}{k}/")
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [self.tree_pspecs(v, f"{prefix}{i}/")
+                    for i, v in enumerate(tree)]
+        return self.param_pspec(prefix[:-1], tuple(tree.shape))
+
+
+def splits_model(rules: MeshRules, entry) -> bool:
+    """Whether a spec entry puts its axis over a "model" dim of more than
+    one rank."""
+    names = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    return "model" in names and rules.shape.get("model", 1) > 1
+
+
+def model_split(rules: MeshRules, path: str, shape: Sequence[int],
+                axis: int) -> bool:
+    """Whether training's ``rules`` split axis ``axis`` of the parameter
+    at ``path`` (its full ``shape``) over "model": the spec
+    :meth:`MeshRules.param_pspec` gives it, which is also the spec a
+    rank's block of it was cut by.  A layer asks this of its weights to
+    choose Megatron's split, so the split it runs and the blocks it holds
+    are one decision."""
+    return splits_model(rules, rules.param_pspec(path, shape)[axis])
+
+
+def training_rules() -> "MeshRules | None":
+    """The active rules if they are training's (they carry parameter
+    rules), else None: the training forward splits its layers under them,
+    and under serving's rules or none it runs as on one device."""
+    rules = current_rules()
+    return rules if rules is not None and rules.param_rules else None
 
 
 def current_rules() -> MeshRules | None:
@@ -178,26 +273,11 @@ def _staged(x: torch.Tensor, group) -> bool:
     return x.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def gather_shards(rules: MeshRules, x: torch.Tensor, spec) -> torch.Tensor:
-    """Undo :func:`local_shard`: every rank's block ``x`` in one
-    ``all_gather`` over the mesh, placed at its coordinates into the full
-    tensor.  Ranks that hold the same block (replicated dims) send it each;
-    the first one's is used.  Pure data movement, so the result is the bits
-    the blocks hold.  With no sharded axis it returns ``x``."""
-    mesh, shape = rules.mesh, rules.shape
-    dims = list(mesh.mesh_dim_names)
+def _place(bufs, order, spec, shape, dims, src):
+    """The full tensor from every mesh position's block (``bufs`` in group
+    rank order): each block at its coordinates; where ranks hold the same
+    block (replicated dims), the first one's."""
     counts = [_block_index(e, {}, shape)[1] for e in spec]
-    if all(n == 1 for n in counts):
-        return x
-    if x.dtype == torch.bfloat16:
-        # Moved as its 16-bit words: gloo builds differ in bf16 support.
-        return gather_shards(rules, x.view(torch.int16), spec).view(
-            torch.bfloat16)
-    group, order = mesh_group(mesh)
-    staged = _staged(x, group)
-    src = x.cpu() if staged else x.contiguous()
-    bufs = [torch.empty_like(src) for _ in order]
-    dist.all_gather(bufs, src, group=group)
     full = src.new_empty([s * n for s, n in zip(src.shape, counts)])
     seen = set()
     positions = itertools.product(*(range(shape[d]) for d in dims))
@@ -209,6 +289,59 @@ def gather_shards(rules: MeshRules, x: torch.Tensor, spec) -> torch.Tensor:
         seen.add(idx)
         at = tuple(slice(i * s, (i + 1) * s) for i, s in zip(idx, src.shape))
         full[at] = bufs[order[flat]]
+    return full
+
+
+def gather_shards(rules: MeshRules, x: torch.Tensor, spec) -> torch.Tensor:
+    """Undo :func:`local_shard`: every rank's block ``x`` in one
+    ``all_gather`` over the mesh, placed at its coordinates into the full
+    tensor.  Ranks that hold the same block (replicated dims) send it each;
+    the first one's is used.  Pure data movement, so the result is the bits
+    the blocks hold.  With no sharded axis it returns ``x``."""
+    mesh, shape = rules.mesh, rules.shape
+    counts = [_block_index(e, {}, shape)[1] for e in spec]
+    if all(n == 1 for n in counts):
+        return x
+    if x.dtype == torch.bfloat16:
+        # Moved as its 16-bit words: gloo builds differ in bf16 support.
+        return gather_shards(rules, x.view(torch.int16), spec).view(
+            torch.bfloat16)
+    group, order = mesh_group(mesh)
+    staged = _staged(x, group)
+    src = x.detach().cpu() if staged else x.detach().contiguous()
+    bufs = [torch.empty_like(src) for _ in order]
+    _collective(dist.all_gather, bufs, src, group=group)
+    full = _place(bufs, order, spec, shape, list(mesh.mesh_dim_names), src)
+    return full.to(x.device) if staged else full
+
+
+def gather_to_leader(rules: MeshRules, x: torch.Tensor, spec,
+                     to_host: bool = False):
+    """:func:`gather_shards` onto the leader alone (one ``gather``): the
+    full tensor there, None on every other rank; with ``to_host`` in host
+    memory (never whole on the leader's device).  With no sharded axis
+    nothing moves."""
+    mesh, shape = rules.mesh, rules.shape
+    counts = [_block_index(e, {}, shape)[1] for e in spec]
+    if all(n == 1 for n in counts):
+        if not is_leader(rules):
+            return None
+        return x.detach().cpu() if to_host else x
+    if x.dtype == torch.bfloat16:
+        full = gather_to_leader(rules, x.view(torch.int16), spec, to_host)
+        return None if full is None else full.view(torch.bfloat16)
+    group, order = mesh_group(mesh)
+    staged = _staged(x, group)
+    src = x.detach().cpu() if staged else x.detach().contiguous()
+    lead = is_leader(rules)
+    bufs = [torch.empty_like(src) for _ in order] if lead else None
+    _collective(dist.gather, src, bufs, group=group,
+                dst=dist.get_global_rank(group, order[0]))
+    if not lead:
+        return None
+    full = _place(bufs, order, spec, shape, list(mesh.mesh_dim_names), src)
+    if to_host:
+        return full.cpu()
     return full.to(x.device) if staged else full
 
 
@@ -219,7 +352,7 @@ def any_rank(rules: MeshRules, flag: bool, dim: str | None = None) -> bool:
              else rules.mesh.get_group(dim))
     t = torch.tensor([int(flag)], dtype=torch.int32,
                      device=collective_device(group))
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    _collective(dist.all_reduce, t, op=dist.ReduceOp.MAX, group=group)
     return bool(t.item())
 
 
@@ -255,8 +388,8 @@ def from_leader(rules: MeshRules, values: Sequence[int]) -> list[int]:
     group, order = mesh_group(rules.mesh)
     t = torch.tensor([int(v) for v in values], dtype=torch.int64,
                      device=collective_device(group))
-    dist.broadcast(t, group=group,
-                   src=dist.get_global_rank(group, order[0]))
+    _collective(dist.broadcast, t, group=group,
+                src=dist.get_global_rank(group, order[0]))
     return [int(v) for v in t.tolist()]
 
 
@@ -271,3 +404,239 @@ def write_once(rules: MeshRules | None, write, n: int = 1) -> list[int]:
         return list(write())
     out = list(write()) if is_leader(rules) else [0] * n
     return from_leader(rules, out)
+
+
+# ---------------------------------------------------------------------------
+# Training: state trees, per-dim collectives and the autograd collectives
+# ---------------------------------------------------------------------------
+
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def shard_state(rules: MeshRules, tree, specs=None):
+    """This rank's block of every leaf of a full tree (host or device;
+    parameters, moments, error feedback, a 0-d step), by
+    :meth:`MeshRules.tree_pspecs` of the tree unless ``specs`` are given.
+    Every leaf is a new tensor, detached, on the leaf's device: a rank that
+    received the full tree by shared memory or CUDA IPC updates its own
+    copy, never the sender's."""
+    specs = rules.tree_pspecs(tree) if specs is None else specs
+    return _tree_map(lambda x, spec: local_view(rules, x.detach(), spec)
+                     .clone(memory_format=torch.contiguous_format),
+                     tree, specs)
+
+
+def gather_state(rules: MeshRules, tree, specs, leader_only: bool = False):
+    """The inverse of :func:`shard_state`: the full tree on every rank (one
+    ``all_gather`` a split leaf), or with ``leader_only`` on the leader
+    alone in host memory (one ``gather`` a split leaf, each moved to the
+    host as it arrives, so the leader's device holds one whole leaf at
+    most; None on the other ranks), as a checkpoint is written.  Pure data
+    movement: the leaves hold the blocks' bits."""
+    if not leader_only:
+        return _tree_map(lambda x, spec: gather_shards(rules, x, spec),
+                         tree, specs)
+    out = _tree_map(lambda x, spec: gather_to_leader(rules, x, spec,
+                                                     to_host=True),
+                    tree, specs)
+    return out if is_leader(rules) else None
+
+
+def holds_first_copy(rules: MeshRules, spec) -> bool:
+    """Whether this rank holds the first copy of its block of a leaf with
+    ``spec``: its coordinate is 0 along every mesh dim the spec does not
+    split.  Summing over such ranks counts each block once."""
+    used = set()
+    for e in spec:
+        if e is not None:
+            used.update((e,) if isinstance(e, str) else e)
+    return all(c == 0 for d, c in _coordinate(rules.mesh).items()
+               if d not in used)
+
+
+def batch_dims(rules: MeshRules) -> tuple[str, ...]:
+    """The mesh dims the batch is split over (outermost first), of more
+    than one rank."""
+    entry = rules.axis_map.get("batch")
+    names = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    return tuple(d for d in names if rules.shape.get(d, 1) > 1)
+
+
+def _dim_group(mesh, dim: str):
+    """``(group, order)`` of this rank's group along mesh dim ``dim``: its
+    process group (``DeviceMesh`` made it with the mesh) and, for each
+    coordinate along the dim, the group rank there."""
+    group = mesh.get_group(dim)
+    at: list = list(mesh.get_coordinate())
+    at[list(mesh.mesh_dim_names).index(dim)] = slice(None)
+    along = mesh.mesh[tuple(at)]
+    members = dist.get_process_group_ranks(group)
+    return group, [members.index(int(r)) for r in along.tolist()]
+
+
+def dim_all_gather(mesh, x: torch.Tensor, dim: str) -> torch.Tensor:
+    """Every block ``x`` of this rank's group along mesh dim ``dim``,
+    stacked in coordinate order on a new leading axis, on ``x``'s device
+    (one ``all_gather``; through host memory for a CUDA tensor under
+    gloo).  Pure data movement."""
+    n = mesh_shape(mesh)[dim]
+    if n == 1:
+        return x[None]
+    if x.dtype == torch.bfloat16:
+        return dim_all_gather(mesh, x.view(torch.int16), dim).view(
+            torch.bfloat16)
+    group, order = _dim_group(mesh, dim)
+    staged = _staged(x, group)
+    src = x.detach().cpu() if staged else x.detach().contiguous()
+    buf = src.new_empty((n,) + tuple(src.shape))
+    _collective(dist.all_gather, list(buf.unbind(0)), src, group=group)
+    if order != list(range(n)):
+        buf = buf[torch.tensor(order)]
+    return buf.to(x.device) if staged else buf
+
+
+def _sum_in_order(parts: torch.Tensor) -> torch.Tensor:
+    """``parts[0] + parts[1] + ...``, left to right."""
+    return functools.reduce(torch.add, parts.unbind(0))
+
+
+def dim_sum(mesh, x: torch.Tensor, dim: str, narrow=()) -> torch.Tensor:
+    """The sum over this rank's group along mesh dim ``dim`` of ``x``, in
+    coordinate order, the same bits on every rank of the group.
+    ``narrow``: ``(axis, start, length)`` cuts, each within the last, taken
+    of every part before the sum (the block a rank keeps of a reduced
+    gradient)."""
+    parts = dim_all_gather(mesh, x, dim)
+    for axis, start, length in narrow:
+        parts = parts.narrow(axis + 1, start, length)
+    return _sum_in_order(parts)
+
+
+def dim_max(mesh, x: torch.Tensor, dim: str) -> torch.Tensor:
+    """The elementwise max over this rank's group along ``dim``."""
+    return dim_all_gather(mesh, x, dim).amax(0)
+
+
+def mesh_sum(rules: MeshRules, x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over every rank of the mesh, in flat mesh order
+    (one ``all_gather``), the same bits on every rank."""
+    group, order = mesh_group(rules.mesh)
+    staged = _staged(x, group)
+    src = x.detach().cpu() if staged else x.detach().contiguous()
+    buf = src.new_empty((len(order),) + tuple(src.shape))
+    _collective(dist.all_gather, list(buf.unbind(0)), src, group=group)
+    out = _sum_in_order(buf[torch.tensor(order)])
+    return out.to(x.device) if staged else out
+
+
+def batch_sum(rules: MeshRules, x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the batch dims (no gradient): a global token
+    count, the loss summed over data ranks."""
+    for d in batch_dims(rules):
+        x = dim_sum(rules.mesh, x, d)
+    return x
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dim_sum(ctx.mesh, g, "model"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return dim_sum(mesh, x, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, rules: MeshRules) -> torch.Tensor:
+    """Enter a Megatron region: the identity forward; backward sums the
+    gradient over "model" (each rank's region saw its own heads, hidden
+    units or vocab rows of the same input)."""
+    if rules.shape.get("model", 1) == 1:
+        return x
+    return _CopyToModel.apply(x, rules.mesh)
+
+
+def reduce_from_model(x: torch.Tensor, rules: MeshRules) -> torch.Tensor:
+    """Leave a Megatron region: forward sums the partial products over
+    "model" in rank order (the same bits on every rank); backward is the
+    identity."""
+    if rules.shape.get("model", 1) == 1:
+        return x
+    return _ReduceFromModel.apply(x, rules.mesh)
+
+
+class _GatherParam(torch.autograd.Function):
+    """A weight's blocks gathered over ``gather`` (per axis, the mesh dims
+    to gather, outermost first) before use; backward sums the gradient over
+    the ``reduce`` dims, in order, and keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, w, mesh, gather, reduce):
+        ctx.mesh, ctx.gather, ctx.reduce = mesh, gather, reduce
+        out = w
+        for axis, dims in enumerate(gather):
+            for d in reversed(dims):                  # innermost first
+                parts = dim_all_gather(mesh, out, d)
+                out = torch.cat(parts.unbind(0), axis)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        coord, shape = _coordinate(ctx.mesh), mesh_shape(ctx.mesh)
+        cuts, size = [], list(g.shape)           # each within the last
+        for axis, dims in enumerate(ctx.gather):
+            for d in dims:                            # outermost first
+                size[axis] //= shape[d]
+                cuts.append((axis, coord[d] * size[axis], size[axis]))
+        if ctx.reduce:
+            g = dim_sum(ctx.mesh, g, ctx.reduce[0], cuts)
+            for d in ctx.reduce[1:]:
+                g = dim_sum(ctx.mesh, g, d)
+        else:
+            for axis, start, length in cuts:
+                g = g.narrow(axis, start, length)
+        return g.contiguous(), None, None, None
+
+
+def gather_param(rules: MeshRules, w: torch.Tensor, spec,
+                 gather_model: bool = False,
+                 sum_model: bool = False) -> torch.Tensor:
+    """Training's use of this rank's block ``w`` of a weight with ``spec``:
+    its blocks over every dim but "model" all-gathered (FSDP), and over
+    "model" too with ``gather_model`` (a weight a replicated layer reads
+    whole); in backward the gradient is summed over the batch dims (each
+    data rank's tokens), and over "model" with ``sum_model`` (a whole
+    weight inside a Megatron region, whose gradient each rank has for its
+    own heads only), then cut back to the block.  A leaf with nothing to
+    gather still sums its gradient over the batch dims."""
+    shape = rules.shape
+    gather = []
+    for e in spec:
+        names = () if e is None else ((e,) if isinstance(e, str) else e)
+        gather.append(tuple(d for d in names if shape.get(d, 1) > 1 and
+                            (d != "model" or gather_model)))
+    reduce = batch_dims(rules) + (
+        ("model",) if sum_model and shape.get("model", 1) > 1 else ())
+    if not reduce and not any(gather):
+        return w
+    return _GatherParam.apply(w, rules.mesh, tuple(gather), reduce)

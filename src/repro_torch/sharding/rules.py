@@ -1,22 +1,108 @@
-"""The serving layouts: logical axes -> mesh dims, and the decode caches'
-placement.
+"""The layouts: logical axes -> mesh dims, for training and for serving,
+and the decode caches' placement.
 
-Counterpart of the serving subset of ``repro/sharding/rules.py``:
-``AXIS_MAP_SERVE``, ``make_serve_rules``, ``PAGED_CACHE_RULES`` and
-``cache_pspecs``; :func:`shard_caches` takes the place of
-``cache_shardings``: it slices a full cache tree to this rank's shards.
-``make_rules``' expert axes (its ``n_routed`` and ``moe_resident``) come
-into :func:`make_serve_rules`, which places MoE expert weights as the
-branch ``models/moe.py`` runs needs them (:func:`moe_branch`,
-:func:`shard_params`).  Training's parameter rules, axis maps and
-contiguous-cache rules (``PARAM_RULES``, ``AXIS_MAP_1POD``,
-``CACHE_RULES``, the rest of ``make_rules``) come with training: mesh
-serving runs the paged engine only.
+Counterpart of ``repro/sharding/rules.py``.  Training's rules are the
+reference's, entry for entry: ``PARAM_RULES`` (a parameter's path pattern
+-> its logical axes, first match wins), ``AXIS_MAP_1POD`` /
+``AXIS_MAP_MULTIPOD`` and :func:`make_rules` (FSDP over "data", Megatron
+TP over "model", the batch over "data" or ("pod", "data")), and the
+contiguous caches' ``CACHE_RULES``.  A rank holds its block of every
+leaf under them (``sharding/api.py:shard_state``); ``models/`` and
+``train/`` run the split the axis map gives.
+
+Serving keeps its own narrower map: ``AXIS_MAP_SERVE``,
+:func:`make_serve_rules`, ``PAGED_CACHE_RULES`` and :func:`cache_pspecs`;
+:func:`shard_caches` takes the place of ``cache_shardings``: it slices a
+full cache tree to this rank's shards.  ``make_rules``' expert axes (its
+``n_routed`` and ``moe_resident``) come into :func:`make_serve_rules`,
+which places MoE expert weights as the branch ``models/moe.py`` runs
+needs them (:func:`moe_branch`, :func:`shard_params`).
 """
 
 from __future__ import annotations
 
-from repro_torch.sharding.api import MeshRules, local_shard, local_view
+from repro_torch.sharding.api import (MeshRules, local_shard, local_view,
+                                      mesh_shape)
+
+# Path-pattern parameter rules (the reference's, in its order; first match
+# wins).  Axis names refer to the AXIS_MAP keys below.
+PARAM_RULES: tuple[tuple[str, tuple], ...] = (
+    # Embeddings / unembeddings: vocab over model (TP), embed over fsdp.
+    (r"embed/table$", ("vocab", "fsdp")),
+    (r"unembed/w$", ("fsdp", "vocab")),
+    (r"mtp_head/w$", ("fsdp", "vocab")),
+    # Attention projections: heads over model, d_model over fsdp.
+    (r"attn/wq/w$", ("fsdp", "heads", None)),
+    (r"attn/wk/w$", ("fsdp", "kv_heads", None)),
+    (r"attn/wv/w$", ("fsdp", "kv_heads", None)),
+    (r"attn/wq/b$", ("heads", None)),
+    (r"attn/w[kv]/b$", ("kv_heads", None)),
+    (r"attn/wo/w$", ("heads_flat", "fsdp")),
+    # MLA projections (deepseek): latent ranks replicated, heads over model.
+    (r"mla/wq_a/w$", ("fsdp", None)),
+    (r"mla/wq_b/w$", (None, "heads", None)),
+    (r"mla/wkv_a/w$", ("fsdp", None)),
+    (r"mla/wkv_b/w$", (None, "heads", None)),
+    (r"mla/wo/w$", ("heads_flat", "fsdp")),
+    # Dense MLPs: ffn over model (Megatron).
+    (r"(mlp|ffn|shared)/wi(_gate|_up)?/w$", ("fsdp", "ffn")),
+    (r"(mlp|ffn|shared)/wo/w$", ("ffn", "fsdp")),
+    # MoE experts: expert axis over model (EP) when divisible, else the
+    # per-expert ffn axis picks up "model" (expert-TP).
+    (r"moe/router/w$", ("fsdp", None)),
+    (r"moe/wi(_gate|_up)?$", ("expert", "expert_dmodel", "expert_ffn")),
+    (r"moe/wo$", ("expert", "expert_ffn", "expert_dmodel")),
+    # SSM (mamba2): inner channels over model.
+    (r"ssm/in_proj/w$", ("fsdp", "ffn")),
+    (r"ssm/out_proj/w$", ("ffn", "fsdp")),
+    (r"ssm/(conv_w|conv_b|A_log|D|dt_bias)$", ("ffn",)),
+    (r"ssm/norm/scale$", ("ffn",)),
+    # RG-LRU (recurrentgemma): recurrent width over model.
+    (r"rglru/(in_x|in_gate)/w$", ("fsdp", "ffn")),
+    (r"rglru/out/w$", ("ffn", "fsdp")),
+    (r"rglru/(a_param|conv_w|conv_b)$", ("ffn",)),
+    (r"rglru/(rg|ig)/w$", (None, "ffn", None)),
+    # Norm scales replicated.
+    (r"(scale|bias)$", (None,)),
+)
+
+# Training's logical-axis -> mesh-dim map on one pod.
+AXIS_MAP_1POD = {
+    "batch": "data",
+    "fsdp": "data",
+    "embed": None,
+    "seq": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "heads_flat": "model",
+    # Attention output entering wo keeps its heads split, so wo is the
+    # Megatron partial product and sum against the heads_flat rows.
+    "heads_out": "model",
+    "ffn": "model",
+    "vocab": "model",
+    "expert": "model",
+    "expert_ffn": None,
+    "seq_sp": "model",
+    # Decode caches split their sequence over "model" (8 or 1 KV heads do
+    # not divide a 16-way dim; the sequence always does).
+    "kv_seq": "model",
+}
+
+AXIS_MAP_MULTIPOD = dict(AXIS_MAP_1POD, batch=("pod", "data"))
+
+# Contiguous decode-cache leaf name -> logical axes, without the scan-stack
+# axis (:func:`cache_pspecs` prepends a None for a stacked leaf).
+CACHE_RULES: dict[str, tuple] = {
+    "k": ("batch", "kv_seq", None, None),
+    "v": ("batch", "kv_seq", None, None),
+    "c_kv": ("batch", "kv_seq", None),
+    "k_pe": ("batch", "kv_seq", None),
+    "conv": ("batch", None, "ffn"),
+    "ssm": ("batch", None, None, None),
+    "h": ("batch", "ffn"),
+    "pos": ("kv_seq",),
+    "length": (),
+}
 
 # Paged block-pool caches reuse contiguous leaf names ("k", "v", "pos") at
 # pool shapes, so they have their own table, chosen by the "table" leaf in
@@ -111,7 +197,7 @@ def make_serve_rules(mesh, n_routed: int = 0,
     axis_map = dict(AXIS_MAP_SERVE)
     if n_routed:
         axis_map.update(_expert_axes(
-            dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)), n_routed,
+            mesh_shape(mesh), n_routed,
             moe_resident))
     return MeshRules(mesh=mesh, axis_map=axis_map)
 
@@ -154,18 +240,29 @@ def shard_params(rules: MeshRules, params, n_routed: int, d_expert: int):
 
 def cache_pspecs(rules: MeshRules, cache_tree):
     """The spec of every leaf of a decode-cache tree (``{segN: [{bI: layer
-    cache}]}`` or any nesting of dicts and lists).  A paged layer's leaves
-    (a dict with a "table" leaf) take ``PAGED_CACHE_RULES``; every other
-    leaf is replicated."""
+    cache}]}`` or any nesting of dicts and lists), routed as the
+    reference routes it: a paged layer's leaves (a dict with a "table"
+    leaf) take ``PAGED_CACHE_RULES``, a contiguous layer's
+    ``CACHE_RULES`` (a leaf with one more axis than its rule is
+    scan-stacked: its leading axis is replicated); a leaf no rule names is
+    replicated.  The serving map names neither "kv_seq" nor "ffn", so
+    under it a contiguous cache splits its batch over "data" at most."""
+
+    def spec_for(axes, leaf):
+        if axes is None:
+            axes = (None,) * leaf.ndim
+        elif leaf.ndim == len(axes) + 1:
+            axes = (None,) + tuple(axes)
+        return rules.pspec(axes, leaf.shape)
 
     def walk(node, axes=None):
         if isinstance(node, dict):
-            table = PAGED_CACHE_RULES if "table" in node else {}
+            table = PAGED_CACHE_RULES if "table" in node else CACHE_RULES
             return {name: walk(sub, table.get(name))
                     for name, sub in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(sub) for sub in node)
-        return rules.pspec(axes or (None,) * node.ndim, node.shape)
+        return spec_for(axes, node)
 
     return walk(cache_tree)
 
@@ -183,3 +280,36 @@ def shard_caches(rules: MeshRules, cache_tree):
         return local_shard(rules, node, spec)
 
     return walk(specs, cache_tree)
+
+
+def make_rules(mesh, *, sequence_parallel: bool = False, fsdp: bool = True,
+               moe_ep: bool | None = None, n_routed: int = 0,
+               moe_resident: bool = False) -> MeshRules:
+    """Training's rules over ``mesh`` (a ``DeviceMesh`` or an
+    ``api.AbstractMesh``), the reference's: ``PARAM_RULES`` under
+    ``AXIS_MAP_1POD`` (``AXIS_MAP_MULTIPOD`` where the mesh has "pod");
+    ``sequence_parallel`` maps "seq" to "model"; ``fsdp=False`` keeps the
+    weights whole over "data".  ``moe_ep``: EP configs store the expert
+    hidden dim over "data", expert-TP configs over "model"; left None it
+    follows from ``n_routed`` over "model".  ``moe_resident`` splits the
+    experts over data x model."""
+    shape = mesh_shape(mesh)
+    axis_map = dict(AXIS_MAP_MULTIPOD if "pod" in shape else AXIS_MAP_1POD)
+    if sequence_parallel:
+        axis_map["seq"] = "model"
+    if not fsdp:
+        axis_map["fsdp"] = None
+    if moe_ep is None:
+        tp = shape.get("model", 1)
+        moe_ep = bool(n_routed) and n_routed % tp == 0
+    # EP:        wi [E->model, D, H->data]   (H gathered before use)
+    # expert-TP: wi [E, D->data, H->model]   (D gathered before use)
+    axis_map["expert_ffn"] = "data" if moe_ep else "model"
+    axis_map["expert_dmodel"] = None if moe_ep else "data"
+    if not moe_ep:
+        axis_map["expert"] = None
+    if moe_resident:
+        axis_map["expert"] = ("data", "model")
+        axis_map["expert_ffn"] = None
+        axis_map["expert_dmodel"] = None
+    return MeshRules(mesh=mesh, axis_map=axis_map, param_rules=PARAM_RULES)

@@ -6,7 +6,10 @@ it (``m``, ``v``) beside a 0-d int32 ``step``.  Options: bf16 moments
 (``moment_dtype="bfloat16"``, half the optimizer memory) and decoupled
 weight decay.
 
-The arithmetic is the reference's, operation for operation in f32.  The
+The arithmetic is the reference's, operation for operation in f32.
+Under mesh training each rank updates its blocks; the clip and the
+``grad_norm`` metric take the global norm over every rank's blocks
+(:func:`global_norm` with ``rules`` and ``specs``).  The
 update runs under ``torch.no_grad()`` and writes the parameters and moments
 in place on their device (the reference returns new trees; the port's
 full-width state would need a second copy of parameters and moments
@@ -64,15 +67,27 @@ def init_opt_state(params, cfg: AdamWConfig):
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, rules=None, specs=None) -> torch.Tensor:
+    """The L2 norm of every leaf together.  With mesh ``rules``, ``tree``
+    holds this rank's blocks (``specs`` their specs): each block's sum of
+    squares counts once (on the rank with its first copy,
+    ``sharding/api.py:holds_first_copy``), summed over the mesh in rank
+    order, so every rank gets the same norm."""
     leaves = tree_leaves(tree)
-    total = sum(torch.sum(torch.square(g.float())) for g in leaves)
-    return torch.sqrt(total)
+    if rules is None:
+        total = sum(torch.sum(torch.square(g.float())) for g in leaves)
+        return torch.sqrt(total)
+    from repro_torch.sharding.api import holds_first_copy, mesh_sum
+    part = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for g, spec in zip(leaves, tree_leaves(specs)):
+        if holds_first_copy(rules, spec):
+            part = part + torch.sum(torch.square(g.float()))
+    return torch.sqrt(mesh_sum(rules, part))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, rules=None, specs=None):
     """Returns (clipped grads, global norm before clipping)."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, rules, specs)
     scale = _clip_scale(gnorm, max_norm)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
 
@@ -82,10 +97,13 @@ def _clip_scale(gnorm, max_norm: float):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
+def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0,
+                 rules=None, specs=None):
     """One AdamW step with global-norm clipping.  Writes ``params`` and the
-    moments in place and returns (params, state, metrics)."""
-    gnorm = global_norm(grads)
+    moments in place and returns (params, state, metrics).  Under mesh
+    ``rules`` the trees are this rank's blocks (``specs``) and the norm is
+    global."""
+    gnorm = global_norm(grads, rules, specs)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state["step"] + 1
     sf = step.float()

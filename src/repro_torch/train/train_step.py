@@ -10,8 +10,21 @@ Counterpart of ``repro/train/train_step.py``:
 * **int8 gradient compression with error feedback** (:func:`compress_grads`):
   per-leaf symmetric int8 with the residual carried to the next step.  The
   reference applies it only inside its data-parallel all-reduce, under mesh
-  rules; on one device the step carries ``err`` unchanged, as there.  The
-  all-reduce itself (:func:`allreduce_int8_ef`) belongs to mesh training.
+  rules (:func:`allreduce_int8_ef`); on one device the step carries
+  ``err`` unchanged, as there.
+
+**Mesh training.**  Under training's rules (``sharding/rules.py:
+make_rules``, made active with ``sharding/api.py:use_rules``) the state
+is this rank's blocks (``sharding/api.py:shard_state``) and the step takes
+this rank's rows of the batch (its "data" block, ``SyntheticLMDataset``'s
+shard).  The loss gathers the weights' "data" blocks
+(``transformer.gather_weights``), runs the layers' Megatron split, takes
+the LM head vocab-parallel (:func:`chunked_lm_loss`) and divides by the
+global token count; each gradient comes back summed over the batch and cut
+to the rank's block (the reference's gradient pin), and the clip and the
+``grad_norm`` metric take the global norm (``optimizer.global_norm``).
+Dense transformers only: other blocks and sequence parallelism are
+refused (:func:`check_mesh_trainable`).
 
 The state is ``{"params", "opt", ["err"]}`` over the port's per-layer
 parameter tree; :func:`state_to_numpy` / :func:`state_from_numpy` convert it
@@ -22,6 +35,7 @@ checkpoints are written in.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -31,9 +45,18 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import tensor_from_host
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.api import (AbstractMesh, batch_sum, block_index,
+                                      copy_to_model, dim_all_gather, dim_max,
+                                      gather_shards, local_shard,
+                                      mesh_shape, model_split,
+                                      reduce_from_model, training_rules)
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          cosine_schedule, init_opt_state,
                                          tree_leaves, tree_map)
+
+# Where the blocks mesh training refuses are queued.
+MESH_TRAIN_NEXT = ("ROADMAP A10, 'Mesh training of MoE, MLA, SSM, RG-LRU "
+                   "and SP'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,13 +94,32 @@ def _chunk_nll(hx, w_dv, tx, wx):
     return nll.sum(), wx.sum()
 
 
+def _chunk_nll_vocab_parallel(hx, w_dv, tx, wx, rules, v0):
+    """:func:`_chunk_nll` on this rank's vocab block ``[v0, v0 + Vl)``:
+    the logsumexp from the max and the sum of exponentials over "model",
+    the target logit from the rank that holds it (the others add 0)."""
+    logits = hx.float() @ w_dv.float()                     # [B, c, Vl]
+    gmax = dim_max(rules.mesh, logits.detach().amax(-1), "model")
+    lse = gmax + torch.log(reduce_from_model(
+        torch.exp(logits - gmax[..., None]).sum(-1), rules))
+    onehot = ((tx - v0)[..., None] == torch.arange(
+        logits.shape[-1], device=tx.device)).to(logits.dtype)
+    tgt_logit = reduce_from_model(
+        torch.einsum("bcv,bcv->bc", logits, onehot), rules)
+    nll = (lse - tgt_logit) * wx
+    return nll.sum(), wx.sum()
+
+
 def chunked_lm_loss(h, params, targets, cfg: ModelConfig, chunk: int = 512,
                     shift: int = 1):
     """Sequence-chunked LM head and NLL: never a [B, S, vocab] tensor.
 
     Each chunk computes one [B, chunk, V] slice of logits and reduces it at
     once; where a gradient is needed, the chunk is recomputed in backward (the
-    reference's ``jax.checkpoint``), so at most one slice is alive."""
+    reference's ``jax.checkpoint``), so at most one slice is alive.  Under
+    training's rules the head is vocab-parallel where the rank holds a
+    vocab block (:func:`_chunk_nll_vocab_parallel`), and the mean is over
+    the global token count (every data rank's)."""
     B, S, _ = h.shape
     c = min(chunk, S)
     pad = (-S) % c
@@ -91,33 +133,64 @@ def chunked_lm_loss(h, params, targets, cfg: ModelConfig, chunk: int = 512,
         w = F.pad(w, (0, pad))
     w_dv = (params["embed"]["table"].T if cfg.tie_embeddings
             else params["unembed"]["w"])
-    step = _chunk_nll
+    rules = training_rules()
+    fn, extra = _chunk_nll, ()
+    if rules is not None and _vocab_split(rules, cfg):
+        fn = _chunk_nll_vocab_parallel
+        extra = (rules, block_index(rules, "model")[0] * w_dv.shape[1])
+        h = copy_to_model(h, rules)
+    step = fn
     if L.needs_grad(h, w_dv):
         from torch.utils.checkpoint import checkpoint
 
         def step(*a):
-            return checkpoint(_chunk_nll, *a, use_reentrant=False)
+            return checkpoint(fn, *a, use_reentrant=False)
     total, count = 0.0, 0.0
     for c0 in range(0, h.shape[1], c):
         nll, wsum = step(h[:, c0:c0 + c], w_dv, tgt[:, c0:c0 + c],
-                         w[:, c0:c0 + c])
+                         w[:, c0:c0 + c], *extra)
         total, count = total + nll, count + wsum
+    if rules is not None:
+        count = batch_sum(rules, count.detach())
     return total / torch.clamp(count, min=1.0)
 
 
-def loss_fn(params, batch, cfg: ModelConfig, tcfg: TrainConfig):
+def _vocab_split(rules, cfg: ModelConfig) -> bool:
+    """Whether training's rules split the vocab over "model" (the tied
+    table's rows, which also split the untied head's columns: both are
+    the "vocab" axis)."""
+    return model_split(rules, "embed/table", (cfg.vocab, cfg.d_model), 0)
+
+
+def _embed(params, tokens, cfg: ModelConfig):
+    rules = training_rules()
+    if rules is not None and _vocab_split(rules, cfg):
+        return L.embed_vocab_parallel(params["embed"], tokens, rules)
+    return L.embed(params["embed"], tokens)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, tcfg: TrainConfig, specs=None):
     """batch: tokens [B, S] int, or {"tokens": ..., "patches": [B, P, D]}
-    for the stubbed-frontend VLM archs (loss over the text positions)."""
+    for the stubbed-frontend VLM archs (loss over the text positions).
+
+    Under training's rules ``params`` are this rank's blocks (``specs``
+    their specs, :func:`param_specs` by default), ``batch`` its rows, and
+    the result is its share of the global mean: the data ranks' shares sum
+    to it."""
+    rules = training_rules()
+    if rules is not None:
+        specs = param_specs(cfg, rules) if specs is None else specs
+        params = T.gather_weights(rules, params, specs)
     tokens = batch["tokens"] if isinstance(batch, dict) else batch
     patches = batch.get("patches") if isinstance(batch, dict) else None
     n_patch = 0
     if patches is not None:
         n_patch = patches.shape[1]
-        text = L.embed(params["embed"], tokens)
+        text = _embed(params, tokens, cfg)
         x = torch.cat([patches.to(text.dtype), text], 1).to(
             cfg.activation_dtype)
     else:
-        x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
+        x = _embed(params, tokens, cfg).to(cfg.activation_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     h, _, aux = T.run_segments(params, x, positions, cfg)
     if n_patch:
@@ -128,7 +201,7 @@ def loss_fn(params, batch, cfg: ModelConfig, tcfg: TrainConfig):
     if cfg.mtp:
         # MTP shares the trunk: one extra block over [h_t ; emb(t+1)]
         # predicting token t+2 (the chunked head again).
-        emb_next = L.embed(params["embed"], torch.roll(tokens, -1, 1))
+        emb_next = _embed(params, torch.roll(tokens, -1, 1), cfg)
         cat = torch.cat([L.norm(params["mtp_norm"], h),
                          emb_next.to(h.dtype)], -1)
         xm = L.linear(params["mtp_proj"], cat)
@@ -145,10 +218,16 @@ def loss_fn(params, batch, cfg: ModelConfig, tcfg: TrainConfig):
 # ---------------------------------------------------------------------------
 
 
-def _compress_int8(g, err):
+def _compress_int8(g, err, fused: bool = False):
+    """(int8 values, scale, residual).  ``fused``: the residual ``gf - q *
+    scale`` rounded once, as the jitted reference's fused multiply-subtract
+    rounds it (its all-reduce); otherwise the product is rounded first, as
+    its eager ``compress_grads`` does."""
     gf = g.float() + err
     scale = torch.clamp(gf.abs().amax(), min=1e-12) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+    if fused:    # q * scale is exact in f64: one rounding, to f32
+        return q, scale, (gf.double() - q.double() * scale.double()).float()
     deq = q.float() * scale
     return q, scale, gf - deq            # residual -> error feedback
 
@@ -165,11 +244,89 @@ def decompress_grads(q, s):
 
 
 def allreduce_int8_ef(grads, err_state, mesh, data_axes=("data",)):
-    """The int8 all-reduce over the data axes with error feedback: part of
-    mesh training, which the port does not have yet."""
-    raise NotImplementedError(
-        "allreduce_int8_ef runs under mesh training rules: mesh training "
-        "is the next slice of the port (ROADMAP A10)")
+    """The reference's int8 all-reduce over the data axes with error
+    feedback, on this rank's tensors: each rank quantizes its ``g + e``
+    with its own per-leaf scale, the int8 values go on the wire (one
+    ``all_gather`` along the first axis, then int32 partial sums along any
+    other) and are summed as int32 in coordinate order, the scales' max is
+    taken, and the result is ``q_sum * s_max / n``; ``err`` is the rank's
+    own residual.  That is the mean only where every rank's scale is equal,
+    as it is in the reference's step, which calls it on gradients already
+    reduced over the data ranks (ROADMAP C14).  ``mesh`` is a
+    ``DeviceMesh``; data axes it lacks are skipped."""
+    if mesh is None or isinstance(mesh, AbstractMesh):
+        raise ValueError("allreduce_int8_ef needs the ranks' DeviceMesh: it "
+                         "is the data all-reduce of mesh training")
+    shape = mesh_shape(mesh)
+    axes = tuple(a for a in data_axes if a in shape)
+    n = 1
+    for a in axes:
+        n *= shape[a]
+
+    def body(g, e):
+        q, scale, e_new = _compress_int8(g, e, fused=True)
+        q_sum, s_max = q, scale.reshape(1)
+        for a in axes:
+            parts = dim_all_gather(mesh, q_sum, a).to(torch.int32)
+            q_sum = functools.reduce(torch.add, parts.unbind(0))
+            s_max = dim_max(mesh, s_max, a)
+        return q_sum.float() * s_max[0] / n, e_new
+
+    out = tree_map(body, grads, err_state)
+    return (tree_map(lambda t: t[0], out), tree_map(lambda t: t[1], out))
+
+
+def _allreduce_int8_ef_blocks(rules, grads, err, specs, data_axes):
+    """:func:`allreduce_int8_ef` in the reference's layout, leaf by leaf:
+    the reference's step hands it whole, data-replicated gradients (its
+    ``shard_map`` in_specs are replicated), so each leaf and its residual
+    are gathered whole, reduced, and cut back to this rank's block."""
+    def leaf(g, e, spec):
+        out, e_new = allreduce_int8_ef(gather_shards(rules, g, spec),
+                                       gather_shards(rules, e, spec),
+                                       rules.mesh, data_axes)
+        return local_shard(rules, out, spec), local_shard(rules, e_new, spec)
+
+    pairs = tree_map(leaf, grads, err, specs)
+    return (tree_map(lambda t: t[0], pairs), tree_map(lambda t: t[1], pairs))
+
+
+def check_mesh_trainable(cfg: ModelConfig, rules) -> None:
+    """Raise ``ValueError`` where training's ``rules`` meet what mesh
+    training does not split yet: a block other than attention with a dense
+    or no FFN, and sequence parallelism.  Refused, not run replicated."""
+    if rules is None or not rules.param_rules:
+        return
+    if rules.axis_map.get("seq") is not None:
+        raise ValueError(f"mesh training with sequence_parallel=True is not "
+                         f"ported: {MESH_TRAIN_NEXT}")
+    for unit, _ in cfg.segments:
+        for spec in unit:
+            if spec.mixer not in ("attn", "local_attn"):
+                raise ValueError(
+                    f"mesh training of {spec.mixer!r} blocks ({cfg.name}) "
+                    f"is not ported: {MESH_TRAIN_NEXT}")
+            if spec.ffn == "moe":
+                raise ValueError(
+                    f"mesh training of MoE FFNs ({cfg.name}) is not "
+                    f"ported: {MESH_TRAIN_NEXT}")
+
+
+def param_specs(cfg: ModelConfig, rules):
+    """The spec of every parameter of ``cfg`` under ``rules``, from its
+    full shapes (an init on the "meta" device: nothing is drawn or
+    held)."""
+    return rules.tree_pspecs(T.init_model(cfg, torch.Generator(), "meta"))
+
+
+def state_specs(cfg: ModelConfig, tcfg: TrainConfig, rules):
+    """The specs of the train state's leaves: moments and the error
+    feedback split as their parameter, ``opt/step`` whole."""
+    ps = param_specs(cfg, rules)
+    out = {"params": ps, "opt": {"m": ps, "v": ps, "step": ()}}
+    if tcfg.grad_compression == "int8_ef":
+        out["err"] = ps
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -177,25 +334,35 @@ def allreduce_int8_ef(grads, err_state, mesh, data_axes=("data",)):
 # ---------------------------------------------------------------------------
 
 
-def value_and_grad(params, batch, cfg: ModelConfig, tcfg: TrainConfig):
+def value_and_grad(params, batch, cfg: ModelConfig, tcfg: TrainConfig,
+                   specs=None):
     """(loss, grads) of :func:`loss_fn`; grads mirror ``params`` (zeros
-    for a leaf the loss does not reach)."""
+    for a leaf the loss does not reach).  Under training's rules the loss
+    is the global one (the data ranks' shares summed) and each gradient
+    this rank's block of the global gradient."""
     leaves = tree_leaves(params)
-    loss = loss_fn(params, batch, cfg, tcfg)
+    loss = loss_fn(params, batch, cfg, tcfg, specs)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     it = iter(grads)
-    return loss.detach(), tree_map(lambda _: next(it), params)
+    loss = loss.detach()
+    rules = training_rules()
+    if rules is not None:
+        loss = batch_sum(rules, loss)
+    return loss, tree_map(lambda _: next(it), params)
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     """Returns step(state, tokens) -> (state, metrics).  The update writes
-    the state's parameters and moments in place (``adamw_update``)."""
+    the state's parameters and moments in place (``adamw_update``).  Under
+    training's rules (``use_rules``) ``state`` is this rank's blocks and
+    ``tokens`` its rows of the batch."""
+    specs_of = {"rules": None, "specs": None}
 
-    def grads_of(params, tokens):
+    def grads_of(params, tokens, specs):
         if tcfg.microbatches <= 1:
-            return value_and_grad(params, tokens, cfg, tcfg)
+            return value_and_grad(params, tokens, cfg, tcfg, specs)
         n = tcfg.microbatches
 
         def slice_mb(x, i):
@@ -208,24 +375,31 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         for i in range(n):
             batch = (tree_map(lambda x: slice_mb(x, i), tokens)
                      if isinstance(tokens, dict) else slice_mb(tokens, i))
-            loss, g = value_and_grad(params, batch, cfg, tcfg)
+            loss, g = value_and_grad(params, batch, cfg, tcfg, specs)
             g_acc = tree_map(torch.add, g_acc, g)
             loss_acc = loss_acc + loss
         inv = 1.0 / n
         return loss_acc * inv, tree_map(lambda g: g * inv, g_acc)
 
     def step(state, tokens):
-        from repro_torch.sharding.api import current_rules
         params, opt, err = state["params"], state["opt"], state.get("err")
-        loss, grads = grads_of(params, tokens)
-        if tcfg.grad_compression == "int8_ef" and err is not None:
-            rules = current_rules()
-            if rules is not None:
-                grads, err = allreduce_int8_ef(grads, err, rules.mesh)
+        rules, specs = training_rules(), None
+        if rules is not None:
+            if specs_of["rules"] is not rules:
+                check_mesh_trainable(cfg, rules)
+                specs_of.update(rules=rules, specs=param_specs(cfg, rules))
+            specs = specs_of["specs"]
+        loss, grads = grads_of(params, tokens, specs)
+        if tcfg.grad_compression == "int8_ef" and err is not None and \
+                rules is not None:
+            data_axes = tuple(a for a in ("pod", "data") if a in rules.shape)
+            grads, err = _allreduce_int8_ef_blocks(rules, grads, err, specs,
+                                                   data_axes)
         lr_scale = cosine_schedule(opt["step"], warmup=tcfg.warmup_steps,
                                    total=tcfg.total_steps)
         params, opt, metrics = adamw_update(params, grads, opt,
-                                            tcfg.optimizer, lr_scale)
+                                            tcfg.optimizer, lr_scale,
+                                            rules=rules, specs=specs)
         new_state = dict(state, params=params, opt=opt)
         if err is not None:
             new_state["err"] = err
@@ -240,10 +414,12 @@ def trainable(params):
 
 
 def init_train_state(cfg: ModelConfig, tcfg: TrainConfig,
-                     generator: torch.Generator, device=None):
-    """Seeded parameters (``transformer.init_model``), zero moments and, with
-    ``grad_compression="int8_ef"``, a zero error-feedback tree."""
-    params = trainable(T.init_model(cfg, generator, device))
+                     generator: torch.Generator, device=None, place=None):
+    """Seeded parameters (``transformer.init_model``, each part through
+    ``place`` where given: a rank's blocks), zero moments and, with
+    ``grad_compression="int8_ef"``, a zero error-feedback tree, shaped as
+    the parameters kept."""
+    params = trainable(T.init_model(cfg, generator, device, place))
     state: dict[str, Any] = {
         "params": params,
         "opt": init_opt_state(params, tcfg.optimizer),

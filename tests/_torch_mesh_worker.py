@@ -1,6 +1,6 @@
 """What a rank of the 2x2 mesh of ``tests/test_torch_mesh.py``,
-``tests/test_torch_mesh_state.py`` and ``tests/test_torch_mesh_moe.py``
-runs, and the single-device runs it is held to.  Imports torch and the
+``tests/test_torch_mesh_state.py``, ``tests/test_torch_mesh_moe.py`` and
+``tests/test_torch_mesh_train.py`` runs, and the single-device runs it is held to.  Imports torch and the
 port only: the ranks are spawned processes, and the JAX reference stays
 in the pytest process or its subprocesses."""
 
@@ -549,3 +549,167 @@ def moe_rank(mesh, device, params_by_variant) -> dict:
                 res["greedy"]["tokens"] if mode == "spec" else None)
         out["serve"][variant] = res
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training on the mesh (tests/test_torch_mesh_train.py): the train step
+# under make_rules, allreduce_int8_ef, the Trainer, a 1x2 resume and the
+# elastic reshard.
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_STEPS = 3
+# The Trainer's run: the launcher's data at a reduced size.
+TRAINER_DATA = dict(seq_len=32, global_batch=4, seed=0)
+TRAINER_STEPS = 2
+# Head layouts whose Megatron branches a 2-way "model" dim takes beside
+# reduced stablelm's 4 q / 4 KV heads (config changes, applied to the
+# reference's config too): MQA's one KV head, whole on every rank (each
+# local q head reads it; the wk/wv gradients summed over "model"); 6 q
+# heads over 3 KV heads, which "model" does not divide (a rank's q heads
+# read two KV heads); 3 q heads, which it does not divide (the heads
+# whole, wo's rows gathered).
+HEAD_CASES = {"mqa": {"n_kv_heads": 1},
+              "kv_whole": {"n_heads": 6, "n_kv_heads": 3},
+              "q_whole": {"n_heads": 3, "n_kv_heads": 1}}
+
+
+def train_model_config(case: str | None = None):
+    return reduced_config(TRAIN_ARCH).replace(**HEAD_CASES.get(case, {}))
+
+
+def train_tcfg(**kw):
+    """The mesh tests' TrainConfig: lr 1e-3 from the first step (no
+    warm-up), so that every step moves the parameters."""
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+    return TrainConfig(optimizer=AdamWConfig(lr=1e-3), warmup_steps=0, **kw)
+
+
+def trainer_config(steps: int, ckpt_dir: str, int8: bool = False):
+    """The Trainer's TrainConfig, TrainerConfig and DataConfig."""
+    from repro_torch.data import DataConfig
+    from repro_torch.train.trainer import TrainerConfig
+    cfg = reduced_config(TRAIN_ARCH)
+    tcfg = train_tcfg(total_steps=4,
+                      grad_compression="int8_ef" if int8 else "none")
+    return (tcfg, TrainerConfig(steps=steps, ckpt_every=100,
+                                ckpt_dir=ckpt_dir, log_every=0),
+            DataConfig(vocab=cfg.vocab, **TRAINER_DATA))
+
+
+def _host(tree):
+    from repro_torch.train.optimizer import tree_map
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
+
+
+def train_rank(mesh, device, params, tokens, dirs, g, e,
+               head_params) -> dict:
+    """A rank of the 2x2 training mesh: three train steps from ``params``
+    (full, seeded) on its rows of ``tokens``, the gathered parameters
+    after steps 1 and 3 and its own blocks; one int8_ef step;
+    ``allreduce_int8_ef`` on the same ``g``/``e`` everywhere and on
+    ``g`` scaled by 1 + its data coordinate; the Trainer over the mesh
+    (its checkpoint written by the leader), a 1x2 mesh resuming from it,
+    and a host tree resharded onto the 1x2 mesh; then, for each of
+    ``HEAD_CASES`` (its ``head_params``), the loss and the gathered
+    gradients at its initial parameters and one step."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.api import (gather_state, mesh_group,
+                                          shard_state, use_rules)
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer
+    cfg = reduced_config(TRAIN_ARCH)
+    tcfg = train_tcfg()
+    rules = make_rules(mesh, n_routed=cfg.n_routed)
+    specs = TS.state_specs(cfg, tcfg, rules)
+    full = {"params": params, "opt": O.init_opt_state(params, tcfg.optimizer)}
+    state = shard_state(rules, full, specs)
+    state["params"] = TS.trainable(state["params"])
+    d = mesh.get_coordinate()[0]
+    rows = tokens.shape[0] // mesh.mesh.shape[0]
+    local = torch.as_tensor(tokens[d * rows:(d + 1) * rows])
+    step = TS.make_train_step(cfg, tcfg)
+    out = {"coord": tuple(mesh.get_coordinate()), "metrics": [],
+           "params": {}}
+    with use_rules(rules):
+        for i in range(TRAIN_STEPS):
+            state, m = step(state, local)
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+            if i + 1 in (1, TRAIN_STEPS):
+                out["params"][i + 1] = O.tree_map(np.array, T.params_to_numpy(
+                    gather_state(rules, state["params"], specs["params"]),
+                    cfg))
+        out["blocks"] = _host(state)
+        # One int8_ef step from here (err zeros).
+        tcfg8 = train_tcfg(grad_compression="int8_ef")
+        state["err"] = O.tree_map(torch.zeros_like, state["params"])
+        state, m = TS.make_train_step(cfg, tcfg8)(state, local)
+        out["int8_step"] = {"loss": float(m["loss"]),
+                            "params": _host(gather_state(
+                                rules, state["params"], specs["params"])),
+                            "err": _host(gather_state(rules, state["err"],
+                                                      specs["params"]))}
+    # allreduce_int8_ef, the reference's test inputs, then unequal scales.
+    tg, te = {"w": torch.as_tensor(g)}, {"w": torch.as_tensor(e)}
+    o, r = TS.allreduce_int8_ef(tg, te, mesh, ("data",))
+    o2, r2 = TS.allreduce_int8_ef({"w": tg["w"] * (1 + d)}, te, mesh,
+                                  ("data",))
+    out["int8"] = {"out": o["w"].numpy(), "err": r["w"].numpy(),
+                   "unequal_out": o2["w"].numpy(),
+                   "unequal_err": r2["w"].numpy()}
+    # The Trainer over the mesh; then a 1x2 mesh of ranks 0 and 1 resumes.
+    tcfg_t, run, data = trainer_config(TRAINER_STEPS, dirs["trainer"])
+    tr = Trainer(cfg, tcfg_t, run, data_cfg=data, device=device, rules=rules)
+    st = tr.train()
+    out["trainer"] = {"metrics": tr.metrics_log,
+                      "gathered": _host(gather_state(rules, st, tr.specs))}
+    mgr = ElasticMeshManager(model_parallel=2, devices_per_node=1)
+    sub = mgr.rebuild_mesh(mgr.decide(healthy_nodes=2))
+    mesh_group(sub)
+    host = O.tree_map(lambda t: t.detach().clone(), params)
+    blocks = mgr.reshard(sub, host, n_routed=cfg.n_routed)
+    out["resume"] = out["reshard"] = None
+    if blocks is not None:
+        sub_rules = make_rules(sub, n_routed=cfg.n_routed)
+        sub_specs = sub_rules.tree_pspecs(host)
+        out["reshard"] = {
+            "coord": tuple(sub.get_coordinate()),
+            "blocks": _host(blocks),
+            "gathered": _host(gather_state(sub_rules, blocks, sub_specs))}
+        tcfg_t, run, data = trainer_config(TRAINER_STEPS + 1,
+                                           dirs["trainer"])
+        tr = Trainer(cfg, tcfg_t, run, data_cfg=data, device=device,
+                     rules=sub_rules)
+        tr.train()
+        out["resume"] = tr.metrics_log
+    out["heads"] = {key: heads_case(mesh, key, p, local)
+                    for key, p in head_params.items()}
+    return out
+
+
+def heads_case(mesh, key: str, params, tokens) -> dict:
+    """Model ``key`` of ``HEAD_CASES`` on the mesh from its full
+    ``params``, on this rank's rows ``tokens``: the loss and every
+    gradient gathered whole at the initial parameters, then one step's
+    metrics and the gathered parameters after it."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.api import gather_state, shard_state, use_rules
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    cfg, tcfg = train_model_config(key), train_tcfg()
+    rules = make_rules(mesh, n_routed=cfg.n_routed)
+    specs = TS.param_specs(cfg, rules)
+    p = TS.trainable(shard_state(rules, params, specs))
+    with use_rules(rules):
+        loss, grads = TS.value_and_grad(p, tokens, cfg, tcfg, specs)
+        state = {"params": p, "opt": O.init_opt_state(p, tcfg.optimizer)}
+        state, m = TS.make_train_step(cfg, tcfg)(state, tokens)
+        return {"loss": float(loss),
+                "grads": _host(gather_state(rules, grads, specs)),
+                "metrics": {k: float(v) for k, v in m.items()},
+                "params": O.tree_map(np.array, T.params_to_numpy(
+                    gather_state(rules, state["params"], specs), cfg))}

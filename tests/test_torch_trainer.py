@@ -335,8 +335,9 @@ def test_microbatched_step_matches_reference():
 
 def test_launch_train_cpu(tmp_path, capsys):
     """``python -m repro_torch.launch.train --device cpu`` at the reduced
-    config, microbatched with int8_ef; ``--mesh production`` is refused
-    (mesh training is the next slice)."""
+    config, microbatched with int8_ef; ``--mesh production`` without an
+    initialized 256-rank world is refused (``--mesh DP,TP`` is held in
+    ``tests/test_torch_mesh_train.py``)."""
     tr = launch_train.main(["--arch", ARCH, "--steps", "2", "--batch", "2",
                             "--seq", "16", "--ckpt-dir", str(tmp_path),
                             "--device", "cpu", "--microbatches", "2",
