@@ -3,7 +3,8 @@
 
 ``python3 chip_smoke.py`` from the root of a checkout.  It builds the
 port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
-``build/``, one ``nvcc`` per source, all started together), then:
+``build/``, one ``nvcc`` per source, all started together, while the
+train phase, 17 below, which runs no kernel, runs first), then:
 
 1. device: requires CUDA, prints the card and its power limit, turns TF32
    off for matmuls and convolutions;
@@ -138,10 +139,10 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    layer of its forward (2 x 16 heads of 128, S=1024; bitstopper_qk's
    rounds and survivors equal to plain, both outs within UNCACHED_TOL),
    timed beside their bounds; (b) full-width qwen2-moe-a2.7b (f32, about
-   56 GB of seeded random weights drawn on the card) cut to depth 6 (full
+   56 GB of seeded random weights drawn on the card) cut to depth 2 (full
    depth until the mesh train phase, then 12, then 6 to pay for its
-   Trainer checks) serving the main trace through
-   ``PagedEngine`` with the decode kernel (6 launches a decode tick;
+   Trainer checks, then 2 for its MoE part) serving the main trace through
+   ``PagedEngine`` with the decode kernel (2 launches a decode tick;
    tokens/s, the decode tick and the prefill chunk, dropped (token,
    expert) pairs per tick kind) and a profile of its decode ticks (device
    busy share); at cut depth 4, kernel
@@ -196,7 +197,8 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    OUT_TOL; prints each method's ``core/stats.py`` Complexity in both
    accounting modes and BESF's K+V bytes and bit-MACs relative to the
    others (counts on random weights, not times);
-17. train: stablelm-1.6b at its published width, f32, AdamW in f32:
+17. train (first, beside the build): stablelm-1.6b at its published
+   width, f32, AdamW in f32:
    (a) cut to depth 4 (since the mesh train phase; widths kept) through
    ``train.trainer.Trainer`` at the launcher's
    defaults (batch 8, seq 256, 4 steps; ms per step, tokens/s, peak
@@ -207,18 +209,26 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (into
    TRAIN_CPU_TOL of the CPU's; (c) depth 2 under
    ``torch.use_deterministic_algorithms``: train(4) equal bit for bit to
    train(2) and a resumed train(2) (checkpoint bytes, save and load ms);
-18. mesh train, after train: full-width stablelm-1.6b cut to depth 4
-   (f32) trained on a 2x2 (data, model) mesh of four ranks sharing the
-   card over gloo under the reference's training rules (FSDP over "data",
-   Megatron TP over "model"; ``sharding/rules.py:make_rules``), initial
-   weights by CUDA IPC (checksums equal), three steps at 8 x 256 beside
-   the same steps on one device: each loss within 2e-4 of one device's,
-   blocks that several ranks hold bit-equal, the leader's checkpoint
-   loaded on one device bit-equal to the gathered state and within 2e-3
-   of one device's parameters, then one int8_ef step (every leaf's
-   all-reduce result equal on every rank, residuals within max|g + e| /
-   127); prints the gaps, each rank's bytes of parameters and moments
-   beside one device's, ms per step per rank and the collectives' ms;
+18. mesh train, last: full-width stablelm-1.6b cut to depth 1
+   (4 until the MoE part came; f32) trained on a 2x2 (data, model) mesh
+   of four ranks sharing the card over gloo under the reference's
+   training rules (FSDP over "data", Megatron TP over "model";
+   ``sharding/rules.py:make_rules``), initial weights by CUDA IPC
+   (checksums equal), three steps at 8 x 256 beside the same steps on one
+   device: each loss within 2e-4 of one device's, blocks that several
+   ranks hold bit-equal, the leader's checkpoint loaded on one device
+   bit-equal to the gathered state and within 1e-4 of one device's
+   parameters, then one int8_ef step (every leaf's all-reduce result equal
+   on every rank, residuals within max|g + e| / 127) and the Trainer's
+   init and resume; then, in the same spawn, qwen2-moe-a2.7b at full
+   width cut to depth 2 in the EP branch (30 of 60 experts a rank), three
+   steps, each from one device's parameters after the step before,
+   beside one device's: losses, grad norms, parameters and each layer's
+   dropped pairs as one device's; prints the gaps (with the first Adam
+   moments where a parameter parts from one device's, and the routing's
+   smallest top-k margins beside the router's gaps), each rank's bytes of
+   parameters and moments beside one device's, ms per step per rank, the
+   collectives' ms, drops and peak device bytes;
 19. prints one JSON line describing each kernel (the bf16 forms, the
    D=128 shapes and the mesh shards under each kernel's row), then the
    device line last.
@@ -340,6 +350,29 @@ def build_phase():
     runtime.build_libraries(KERNELS)
     print(f"[chip_smoke] built {', '.join(KERNELS)} with "
           f"{' '.join(runtime.NVCC_FLAGS)}")
+
+
+def build_beside():
+    """:func:`build_phase` in a thread, while the caller runs a phase that
+    needs no kernel (its ``nvcc`` processes wait on the host's cores, not
+    the card); returns the join, which raises the build's failure."""
+    import threading
+    failure = []
+
+    def run():
+        try:
+            build_phase()
+        except BaseException as e:          # raised again by the join
+            failure.append(e)
+
+    worker = threading.Thread(target=run, name="nvcc")
+    worker.start()
+
+    def join():
+        worker.join()
+        if failure:
+            raise failure[0]
+    return join
 
 
 def decode_case(torch, seed, B, Hq, Hkv, D, bs, MB, P, Sq=1, bits=12,
@@ -3402,7 +3435,8 @@ def bf16_dense(torch, np, cfg, params):
 # ---------------------------------------------------------------------------
 
 MOE_ARCH = "qwen2-moe-a2.7b"
-MOE_A_DEPTH = 6                  # moe (a)'s cut since the mesh train phase
+MOE_A_DEPTH = 2                  # moe (a)'s cut since the MoE mesh train
+                                 # phase (24, then 12, then 6 before)
 
 
 @phase("moe kernels")
@@ -3466,52 +3500,46 @@ def build_moe_model(torch):
 
 class DropCounter:
     """Counts the dropped (token, expert) pairs and the routed rows of
-    every MoE dispatch on the card, into device tensors (no host sync per
-    layer), apart for verify forwards and all other calls; ``take()``
-    reads and resets the counts: {"verify" | "other": (dropped, rows)}.
-    Under a mesh a rank counts the pairs of its own experts that dropped
-    (another rank's pairs are not its to drop)."""
+    every MoE dispatch on the card (a ``models/moe.py:RoutingLog``, read
+    at ``take()``, no host sync per layer), apart for verify forwards and
+    all other calls; ``take()`` reads and resets the counts: {"verify" |
+    "other": (dropped, rows)}.  Under a mesh a rank counts the pairs of
+    its own experts that dropped (another rank's pairs are not its to
+    drop)."""
 
     def __init__(self, torch):
-        from repro_torch.models import moe
+        from repro_torch.models.moe import RoutingLog
         from repro_torch.serving import PagedEngine
-        self.torch, self.moe, self.engine = torch, moe, PagedEngine
-        self.real_plan = moe.dispatch_plan
+        self.log, self.engine = RoutingLog(), PagedEngine
         self.real_verify = PagedEngine._verify_forward
-        self.tag, self.counts = "other", {}
-
-    def _plan(self, top_i, n_local, capacity, expert_offset=0):
-        plan = self.real_plan(top_i, n_local, capacity, expert_offset)
-        local = top_i.reshape(-1).long() - expert_offset
-        mine = ((local >= 0) & (local < n_local))[plan[0]]
-        c = self.counts.setdefault(self.tag, self.torch.zeros(
-            2, dtype=self.torch.int64, device="cuda"))
-        c[0] += (mine & ~plan[3]).sum()
-        c[1] += plan[3].numel()
-        return plan
+        self.verify = set()          # the log's plans of verify forwards
 
     def __enter__(self):
         counter = self
 
         def verify(eng, *a):
-            counter.tag = "verify"
+            first = len(counter.log.plans)
             try:
                 return counter.real_verify(eng, *a)
             finally:
-                counter.tag = "other"
+                counter.verify.update(range(first, len(counter.log.plans)))
 
-        self.moe.dispatch_plan = self._plan
+        self.log.__enter__()
         self.engine._verify_forward = verify
         return self
 
     def __exit__(self, *exc):
-        self.moe.dispatch_plan = self.real_plan
+        self.log.__exit__(*exc)
         self.engine._verify_forward = self.real_verify
 
     def take(self):
-        out = {tag: tuple(int(x) for x in c)
-               for tag, c in self.counts.items()}
-        self.counts = {}
+        plans, _ = self.log.take()
+        out = {}
+        for i, (top_i, _, dropped) in enumerate(plans):
+            tag = "verify" if i in self.verify else "other"
+            d, n = out.get(tag, (0, 0))
+            out[tag] = (d + int(dropped.sum()), n + top_i.numel())
+        self.verify = set()
         return out
 
 
@@ -5009,9 +5037,207 @@ MESH_TRAIN_LOSS_TOL = 2e-4
 MESH_TRAIN_GNORM_RTOL = 1e-5
 MESH_TRAIN_PARAM_TOL = 1e-4
 MESH_TRAIN_MOVED_MIN = 2e-4
+MESH_TRAIN_DEPTH = 1             # the dense mesh train phase's cut since
+                                 # the MoE mesh train phase (4 before)
+# qwen2-moe-a2.7b's mesh training: depth 2 (1,452,283,904 f32 parameters,
+# 23.2 GB of state on one device), EP (60 experts, 30 a "model" rank), its
+# weights drawn from this seed on one device and, part by part, on each
+# rank.
+MOE_TRAIN_DEPTH = 2
+MOE_TRAIN_SEED = 1
 
 
-def mesh_train_rank(mesh, device, cfg, tcfg, data, params, digest, root):
+def routing_of(log) -> tuple:
+    """What a ``models/moe.py:RoutingLog`` saw in one step, read to the
+    host and the log emptied: each MoE call's dropped pairs among the
+    experts its plan covers, its routing ids (the whole batch's, on a mesh
+    rank too) sorted per token, and its router probabilities (this rank's
+    rows)."""
+    n_drops = log.counts()
+    plans, routes = log.take()
+    return (n_drops, [t.sort(-1).values.cpu() for t, _, _ in plans],
+            [p.cpu() for p, _ in routes])
+
+
+# Adam's first update is about lr * sign(g) where the clipped |g| is well
+# above its eps, and goes to 0 with it.  Where one device's gradient is
+# within the float gap of two sums of it, the mesh's sign, and so the
+# update, may differ by up to 2 lr.  Two elements of layer 1's router do
+# after step 1: one device's first moment at -1.317e-6 and 7.143e-7 of
+# the leaf's max |m|, the mesh's at -3.223e-7 and -3.433e-7, the
+# parameters 1.012e-4 and 2.756e-4 apart; the largest gap of the two
+# moments over a leaf's max is 1.9e-5 (chip_smoke.py --train, PR 31,
+# NVIDIA H100 80GB HBM3, 700.00 W).  Below ADAM_FLAT_REL of its leaf's
+# max |m| (just above 1.317e-6) the first step is held to 2 lr,
+# elsewhere to MESH_TRAIN_PARAM_TOL.
+ADAM_FLAT_REL = 2e-6
+
+
+def param_gaps(torch, rules, blocks, whole, specs, first=None, lr=None,
+               reset=False) -> dict:
+    """This rank's blocks against the same blocks of one device's
+    parameters ``whole``: the largest gap, the elements over
+    MESH_TRAIN_PARAM_TOL (up to 8 a leaf as (leaf, index in the whole
+    leaf, gap)) and how many of them break the limit.  At step 1,
+    ``first`` holds the first Adam moments (the clipped gradient times
+    1 - b1): one device's leaves, their max |m| and this rank's blocks.
+    An element where one device's |m| is below ADAM_FLAT_REL of its
+    leaf's max then breaks the limit only past 2 ``lr``; each element over
+    the limit also gets one device's and the mesh's m at it, and each leaf
+    the largest gap between the two m, all over the leaf's max.  With
+    ``reset`` the blocks then take one device's values (the next step
+    starts from them)."""
+    from repro_torch.sharding.api import block_index, local_view
+    gap, over, bad, flat, m_gap = 0.0, [], 0, 0, []
+    for j, (b, w, spec) in enumerate(zip(blocks, whole, specs)):
+        ref = local_view(rules, w, spec).to(b.device)
+        d = (b.detach() - ref).abs()
+        if reset:
+            with torch.no_grad():
+                b.copy_(ref)
+        del ref
+        gap = max(gap, float(d.max()))
+        hit = d > MESH_TRAIN_PARAM_TOL
+        if first is None:
+            bad += int(hit.sum())
+        else:
+            ones, top, mine = first
+            g = local_view(rules, ones[j], spec).to(b.device) / top[j]
+            g_mesh = mine[j] / top[j]
+            m_gap.append(float((g - g_mesh).abs().max()))
+            lax = g.abs() < ADAM_FLAT_REL
+            flat += int((hit & lax).sum())
+            bad += int(((hit & ~lax) | (d > 2 * lr * (1 + 1e-6))).sum())
+        spec = tuple(spec) + (None,) * (d.ndim - len(spec))
+        at = torch.tensor([block_index(rules, e)[0] * n
+                           for e, n in zip(spec, d.shape)], device=d.device)
+        for h in hit.nonzero()[:8]:
+            e = tuple(h.tolist())
+            over.append((j, tuple((h + at).tolist()), float(d[e]))
+                        + (() if first is None else
+                           (float(g[e]), float(g_mesh[e]))))
+    return {"gap": gap, "over": over, "bad": bad, "flat": flat,
+            "m_gap": m_gap}
+
+
+def leaf_paths(tree, prefix=""):
+    """The "/"-joined path of every leaf, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in leaf_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree)
+                for p in leaf_paths(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
+def moe_mesh_train_rank(torch, mesh, device, tcfg, cfg, data, moe_q):
+    """A rank's MoE mesh training, after the dense part: once the parent
+    has trained one device (its parameters after each step arrive through
+    ``moe_q`` in the host's shared memory, with its first Adam moments),
+    the rank draws its blocks of the seeded initial parameters part by
+    part and trains MESH_TRAIN_STEPS steps under ``make_rules`` (EP) on
+    its shard of each batch, each step after the first from one device's
+    parameters after the step before (the rank's own moments kept), so
+    that every step is held to one device's step from the same
+    parameters: ms, collective ms, each layer's dropped pairs among its
+    experts, the whole batch's routing ids and its rows' router
+    probabilities per step, and each step's gaps to one device's
+    parameters after that step (:func:`param_gaps`).  Returns those, its
+    bytes of parameters and moments, its peak device bytes, how far each
+    leaf moved and the seconds its checks took."""
+    import functools
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import RoutingLog
+    from repro_torch.sharding import api as A
+    from repro_torch.sharding.api import block_index, shard_state, use_rules
+    from repro_torch.sharding.rules import make_rules, moe_train_branch
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    t_wait = time.perf_counter()
+    one = moe_q.get(timeout=900)
+    if one is None:
+        return None
+    after, (m_one, m_top) = one
+    t_part = time.perf_counter()
+    rules = make_rules(mesh, n_routed=cfg.n_routed)
+    specs = TS.param_specs(cfg, rules)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def draw():
+        # This rank's blocks of the seeded parameters, part by part.
+        return T.init_model(
+            cfg, torch.Generator(device="cuda").manual_seed(MOE_TRAIN_SEED),
+            "cuda", place=lambda path, part: shard_state(
+                rules, part, functools.reduce(lambda s, k: s[k], path,
+                                              specs)))
+
+    t = time.perf_counter()
+    local = TS.trainable(draw())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    state = {"params": local, "opt": O.init_opt_state(local, tcfg.optimizer)}
+    shard, n_shards = block_index(rules, "data")
+    ds = SyntheticLMDataset(data, shard=shard, num_shards=n_shards)
+    step = TS.make_train_step(cfg, tcfg)
+    res = {"coord": tuple(mesh.get_coordinate()), "init_s": init_s,
+           "wait_s": t_part - t_wait, "check_s": 0.0,
+           "branch": moe_train_branch(rules, cfg.n_routed, cfg.d_model,
+                                      cfg.d_expert),
+           "steps": []}
+    blocks, spec_leaves = O.tree_leaves(state["params"]), O.tree_leaves(specs)
+    with use_rules(rules), RoutingLog() as log:
+        for i in range(MESH_TRAIN_STEPS):
+            batch = torch.as_tensor(ds.batch_at(i), device=device)
+            torch.cuda.synchronize()
+            c0, t = A.COLLECTIVE_S, time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            free_b, total_b = torch.cuda.mem_get_info()
+            n_drops, ids, probs = routing_of(log)
+            first = (None if i else
+                     (m_one, m_top, O.tree_leaves(state["opt"]["m"])))
+            res["steps"].append({
+                "card_used_bytes": total_b - free_b,
+                "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "ms": ms,
+                "collective_ms": (A.COLLECTIVE_S - c0) * 1e3,
+                "drops": n_drops,
+                "ids": ids if res["coord"] == (0, 0) else None,
+                "probs": probs if res["coord"][1] == 0 else None}
+                | param_gaps(torch, rules, blocks, after[i], spec_leaves,
+                             first, tcfg.optimizer.lr,
+                             reset=i + 1 < MESH_TRAIN_STEPS))
+            del first
+            # The card is shared by five processes: hand back what this
+            # one's allocator holds unused between steps.
+            torch.cuda.empty_cache()
+            res["check_s"] += time.perf_counter() - t
+    res["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    res["bytes"] = sum(x.numel() * x.element_size() for x in O.tree_leaves(
+        [state["params"], state["opt"]["m"], state["opt"]["v"]]))
+    del one, after, m_one, state, m, local
+    # How far each leaf moved: against its initial blocks, drawn again
+    # (no copy of them is held through the steps).
+    t = time.perf_counter()
+    res["moves"] = [float((b.detach() - a).abs().max())
+                    for b, a in zip(blocks, O.tree_leaves(draw()))]
+    res["check_s"] += time.perf_counter() - t
+    res["part_s"] = time.perf_counter() - t_part
+    del blocks
+    return res
+
+
+def mesh_train_rank(mesh, device, cfg, tcfg, data, params, digest, root,
+                    moe):
     """A rank of the mesh train phase: its blocks of the parent's initial
     parameters (CUDA IPC; checksums first), MESH_TRAIN_STEPS steps under
     ``make_rules`` on its shard of each batch (ms and collective ms per
@@ -5022,7 +5248,8 @@ def mesh_train_rank(mesh, device, cfg, tcfg, data, params, digest, root):
     Trainer's own state handling under the rules, a fresh init (drawn part
     by part) and a resume from the leader's checkpoint (read leaf by
     leaf), each one's peak device bytes beside the blocks it keeps, and
-    the resumed blocks' checksums.  Collective ms are
+    the resumed blocks' checksums; then the MoE part
+    (:func:`moe_mesh_train_rank`).  Collective ms are
     ``sharding/api.py``'s ``COLLECTIVE_S`` (the torch.distributed calls'
     wall time; host staging outside it)."""
     import dataclasses
@@ -5137,14 +5364,231 @@ def mesh_train_rank(mesh, device, cfg, tcfg, data, params, digest, root):
             del st, kept, tr
     finally:
         shutil.rmtree(fresh, ignore_errors=True)
+    res["moe"] = moe_mesh_train_rank(torch, mesh, device, tcfg, *moe)
     return res
+
+
+def moe_one_device_train(torch, cfg, tcfg, data):
+    """One device's MESH_TRAIN_STEPS steps of the MoE mesh train phase from
+    the seeded parameters: each step's loss, grad norm, ms, per-layer drops,
+    routing ids and router probabilities, the bytes of parameters and
+    moments, and the peak device bytes.  Returns the parameters' leaves
+    after each step, in the host's shared memory, and those figures with
+    the first step's Adam moments (the clipped gradient times 1 - b1; on
+    the host) and each leaf's max |m|."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import RoutingLog
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    p = TS.trainable(T.init_model(
+        cfg, torch.Generator(device="cuda").manual_seed(MOE_TRAIN_SEED),
+        "cuda"))
+    out = {"n_params": sum(t.numel() for t in O.tree_leaves(p)),
+           "steps": []}
+    state = {"params": p, "opt": O.init_opt_state(p, tcfg.optimizer)}
+    step = TS.make_train_step(cfg, tcfg)
+    ds = SyntheticLMDataset(data)
+    after = []
+    with RoutingLog() as log:
+        for i in range(MESH_TRAIN_STEPS):
+            batch = torch.as_tensor(ds.batch_at(i), device="cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            n_drops, ids, probs = routing_of(log)
+            out["steps"].append({"loss": float(m["loss"]),
+                                 "grad_norm": float(m["grad_norm"]),
+                                 "ms": ms, "drops": n_drops, "ids": ids,
+                                 "probs": probs})
+            if i == 0:
+                # Where a rank's first step parts from this one, its
+                # gradient's sign is looked up here.
+                first = O.tree_leaves(state["opt"]["m"])
+                out["m_one"] = [x.detach().to("cpu", copy=True)
+                                for x in first]
+                out["m_top"] = [float(x.detach().abs().max()) for x in first]
+                del first
+            # Kept in the host's shared memory (the ranks map them): on the
+            # card they would take 17.4 GB beside the four ranks.
+            after.append([torch.empty(t.shape, dtype=t.dtype).share_memory_()
+                          .copy_(t.detach())
+                          for t in O.tree_leaves(state["params"])])
+    out["bytes"] = sum(t.numel() * t.element_size() for t in O.tree_leaves(
+        [state["params"], state["opt"]["m"], state["opt"]["v"]]))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["paths"] = leaf_paths(p)
+    del state, p, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return after, out
+
+
+def routing_margins(torch, one, ranks, k) -> list:
+    """Per step and layer, one device's smallest top-k margin (its k-th
+    router probability less its (k+1)-th, over the batch's tokens), that
+    token, the gap there between the mesh's probabilities (the data
+    ranks' rows in batch order) and one device's, and the largest gap of
+    any token: a token can route otherwise only where its gap reaches its
+    margin."""
+    out = []
+    for i, s in enumerate(one["steps"]):
+        rows = [r["steps"][i]["probs"] for r in sorted(
+            (r for r in ranks if r["coord"][1] == 0),
+            key=lambda r: r["coord"])]
+        layers = []
+        for layer, p in enumerate(s["probs"]):
+            top = p.topk(k + 1, -1).values
+            margin = top[:, k - 1] - top[:, k]
+            gap = (torch.cat([x[layer] for x in rows]) - p).abs().amax(-1)
+            t = int(margin.argmin())
+            layers.append({"margin": float(margin[t]), "token": t,
+                           "its_gap": float(gap[t]),
+                           "prob_gap": float(gap.max())})
+        out.append(layers)
+    return out
+
+
+def moe_train_report(torch, one, ranks, failed, top_k) -> dict:
+    """Checks and prints the MoE part of the mesh train phase (``one`` one
+    device's figures, ``ranks`` each rank's); appends to ``failed``."""
+    if any(r is None for r in ranks):
+        failed.append("the MoE mesh part did not run on every rank")
+        return {}
+    steps = range(MESH_TRAIN_STEPS)
+    loss_gap = max(abs(r["steps"][i]["loss"] - one["steps"][i]["loss"])
+                   for r in ranks for i in steps)
+    gnorm_gap = max(abs(r["steps"][i]["grad_norm"]
+                        - one["steps"][i]["grad_norm"])
+                    / one["steps"][i]["grad_norm"]
+                    for r in ranks for i in steps)
+    for r in ranks:
+        if r["branch"] != "ep":
+            failed.append(f"MoE rank {r['coord']} ran {r['branch']!r}")
+        for i, s in enumerate(r["steps"]):
+            w, wg = one["steps"][i]["loss"], one["steps"][i]["grad_norm"]
+            if not abs(s["loss"] - w) <= MESH_TRAIN_LOSS_TOL * (1 + abs(w)):
+                failed.append(f"MoE rank {r['coord']} step {i + 1} loss "
+                              f"{s['loss']!r} vs {w!r}")
+            if not abs(s["grad_norm"] - wg) <= MESH_TRAIN_GNORM_RTOL * wg:
+                failed.append(f"MoE rank {r['coord']} step {i + 1} grad "
+                              f"norm {s['grad_norm']!r} vs {wg!r}")
+    # A data coordinate's "model" ranks plan the whole batch, each for its
+    # own experts: together they drop one device's pairs.
+    drops = []
+    for i in steps:
+        want = one["steps"][i]["drops"]
+        for d in range(MESH_DP):
+            got = [sum(x) for x in zip(*(r["steps"][i]["drops"]
+                                         for r in ranks
+                                         if r["coord"][0] == d))]
+            if got != want:
+                failed.append(f"MoE step {i + 1} data rank {d} drops "
+                              f"{got} per layer vs one device's {want}")
+        drops.append(want)
+    # Tokens whose experts (as a set) differ from one device's, per layer.
+    first = next(r for r in ranks if r["coord"] == (0, 0))
+    flips = [[int((a != b).any(-1).sum()) for a, b in zip(
+        first["steps"][i]["ids"], one["steps"][i]["ids"])] for i in steps]
+    if any(any(f) for f in flips):
+        failed.append(f"MoE routing differs from one device's: {flips} "
+                      f"tokens per layer per step")
+    margins = routing_margins(torch, one, ranks, top_k)
+    param_gap = max(s["gap"] for r in ranks for s in r["steps"])
+    over = {}
+    for r in ranks:
+        for i in steps:
+            for j, *hit in r["steps"][i]["over"]:
+                over.setdefault((i + 1, one["paths"][j]), []).append(
+                    tuple(hit))
+    for (i, path), hits in sorted(over.items()):
+        print(f"[chip_smoke] moe mesh train step {i}: {path} over "
+              f"{MESH_TRAIN_PARAM_TOL} at (index, gap"
+              + (", one device's m, the mesh's m, each over the leaf's "
+                 "max |m|" if i == 1 else "")
+              + f") {sorted(set(hits))[:8]}")
+    # The largest gap between the mesh's first moments and one device's,
+    # over each leaf's max |m|: how far from 0 a gradient's sign is open.
+    m_gap = [max(r["steps"][0]["m_gap"][j] for r in ranks)
+             for j in range(len(one["paths"]))]
+    m_gaps = sorted(zip(m_gap, one["paths"]), reverse=True)
+    bad = sum(s["bad"] for r in ranks for s in r["steps"])
+    flat = [sum(r["steps"][i]["flat"] for r in ranks) for i in steps]
+    if bad:
+        failed.append(f"MoE parameters: {bad} elements past the limit "
+                      f"(largest gap {param_gap:.3e})")
+    card = max(s["card_used_bytes"] for r in ranks for s in r["steps"])
+    moved = min(max(r["moves"][j] for r in ranks)
+                for j in range(len(ranks[0]["moves"])))
+    if not moved > MESH_TRAIN_MOVED_MIN:
+        failed.append(f"a MoE parameter leaf moved {moved:.3e}")
+    for r in ranks:
+        st = r["steps"]
+        print(f"[chip_smoke] moe mesh train rank {r['coord']}: step ms "
+              f"{[round(s['ms'], 1) for s in st]}, collectives "
+              f"{[round(s['collective_ms'], 1) for s in st]} ms; loss "
+              f"{[s['loss'] for s in st]}; dropped pairs of its experts "
+              f"per layer {[s['drops'] for s in st]}; parameters and "
+              f"moments {r['bytes']} bytes (one device {one['bytes']}); "
+              f"peak {r['peak_bytes']} device bytes; blocks drawn in "
+              f"{r['init_s']:.1f} s; waited {r['wait_s']:.1f} s for one "
+              f"device's run, then {r['part_s']:.1f} s, "
+              f"{r['check_s']:.1f} s of it in the checks")
+    print(f"[chip_smoke] moe mesh train routing per step and layer "
+          f"(one device's smallest top-{top_k} margin, its token, the "
+          f"mesh's router probabilities' gap there and their largest "
+          f"gap): {margins}; "
+          f"the first moments' largest gaps over their leaf's max |m|: "
+          f"{[(f'{g:.3e}', path) for g, path in m_gaps[:4]]}")
+    print(f"[chip_smoke] moe mesh train one device ({one['s']:.1f} s with "
+          f"its draw and host copies): step ms "
+          f"{[round(s['ms'], 1) for s in one['steps']]}; loss "
+          f"{[s['loss'] for s in one['steps']]}; grad norm "
+          f"{[s['grad_norm'] for s in one['steps']]}; dropped pairs per "
+          f"layer {drops}; peak {one['peak_bytes']} device bytes; the "
+          f"ranks' peaks sum to {sum(r['peak_bytes'] for r in ranks)}; "
+          f"the card's memory in use after a mesh step at most {card} "
+          f"bytes; "
+          f"tokens routed otherwise on the mesh per layer {flips}; the "
+          f"parameters' gap after each step "
+          f"{[max(r['steps'][i]['gap'] for r in ranks) for i in steps]}, "
+          f"elements over {MESH_TRAIN_PARAM_TOL} where one device's first "
+          f"|m| is below {ADAM_FLAT_REL} of its leaf's max (held to 2 lr) "
+          f"per step {flat}")
+    keep = ("loss", "grad_norm", "ms", "collective_ms", "drops", "gap",
+            "flat", "card_used_bytes")
+    return {"n_params": one["n_params"],
+            "one": {k: v for k, v in one.items()
+                    if k not in ("m_one", "m_top", "paths", "steps")}
+            | {"steps": [{k: v for k, v in s.items()
+                          if k not in ("ids", "probs")}
+                         for s in one["steps"]]},
+            "ranks": [{k: r[k] for k in ("coord", "bytes", "peak_bytes",
+                                         "init_s", "wait_s", "part_s",
+                                         "check_s")}
+                      | {"steps": [{k: s[k] for k in keep}
+                                   for s in r["steps"]]}
+                      for r in ranks],
+            "loss_gap": loss_gap, "grad_norm_rel_gap": gnorm_gap,
+            "param_gap": param_gap, "adam_flat_over": flat,
+            "first_m_gap": m_gaps[0][0], "routing": margins,
+            "least_leaf_move": moved,
+            "drops": [sum(x) for x in drops], "routed_otherwise": flips,
+            "card_used_bytes": card}
 
 
 @phase("mesh train")
 def mesh_train_phase(torch):
-    """Full-width stablelm-1.6b cut to depth MESH_DEPTH, f32, trained on a
-    2x2 (data, model) mesh of four ranks sharing the card over gloo under
-    the reference's training rules (FSDP over "data", Megatron TP over
+    """Full-width stablelm-1.6b cut to depth MESH_TRAIN_DEPTH, f32, trained
+    on a 2x2 (data, model) mesh of four ranks sharing the card over gloo
+    under the reference's training rules (FSDP over "data", Megatron TP over
     "model"): the initial parameters reach the ranks by CUDA IPC
     (checksums equal to the parent's), each rank trains MESH_TRAIN_STEPS
     steps at the launcher's batch (8 x 256; 4 rows a data rank) while the
@@ -5162,7 +5606,20 @@ def mesh_train_phase(torch):
     the whole state would take all of it), and the resumed blocks equal
     the rank's own bit for bit.  Prints the gaps, each rank's bytes
     of parameters and moments beside one device's, ms per step per rank
-    and the collectives' ms."""
+    and the collectives' ms.
+
+    Then, in the same spawn, full-width qwen2-moe-a2.7b cut to depth
+    MOE_TRAIN_DEPTH (f32) in the EP branch (30 of its 60 experts a rank):
+    one device trains MESH_TRAIN_STEPS steps first and frees its moments,
+    then each rank draws its blocks of the same seeded parameters and
+    trains the same steps, each after the first from one device's
+    parameters after the step before; every step's loss and grad norm
+    within the limits above, each layer's dropped pairs (the ranks of a
+    data coordinate together) equal to one device's and every token routed
+    to one device's experts, the parameters after each step within
+    MESH_TRAIN_PARAM_TOL of one device's and every leaf moved more than
+    MESH_TRAIN_MOVED_MIN.  Prints each rank's bytes of parameters and
+    moments, ms per step, collective ms, drops and peak device bytes."""
     import shutil
     import tempfile
     import numpy as np
@@ -5175,7 +5632,7 @@ def mesh_train_phase(torch):
     from repro_torch.train import train_step as TS
     t0 = time.perf_counter()
     full = get_config("stablelm-1.6b")
-    cfg = full.replace(segments=((full.segments[0][0], MESH_DEPTH),))
+    cfg = full.replace(segments=((full.segments[0][0], MESH_TRAIN_DEPTH),))
     tcfg = TS.TrainConfig(optimizer=O.AdamWConfig(lr=3e-4),
                           total_steps=MESH_TRAIN_STEPS, warmup_steps=0)
     data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
@@ -5184,13 +5641,21 @@ def mesh_train_phase(torch):
                           "cuda")
     n_params = sum(t.numel() for t in O.tree_leaves(shared))
     digest = params_digest(torch, shared)
+    mfull = get_config(MOE_ARCH)
+    moe_cfg = mfull.replace(segments=((mfull.segments[0][0],
+                                       MOE_TRAIN_DEPTH),))
+    moe_data = DataConfig(vocab=moe_cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH)
+    moe_q = torch.multiprocessing.get_context("spawn").Queue()
     root = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
     failed = []
+    moe_after = None
     try:
         job = start_mesh(mesh_train_rank, MESH_DP, MESH_TP, device="cuda",
                          backend="gloo",
-                         args=(cfg, tcfg, data, shared, digest, root),
-                         timeout=600)
+                         args=(cfg, tcfg, data, shared, digest, root,
+                               (moe_cfg, moe_data, moe_q)),
+                         timeout=900)
         # One device, on its own copy, while the ranks start.
         p = TS.trainable(O.tree_map(lambda t: t.detach().clone(), shared))
         state = {"params": p, "opt": O.init_opt_state(p, tcfg.optimizer)}
@@ -5208,6 +5673,19 @@ def mesh_train_phase(torch):
                         "ms": (time.perf_counter() - t) * 1e3})
         one_bytes = sum(t.numel() * t.element_size() for t in O.tree_leaves(
             [state["params"], state["opt"]["m"], state["opt"]["v"]]))
+        # One device's MoE steps while the ranks run the dense steps; its
+        # parameters after each step go to every rank once the dense
+        # checks below are done, and a rank starts its MoE part when they
+        # arrive (None: it skips it).
+        moe_error = None
+        t = time.perf_counter()
+        try:
+            moe_after, moe_one = moe_one_device_train(torch, moe_cfg, tcfg,
+                                                      moe_data)
+        except Exception as e:             # reported after the join
+            moe_error = e
+        if moe_error is None:
+            moe_one["s"] = time.perf_counter() - t
         # The leader's checkpoint on one device, while the ranks run their
         # int8_ef step (it is promoted whole: a listed step is complete).
         while CS.latest_step(root) is None and job.running():
@@ -5221,13 +5699,9 @@ def mesh_train_phase(torch):
             loaded = TS.state_from_numpy(tree, cfg, "cuda")
             del tree
         load_s = time.perf_counter() - t
-        ranks = job.join()
-        spawned = time.perf_counter() - t0
-        leader = next(r for r in ranks if r["leader"])
-        bit_equal, param_gap, moved = False, float("inf"), 0.0
+        loaded_digest, param_gap, moved = None, float("inf"), 0.0
         if loaded is not None:
-            bit_equal = (params_digest(torch, O.tree_leaves(loaded))
-                         == leader["gathered_digest"])
+            loaded_digest = params_digest(torch, O.tree_leaves(loaded))
             param_gap = max(float((a - b).detach().abs().max())
                             for a, b in zip(O.tree_leaves(loaded["params"]),
                                             O.tree_leaves(state["params"])))
@@ -5236,9 +5710,23 @@ def mesh_train_phase(torch):
                         for a, b in zip(O.tree_leaves(loaded["params"]),
                                         O.tree_leaves(shared)))
         del loaded, state, p
+        gc.collect()
+        torch.cuda.empty_cache()
+        for _ in range(MESH_DP * MESH_TP):
+            moe_q.put(None if moe_after is None else
+                      (moe_after, (moe_one["m_one"], moe_one["m_top"])))
+        ranks = job.join()
+        if moe_error is not None:
+            raise moe_error
+        spawned = time.perf_counter() - t0
+        leader = next(r for r in ranks if r["leader"])
+        bit_equal = loaded_digest == leader["gathered_digest"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
         release_shared(torch, shared)
+        moe_after = None
+        gc.collect()
+        torch.cuda.ipc_collect()
     loss_gap = max(abs(r["steps"][i]["loss"] - one[i]["loss"])
                    for r in ranks for i in range(MESH_TRAIN_STEPS))
     gnorm_gap = max(abs(r["steps"][i]["grad_norm"] - one[i]["grad_norm"])
@@ -5326,9 +5814,13 @@ def mesh_train_phase(torch):
                "param_gap": param_gap, "least_leaf_move": moved,
                "load_s": load_s,
                "spawned_s": spawned}
+    summary["moe"] = moe_train_report(torch, moe_one,
+                                      [r["moe"] for r in ranks], failed,
+                                      moe_cfg.top_k)
     print(f"[chip_smoke] mesh train summary: {json.dumps(summary)}")
     if failed:
         raise SystemExit(f"[chip_smoke] mesh train failed: {failed}")
+    moe = summary["moe"]
     print(f"[chip_smoke] mesh train: {cfg.name} depth {cfg.n_layers} "
           f"({n_params} f32 parameters) on a {MESH_DP}x{MESH_TP} mesh of "
           f"four ranks on one card (gloo): losses within "
@@ -5344,7 +5836,19 @@ def mesh_train_phase(torch):
           f"rank with residuals in bound, the Trainer's init (part by "
           f"part) and resume (leaf by leaf) on every rank below its blocks "
           f"plus a quarter of one device's state at peak, the resumed "
-          f"blocks bit-equal; phase "
+          f"blocks bit-equal; {moe_cfg.name} depth {moe_cfg.n_layers} "
+          f"({moe['n_params']} f32 parameters) in the EP branch: losses "
+          f"within {MESH_TRAIN_LOSS_TOL} of one device's "
+          f"({moe['loss_gap']:.3e}), grad norms within "
+          f"{MESH_TRAIN_GNORM_RTOL} relative "
+          f"({moe['grad_norm_rel_gap']:.3e}), parameters after each "
+          f"step within {MESH_TRAIN_PARAM_TOL} but for "
+          f"{moe['adam_flat_over']} elements a step where Adam's first "
+          f"update is flat, within 2 lr (largest gap "
+          f"{moe['param_gap']:.3e}; every leaf moved more than "
+          f"{MESH_TRAIN_MOVED_MIN}: {moe['least_leaf_move']:.3e} the "
+          f"least), every token routed and each layer's drops as one "
+          f"device's ({moe['drops']} a step); phase "
           f"{time.perf_counter() - t0:.3f} s")
     return summary
 
@@ -5485,7 +5989,8 @@ def main(argv=None):
         torch.cuda.empty_cache()
         mesh_train_phase(torch)
         return
-    build_phase()
+    if args.profile or args.mesh:
+        build_phase()
     if args.profile:
         print(smi)
         profile_phase(torch, *build_model(torch))
@@ -5504,6 +6009,12 @@ def main(argv=None):
         moe_mesh_phase(torch, moe_cfg, moe_params)
         release_shared(torch, moe_params)
         return
+    # Training runs no kernel of the port: it runs while they build.
+    join_build = build_beside()
+    train_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    join_build()
     rows = [kernel_phase(torch), verify_kernel_phase(torch),
             qk_kernel_phase(torch), flash_kernel_phase(torch)]
     for wide in wide_kernel_phase(torch):
@@ -5573,9 +6084,6 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     zoo_phase(torch)
-    train_phase(torch)
-    gc.collect()
-    torch.cuda.empty_cache()
     mesh_train_phase(torch)
     print(smi)
     print(json.dumps({"kernels": rows}))

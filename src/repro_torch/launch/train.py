@@ -9,9 +9,10 @@ card included; nccl needs a card per rank), as ``launch/serve.py --mesh``
 does; ``--mesh production`` trains over the reference's (16, 16)
 production mesh in a world that is already initialized (a ``torchrun``
 launch of 256 ranks).  The reduced config (``--reduced``, the default)
-trains on a CPU; ``--full`` takes the registry's published widths.  What
-mesh training does not split yet (MoE, MLA, SSM and RG-LRU blocks) is
-refused with its ROADMAP item before any rank starts.
+trains on a CPU; ``--full`` takes the registry's published widths.  Mesh
+training takes attention blocks with dense or MoE FFNs (EP or expert-TP,
+as the rules place the experts); what it does not split yet (MLA, SSM and
+RG-LRU blocks) is refused with its ROADMAP item before any rank starts.
 """
 
 from __future__ import annotations

@@ -14,7 +14,9 @@ order, and every row of the call is routed, pad rows included.  Each row
 that fits is written to a place of its own, and the combine sums each
 token's k rows in a fixed order, so a call gives the same bits on every
 run (a float scatter-add on the card sums in atomic order).  Nothing in
-the dispatch reads a value back to the host.
+the dispatch reads a value back to the host but one number in mesh
+training: the length of a data rank's longest run of slots
+(:func:`dispatch`).
 
 Under a mesh (``PagedEngine`` with ``ServeConfig.mesh``) every rank holds
 every token's rows (the dense layers run replicated), so every rank
@@ -44,6 +46,14 @@ within float rounding of one device's), then weighted and summed over k.
 The reference's EP and expert-TP branches split the tokens over "data"
 and take the capacity of a data shard's rows, so where capacity binds its
 drops differ from its own single device (ROADMAP C11).
+
+Under training's rules (``sharding/rules.py:make_rules``) a data rank
+holds only its own rows, and the branch follows the rules' layout
+(:func:`_train_moe`, ``sharding/rules.py:moe_train_branch``): EP where the
+experts lie over "model", expert-TP where their hidden units do.  The
+routing ids of every data rank are gathered, so the plan, the capacity
+and the drops are one device's, and each data rank adds its share of one
+device's aux loss.
 """
 
 from __future__ import annotations
@@ -54,10 +64,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.sharding.api import (block_index, gather_owned,
-                                      gather_shards, mesh_shape)
+from repro_torch.sharding.api import (batch_gather, batch_sum, block_index,
+                                      copy_to_model, gather_owned,
+                                      gather_shards, mesh_shape, model_split,
+                                      reduce_from_model, training_rules)
 from repro_torch.sharding.rules import (expert_slice, make_serve_rules,
-                                        moe_branch)
+                                        moe_branch, moe_train_branch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,12 +120,13 @@ def _route_rows(p, x, cfg: MoEConfig):
     return probs, top_p, top_i
 
 
-def _count(key, n: int):
-    """Rows per key in [0, n): an integer scatter-add, exact in any order
-    (``torch.bincount`` reads its input's max back to the host on the
-    card)."""
+def _count(key, n: int, where=None):
+    """Rows per key in [0, n) (those ``where`` marks, if given): an integer
+    scatter-add, exact in any order (``torch.bincount`` reads its input's
+    max back to the host on the card)."""
+    ones = torch.ones_like(key) if where is None else where.long()
     return torch.zeros(n, dtype=torch.int64, device=key.device).scatter_add_(
-        0, key, torch.ones_like(key))
+        0, key, ones)
 
 
 def _aux_loss(probs, top_i, cfg: MoEConfig):
@@ -122,6 +135,20 @@ def _aux_loss(probs, top_i, cfg: MoEConfig):
     counts = _count(top_i.reshape(-1).long(), cfg.n_routed)
     density = counts.float() / float(T * cfg.top_k)
     return cfg.n_routed * torch.sum(density * probs.mean(0)) \
+        * cfg.aux_loss_coef
+
+
+def _aux_loss_share(probs, top_i, cfg: MoEConfig, rules):
+    """This data rank's share of one device's :func:`_aux_loss` over the
+    whole batch: the expert counts summed over the data ranks (integers,
+    exact), the probabilities of this rank's rows summed, both over the
+    global token count.  The shares sum to one device's loss, and each
+    rank's router gradient is that of its own rows."""
+    counts = batch_sum(rules, _count(top_i.reshape(-1).long(),
+                                     cfg.n_routed))
+    n = probs.shape[0] * block_index(rules, rules.axis_map.get("batch"))[1]
+    density = counts.float() / float(n * cfg.top_k)
+    return cfg.n_routed * torch.sum(density * probs.sum(0)) / n \
         * cfg.aux_loss_coef
 
 
@@ -153,8 +180,54 @@ def dispatch_plan(top_i, n_local: int, capacity: int, expert_offset: int = 0):
         torch.clamp(sorted_key, 0, n_local - 1)]
     valid = (sorted_key < n_local) & (slot < capacity)
     zero = torch.zeros_like(sorted_key)
+    for log in RoutingLog.open_logs:
+        log.plans.append((top_i.detach(), order,
+                          is_local[order] & ~valid))
     return (order, torch.where(valid, sorted_key, zero),
             torch.where(valid, slot, zero), valid)
+
+
+class RoutingLog:
+    """What the MoE calls route while the log is open (``with RoutingLog()
+    as log:``), for drop and routing checks: ``plans`` holds, per
+    :func:`dispatch_plan` call, its routing ids ``top_i``, its row order
+    and which sorted rows dropped among the experts it plans; ``routes``,
+    per :func:`moe_ffn` call, its router probabilities (this rank's rows)
+    and aux loss (a data rank's share in mesh training).  They stay on the
+    device until read."""
+
+    open_logs: list = []
+
+    def __init__(self):
+        self.plans, self.routes = [], []
+
+    def __enter__(self):
+        RoutingLog.open_logs.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        RoutingLog.open_logs.remove(self)
+
+    def counts(self) -> list[int]:
+        """Each plan's dropped (token, expert) pairs, counted."""
+        return [int(d.sum()) for _, _, d in self.plans]
+
+    def pairs(self) -> list[list[tuple[int, int]]]:
+        """Each plan's dropped (token, expert) pairs, sorted; tokens are
+        numbered as the plan routes them (the whole batch's in mesh
+        training)."""
+        out = []
+        for top_i, order, dropped in self.plans:
+            flat, k = top_i.reshape(-1).tolist(), top_i.shape[-1]
+            out.append(sorted((r // k, flat[r])
+                              for r in order[dropped].tolist()))
+        return out
+
+    def take(self):
+        """The plans and routes so far, and the log emptied."""
+        out = self.plans, self.routes
+        self.plans, self.routes = [], []
+        return out
 
 
 def _bmm(a, b):
@@ -166,23 +239,42 @@ def _bmm(a, b):
 
 
 def dispatch(x2d, top_i, cfg: MoEConfig, n_local: int, capacity: int,
-             expert_offset: int = 0):
-    """The capacity buffer [n_local, capacity, D] and the plan that filled
-    it.  Every row is written, with no boolean index (each would sync the
-    host): a row that fits lands at its (expert, slot), one unique place,
-    and every other row at a spare last row that is cut off."""
+             expert_offset: int = 0, token_offset: int = 0):
+    """The expert buffer ``[n_local, slots, D]`` and the plan that filled
+    it, ``(order, e_idx, s_idx, write)``: sorted row i sits at slot
+    ``s_idx[i]`` of expert ``e_idx[i]`` where ``write[i]``.  Every row is
+    written, with no boolean index (each would sync the host): a row that
+    fits lands at its (expert, slot), one unique place, and every other
+    row at a spare last row that is cut off.
+
+    ``top_i`` may route more tokens than ``x2d`` holds (every data rank's,
+    in training on a mesh): ``x2d`` then holds tokens ``[token_offset,
+    ...)`` and only their rows are written.  Slots go in token order, so
+    those rows fill one run of each expert's slots in the whole plan; the
+    buffer holds each run from its start, padded to the longest (one read
+    of its length on the host), and not the other data ranks' slots."""
     T, D = x2d.shape
-    order, e_idx, s_idx, valid = dispatch_plan(top_i, n_local, capacity,
+    order, e_idx, s_idx, write = dispatch_plan(top_i, n_local, capacity,
                                                expert_offset)
-    tok_sorted = torch.arange(T, device=x2d.device).repeat_interleave(
-        cfg.top_k)[order]
-    spare = n_local * capacity
-    dest = torch.where(valid, e_idx * capacity + s_idx,
+    tok = torch.arange(top_i.shape[0], device=x2d.device).repeat_interleave(
+        cfg.top_k)[order] - token_offset
+    slots = capacity
+    if top_i.shape[0] != T:
+        mine = (tok >= 0) & (tok < T)
+        first = _count(e_idx, n_local, write & (tok < 0))
+        run = int(_count(e_idx, n_local, write & mine).max())
+        slots = min(capacity, max(MIN_CAPACITY, -(-run // 8) * 8))
+        write = write & mine
+        s_idx = torch.where(write, s_idx - first[e_idx],
+                            torch.zeros_like(s_idx))
+        tok = torch.clamp(tok, 0, T - 1)
+    spare = n_local * slots
+    dest = torch.where(write, e_idx * slots + s_idx,
                        torch.full_like(e_idx, spare))
     buf = x2d.new_zeros((spare + 1, D))
-    buf[dest] = x2d[tok_sorted]
-    return buf[:spare].view(n_local, capacity, D), (order, e_idx, s_idx,
-                                                    valid)
+    buf[dest] = x2d[tok]
+    return buf[:spare].view(n_local, slots, D), (order, e_idx, s_idx,
+                                                 write)
 
 
 # The batched expert products run in calls of ``n_routed / EXPERT_SHARDS``
@@ -210,11 +302,13 @@ def _experts(buf, p_w, cfg: MoEConfig, dtype):
 
 
 def _pair_rows(p_w, x2d, top_p, top_i, cfg: MoEConfig, expert_offset: int,
-               n_local: int, capacity: int, split: bool = False):
+               n_local: int, capacity: int, split: bool = False,
+               token_offset: int = 0):
     """One shard's routed-expert compute: each (token, k) pair's expert
     output ``[T, k, D]``, weighted by its routing probability (unweighted
     with ``top_p`` None), zero where the pair is dropped or another
-    shard's.
+    shard's.  ``top_i`` may route every data rank's tokens (training on a
+    mesh; :func:`dispatch`): the rows of ``x2d``'s tokens come back.
 
     With ``split`` (a speculative verify) the expert products run on
     slices of ``MIN_CAPACITY`` slots, the decode's buffer: on the card a
@@ -223,20 +317,22 @@ def _pair_rows(p_w, x2d, top_p, top_i, cfg: MoEConfig, expert_offset: int,
     T, D = x2d.shape
     k = cfg.top_k
     buf, (order, e_idx, s_idx, valid) = dispatch(
-        x2d, top_i, cfg, n_local, capacity, expert_offset)
+        x2d, top_i, cfg, n_local, capacity, expert_offset, token_offset)
     if split:
         y_buf = torch.cat([_experts(buf[:, c:c + MIN_CAPACITY].contiguous(),
                                     p_w, cfg, x2d.dtype)
-                           for c in range(0, capacity, MIN_CAPACITY)], 1)
+                           for c in range(0, buf.shape[1], MIN_CAPACITY)], 1)
     else:
         y_buf = _experts(buf, p_w, cfg, x2d.dtype)
-    y_rows = y_buf[e_idx, s_idx] * valid[:, None]
+    # Back to (token, k) order: each of x2d's rows read from its sorted
+    # place.
+    at = torch.empty_like(order)
+    at[order] = torch.arange(order.numel(), device=order.device)
+    at = at[token_offset * k:(token_offset + T) * k]
+    y = y_buf[e_idx[at], s_idx[at]] * valid[at, None]
     if top_p is not None:
-        y_rows = y_rows * top_p.reshape(-1)[order][:, None]
-    # Back to (token, k) order.
-    y_flat = torch.empty_like(y_rows)
-    y_flat[order] = y_rows
-    return y_flat.reshape(T, k, D)
+        y = y * top_p.reshape(-1)[:, None]
+    return y.view(T, k, D)
 
 
 def _sum_pairs(y_flat):
@@ -282,6 +378,45 @@ def _mesh_moe(p, x2d, top_p, top_i, cfg: MoEConfig, mesh, branch: str,
     return _sum_pairs(gather_owned(rules, part, top_i // n_local, dims))
 
 
+def _train_moe(p, x2d, top_p, top_i, cfg: MoEConfig, rules):
+    """The routed experts under training's ``rules``: ``[T, D]`` for this
+    rank's tokens, whole on every "model" rank.
+
+    The drops are one device's: the routing ids of every data rank are
+    gathered in batch order (one device's token order), the plan is the
+    whole batch's at its capacity, and this rank computes the rows of its
+    own tokens, each expert's run of them (:func:`dispatch`).  Only those
+    rows run in the split region, entered through ``copy_to_model`` (the
+    gradient of ``x`` summed over "model"): under EP a rank computes its
+    block of experts' rows and each pair is taken from its owner
+    (``gather_owned``), under expert-TP every expert's rows on its share
+    of the hidden units, summed over "model" in rank order
+    (``reduce_from_model``).  The ``top_p`` weights and the sum
+    over k then run whole on every rank, so the router's gradient is whole
+    too, as on one device."""
+    branch = moe_train_branch(rules, cfg.n_routed, cfg.d_model,
+                              cfg.d_expert)
+    if branch == "resident":
+        raise ValueError("mesh training does not run the resident MoE "
+                         "layout (a decode layout)")
+    every = batch_gather(rules, top_i)
+    t0 = block_index(rules, rules.axis_map.get("batch"))[0] * x2d.shape[0]
+    cap = _capacity(every.shape[0], cfg.top_k, cfg.n_routed,
+                    cfg.capacity_factor)
+    n_local, offset = cfg.n_routed, 0
+    if branch == "ep":
+        n_local = p["wi_gate"].shape[0]
+        offset = block_index(rules, "model")[0] * n_local
+    x_in = x2d if branch == "whole" else copy_to_model(x2d, rules)
+    pairs = _pair_rows(p, x_in, None, every, cfg, offset, n_local, cap,
+                       token_offset=t0)
+    if branch == "ep":
+        pairs = gather_owned(rules, pairs, top_i // n_local, "model")
+    elif branch == "tp":
+        pairs = reduce_from_model(pairs, rules)
+    return _sum_pairs(pairs * top_p[..., None])
+
+
 def moe_ffn(p, x, cfg: MoEConfig, mesh=None, split: bool = False):
     """Full MoE block.  x [B, S, D] -> (out, aux_loss).
 
@@ -301,18 +436,27 @@ def moe_ffn(p, x, cfg: MoEConfig, mesh=None, split: bool = False):
     probs = probs.reshape(B * S, -1)
     top_p = top_p.reshape(B * S, -1)
     top_i = top_i.reshape(B * S, -1)
-    aux = _aux_loss(probs, top_i, cfg)
-    cap = _capacity(B * S, cfg.top_k, cfg.n_routed, cfg.capacity_factor)
-    branch = ("single" if mesh is None else
-              moe_branch(mesh_shape(mesh), cfg.n_routed, cfg.resident))
-    if branch == "single":
-        out2d = _local_moe(p, x.reshape(B * S, D), top_p, top_i, cfg, 0,
-                           cfg.n_routed, cap, split and S > 1)
+    train = training_rules()
+    if train is not None:
+        aux = _aux_loss_share(probs, top_i, cfg, train)
+        out2d = _train_moe(p, x.reshape(B * S, D), top_p, top_i, cfg, train)
     else:
-        out2d = _mesh_moe(p, x.reshape(B * S, D), top_p, top_i, cfg, mesh,
-                          branch, cap, split and S > 1)
+        aux = _aux_loss(probs, top_i, cfg)
+        cap = _capacity(B * S, cfg.top_k, cfg.n_routed, cfg.capacity_factor)
+        branch = ("single" if mesh is None else
+                  moe_branch(mesh_shape(mesh), cfg.n_routed, cfg.resident))
+        if branch == "single":
+            out2d = _local_moe(p, x.reshape(B * S, D), top_p, top_i, cfg, 0,
+                               cfg.n_routed, cap, split and S > 1)
+        else:
+            out2d = _mesh_moe(p, x.reshape(B * S, D), top_p, top_i, cfg,
+                              mesh, branch, cap, split and S > 1)
+    for log in RoutingLog.open_logs:
+        log.routes.append((probs.detach(), aux.detach()))
     out = out2d.reshape(B, S, D).to(x.dtype)
     if "shared" in p:
-        out = out + L.by_column(lambda t: L.mlp(p["shared"], t, cfg.act), x,
-                                split)
+        tp = (train if train is not None and model_split(
+            train, "shared/wo/w", (cfg.d_shared, D), 0) else None)
+        out = out + L.by_column(
+            lambda t: L.mlp(p["shared"], t, cfg.act, tp), x, split)
     return out, aux

@@ -13,9 +13,9 @@ the attention layers run their paged block per rank
 rank holds its blocks of the weights; :func:`gather_weights` gathers
 their "data" blocks before the forward (FSDP) and the layers run
 Megatron's split over "model" (attention heads, the MLP's hidden units,
-the vocab).  :func:`params_from_numpy`,
-:func:`caches_from_numpy`, :func:`caches_to_numpy` and
-:func:`params_to_numpy` convert between the two layouts, so tests can carry
+the vocab; MoE experts by EP or expert-TP, ``models/moe.py``).
+:func:`params_from_numpy`, :func:`caches_from_numpy`,
+:func:`caches_to_numpy` and :func:`params_to_numpy` convert between the two layouts, so tests can carry
 weights across both ways and compare cache trees, and checkpoints are
 written in the reference's layout.
 
@@ -162,7 +162,10 @@ def gather_weights(rules, params, specs):
     heads are whole (indivisible): its ``wo`` rows are gathered too.  Where
     the q heads split and the KV heads do not (MQA), the KV projections are
     whole inside the split region and their gradients are summed over
-    "model"."""
+    "model".  MoE leaves keep their "model" blocks: EP's experts or
+    expert-TP's hidden units (their "data" blocks gathered, the hidden
+    units or ``expert_dmodel``); the router is read whole on every rank,
+    its gradient summed over the batch alone, as a replicated layer's."""
 
     def attn_flags(node_specs):
         heads_split = splits_model(rules, node_specs["wq"]["w"][1])

@@ -9,9 +9,10 @@ tensor: :func:`local_shard` slices this rank's block of a full tensor
 (:func:`local_view` without a copy: a rank's MoE expert weights), and
 :func:`gather_shards` undoes it with one ``all_gather`` over the whole mesh.
 :func:`gather_owned` gathers rows that each rank computed for its own
-pairs (the MoE combine).  The reference's ``constrain`` has no
-counterpart: every activation is a full local tensor, replicated on each
-rank, and the sharded regions (the paged attention block,
+pairs (the MoE combine; in training its gradient stays with each
+owner).  The reference's ``constrain`` has no counterpart: every
+activation is a full local tensor, replicated on each rank, and the
+sharded regions (the paged attention block,
 ``models/attention.py:_shard_paged_attention``; the routed experts,
 ``models/moe.py``) are sliced and gathered explicitly.
 
@@ -32,9 +33,13 @@ leader for a checkpoint).  The training forward runs on those blocks
 through three autograd collectives: :func:`gather_param` (a weight's
 "data" blocks gathered before use; its gradient summed over the batch
 dims and cut back to the block), and the Megatron pair
-:func:`copy_to_model` / :func:`reduce_from_model`.  Every sum over ranks
-is an ``all_gather`` followed by a sum in mesh order, so every rank holds
-the same bits and a run repeats.
+:func:`copy_to_model` / :func:`reduce_from_model`; MoE gathers every data
+rank's routing ids (:func:`batch_gather`) and sums its expert counts
+(:func:`batch_sum`), integers with no gradient.  Every sum over ranks
+is an ``all_gather`` followed by a sum in mesh order (an ``all_to_all`` of
+each rank's block where a rank keeps only its block of the sum, a
+gradient under :func:`gather_param`), so every rank holds the same bits
+and a run repeats.
 Disk records that several ranks would write are written once, by the rank
 at the mesh's first position (:func:`is_leader`), which hands its outcome
 to the others (:func:`from_leader`).
@@ -356,21 +361,42 @@ def any_rank(rules: MeshRules, flag: bool, dim: str | None = None) -> bool:
     return bool(t.item())
 
 
+class _GatherOwned(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rules, owner, dims):
+        idx, _ = block_index(rules, dims)
+        ctx.save_for_backward(owner == idx)
+        if isinstance(dims, str):
+            every = dim_all_gather(rules.mesh, x, dims)
+        else:
+            spec = (dims,) + (None,) * x.ndim
+            every = gather_shards(rules, x[None], spec)
+        at = owner.long().reshape((1,) + owner.shape
+                                  + (1,) * (x.ndim - owner.ndim))
+        return torch.gather(every, 0, at.expand((1,) + tuple(x.shape)))[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        mine, = ctx.saved_tensors
+        mine = mine.reshape(mine.shape + (1,) * (g.ndim - mine.ndim))
+        return g * mine, None, None, None
+
+
 def gather_owned(rules: MeshRules, x: torch.Tensor, owner: torch.Tensor,
                  dims) -> torch.Tensor:
     """Rows that each rank computed for the entries it owns, put together:
     ``x`` is this rank's ``[*owner.shape, ...]`` tensor, right where this
     rank owns an entry (its block index along ``dims``, a mesh dim or a
-    tuple of them, equals ``owner`` there) and anything elsewhere.  One
-    ``all_gather`` (:func:`gather_shards` over ``dims`` of ``x`` on a new
-    leading axis), then each entry taken from its owner's block: pure data
-    movement, so every entry has the bits its owner computed, on every
-    rank."""
-    spec = (dims,) + (None,) * x.ndim
-    every = gather_shards(rules, x[None], spec)       # [n_owners, *x.shape]
-    idx = owner.long().reshape((1,) + owner.shape
-                               + (1,) * (x.ndim - owner.ndim))
-    return torch.gather(every, 0, idx.expand((1,) + tuple(x.shape)))[0]
+    tuple of them, equals ``owner`` there) and anything elsewhere.  The
+    ranks that differ from this one along ``dims`` alone send their ``x``
+    (one ``all_gather`` over the dim's group; over the whole mesh for a
+    tuple of dims, whose ranks must then hold the same entries) and each
+    entry is taken from its owner's: pure data movement, so every entry has
+    the bits its owner computed, on every rank.  In backward each owner
+    keeps its own entries' gradient: the result is the same on every rank
+    of the group, and so is the gradient that reaches it (a training step's
+    replicated activations), so no rank needs another's."""
+    return _GatherOwned.apply(x, rules, owner, dims)
 
 
 def is_leader(rules: MeshRules) -> bool:
@@ -509,16 +535,56 @@ def _sum_in_order(parts: torch.Tensor) -> torch.Tensor:
     return functools.reduce(torch.add, parts.unbind(0))
 
 
-def dim_sum(mesh, x: torch.Tensor, dim: str, narrow=()) -> torch.Tensor:
+def _cut(x: torch.Tensor, cuts) -> torch.Tensor:
+    for axis, start, length in cuts:
+        x = x.narrow(axis, start, length)
+    return x
+
+
+def dim_all_to_all(mesh, parts: list, dim: str) -> list:
+    """``parts[c]`` (one shape for every ``c``) sent to the rank at
+    coordinate ``c`` along mesh dim ``dim``: what every rank of the group
+    sent this one, in coordinate order, this rank's own part as it was
+    (one ``all_to_all`` of the others; through host memory for a CUDA
+    tensor under gloo).  Pure data movement."""
+    x = parts[0]
+    if x.dtype == torch.bfloat16:
+        got = dim_all_to_all(mesh, [t.view(torch.int16) for t in parts], dim)
+        return [t.view(torch.bfloat16) for t in got]
+    group, order = _dim_group(mesh, dim)
+    me = _coordinate(mesh)[dim]
+    ranked = sorted(range(len(parts)), key=order.__getitem__)
+    others = [c for c in ranked if c != me]           # in group rank order
+    staged = _staged(x, group)
+    if staged:
+        src = torch.empty((len(others),) + tuple(x.shape), dtype=x.dtype)
+        for i, c in enumerate(others):
+            src[i].copy_(parts[c])
+    else:
+        src = torch.stack([parts[c] for c in others])
+    buf = torch.empty_like(src)
+    sizes = [int(c != me) for c in ranked]            # rows of src and buf
+    _collective(dist.all_to_all_single, buf, src, sizes, sizes, group=group)
+    if staged:
+        buf = buf.to(x.device)
+    got = dict(zip(others, buf.unbind(0)))
+    return [parts[c] if c == me else got[c] for c in range(len(parts))]
+
+
+def dim_sum(mesh, x: torch.Tensor, dim: str, cuts=None) -> torch.Tensor:
     """The sum over this rank's group along mesh dim ``dim`` of ``x``, in
-    coordinate order, the same bits on every rank of the group.
-    ``narrow``: ``(axis, start, length)`` cuts, each within the last, taken
-    of every part before the sum (the block a rank keeps of a reduced
-    gradient)."""
-    parts = dim_all_gather(mesh, x, dim)
-    for axis, start, length in narrow:
-        parts = parts.narrow(axis + 1, start, length)
-    return _sum_in_order(parts)
+    coordinate order, the same bits on every rank of the group.  With
+    ``cuts`` (for each coordinate along the dim, the ``(axis, start,
+    length)`` cuts, each within the last, of the block the rank there
+    keeps of a reduced gradient) only this rank's block is summed, and a
+    rank sends each other only that one's block of ``x``
+    (:func:`dim_all_to_all`): a reduce-scatter in a fixed order."""
+    if cuts is None:
+        return _sum_in_order(dim_all_gather(mesh, x, dim))
+    if mesh_shape(mesh)[dim] == 1:
+        return _cut(x, cuts[0])
+    return functools.reduce(torch.add, dim_all_to_all(
+        mesh, [_cut(x, c) for c in cuts], dim))
 
 
 def dim_max(mesh, x: torch.Tensor, dim: str) -> torch.Tensor:
@@ -543,6 +609,15 @@ def batch_sum(rules: MeshRules, x: torch.Tensor) -> torch.Tensor:
     count, the loss summed over data ranks."""
     for d in batch_dims(rules):
         x = dim_sum(rules.mesh, x, d)
+    return x
+
+
+def batch_gather(rules: MeshRules, x: torch.Tensor) -> torch.Tensor:
+    """Every data rank's ``x`` (no gradient: routing ids) concatenated on
+    its first axis in batch-block order, on every rank: for this rank's
+    rows of the batch, the whole batch's rows in one device's order."""
+    for d in reversed(batch_dims(rules)):             # innermost first
+        x = torch.cat(dim_all_gather(rules.mesh, x, d).unbind(0))
     return x
 
 
@@ -603,18 +678,24 @@ class _GatherParam(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         coord, shape = _coordinate(ctx.mesh), mesh_shape(ctx.mesh)
-        cuts, size = [], list(g.shape)           # each within the last
-        for axis, dims in enumerate(ctx.gather):
-            for d in dims:                            # outermost first
-                size[axis] //= shape[d]
-                cuts.append((axis, coord[d] * size[axis], size[axis]))
+
+        def cuts(at):
+            # The block that the rank at coordinates ``at`` keeps.
+            out, size = [], list(g.shape)           # each within the last
+            for axis, dims in enumerate(ctx.gather):
+                for d in dims:                        # outermost first
+                    size[axis] //= shape[d]
+                    out.append((axis, at[d] * size[axis], size[axis]))
+            return out
+
         if ctx.reduce:
-            g = dim_sum(ctx.mesh, g, ctx.reduce[0], cuts)
+            d0 = ctx.reduce[0]
+            g = dim_sum(ctx.mesh, g, d0, [cuts(coord | {d0: c})
+                                          for c in range(shape[d0])])
             for d in ctx.reduce[1:]:
                 g = dim_sum(ctx.mesh, g, d)
         else:
-            for axis, start, length in cuts:
-                g = g.narrow(axis, start, length)
+            g = _cut(g, cuts(coord))
         return g.contiguous(), None, None, None
 
 

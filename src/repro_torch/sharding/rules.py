@@ -8,7 +8,7 @@ reference's, entry for entry: ``PARAM_RULES`` (a parameter's path pattern
 TP over "model", the batch over "data" or ("pod", "data")), and the
 contiguous caches' ``CACHE_RULES``.  A rank holds its block of every
 leaf under them (``sharding/api.py:shard_state``); ``models/`` and
-``train/`` run the split the axis map gives.
+``train/`` run the split the axis map gives (MoE: :func:`moe_train_branch`).
 
 Serving keeps its own narrower map: ``AXIS_MAP_SERVE``,
 :func:`make_serve_rules`, ``PAGED_CACHE_RULES`` and :func:`cache_pspecs`;
@@ -22,7 +22,7 @@ needs them (:func:`moe_branch`, :func:`shard_params`).
 from __future__ import annotations
 
 from repro_torch.sharding.api import (MeshRules, local_shard, local_view,
-                                      mesh_shape)
+                                      mesh_shape, splits_model)
 
 # Path-pattern parameter rules (the reference's, in its order; first match
 # wins).  Axis names refer to the AXIS_MAP keys below.
@@ -163,6 +163,24 @@ def moe_branch(shape: dict[str, int], n_routed: int,
     if resident and n_routed % (data * tp) == 0:
         return "resident"
     return "ep" if n_routed % tp == 0 else "tp"
+
+
+def moe_train_branch(rules: MeshRules, n_routed: int, d_model: int,
+                     d_expert: int) -> str:
+    """The MoE branch training's ``rules`` put a rank in, read from the
+    spec its expert weights were cut by (the axis map, then
+    divisibility): "resident" where the experts lie over "data" (a decode
+    layout, which training refuses), "ep" where they lie over "model",
+    "tp" where each expert's hidden units do, else "whole" (every expert
+    whole on every "model" rank)."""
+    expert = rules.axis_map.get("expert")
+    if expert is not None and "data" in (
+            (expert,) if isinstance(expert, str) else expert):
+        return "resident"
+    spec = rules.param_pspec("moe/wi_gate", (n_routed, d_model, d_expert))
+    if splits_model(rules, spec[0]):
+        return "ep"
+    return "tp" if splits_model(rules, spec[2]) else "whole"
 
 
 def _expert_axes(shape: dict[str, int], n_routed: int,

@@ -23,8 +23,12 @@ the LM head vocab-parallel (:func:`chunked_lm_loss`) and divides by the
 global token count; each gradient comes back summed over the batch and cut
 to the rank's block (the reference's gradient pin), and the clip and the
 ``grad_norm`` metric take the global norm (``optimizer.global_norm``).
-Dense transformers only: other blocks and sequence parallelism are
-refused (:func:`check_mesh_trainable`).
+Attention blocks with a dense or MoE FFN (``models/moe.py``'s EP and
+expert-TP training branches, at one device's drops and aux loss); other
+blocks, the resident expert layout and sequence parallelism are refused
+(:func:`check_mesh_trainable`).  With ``microbatches > 1`` a mesh
+microbatch holds other rows than one device's microbatch of its index,
+so where MoE capacity binds their drops differ (ROADMAP C15).
 
 The state is ``{"params", "opt", ["err"]}`` over the port's per-layer
 parameter tree; :func:`state_to_numpy` / :func:`state_from_numpy` convert it
@@ -50,6 +54,7 @@ from repro_torch.sharding.api import (AbstractMesh, batch_sum, block_index,
                                       gather_shards, local_shard,
                                       mesh_shape, model_split,
                                       reduce_from_model, training_rules)
+from repro_torch.sharding.rules import moe_train_branch
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          cosine_schedule, init_opt_state,
                                          tree_leaves, tree_map)
@@ -293,8 +298,9 @@ def _allreduce_int8_ef_blocks(rules, grads, err, specs, data_axes):
 
 def check_mesh_trainable(cfg: ModelConfig, rules) -> None:
     """Raise ``ValueError`` where training's ``rules`` meet what mesh
-    training does not split yet: a block other than attention with a dense
-    or no FFN, and sequence parallelism.  Refused, not run replicated."""
+    training does not split yet: a block other than attention with a
+    dense, MoE or no FFN, MoE experts in the resident layout (a decode
+    layout), and sequence parallelism.  Refused, not run replicated."""
     if rules is None or not rules.param_rules:
         return
     if rules.axis_map.get("seq") is not None:
@@ -306,10 +312,12 @@ def check_mesh_trainable(cfg: ModelConfig, rules) -> None:
                 raise ValueError(
                     f"mesh training of {spec.mixer!r} blocks ({cfg.name}) "
                     f"is not ported: {MESH_TRAIN_NEXT}")
-            if spec.ffn == "moe":
+            if spec.ffn == "moe" and moe_train_branch(
+                    rules, cfg.n_routed, cfg.d_model,
+                    cfg.d_expert) == "resident":
                 raise ValueError(
-                    f"mesh training of MoE FFNs ({cfg.name}) is not "
-                    f"ported: {MESH_TRAIN_NEXT}")
+                    f"mesh training of MoE FFNs in the resident layout "
+                    f"({cfg.name}) is not ported: {MESH_TRAIN_NEXT}")
 
 
 def param_specs(cfg: ModelConfig, rules):

@@ -14,6 +14,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from repro_torch.configs import reduced_config
 from repro_torch.core.besf import BitStopperConfig
 from repro_torch.models.attention import host_array
+from repro_torch.models.moe import RoutingLog
 from repro_torch.runtime.fault_tolerance import ElasticMeshManager
 from repro_torch.serving import (FaultInjector, FaultPlan, PagedEngine,
                                  Request, ServeConfig)
@@ -464,28 +465,25 @@ class Replay:
         return []
 
 
-class DropSpy:
-    """Counts, over every MoE dispatch, the (token, expert) pairs of this
-    rank's experts that capacity dropped (another rank's pairs are not
-    this rank's to drop)."""
+class DropSpy(RoutingLog):
+    """The package's :class:`RoutingLog` read on the host: every MoE
+    call's dropped (token, expert) pairs among the experts its plan covers
+    (this rank's: another rank's pairs are not its to drop; tokens
+    numbered as the plan routes them, the whole batch's in mesh training)
+    and its aux loss (a data rank's share in mesh training); ``dropped``
+    counts the pairs over every call."""
 
-    def __init__(self):
-        from repro_torch.models import moe
-        self.moe, self.real, self.dropped = moe, moe.dispatch_plan, 0
+    @property
+    def drops(self) -> list:
+        return self.pairs()
 
-    def _plan(self, top_i, n_local, capacity, expert_offset=0):
-        plan = self.real(top_i, n_local, capacity, expert_offset)
-        local = top_i.reshape(-1).long() - expert_offset
-        mine = ((local >= 0) & (local < n_local))[plan[0]]
-        self.dropped += int((mine & ~plan[3]).sum())
-        return plan
+    @property
+    def aux(self) -> list[float]:
+        return [float(a) for _, a in self.routes]
 
-    def __enter__(self):
-        self.moe.dispatch_plan = self._plan
-        return self
-
-    def __exit__(self, *exc):
-        self.moe.dispatch_plan = self.real
+    @property
+    def dropped(self) -> int:
+        return sum(self.counts())
 
 
 def moe_serve(variant, params, mode, mesh=None, device="cpu",
@@ -713,3 +711,110 @@ def heads_case(mesh, key: str, params, tokens) -> dict:
                 "metrics": {k: float(v) for k, v in m.items()},
                 "params": O.tree_map(np.array, T.params_to_numpy(
                     gather_state(rules, state["params"], specs), cfg))}
+
+
+# ---------------------------------------------------------------------------
+# MoE training on the mesh (tests/test_torch_mesh_train_moe.py): the EP and
+# expert-TP branches under make_rules, drops and aux loss where capacity
+# binds, microbatches (C15) and the Trainer.
+# ---------------------------------------------------------------------------
+
+# Reduced qwen2-moe's 8 routed experts: a 2-way "model" dim divides them
+# (EP, 4 a rank); 5 it does not (expert-TP, each expert's 32 hidden units
+# 16 a rank).
+MOE_TRAIN_VARIANTS = {"ep": {}, "tp": {"n_routed": 5}}
+# A capacity factor at which a step of the test's batch drops pairs.
+MOE_BIND_FACTOR = 0.5
+MOE_MICROBATCHES = 2
+
+
+def moe_train_config(variant: str, **kw):
+    return reduced_config(MOE_ARCH).replace(**MOE_TRAIN_VARIANTS[variant],
+                                            **kw)
+
+
+def moe_trainer_config(steps: int, ckpt_dir: str):
+    """The MoE Trainer's TrainConfig, TrainerConfig and DataConfig."""
+    from repro_torch.data import DataConfig
+    from repro_torch.train.trainer import TrainerConfig
+    cfg = moe_train_config("ep")
+    return (train_tcfg(total_steps=4),
+            TrainerConfig(steps=steps, ckpt_every=100, ckpt_dir=ckpt_dir,
+                          log_every=0),
+            DataConfig(vocab=cfg.vocab, **TRAINER_DATA))
+
+
+def moe_train_rank(mesh, device, params_by_variant, tokens, ckpt_dir) -> dict:
+    """A rank of the 2x2 mesh training reduced qwen2-moe: for each variant
+    of ``MOE_TRAIN_VARIANTS`` (EP, expert-TP) TRAIN_STEPS steps from its
+    full ``params`` on this rank's rows of ``tokens`` (metrics, the
+    gathered parameters after the last), then from the same parameters
+    at capacity factor MOE_BIND_FACTOR the loss and gathered gradients
+    with each MoE call's drops and aux share; one EP step at that factor
+    in MOE_MICROBATCHES microbatches (its drops); last the Trainer over
+    the mesh (2 steps and a checkpoint, then a resume for a third).  After
+    each variant's steps, one int8_ef step (``allreduce_int8_ef`` over the
+    MoE leaves): its loss and the gathered parameters and residuals."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.api import gather_state, shard_state, use_rules
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer
+    d = mesh.get_coordinate()[0]
+    rows = tokens.shape[0] // mesh.mesh.shape[0]
+    local = torch.as_tensor(tokens[d * rows:(d + 1) * rows])
+    out = {"coord": tuple(mesh.get_coordinate()), "steps": {}, "bind": {}}
+    tcfg = train_tcfg()
+    for variant, params in params_by_variant.items():
+        cfg = moe_train_config(variant)
+        rules = make_rules(mesh, n_routed=cfg.n_routed)
+        specs = TS.param_specs(cfg, rules)
+        p = TS.trainable(shard_state(rules, params, specs))
+        state = {"params": p, "opt": O.init_opt_state(p, tcfg.optimizer)}
+        step = TS.make_train_step(cfg, tcfg)
+        metrics = []
+        with use_rules(rules):
+            for _ in range(TRAIN_STEPS):
+                state, m = step(state, local)
+                metrics.append({k: float(v) for k, v in m.items()})
+            out["steps"][variant] = {
+                "metrics": metrics,
+                "params": O.tree_map(np.array, T.params_to_numpy(
+                    gather_state(rules, state["params"], specs), cfg))}
+            # One int8_ef step from here (err zeros): allreduce_int8_ef
+            # over the MoE leaves.
+            state["err"] = O.tree_map(torch.zeros_like, state["params"])
+            state, m = TS.make_train_step(
+                cfg, train_tcfg(grad_compression="int8_ef"))(state, local)
+            out["steps"][variant]["int8"] = {
+                "loss": float(m["loss"]),
+                "state": _host(gather_state(rules, [state["params"],
+                                                    state["err"]],
+                                            [specs, specs]))}
+            bcfg = moe_train_config(variant,
+                                    moe_capacity_factor=MOE_BIND_FACTOR)
+            p = TS.trainable(shard_state(rules, params, specs))
+            with DropSpy() as log:
+                loss, grads = TS.value_and_grad(p, local, bcfg, tcfg, specs)
+            out["bind"][variant] = {
+                "loss": float(loss), "drops": log.drops, "aux": log.aux,
+                "grads": _host(gather_state(rules, grads, specs))}
+            if variant == "ep":
+                state = {"params": p, "opt": O.init_opt_state(
+                    p, tcfg.optimizer)}
+                mb = train_tcfg(microbatches=MOE_MICROBATCHES)
+                with DropSpy() as log:
+                    TS.make_train_step(bcfg, mb)(state, local)
+                out["microbatch_drops"] = log.drops
+    cfg = moe_train_config("ep")
+    rules = make_rules(mesh, n_routed=cfg.n_routed)
+    runs = []
+    for steps in (TRAINER_STEPS, TRAINER_STEPS + 1):
+        tcfg_t, run, data = moe_trainer_config(steps, ckpt_dir)
+        tr = Trainer(cfg, tcfg_t, run, data_cfg=data, device=device,
+                     rules=rules)
+        tr.train()
+        runs.append(tr.metrics_log)
+    out["trainer"] = runs
+    return out

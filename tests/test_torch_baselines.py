@@ -29,17 +29,10 @@ from repro_torch.core import lats as tlats
 from repro_torch.core import quantization as tq
 from repro_torch.core import stats as TS
 from repro_torch.core.besf import besf_attention as tbesf
+from _torch_threads import one_thread  # noqa: F401
 
 B, H, S, D = 2, 4, 96, 32
 OUT_TOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _qkv(seed=0):

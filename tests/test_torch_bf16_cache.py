@@ -36,6 +36,7 @@ from repro_torch.core.besf import besf_attention as t_besf_attention
 from repro_torch.kernels import paged_decode as pd
 from repro_torch.kernels import paged_verify as pv
 from repro_torch.models import attention as TA
+from _torch_threads import one_thread  # noqa: F401
 
 BF16_ULP = 2.0 ** -7      # one bf16 ulp, relative to the value's magnitude
 OUT_TOL = 2e-5            # outputs of f32 arithmetic in two frameworks

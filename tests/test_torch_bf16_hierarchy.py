@@ -36,6 +36,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.serving import PagedEngine, Request, ServeConfig
 from repro_torch.serving.engine import _amax_arrays
 from repro_torch.serving.frontdoor import DisaggController
+from _torch_threads import one_thread  # noqa: F401
 
 AMAX_RTOL = 1e-6      # a few f32 ulps: each package's own K/V projections
 BF = dict(cache_dtype="bfloat16")

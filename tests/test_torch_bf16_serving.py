@@ -30,6 +30,7 @@ from repro_torch.core.besf import BitStopperConfig as TConfig
 from repro_torch.models import transformer as TT
 from repro_torch.serving import (ContinuousBatchingEngine, PagedEngine,
                                  Request, ServeConfig, StaticBucketEngine)
+from _torch_threads import one_thread  # noqa: F401
 
 _BASE = dict(max_len=64, max_slots=2, prefill_bucket=8,
              cache_dtype="bfloat16")

@@ -24,6 +24,7 @@ from repro_torch.core.besf import besf_attention as tbesf
 from repro_torch.kernels import bitstopper_qk as BQ
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.runtime import width_refusal
+from _torch_threads import one_thread  # noqa: F401
 
 # Integers exact; the output's softmax differs by exp and summation order.
 TOL = 2e-5

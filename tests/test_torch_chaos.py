@@ -28,6 +28,7 @@ from repro_torch.serving import (FaultEvent, FaultInjector, FaultPlan,
                                  HostCrash, PagedEngine, Request, ServeConfig,
                                  serve_with_chaos)
 from repro_torch.serving import chaos as tchaos
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.serving import (ContinuousBatchingEngine, Request,
                                  ServeConfig, StaticBucketEngine)
 from repro_torch.serving.sampling import categorical_block, fold_in, prng_key
+from _torch_threads import one_thread  # noqa: F401
 
 KV_RTOL = 1e-6        # the same K/V rows written by both packages
 PROJ_ATOL = 1e-6      # K/V projected by each package from the same inputs

@@ -22,6 +22,7 @@ from repro_torch.core.besf import BitStopperConfig as TConfig
 from repro_torch.core.besf import paged_decode_prep as tprep
 from repro_torch.core.block_adaptation import \
     block_bitstopper_attention as tblock
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _t(a):

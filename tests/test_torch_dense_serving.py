@@ -25,6 +25,7 @@ from repro_torch.configs import reduced_config
 from repro_torch.models import transformer as TT
 from repro_torch.serving import (ContinuousBatchingEngine, PagedEngine,
                                  Request, ServeConfig)
+from _torch_threads import one_thread  # noqa: F401
 
 # tests/test_serving.py's geometry.
 _BASE = dict(max_len=64, max_slots=2, prefill_bucket=8)

@@ -25,6 +25,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as TT
 from repro_torch.serving import (ContinuousBatchingEngine, PagedEngine,
                                  Request, ServeConfig)
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,7 @@ from repro_torch.serving import (InsufficientBlocks, PagedEngine, Prefix,
                                  Request, ServeConfig)
 from repro_torch.serving.engine import _amax_arrays
 from repro_torch.serving.frontdoor import DisaggController, TransferQueue
+from _torch_threads import one_thread  # noqa: F401
 
 AMAX_RTOL = 1e-6      # a few f32 ulps: each package's own K/V projections
 

@@ -23,6 +23,7 @@ from repro_torch.runtime import (
     SystemClock,
 )
 from repro_torch.serving import PagedEngine, Request, ServeConfig
+from _torch_threads import one_thread  # noqa: F401
 
 
 def test_clocks():

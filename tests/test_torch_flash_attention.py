@@ -14,6 +14,7 @@ from repro.kernels.flash_attention import flash_attention_single as jflash
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.runtime import width_refusal
+from _torch_threads import one_thread  # noqa: F401
 
 # f32 on both sides; exp and the order of the sums differ between the
 # frameworks and between tiled and dense softmax, by a few ulps.

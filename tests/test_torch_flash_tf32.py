@@ -22,6 +22,7 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention_single as jflash
 from repro_torch.kernels import flash_attention as FA
+from _torch_threads import one_thread  # noqa: F401
 
 # f32 on both sides, as in test_torch_flash_attention.py: exp, the order of
 # the sums and the split dots' rounding differ by a few ulps.

@@ -21,6 +21,7 @@ from repro_torch.core.besf import BitStopperConfig as TConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as TA
 from repro_torch.models import transformer as TT
+from _torch_threads import one_thread  # noqa: F401
 
 IMPLS = ("xla", "flash", "bitstopper", "bitstopper_xla")
 # Dense impls: f32 matmuls summed in another order differ by ulps (measured

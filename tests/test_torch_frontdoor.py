@@ -40,6 +40,7 @@ from repro_torch.runtime import ManualClock
 from repro_torch.serving import PagedEngine, ServeConfig
 from repro_torch.serving.frontdoor import (AsyncFrontDoor, DisaggController,
                                            SlaMapper)
+from _torch_threads import one_thread  # noqa: F401
 
 # tests/test_frontdoor.py's geometry.
 _BASE = dict(max_len=64, max_slots=2, prefill_bucket=8, page_size=8)

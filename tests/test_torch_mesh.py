@@ -48,6 +48,7 @@ from repro_torch.sharding.rules import (PAGED_CACHE_RULES, cache_pspecs,
                                         make_serve_rules)
 
 import _torch_mesh_worker as W
+from _torch_threads import one_thread  # noqa: F401
 
 _SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 MESHED = [n for n in W.SCENARIOS if n != "breaker"]
@@ -136,16 +137,6 @@ def _reference_moe_tokens(params):
             for p in W.prompts(cfg.vocab, {})]
     eng.generate(reqs, seed=0)
     return [list(map(int, r.generated)) for r in reqs]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch intra-op thread for the module, as the spawned CPU ranks
-    have (at these widths torch's thread pool costs many times the work)."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 @pytest.fixture(scope="module")

@@ -44,6 +44,7 @@ from repro_torch.sharding.rules import MOE_PARAM_RULES, make_serve_rules, \
     moe_branch
 
 import _torch_mesh_worker as W
+from _torch_threads import one_thread  # noqa: F401
 
 _TESTS = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(os.path.dirname(_TESTS), "src")
@@ -59,14 +60,6 @@ sys.path[:0] = [{tests!r}, {src!r}]
 import test_torch_mesh_moe as M
 M.reference_main(*sys.argv[1:])
 """
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def _host(tree):

@@ -45,6 +45,7 @@ from repro_torch.launch.mesh import start_mesh
 from repro_torch.models import transformer as TT
 
 import _torch_mesh_worker as W
+from _torch_threads import one_thread  # noqa: F401
 
 _TESTS = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(os.path.dirname(_TESTS), "src")
@@ -63,14 +64,6 @@ TOKENS = {"swap": "swap", "store_cold": "store", "store_warm": "store",
           "store_to_single": "store", "tier": "tier", "chaos": "chaos",
           "restore_1x2": "chaos", "restore_single": "chaos",
           "disagg_in": "chaos", "disagg_out": "chaos"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 # The reference's single-device runs, in a subprocess beside the spawn:

@@ -51,6 +51,7 @@ from repro_torch.train import train_step as TS
 from repro_torch.train.trainer import Trainer
 
 import _torch_mesh_worker as W
+from _torch_threads import one_thread  # noqa: F401
 
 _SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 JOIN_S = 120.0
@@ -101,14 +102,6 @@ def int8_inputs():
     g = rng.normal(size=(16, 16)).astype(np.float32)
     e = (rng.normal(size=(16, 16)) * 1e-3).astype(np.float32)
     return g, e
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _reference_tcfg():
@@ -638,19 +631,22 @@ def test_load_checkpoint_place_reads_blocks(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["moe", "mla", "ssm", "rglru",
+@pytest.mark.parametrize("case", ["moe_resident", "mla", "ssm", "rglru",
                                   "sequence_parallel"])
 def test_refusals_name_their_roadmap_item(case):
     """What mesh training does not split raises ValueError naming its
     ROADMAP item, in the step and in the Trainer, rather than running
-    replicated."""
-    arch = {"moe": "qwen2-moe-a2.7b", "mla": "deepseek-v3-671b",
+    replicated: MLA, SSM and RG-LRU blocks, sequence parallelism, and MoE
+    experts in the resident layout (a decode layout; EP and expert-TP
+    train, ``tests/test_torch_mesh_train_moe.py``)."""
+    arch = {"moe_resident": "qwen2-moe-a2.7b", "mla": "deepseek-v3-671b",
             "ssm": "mamba2-130m", "rglru": "recurrentgemma-2b",
             "sequence_parallel": "stablelm-1.6b"}[case]
     cfg = reduced_config(arch)
     rules = make_rules(AbstractMesh((2, 2), ("data", "model")),
                        sequence_parallel=case == "sequence_parallel",
-                       n_routed=cfg.n_routed)
+                       n_routed=cfg.n_routed,
+                       moe_resident=case == "moe_resident")
     step = TS.make_train_step(cfg, TS.TrainConfig())
     with use_rules(rules), pytest.raises(ValueError, match="ROADMAP A10"):
         step({"params": {}, "opt": {}}, None)
@@ -661,18 +657,19 @@ def test_refusals_name_their_roadmap_item(case):
 
 def test_launch_train_mesh_cpu(tmp_path, capsys):
     """``python -m repro_torch.launch.train --device cpu --mesh 2,2`` runs
-    two reduced steps on four spawned gloo ranks, the same loss on every
-    rank; a MoE arch is refused before any rank starts."""
+    two reduced qwen2-moe steps (EP: 4 of its 8 experts a rank) on four
+    spawned gloo ranks, the same loss on every rank; an MLA arch is
+    refused before any rank starts."""
     ranks = launch_train.main(
-        ["--arch", W.TRAIN_ARCH, "--steps", "2", "--batch", "4", "--seq",
+        ["--arch", W.MOE_ARCH, "--steps", "2", "--batch", "4", "--seq",
          "16", "--ckpt-dir", str(tmp_path), "--device", "cpu", "--mesh",
          "2,2"])
     out = capsys.readouterr().out
     assert "the same loss on every rank: True" in out
-    assert "done: 2 steps of stablelm-1.6b on a 2x2 mesh" in out
+    assert f"done: 2 steps of {W.MOE_ARCH} on a 2x2 mesh" in out
     assert [len(r["metrics"]) for r in ranks] == [2] * 4
     assert all(np.isfinite(m["loss"]) for m in ranks[0]["metrics"])
     assert TC.latest_step(str(tmp_path)) == 2
     with pytest.raises(ValueError, match="ROADMAP A10"):
-        launch_train.main(["--arch", "qwen2-moe-a2.7b", "--device", "cpu",
+        launch_train.main(["--arch", "deepseek-v3-671b", "--device", "cpu",
                            "--mesh", "2,2"])

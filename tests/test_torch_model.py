@@ -20,6 +20,7 @@ from repro_torch.core.besf import BitStopperConfig as TConfig
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _t(a):

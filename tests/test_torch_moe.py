@@ -28,18 +28,9 @@ from repro_torch.models import transformer as TT
 from repro_torch.serving import PagedEngine, Request, ServeConfig
 from repro_torch.sharding.api import mesh_shape
 from repro_torch.sharding.rules import moe_branch
+from _torch_threads import one_thread  # noqa: F401
 
 ARCH = "qwen2-moe-a2.7b"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Reduced models are tiny: one intra-op thread runs them many times
-    faster than a thread pool, whose hand-offs dominate at these sizes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -23,6 +23,7 @@ from repro_torch.configs import reduced_config
 from repro_torch.core.besf import BitStopperConfig as TConfig
 from repro_torch.models import transformer as TT
 from repro_torch.serving import PagedEngine, Request, ServeConfig
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

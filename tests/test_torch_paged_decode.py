@@ -16,6 +16,7 @@ from repro_torch.core.besf import BitStopperConfig as TConfig
 from repro_torch.core.besf import besf_attention_decode_paged as toracle
 from repro_torch.kernels import paged_decode as pd
 from repro_torch.kernels.runtime import on_card
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _pool(seed, P=9, bs=16, Hkv=2, D=16, hot_heads=()):

@@ -18,6 +18,7 @@ from repro_torch.core.besf import BitStopperConfig as TConfig
 from repro_torch.core.besf import besf_attention_verify_paged as toracle
 from repro_torch.kernels import paged_decode as pd
 from repro_torch.kernels import paged_verify as pv
+from _torch_threads import one_thread  # noqa: F401
 
 # The reference's tests/test_speculative.py tables: a physical block shared
 # by two rows, a recycled block, a row ending mid-page (row 2) and a

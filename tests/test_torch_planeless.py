@@ -26,6 +26,7 @@ from repro_torch.core.besf import besf_attention_decode as tdecode
 from repro_torch.models import attention as TA
 from repro_torch.models import transformer as TT
 from repro_torch.serving import PagedEngine, Request, ServeConfig
+from _torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-6            # f32 softmax and S x V: exp and sum order differ
 

@@ -35,6 +35,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.serving import (FaultInjector, FaultPlan, PagedEngine,
                                  Request, ServeConfig)
 from repro_torch.serving.engine import _amax_arrays
+from _torch_threads import one_thread  # noqa: F401
 
 AMAX_RTOL = 1e-6      # a few f32 ulps: each package's own K/V projections
 

@@ -32,6 +32,7 @@ from repro_torch.serving import (CheckpointInterrupted, FaultPlan,
                                  PagedEngine, Request, ServeConfig,
                                  serve_with_chaos)
 from repro_torch.serving.engine import _layers
+from _torch_threads import one_thread  # noqa: F401
 
 AMAX_RTOL = 1e-6      # a few f32 ulps
 

@@ -32,6 +32,7 @@ from repro_torch.serving import (DraftModelDrafter, NGramDrafter,
                                  PagedEngine, Request, ServeConfig,
                                  make_drafter)
 from repro_torch.serving.engine import _layers
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

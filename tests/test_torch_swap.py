@@ -42,6 +42,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.serving import (FaultPlan, PagedEngine, Request,
                                  ServeConfig, SwapPool, serve_with_chaos)
 from repro_torch.serving.engine import _amax_arrays
+from _torch_threads import one_thread  # noqa: F401
 
 # tests/test_swap.py's oversubscribed shape and swap budget.
 _OS = dict(max_len=64, max_slots=3, prefill_bucket=8, page_size=8,

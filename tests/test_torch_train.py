@@ -27,6 +27,7 @@ from repro_torch.models import attention as TA
 from repro_torch.models import transformer as TT
 from repro_torch.train import optimizer as TO
 from repro_torch.train import train_step as TS
+from _torch_threads import one_thread  # noqa: F401
 
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4           # of each leaf's max |g|
@@ -39,14 +40,6 @@ FAST_XLA = {"xla_backend_optimization_level": 0,
 def jax_compiled(fn, *args):
     """``jax.jit(fn)`` compiled for ``args`` under FAST_XLA."""
     return jax.jit(fn).lower(*args).compile(compiler_options=FAST_XLA)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

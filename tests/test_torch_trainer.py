@@ -37,6 +37,7 @@ from repro_torch.models import transformer as T
 from repro_torch.train import optimizer as TO
 from repro_torch.train import train_step as TS
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from _torch_threads import one_thread  # noqa: F401
 
 ARCH = "stablelm-1.6b"
 STEPS = 6
@@ -51,14 +52,6 @@ PARAM_ATOL = 2e-6
 # compile time, values an ulp or so from the default build's).
 FAST_XLA = {"xla_backend_optimization_level": 0,
             "xla_llvm_disable_expensive_passes": True}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tree(seed=0):

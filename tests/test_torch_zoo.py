@@ -21,19 +21,10 @@ from repro_torch.configs import reduced_config
 from repro_torch.models import frontend as TF
 from repro_torch.models import transformer as TT
 from repro_torch.serving import Request, ServeConfig, StaticBucketEngine
+from _torch_threads import one_thread  # noqa: F401
 
 _PARAMS = {}
 _FORWARDS = {}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Reduced models are tiny: one intra-op thread runs them many times
-    faster than a thread pool, whose hand-offs dominate at these sizes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _ref_layout(tree, cfg):
