@@ -220,15 +220,25 @@ train phase, 17 below, which runs no kernel, runs first), then:
    bit-equal to the gathered state and within 1e-4 of one device's
    parameters, then one int8_ef step (every leaf's all-reduce result equal
    on every rank, residuals within max|g + e| / 127) and the Trainer's
-   init and resume; then, in the same spawn, qwen2-moe-a2.7b at full
-   width cut to depth 2 in the EP branch (30 of 60 experts a rank), three
-   steps, each from one device's parameters after the step before,
-   beside one device's: losses, grad norms, parameters and each layer's
-   dropped pairs as one device's; prints the gaps (with the first Adam
-   moments where a parameter parts from one device's, and the routing's
-   smallest top-k margins beside the router's gaps), each rank's bytes of
-   parameters and moments beside one device's, ms per step per rank, the
-   collectives' ms, drops and peak device bytes;
+   init and resume; then, in the same spawn, the held cases
+   (``HELD_CASES``), one at a time, each at published widths, each step
+   from one device's parameters after the step before, beside one
+   device's steps, two steps each: qwen2-moe-a2.7b cut to depth 1 in the
+   EP branch (30 of 60 experts a rank; depth 2 and three steps before the
+   other cases came), recurrentgemma-2b's (rglru, rglru, local_attn)
+   unit, mamba2-130m at depth 2, stablelm-1.6b at depth 1 under
+   ``sequence_parallel=True``, qwen2-moe-a2.7b at depth 1 in the resident
+   layout (15 of 60 experts a rank), and deepseek-v3 cut to one dense MLA
+   layer with its MTP block (bf16 parameters, as published) where its
+   reckoning from a "meta" init fits the card, which it does not (its
+   reckoning is printed; any other case not run fails the phase):
+   losses, grad norms, parameters, routing ids and each MoE layer's
+   dropped pairs as one device's, every leaf moved, the card below 72
+   GB; prints the gaps (with the first Adam moments where a parameter
+   parts from one device's, and the routing's smallest top-k margins
+   beside the router's gaps), each rank's bytes
+   of parameters and moments beside one device's, ms per step per rank,
+   the collectives' ms, drops and peak device bytes;
 19. prints one JSON line describing each kernel (the bf16 forms, the
    D=128 shapes and the mesh shards under each kernel's row), then the
    device line last.
@@ -4436,8 +4446,9 @@ def shard_kernel_check(torch, kind, mod, sq, seed, shapes, Hkv, label):
     block of the full run, its per-head rounds, survivors and V pages
     equal, and the full slot-wide rounds the max over its "model" shards.
     Each shard kernel timed alone beside its bound (from the kernel's own
-    byte and operation counts).  Returns {"shard_ms", "shard_bound_ms",
-    "shard_launches", "full_ms"}."""
+    byte and operation counts) and its plain version.  Returns
+    {"shard_ms", "shard_bound_ms", "shard_plain_ms", "shard_launches",
+    "full_ms"}."""
     from repro_torch.core.besf import BitStopperConfig
     cfg = BitStopperConfig(alpha=0.6)
     args = decode_case(torch, seed, Hkv=Hkv, Sq=sq, **shapes)
@@ -4449,8 +4460,9 @@ def shard_kernel_check(torch, kind, mod, sq, seed, shapes, Hkv, label):
     if kind == "verify":
         f_surv = f_surv.reshape(B, sq, Hq, -1)
     f_vf = _v_fetched(kind, f_surv, B, Hkv, G, MB, bs)
+    plain_fn = getattr(mod, f"paged_bitstopper_{kind}_plain")
     shard_rounds = {}
-    times, bounds, launches = [], [], 0
+    times, bounds, plain, launches = [], [], [], 0
     for d in range(MESH_DP):
         for m in range(MESH_TP):
             ix = _shard_slices(kind, d, m, B, Hq, Hkv)
@@ -4480,6 +4492,8 @@ def shard_kernel_check(torch, kind, mod, sq, seed, shapes, Hkv, label):
             kargs, *held = mod.kernel_args(*sargs, cfg=cfg, stats=False)
             times.append(cuda_ms(torch, lambda: mod.launch_c(*kargs),
                                  iters=50, warmup=5))
+            plain.append(cuda_ms(torch, lambda: plain_fn(
+                *sargs, cfg=cfg, stats=False), iters=1, warmup=1))
             if kind == "decode":
                 nbytes, ops = decode_bytes_ops(sargs, s_rh, s_surv,
                                                stats=False)
@@ -4503,10 +4517,12 @@ def shard_kernel_check(torch, kind, mod, sq, seed, shapes, Hkv, label):
           f"per-head rounds, survivors and v_fetched equal to the full "
           f"run's blocks; full rounds the max over model shards; kernel "
           f"alone per shard {[round(t, 4) for t in times]} ms (bounds "
-          f"{[round(x, 5) for x in bounds]}), full geometry "
+          f"{[round(x, 5) for x in bounds]}, plain "
+          f"{[round(x, 3) for x in plain]}), full geometry "
           f"{full_ms:.4f} ms")
     return {"shard_ms": times, "shard_bound_ms": bounds,
-            "shard_launches": launches, "full_ms": full_ms}
+            "shard_plain_ms": plain, "shard_launches": launches,
+            "full_ms": full_ms}
 
 
 @phase("mesh kernels")
@@ -5039,12 +5055,39 @@ MESH_TRAIN_PARAM_TOL = 1e-4
 MESH_TRAIN_MOVED_MIN = 2e-4
 MESH_TRAIN_DEPTH = 1             # the dense mesh train phase's cut since
                                  # the MoE mesh train phase (4 before)
-# qwen2-moe-a2.7b's mesh training: depth 2 (1,452,283,904 f32 parameters,
-# 23.2 GB of state on one device), EP (60 experts, 30 a "model" rank), its
-# weights drawn from this seed on one device and, part by part, on each
-# rank.
-MOE_TRAIN_DEPTH = 2
+# The cases held to one device after the dense part, in this order, in the
+# same spawn: (name, arch, depth, make_rules keywords, steps, MoE branch).
+# Each is its arch at published widths cut to ``depth`` repeats of its
+# first segment's unit, its weights drawn from MOE_TRAIN_SEED on one
+# device and, part by part, on each rank, trained at 8 x 256 and lr 3e-4.
+# qwen2-moe-a2.7b at depth 1 is 881,725,440 f32 parameters, in EP (30 of
+# 60 experts a "model" rank; depth 2 and three steps before the other
+# cases came) and resident (15 a rank).  deepseek-v3's one dense MLA
+# layer and its MTP block (bf16 parameters, as published) do not fit the
+# card beside the ranks (:func:`train_held`): its reckoning is printed.
+# The last field marks the one case that may be reckoned and not run;
+# any other case not run fails the phase.
+HELD_CASES = (
+    ("qwen2-moe-a2.7b EP", MOE_ARCH, 1, {}, 2, "ep", False),
+    ("recurrentgemma-2b", "recurrentgemma-2b", 1, {}, 2, None, False),
+    ("mamba2-130m", "mamba2-130m", 2, {}, 2, None, False),
+    ("stablelm-1.6b SP", "stablelm-1.6b", 1, {"sequence_parallel": True}, 2,
+     None, False),
+    ("qwen2-moe-a2.7b resident", MOE_ARCH, 1, {"moe_resident": True}, 2,
+     "resident", False),
+    ("deepseek-v3-671b", "deepseek-v3-671b", 1, {}, 2, None, True),
+)
 MOE_TRAIN_SEED = 1
+# The card's memory in use after any mesh step (five processes on one
+# card) stays below MESH_TRAIN_CARD_BYTES.  Beside a case's reckoned bytes
+# the card holds up to MESH_TRAIN_BASE_BYTES more: five processes'
+# contexts, workspaces and allocator caches, the parent's stablelm weights
+# and what earlier phases left (4.4 to 17.7 GB over the cases' reckonings,
+# the most for recurrentgemma-2b in the whole smoke; NVIDIA H100 80GB
+# HBM3, 700 W).  A case keeps one device's results on the card where that
+# fits, else in the host's shared memory, else it is not run.
+MESH_TRAIN_CARD_BYTES = 72e9
+MESH_TRAIN_BASE_BYTES = 18e9
 
 
 def routing_of(log) -> tuple:
@@ -5131,21 +5174,24 @@ def leaf_paths(tree, prefix=""):
     return [prefix[:-1]]
 
 
-def moe_mesh_train_rank(torch, mesh, device, tcfg, cfg, data, moe_q):
-    """A rank's MoE mesh training, after the dense part: once the parent
-    has trained one device (its parameters after each step arrive through
-    ``moe_q`` in the host's shared memory, with its first Adam moments),
-    the rank draws its blocks of the seeded initial parameters part by
-    part and trains MESH_TRAIN_STEPS steps under ``make_rules`` (EP) on
-    its shard of each batch, each step after the first from one device's
-    parameters after the step before (the rank's own moments kept), so
-    that every step is held to one device's step from the same
-    parameters: ms, collective ms, each layer's dropped pairs among its
-    experts, the whole batch's routing ids and its rows' router
-    probabilities per step, and each step's gaps to one device's
-    parameters after that step (:func:`param_gaps`).  Returns those, its
-    bytes of parameters and moments, its peak device bytes, how far each
-    leaf moved and the seconds its checks took."""
+def held_mesh_train_rank(torch, mesh, device, k, case, q, acks):
+    """A rank's part of held case ``k`` (``case``, :func:`held_case`),
+    after the dense part and the cases before it: once the parent has
+    trained one device (its parameters after each step arrive through
+    ``q``, by CUDA IPC or in the host's shared memory, with its first Adam
+    moments; None: the case is skipped), the rank draws its blocks of the seeded initial
+    parameters part by part and trains the case's steps under its
+    ``make_rules`` on its shard of each batch, each step after the first
+    from one device's parameters after the step before (the rank's own
+    moments kept), so that every step is held to one device's step from
+    the same parameters: ms, collective ms, the card's memory in use, each
+    MoE layer's dropped pairs among its experts, the whole batch's routing
+    ids and its rows' router probabilities per step, and each step's gaps
+    to one device's parameters after that step (:func:`param_gaps`).
+    Returns those, its bytes of parameters and moments, its peak device
+    bytes, how far each leaf moved and the seconds its checks took; puts
+    ``(k, coordinate)`` on ``acks`` when it holds none of the parent's
+    tensors any more."""
     import functools
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.models import transformer as T
@@ -5155,13 +5201,16 @@ def moe_mesh_train_rank(torch, mesh, device, tcfg, cfg, data, moe_q):
     from repro_torch.sharding.rules import make_rules, moe_train_branch
     from repro_torch.train import optimizer as O
     from repro_torch.train import train_step as TS
+    coord = tuple(mesh.get_coordinate())
     t_wait = time.perf_counter()
-    one = moe_q.get(timeout=900)
+    one = q.get(timeout=900)
     if one is None:
+        acks.put((k, coord))
         return None
     after, (m_one, m_top) = one
     t_part = time.perf_counter()
-    rules = make_rules(mesh, n_routed=cfg.n_routed)
+    cfg, tcfg, steps = case["cfg"], case["tcfg"], case["steps"]
+    rules = make_rules(mesh, n_routed=cfg.n_routed, **case["rules"])
     specs = TS.param_specs(cfg, rules)
     gc.collect()
     torch.cuda.synchronize()
@@ -5183,16 +5232,17 @@ def moe_mesh_train_rank(torch, mesh, device, tcfg, cfg, data, moe_q):
     init_s = time.perf_counter() - t
     state = {"params": local, "opt": O.init_opt_state(local, tcfg.optimizer)}
     shard, n_shards = block_index(rules, "data")
-    ds = SyntheticLMDataset(data, shard=shard, num_shards=n_shards)
+    ds = SyntheticLMDataset(case["data"], shard=shard, num_shards=n_shards)
     step = TS.make_train_step(cfg, tcfg)
-    res = {"coord": tuple(mesh.get_coordinate()), "init_s": init_s,
-           "wait_s": t_part - t_wait, "check_s": 0.0,
+    res = {"coord": coord, "init_s": init_s, "wait_s": t_part - t_wait,
+           "check_s": 0.0, "steps": [],
            "branch": moe_train_branch(rules, cfg.n_routed, cfg.d_model,
-                                      cfg.d_expert),
-           "steps": []}
+                                      cfg.d_expert)
+           if any(b.ffn == "moe" for unit, _ in cfg.segments for b in unit)
+           else None}
     blocks, spec_leaves = O.tree_leaves(state["params"]), O.tree_leaves(specs)
     with use_rules(rules), RoutingLog() as log:
-        for i in range(MESH_TRAIN_STEPS):
+        for i in range(steps):
             batch = torch.as_tensor(ds.batch_at(i), device=device)
             torch.cuda.synchronize()
             c0, t = A.COLLECTIVE_S, time.perf_counter()
@@ -5211,11 +5261,11 @@ def moe_mesh_train_rank(torch, mesh, device, tcfg, cfg, data, moe_q):
                 "ms": ms,
                 "collective_ms": (A.COLLECTIVE_S - c0) * 1e3,
                 "drops": n_drops,
-                "ids": ids if res["coord"] == (0, 0) else None,
-                "probs": probs if res["coord"][1] == 0 else None}
+                "ids": ids if coord == (0, 0) else None,
+                "probs": probs if coord[1] == 0 else None}
                 | param_gaps(torch, rules, blocks, after[i], spec_leaves,
                              first, tcfg.optimizer.lr,
-                             reset=i + 1 < MESH_TRAIN_STEPS))
+                             reset=i + 1 < steps))
             del first
             # The card is shared by five processes: hand back what this
             # one's allocator holds unused between steps.
@@ -5225,6 +5275,8 @@ def moe_mesh_train_rank(torch, mesh, device, tcfg, cfg, data, moe_q):
     res["bytes"] = sum(x.numel() * x.element_size() for x in O.tree_leaves(
         [state["params"], state["opt"]["m"], state["opt"]["v"]]))
     del one, after, m_one, state, m, local
+    gc.collect()
+    acks.put((k, coord))
     # How far each leaf moved: against its initial blocks, drawn again
     # (no copy of them is held through the steps).
     t = time.perf_counter()
@@ -5233,11 +5285,13 @@ def moe_mesh_train_rank(torch, mesh, device, tcfg, cfg, data, moe_q):
     res["check_s"] += time.perf_counter() - t
     res["part_s"] = time.perf_counter() - t_part
     del blocks
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
 def mesh_train_rank(mesh, device, cfg, tcfg, data, params, digest, root,
-                    moe):
+                    held_args):
     """A rank of the mesh train phase: its blocks of the parent's initial
     parameters (CUDA IPC; checksums first), MESH_TRAIN_STEPS steps under
     ``make_rules`` on its shard of each batch (ms and collective ms per
@@ -5364,45 +5418,63 @@ def mesh_train_rank(mesh, device, cfg, tcfg, data, params, digest, root,
             del st, kept, tr
     finally:
         shutil.rmtree(fresh, ignore_errors=True)
-    res["moe"] = moe_mesh_train_rank(torch, mesh, device, tcfg, *moe)
+    cases, q, acks = held_args
+    res["held"] = [held_mesh_train_rank(torch, mesh, device, k, case, q,
+                                        acks)
+                   for k, case in enumerate(cases)]
     return res
 
 
-def moe_one_device_train(torch, cfg, tcfg, data):
-    """One device's MESH_TRAIN_STEPS steps of the MoE mesh train phase from
-    the seeded parameters: each step's loss, grad norm, ms, per-layer drops,
-    routing ids and router probabilities, the bytes of parameters and
-    moments, and the peak device bytes.  Returns the parameters' leaves
-    after each step, in the host's shared memory, and those figures with
-    the first step's Adam moments (the clipped gradient times 1 - b1; on
-    the host) and each leaf's max |m|."""
+def one_device_train(torch, case, on_card: bool):
+    """One device's steps of held case ``case`` from the seeded
+    parameters: each step's loss, grad norm, ms, per-layer drops, routing
+    ids and router probabilities, the bytes of parameters and moments,
+    and the peak device bytes of the steps (what it keeps for the ranks
+    aside).  Returns the parameters' leaves after each step and those
+    figures with the first step's Adam moments (the clipped gradient
+    times 1 - b1) and each leaf's max |m|; the tensors kept for the ranks
+    stay on the card with ``on_card`` (the ranks map them by CUDA IPC),
+    else they are copied into the host's shared memory (which takes most
+    of a large case's time)."""
+
+    def keep(t):
+        if on_card:
+            return t.detach().clone()
+        return torch.empty(t.shape, dtype=t.dtype).share_memory_().copy_(
+            t.detach())
+
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.models import transformer as T
     from repro_torch.models.moe import RoutingLog
     from repro_torch.train import optimizer as O
     from repro_torch.train import train_step as TS
+    cfg, tcfg = case["cfg"], case["tcfg"]
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     p = TS.trainable(T.init_model(
         cfg, torch.Generator(device="cuda").manual_seed(MOE_TRAIN_SEED),
         "cuda"))
     out = {"n_params": sum(t.numel() for t in O.tree_leaves(p)),
-           "steps": []}
+           "steps": [], "peak_bytes": 0}
     state = {"params": p, "opt": O.init_opt_state(p, tcfg.optimizer)}
     step = TS.make_train_step(cfg, tcfg)
-    ds = SyntheticLMDataset(data)
-    after = []
+    ds = SyntheticLMDataset(case["data"])
+    after, kept = [], 0
     with RoutingLog() as log:
-        for i in range(MESH_TRAIN_STEPS):
+        for i in range(case["steps"]):
             batch = torch.as_tensor(ds.batch_at(i), device="cuda")
             torch.cuda.synchronize()
             t = time.perf_counter()
             state, m = step(state, batch)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t) * 1e3
+            out["peak_bytes"] = max(out["peak_bytes"],
+                                    torch.cuda.max_memory_allocated()
+                                    - base - kept)
             n_drops, ids, probs = routing_of(log)
             out["steps"].append({"loss": float(m["loss"]),
                                  "grad_norm": float(m["grad_norm"]),
@@ -5412,22 +5484,21 @@ def moe_one_device_train(torch, cfg, tcfg, data):
                 # Where a rank's first step parts from this one, its
                 # gradient's sign is looked up here.
                 first = O.tree_leaves(state["opt"]["m"])
-                out["m_one"] = [x.detach().to("cpu", copy=True)
-                                for x in first]
+                out["m_one"] = [keep(x) for x in first]
                 out["m_top"] = [float(x.detach().abs().max()) for x in first]
                 del first
-            # Kept in the host's shared memory (the ranks map them): on the
-            # card they would take 17.4 GB beside the four ranks.
-            after.append([torch.empty(t.shape, dtype=t.dtype).share_memory_()
-                          .copy_(t.detach())
-                          for t in O.tree_leaves(state["params"])])
+            after.append([keep(t) for t in O.tree_leaves(state["params"])])
+            kept = sum(t.numel() * t.element_size() for t in O.tree_leaves(
+                [after, out["m_one"]]) if t.is_cuda)
+            torch.cuda.reset_peak_memory_stats()
     out["bytes"] = sum(t.numel() * t.element_size() for t in O.tree_leaves(
         [state["params"], state["opt"]["m"], state["opt"]["v"]]))
-    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["kept_bytes"] = kept
     out["paths"] = leaf_paths(p)
     del state, p, m, batch
     gc.collect()
     torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
     return after, out
 
 
@@ -5456,13 +5527,53 @@ def routing_margins(torch, one, ranks, k) -> list:
     return out
 
 
-def moe_train_report(torch, one, ranks, failed, top_k) -> dict:
-    """Checks and prints the MoE part of the mesh train phase (``one`` one
-    device's figures, ``ranks`` each rank's); appends to ``failed``."""
+def reckon_bytes(torch, case) -> dict:
+    """Device bytes of held case ``case`` from a "meta"-device init (no
+    draw): one device's parameters, moments and gradients, and its Adam
+    update's f32 temporaries on the largest leaf (six of them); on the 2x2
+    mesh the same state over the four ranks, plus on each rank the
+    weights it gathers (its "model" blocks, gathered over "data"), their
+    gradients, and the temporaries on its largest block; and ``kept``,
+    one device's parameters after each step and first moments, which the
+    card may keep for the ranks (:func:`one_device_train`)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.api import AbstractMesh
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    cfg, tcfg = case["cfg"], case["tcfg"]
+    leaves = O.tree_leaves(T.init_model(cfg, torch.Generator(), "meta"))
+    rules = make_rules(AbstractMesh((MESH_DP, MESH_TP), ("data", "model")),
+                       n_routed=cfg.n_routed, **case["rules"])
+    specs = O.tree_leaves(TS.param_specs(cfg, rules))
+    n = sum(t.numel() for t in leaves)
+    p_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    m_size = 2 if tcfg.optimizer.moment_dtype == "bfloat16" else 4
+    state = 2 * p_bytes + 2 * n * m_size          # params, grads, m, v
+    temps = 6 * 4 * max(t.numel() for t in leaves)
+
+    def model_part(t, spec):
+        return t.numel() // (MESH_TP if any(
+            e == "model" or (isinstance(e, tuple) and "model" in e)
+            for e in spec) else 1)
+
+    gathered = sum(model_part(t, s) * t.element_size()
+                   for t, s in zip(leaves, specs))
+    block_max = max(t.numel() // (MESH_DP * MESH_TP) for t in leaves)
+    return {"n_params": n, "one_device": state + temps,
+            "mesh": state + MESH_DP * MESH_TP * (
+                2 * gathered + 6 * 4 * block_max),
+            "kept": case["steps"] * p_bytes + n * m_size}
+
+
+def held_train_report(torch, case, one, ranks, failed) -> dict:
+    """Checks and prints held case ``case`` of the mesh train phase
+    (``one`` one device's figures, ``ranks`` each rank's); appends to
+    ``failed``."""
+    name, steps = case["name"], range(case["steps"])
     if any(r is None for r in ranks):
-        failed.append("the MoE mesh part did not run on every rank")
+        failed.append(f"{name}: the mesh part did not run on every rank")
         return {}
-    steps = range(MESH_TRAIN_STEPS)
     loss_gap = max(abs(r["steps"][i]["loss"] - one["steps"][i]["loss"])
                    for r in ranks for i in steps)
     gnorm_gap = max(abs(r["steps"][i]["grad_norm"]
@@ -5470,37 +5581,42 @@ def moe_train_report(torch, one, ranks, failed, top_k) -> dict:
                     / one["steps"][i]["grad_norm"]
                     for r in ranks for i in steps)
     for r in ranks:
-        if r["branch"] != "ep":
-            failed.append(f"MoE rank {r['coord']} ran {r['branch']!r}")
+        if r["branch"] != case["branch"]:
+            failed.append(f"{name} rank {r['coord']} ran {r['branch']!r}")
         for i, s in enumerate(r["steps"]):
             w, wg = one["steps"][i]["loss"], one["steps"][i]["grad_norm"]
             if not abs(s["loss"] - w) <= MESH_TRAIN_LOSS_TOL * (1 + abs(w)):
-                failed.append(f"MoE rank {r['coord']} step {i + 1} loss "
+                failed.append(f"{name} rank {r['coord']} step {i + 1} loss "
                               f"{s['loss']!r} vs {w!r}")
             if not abs(s["grad_norm"] - wg) <= MESH_TRAIN_GNORM_RTOL * wg:
-                failed.append(f"MoE rank {r['coord']} step {i + 1} grad "
+                failed.append(f"{name} rank {r['coord']} step {i + 1} grad "
                               f"norm {s['grad_norm']!r} vs {wg!r}")
-    # A data coordinate's "model" ranks plan the whole batch, each for its
-    # own experts: together they drop one device's pairs.
+    # Each rank plans the whole batch for its own experts: under EP a data
+    # coordinate's "model" ranks together drop one device's pairs, resident
+    # experts all four ranks together.
+    groups = ([list(ranks)] if case["branch"] == "resident" else
+              [[r for r in ranks if r["coord"][0] == d]
+               for d in range(MESH_DP)])
     drops = []
     for i in steps:
         want = one["steps"][i]["drops"]
-        for d in range(MESH_DP):
+        for group in groups:
             got = [sum(x) for x in zip(*(r["steps"][i]["drops"]
-                                         for r in ranks
-                                         if r["coord"][0] == d))]
+                                         for r in group))]
             if got != want:
-                failed.append(f"MoE step {i + 1} data rank {d} drops "
-                              f"{got} per layer vs one device's {want}")
+                failed.append(f"{name} step {i + 1} drops {got} per layer "
+                              f"vs one device's {want} (ranks "
+                              f"{[r['coord'] for r in group]})")
         drops.append(want)
     # Tokens whose experts (as a set) differ from one device's, per layer.
     first = next(r for r in ranks if r["coord"] == (0, 0))
     flips = [[int((a != b).any(-1).sum()) for a, b in zip(
         first["steps"][i]["ids"], one["steps"][i]["ids"])] for i in steps]
     if any(any(f) for f in flips):
-        failed.append(f"MoE routing differs from one device's: {flips} "
+        failed.append(f"{name}: routing differs from one device's: {flips} "
                       f"tokens per layer per step")
-    margins = routing_margins(torch, one, ranks, top_k)
+    margins = (routing_margins(torch, one, ranks, case["cfg"].top_k)
+               if case["branch"] else [])
     param_gap = max(s["gap"] for r in ranks for s in r["steps"])
     over = {}
     for r in ranks:
@@ -5508,8 +5624,8 @@ def moe_train_report(torch, one, ranks, failed, top_k) -> dict:
             for j, *hit in r["steps"][i]["over"]:
                 over.setdefault((i + 1, one["paths"][j]), []).append(
                     tuple(hit))
-    for (i, path), hits in sorted(over.items()):
-        print(f"[chip_smoke] moe mesh train step {i}: {path} over "
+    for (i, path), hits in sorted(over.items())[:16]:
+        print(f"[chip_smoke] {name} mesh train step {i}: {path} over "
               f"{MESH_TRAIN_PARAM_TOL} at (index, gap"
               + (", one device's m, the mesh's m, each over the leaf's "
                  "max |m|" if i == 1 else "")
@@ -5522,16 +5638,18 @@ def moe_train_report(torch, one, ranks, failed, top_k) -> dict:
     bad = sum(s["bad"] for r in ranks for s in r["steps"])
     flat = [sum(r["steps"][i]["flat"] for r in ranks) for i in steps]
     if bad:
-        failed.append(f"MoE parameters: {bad} elements past the limit "
+        failed.append(f"{name} parameters: {bad} elements past the limit "
                       f"(largest gap {param_gap:.3e})")
     card = max(s["card_used_bytes"] for r in ranks for s in r["steps"])
+    if not card < MESH_TRAIN_CARD_BYTES:
+        failed.append(f"{name}: the card held {card} bytes after a step")
     moved = min(max(r["moves"][j] for r in ranks)
                 for j in range(len(ranks[0]["moves"])))
     if not moved > MESH_TRAIN_MOVED_MIN:
-        failed.append(f"a MoE parameter leaf moved {moved:.3e}")
+        failed.append(f"{name}: a parameter leaf moved {moved:.3e}")
     for r in ranks:
         st = r["steps"]
-        print(f"[chip_smoke] moe mesh train rank {r['coord']}: step ms "
+        print(f"[chip_smoke] {name} mesh train rank {r['coord']}: step ms "
               f"{[round(s['ms'], 1) for s in st]}, collectives "
               f"{[round(s['collective_ms'], 1) for s in st]} ms; loss "
               f"{[s['loss'] for s in st]}; dropped pairs of its experts "
@@ -5541,30 +5659,29 @@ def moe_train_report(torch, one, ranks, failed, top_k) -> dict:
               f"{r['init_s']:.1f} s; waited {r['wait_s']:.1f} s for one "
               f"device's run, then {r['part_s']:.1f} s, "
               f"{r['check_s']:.1f} s of it in the checks")
-    print(f"[chip_smoke] moe mesh train routing per step and layer "
-          f"(one device's smallest top-{top_k} margin, its token, the "
-          f"mesh's router probabilities' gap there and their largest "
-          f"gap): {margins}; "
-          f"the first moments' largest gaps over their leaf's max |m|: "
-          f"{[(f'{g:.3e}', path) for g, path in m_gaps[:4]]}")
-    print(f"[chip_smoke] moe mesh train one device ({one['s']:.1f} s with "
-          f"its draw and host copies): step ms "
+    if margins:
+        print(f"[chip_smoke] {name} mesh train routing per step and layer "
+              f"(one device's smallest top-{case['cfg'].top_k} margin, its "
+              f"token, the mesh's router probabilities' gap there and "
+              f"their largest gap): {margins}")
+    print(f"[chip_smoke] {name} mesh train one device ({one['s']:.1f} s "
+          f"with its draw and copies): step ms "
           f"{[round(s['ms'], 1) for s in one['steps']]}; loss "
           f"{[s['loss'] for s in one['steps']]}; grad norm "
           f"{[s['grad_norm'] for s in one['steps']]}; dropped pairs per "
           f"layer {drops}; peak {one['peak_bytes']} device bytes; the "
           f"ranks' peaks sum to {sum(r['peak_bytes'] for r in ranks)}; "
           f"the card's memory in use after a mesh step at most {card} "
-          f"bytes; "
-          f"tokens routed otherwise on the mesh per layer {flips}; the "
-          f"parameters' gap after each step "
+          f"bytes; tokens routed otherwise on the mesh per layer {flips}; "
+          f"the parameters' gap after each step "
           f"{[max(r['steps'][i]['gap'] for r in ranks) for i in steps]}, "
           f"elements over {MESH_TRAIN_PARAM_TOL} where one device's first "
           f"|m| is below {ADAM_FLAT_REL} of its leaf's max (held to 2 lr) "
-          f"per step {flat}")
+          f"per step {flat}; the first moments' largest gaps over their "
+          f"leaf's max |m|: {[(f'{g:.3e}', p) for g, p in m_gaps[:4]]}")
     keep = ("loss", "grad_norm", "ms", "collective_ms", "drops", "gap",
             "flat", "card_used_bytes")
-    return {"n_params": one["n_params"],
+    return {"name": name, "n_params": one["n_params"],
             "one": {k: v for k, v in one.items()
                     if k not in ("m_one", "m_top", "paths", "steps")}
             | {"steps": [{k: v for k, v in s.items()
@@ -5582,6 +5699,72 @@ def moe_train_report(torch, one, ranks, failed, top_k) -> dict:
             "least_leaf_move": moved,
             "drops": [sum(x) for x in drops], "routed_otherwise": flips,
             "card_used_bytes": card}
+
+
+def held_case(get_config, DataConfig, O, TS, name, arch, depth, rules,
+              steps, branch, may_skip) -> dict:
+    """A held case of the mesh train phase (an entry of HELD_CASES): its
+    config cut to ``depth``, its TrainConfig (lr 3e-4 from the first
+    step) and data, its ``make_rules`` keywords, steps, expected MoE
+    branch and whether it may be reckoned and not run."""
+    full = get_config(arch)
+    cfg = full.replace(segments=((full.segments[0][0], depth),))
+    return {"name": name, "cfg": cfg, "rules": rules, "steps": steps,
+            "branch": branch, "may_skip": may_skip,
+            "tcfg": TS.TrainConfig(optimizer=O.AdamWConfig(lr=3e-4),
+                                   total_steps=steps, warmup_steps=0),
+            "data": DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH)}
+
+
+def train_held(torch, cases, k, held_one, errors, reckoned):
+    """One device's steps of held case ``k``, unless its reckoning
+    (:func:`reckon_bytes`) and MESH_TRAIN_BASE_BYTES reach
+    MESH_TRAIN_CARD_BYTES: its parameters after each step (on the card
+    where they fit there beside the ranks, else in the host's shared
+    memory), or None (the ranks skip the case).  The figures go to
+    ``held_one[k]``, the reckoning to ``reckoned[k]``, an exception to
+    ``errors[k]``."""
+    case = cases[k]
+    r = reckoned[k] = reckon_bytes(torch, case)
+    room = MESH_TRAIN_CARD_BYTES - MESH_TRAIN_BASE_BYTES
+    r["on_card"] = max(r["one_device"], r["mesh"]) + r["kept"] < room
+    print(f"[chip_smoke] mesh train {case['name']} reckoned (bytes): {r}",
+          flush=True)
+    if max(r["one_device"], r["mesh"]) >= room:
+        return None
+    try:
+        after, held_one[k] = one_device_train(torch, case, r["on_card"])
+    except Exception as e:                 # reported after the join
+        errors[k] = e
+        return None
+    return after
+
+
+def send_held(q, one, after):
+    """One message a rank: one device's parameters after each step and
+    first moments, or None where the case is skipped."""
+    for _ in range(MESH_DP * MESH_TP):
+        q.put(None if after is None else
+              (after, (one["m_one"], one["m_top"])))
+
+
+def wait_acks(acks, k, job) -> bool:
+    """Wait until every rank is done with held case ``k`` (it holds none
+    of the parent's tensors of it any more); False where the job ended
+    first."""
+    import queue
+    seen = set()
+    while len(seen) < MESH_DP * MESH_TP:
+        try:
+            kk, coord = acks.get(timeout=5)
+        except queue.Empty:
+            if not job.running():
+                return False
+            continue
+        if kk == k:
+            seen.add(coord)
+    return True
 
 
 @phase("mesh train")
@@ -5608,18 +5791,26 @@ def mesh_train_phase(torch):
     of parameters and moments beside one device's, ms per step per rank
     and the collectives' ms.
 
-    Then, in the same spawn, full-width qwen2-moe-a2.7b cut to depth
-    MOE_TRAIN_DEPTH (f32) in the EP branch (30 of its 60 experts a rank):
-    one device trains MESH_TRAIN_STEPS steps first and frees its moments,
-    then each rank draws its blocks of the same seeded parameters and
-    trains the same steps, each after the first from one device's
-    parameters after the step before; every step's loss and grad norm
-    within the limits above, each layer's dropped pairs (the ranks of a
-    data coordinate together) equal to one device's and every token routed
-    to one device's experts, the parameters after each step within
-    MESH_TRAIN_PARAM_TOL of one device's and every leaf moved more than
-    MESH_TRAIN_MOVED_MIN.  Prints each rank's bytes of parameters and
-    moments, ms per step, collective ms, drops and peak device bytes."""
+    Then, in the same spawn, the held cases (``HELD_CASES``) one after
+    another: one device trains a case's steps first (its parameters after
+    each step and its first moments reach the ranks by CUDA IPC, or
+    through the host's shared memory where they do not fit the card
+    beside the ranks) and frees its state, then each rank draws its
+    blocks of the
+    same seeded parameters and trains the same steps under the case's
+    ``make_rules``, each after the first from one device's parameters
+    after the step before (:func:`held_mesh_train_rank`); a case whose
+    reckoning (:func:`reckon_bytes`) and MESH_TRAIN_BASE_BYTES reach
+    MESH_TRAIN_CARD_BYTES is not run (deepseek-v3's cut).  Every step's
+    loss and grad norm within the limits above, each MoE layer's dropped
+    pairs (the ranks that plan a data coordinate's rows, or all of them
+    for resident experts, together) equal to one device's and every
+    token routed to one device's experts, the parameters after each step
+    within MESH_TRAIN_PARAM_TOL of one device's (:func:`param_gaps`),
+    every leaf moved more than MESH_TRAIN_MOVED_MIN and the card's memory
+    in use below MESH_TRAIN_CARD_BYTES (:func:`held_train_report`).
+    Prints each rank's bytes of parameters and moments, ms per step,
+    collective ms, drops and peak device bytes."""
     import shutil
     import tempfile
     import numpy as np
@@ -5641,21 +5832,19 @@ def mesh_train_phase(torch):
                           "cuda")
     n_params = sum(t.numel() for t in O.tree_leaves(shared))
     digest = params_digest(torch, shared)
-    mfull = get_config(MOE_ARCH)
-    moe_cfg = mfull.replace(segments=((mfull.segments[0][0],
-                                       MOE_TRAIN_DEPTH),))
-    moe_data = DataConfig(vocab=moe_cfg.vocab, seq_len=TRAIN_SEQ,
-                          global_batch=TRAIN_BATCH)
-    moe_q = torch.multiprocessing.get_context("spawn").Queue()
+    cases = [held_case(get_config, DataConfig, O, TS, *c)
+             for c in HELD_CASES]
+    ctx = torch.multiprocessing.get_context("spawn")
+    held_q, acks = ctx.Queue(), ctx.Queue()
     root = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
     failed = []
-    moe_after = None
+    held_one, errors, reckoned = [None] * len(cases), {}, {}
     try:
         job = start_mesh(mesh_train_rank, MESH_DP, MESH_TP, device="cuda",
                          backend="gloo",
                          args=(cfg, tcfg, data, shared, digest, root,
-                               (moe_cfg, moe_data, moe_q)),
-                         timeout=900)
+                               (cases, held_q, acks)),
+                         timeout=1000)
         # One device, on its own copy, while the ranks start.
         p = TS.trainable(O.tree_map(lambda t: t.detach().clone(), shared))
         state = {"params": p, "opt": O.init_opt_state(p, tcfg.optimizer)}
@@ -5673,19 +5862,11 @@ def mesh_train_phase(torch):
                         "ms": (time.perf_counter() - t) * 1e3})
         one_bytes = sum(t.numel() * t.element_size() for t in O.tree_leaves(
             [state["params"], state["opt"]["m"], state["opt"]["v"]]))
-        # One device's MoE steps while the ranks run the dense steps; its
-        # parameters after each step go to every rank once the dense
-        # checks below are done, and a rank starts its MoE part when they
-        # arrive (None: it skips it).
-        moe_error = None
-        t = time.perf_counter()
-        try:
-            moe_after, moe_one = moe_one_device_train(torch, moe_cfg, tcfg,
-                                                      moe_data)
-        except Exception as e:             # reported after the join
-            moe_error = e
-        if moe_error is None:
-            moe_one["s"] = time.perf_counter() - t
+        # One device's first held case while the ranks run the dense
+        # steps; its parameters after each step go to every rank once the
+        # dense checks below are done, and a rank starts the case when
+        # they arrive (None: it skips it).
+        after = train_held(torch, cases, 0, held_one, errors, reckoned)
         # The leader's checkpoint on one device, while the ranks run their
         # int8_ef step (it is promoted whole: a listed step is complete).
         while CS.latest_step(root) is None and job.running():
@@ -5712,19 +5893,34 @@ def mesh_train_phase(torch):
         del loaded, state, p
         gc.collect()
         torch.cuda.empty_cache()
-        for _ in range(MESH_DP * MESH_TP):
-            moe_q.put(None if moe_after is None else
-                      (moe_after, (moe_one["m_one"], moe_one["m_top"])))
+        # The held cases one after another: one device's steps while the
+        # ranks wait, then the ranks' while one device waits (the card
+        # holds one of them at a time beside the ranks' blocks).  One
+        # device's tensors stay alive until every rank is done with them
+        # (CUDA IPC).
+        for k in range(len(cases)):
+            send_held(held_q, held_one[k], after)
+            done = wait_acks(acks, k, job)
+            after = None
+            if held_one[k] is not None:
+                held_one[k].pop("m_one")
+            gc.collect()
+            torch.cuda.ipc_collect()
+            if not done:
+                break
+            if k + 1 < len(cases):
+                after = train_held(torch, cases, k + 1, held_one, errors,
+                                   reckoned)
         ranks = job.join()
-        if moe_error is not None:
-            raise moe_error
+        if errors:
+            raise next(iter(errors.values()))
         spawned = time.perf_counter() - t0
         leader = next(r for r in ranks if r["leader"])
         bit_equal = loaded_digest == leader["gathered_digest"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
         release_shared(torch, shared)
-        moe_after = None
+        after = None
         gc.collect()
         torch.cuda.ipc_collect()
     loss_gap = max(abs(r["steps"][i]["loss"] - one[i]["loss"])
@@ -5814,13 +6010,22 @@ def mesh_train_phase(torch):
                "param_gap": param_gap, "least_leaf_move": moved,
                "load_s": load_s,
                "spawned_s": spawned}
-    summary["moe"] = moe_train_report(torch, moe_one,
-                                      [r["moe"] for r in ranks], failed,
-                                      moe_cfg.top_k)
+    summary["held"] = []
+    for k, case in enumerate(cases):
+        if held_one[k] is None:
+            summary["held"].append({"name": case["name"],
+                                    "skipped": reckoned.get(k)})
+            if not case["may_skip"]:
+                failed.append(f"{case['name']}: not run, its reckoning "
+                              f"{reckoned.get(k)} beside "
+                              f"{MESH_TRAIN_BASE_BYTES:.0f} bytes")
+            continue
+        summary["held"].append(held_train_report(
+            torch, case, held_one[k], [r["held"][k] for r in ranks],
+            failed) | {"reckoned": reckoned.get(k)})
     print(f"[chip_smoke] mesh train summary: {json.dumps(summary)}")
     if failed:
         raise SystemExit(f"[chip_smoke] mesh train failed: {failed}")
-    moe = summary["moe"]
     print(f"[chip_smoke] mesh train: {cfg.name} depth {cfg.n_layers} "
           f"({n_params} f32 parameters) on a {MESH_DP}x{MESH_TP} mesh of "
           f"four ranks on one card (gloo): losses within "
@@ -5836,20 +6041,29 @@ def mesh_train_phase(torch):
           f"rank with residuals in bound, the Trainer's init (part by "
           f"part) and resume (leaf by leaf) on every rank below its blocks "
           f"plus a quarter of one device's state at peak, the resumed "
-          f"blocks bit-equal; {moe_cfg.name} depth {moe_cfg.n_layers} "
-          f"({moe['n_params']} f32 parameters) in the EP branch: losses "
-          f"within {MESH_TRAIN_LOSS_TOL} of one device's "
-          f"({moe['loss_gap']:.3e}), grad norms within "
-          f"{MESH_TRAIN_GNORM_RTOL} relative "
-          f"({moe['grad_norm_rel_gap']:.3e}), parameters after each "
-          f"step within {MESH_TRAIN_PARAM_TOL} but for "
-          f"{moe['adam_flat_over']} elements a step where Adam's first "
-          f"update is flat, within 2 lr (largest gap "
-          f"{moe['param_gap']:.3e}; every leaf moved more than "
-          f"{MESH_TRAIN_MOVED_MIN}: {moe['least_leaf_move']:.3e} the "
-          f"least), every token routed and each layer's drops as one "
-          f"device's ({moe['drops']} a step); phase "
-          f"{time.perf_counter() - t0:.3f} s")
+          f"blocks bit-equal; phase {time.perf_counter() - t0:.3f} s")
+    for case, held in zip(cases, summary["held"]):
+        if "skipped" in held:
+            print(f"[chip_smoke] mesh train {case['name']}: not run, its "
+                  f"reckoning {held['skipped']} and "
+                  f"{MESH_TRAIN_BASE_BYTES:.0f} bytes beside it reach "
+                  f"{MESH_TRAIN_CARD_BYTES:.0f}")
+            continue
+        print(f"[chip_smoke] mesh train {case['name']} ({case['cfg'].name}"
+              f" depth {case['cfg'].n_layers}, {held['n_params']} "
+              f"{case['cfg'].param_dtype} parameters, branch "
+              f"{case['branch']}): {case['steps']} steps, losses within "
+              f"the limit of one device's ({held['loss_gap']:.3e}), grad "
+              f"norms ({held['grad_norm_rel_gap']:.3e} relative), "
+              f"parameters after each step within the limit but for "
+              f"{held['adam_flat_over']} elements a step where Adam's "
+              f"first update is flat, within 2 lr (largest gap "
+              f"{held['param_gap']:.3e}; every leaf moved more than "
+              f"{MESH_TRAIN_MOVED_MIN}: {held['least_leaf_move']:.3e} the "
+              f"least), every token routed and each layer's drops as one "
+              f"device's ({held['drops']} a step), the card at most "
+              f"{held['card_used_bytes']} bytes; reckoned "
+              f"{held['reckoned']}")
     return summary
 
 

@@ -10,6 +10,12 @@ loss deltas under BitStopper pruning).  Deterministic per (seed, step,
 shard), so restarted/elastic runs replay identical batches: a checkpoint
 at step N resumes bit-identically on any surviving topology.
 
+A shard's rows are dealt contiguously (the reference's deal) or, for a
+step run in ``microbatches`` slices, microbatch-major
+(:func:`shard_rows`): shard d's i-th local microbatch is then d's part of
+one device's i-th microbatch, so a mesh microbatch holds one device's.
+At one shard or one microbatch both deals are the same.
+
 Host-side double-buffer prefetch thread overlaps generation with compute.
 """
 
@@ -34,16 +40,37 @@ class DataConfig:
     motif_prob: float = 0.35
 
 
+def shard_rows(global_batch: int, shard: int, num_shards: int,
+               microbatches: int = 1) -> list[int]:
+    """The global rows of ``shard``'s local batch, in its order: local row
+    j is global row ``(j // r) * mb + shard * r + j % r``, where ``mb =
+    global_batch / microbatches`` and ``r = mb / num_shards``, so local
+    microbatch i (rows ``[i * r, (i + 1) * r)``) is this shard's part of
+    global microbatch i.  With one microbatch, rows ``[shard * r, (shard +
+    1) * r)``."""
+    if global_batch % (num_shards * microbatches):
+        raise ValueError(
+            f"a batch of {global_batch} rows does not deal into "
+            f"{microbatches} microbatches over {num_shards} shards")
+    mb = global_batch // microbatches
+    r = mb // num_shards
+    return [(j // r) * mb + shard * r + j % r
+            for j in range(global_batch // num_shards)]
+
+
 class SyntheticLMDataset:
-    """Deterministic synthetic LM batches, shardable by data-parallel rank."""
+    """Deterministic synthetic LM batches, shardable by data-parallel rank
+    (rows dealt as :func:`shard_rows` deals them)."""
 
     def __init__(self, cfg: DataConfig, shard: int = 0, num_shards: int = 1,
-                 prefetch: int = 2):
+                 prefetch: int = 2, microbatches: int = 1):
         assert cfg.global_batch % num_shards == 0
         self.cfg = cfg
         self.shard = shard
         self.num_shards = num_shards
         self.local_batch = cfg.global_batch // num_shards
+        self.rows = shard_rows(cfg.global_batch, shard, num_shards,
+                               microbatches)
         rng = np.random.default_rng(cfg.seed)
         self._motifs = rng.integers(
             0, cfg.vocab, size=(cfg.n_motifs, cfg.motif_len), dtype=np.int32)
@@ -62,10 +89,9 @@ class SyntheticLMDataset:
         """[local_batch, seq_len] int32 for this shard at this step."""
         cfg = self.cfg
         out = np.empty((self.local_batch, cfg.seq_len), np.int32)
-        for i in range(self.local_batch):
+        for i, grow in enumerate(self.rows):
             # seed by GLOBAL row index so shards tile the global batch
             # exactly (straggler reassignment depends on this).
-            grow = self.shard * self.local_batch + i
             row_seed = cfg.seed * 1_000_003 + step * 131 + grow * 977
             rng = np.random.default_rng(row_seed)
             seq = self._perm[

@@ -4,10 +4,11 @@ Counterpart of ``repro/launch/mesh.py``.  The reference builds a
 ``jax.sharding.Mesh`` over the devices one controller sees; the port runs
 one process per mesh position (SPMD), so a mesh needs an initialized
 process group first.  :func:`make_debug_mesh` builds the ("data", "model")
-``DeviceMesh`` over it, :func:`make_production_mesh` the reference's
-(16, 16) or (2, 16, 16) production mesh over a world of that size (a
-``torchrun`` launch); :func:`start_mesh` / :func:`spawn_mesh` start
-``data x model`` ranks, each with its process group (a ``file://``
+``DeviceMesh`` over it (or ("pod", "data", "model")),
+:func:`make_production_mesh` the reference's (16, 16) or (2, 16, 16)
+production mesh over a world of that size (a ``torchrun`` launch);
+:func:`start_mesh` / :func:`spawn_mesh` start ``data x model`` ranks
+(``pod x data x model``), each with its process group (a ``file://``
 rendezvous, so no port is picked), its mesh and its device, run a function
 there and hand back each rank's result.
 
@@ -43,11 +44,15 @@ from repro_torch.sharding.api import collective_device
 PG_TIMEOUT_S = 60.0
 
 
-def make_debug_mesh(data: int = 2, model: int = 2):
+def make_debug_mesh(data: int = 2, model: int = 2, pod: int = 1):
     """A (data, model) ``DeviceMesh`` over the initialized default process
-    group, whose world it must fill; its device type follows the group's
-    backend (``sharding/api.py:collective_device``)."""
+    group, whose world it must fill, or (pod, data, model) with ``pod`` >
+    1; its device type follows the group's backend
+    (``sharding/api.py:collective_device``)."""
     from torch.distributed.device_mesh import init_device_mesh
+    if pod > 1:
+        return init_device_mesh(collective_device(), (pod, data, model),
+                                mesh_dim_names=("pod", "data", "model"))
     return init_device_mesh(collective_device(), (data, model),
                             mesh_dim_names=("data", "model"))
 
@@ -83,7 +88,7 @@ def _rank_device(device: str, rank: int) -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-def _rank_main(rank, fn, data, model, device, backend, workdir, box):
+def _rank_main(rank, fn, shape, device, backend, workdir, box):
     # ``box`` is a one-item list holding ``fn``'s arguments.  The process
     # object keeps its arguments until the interpreter exits, so taking
     # them out of the box is what lets this rank free the parent's CUDA
@@ -94,13 +99,13 @@ def _rank_main(rank, fn, data, model, device, backend, workdir, box):
         torch.set_num_threads(1)
     dist.init_process_group(
         backend, init_method=f"file://{workdir}/rendezvous", rank=rank,
-        world_size=data * model,
+        world_size=shape[0] * shape[1] * shape[2],
         timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
     try:
         dev = _rank_device(device, rank)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        mesh = make_debug_mesh(data, model)
+        mesh = make_debug_mesh(*shape)
         result = fn(mesh, dev, *args)
         torch.save(result, os.path.join(workdir, f"rank{rank}.pt"))
     finally:
@@ -146,8 +151,10 @@ class MeshJob:
 
 
 def start_mesh(fn, data: int, model: int, *, device: str, backend: str,
-               args: tuple = (), timeout: float = 120.0) -> MeshJob:
-    """Start ``data x model`` ranks on ``device`` ("cpu" or "cuda"), their
+               args: tuple = (), timeout: float = 120.0,
+               pod: int = 1) -> MeshJob:
+    """Start ``data x model`` ranks (``pod x data x model`` with ``pod``,
+    :func:`make_debug_mesh`) on ``device`` ("cpu" or "cuda"), their
     collectives over ``backend`` ("gloo" or "nccl"), each running
     ``fn(mesh, device, *args)``; ``fn`` must be importable (a module-level
     function), and its result picklable.  Tensors in ``args`` reach the
@@ -160,10 +167,10 @@ def start_mesh(fn, data: int, model: int, *, device: str, backend: str,
     if device not in ("cpu", "cuda"):
         raise ValueError(f"device must be cpu|cuda, got {device!r}")
     workdir = tempfile.mkdtemp(prefix="mesh-")
-    n = data * model
+    n = pod * data * model
     ctx = mp.start_processes(
         _rank_main,
-        args=(fn, data, model, device, backend, workdir, [args]),
+        args=(fn, (data, model, pod), device, backend, workdir, [args]),
         nprocs=n, join=False, start_method="spawn")
     return MeshJob(ctx, workdir, n, time.monotonic() + timeout)
 

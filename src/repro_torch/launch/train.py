@@ -10,21 +10,21 @@ does; ``--mesh production`` trains over the reference's (16, 16)
 production mesh in a world that is already initialized (a ``torchrun``
 launch of 256 ranks).  The reduced config (``--reduced``, the default)
 trains on a CPU; ``--full`` takes the registry's published widths.  Mesh
-training takes attention blocks with dense or MoE FFNs (EP or expert-TP,
-as the rules place the experts); what it does not split yet (MLA, SSM and
-RG-LRU blocks) is refused with its ROADMAP item before any rank starts.
+training takes every arch: attention and MLA blocks split their heads,
+dense FFNs their hidden units and MoE FFNs their experts (EP or
+expert-TP, as the rules place them), and SSM and RG-LRU blocks read their
+weights whole (``train/train_step.py``).
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data import DataConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.train.optimizer import AdamWConfig
-from repro_torch.train.train_step import TrainConfig, check_mesh_trainable
+from repro_torch.train.train_step import TrainConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
@@ -82,19 +82,6 @@ def _rank_train(mesh, device, args) -> dict:
             "metrics": tr.metrics_log}
 
 
-def _refusal(args, shape: dict) -> None:
-    """Refuse, before any rank starts, what mesh training does not split."""
-    from repro_torch.sharding.api import AbstractMesh
-    from repro_torch.sharding.rules import make_rules
-    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    mesh = AbstractMesh(tuple(shape.values()), tuple(shape))
-    try:
-        check_mesh_trainable(cfg, make_rules(mesh, n_routed=cfg.n_routed))
-    except ValueError as e:
-        print(f"[train] refused: {e}", file=sys.stderr)
-        raise
-
-
 def main(argv=None):
     args = _parse(argv)
     device = resolve_device(args.device)
@@ -112,7 +99,6 @@ def main(argv=None):
                 "256-rank world (a torchrun launch), and no process group "
                 "is initialized; --mesh DP,TP spawns its ranks here")
         from repro_torch.launch.mesh import make_production_mesh
-        _refusal(args, {"data": 16, "model": 16})
         mesh = make_production_mesh()
         if device.type == "cuda":
             import torch
@@ -129,7 +115,6 @@ def main(argv=None):
     except ValueError:
         raise ValueError(f"--mesh must be none, production or DP,TP; got "
                          f"{args.mesh!r}") from None
-    _refusal(args, {"data": data, "model": model})
     from repro_torch.launch.mesh import spawn_mesh
     ranks = spawn_mesh(_rank_train, data, model, device=device.type,
                        backend=args.backend, args=(args,),

@@ -31,7 +31,8 @@ and the paths serving runs:
   Megatron's split (:func:`_train_split`): the rank's q heads and its KV
   heads (every KV head its q heads read, where "model" does not divide
   the KV heads, as MQA's one), the chunked attention per local head, and
-  ``wo``'s rows summed over "model";
+  ``wo``'s rows summed over "model" (under sequence parallelism,
+  reduce-scattered along the sequence: ``sharding/api.py:leave_model``);
 * mesh serving: under serving rules (``sharding/``) whose "model" dim
   divides the KV heads, a rank's pools hold its KV heads, it writes every
   slot's K/V for them, and the paged reads run on its block of slots and
@@ -82,10 +83,10 @@ from repro_torch.core.besf import (BitStopperConfig,
 from repro_torch.core.lats import NEG_INF
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
-from repro_torch.sharding.api import (block_index, copy_to_model,
-                                      current_rules, gather_shards,
-                                      local_shard, local_view, model_split,
-                                      reduce_from_model, training_rules)
+from repro_torch.sharding.api import (block_index, current_rules,
+                                      enter_model, gather_shards,
+                                      leave_model, local_shard, local_view,
+                                      model_split, training_rules)
 from repro_torch.sharding.rules import splits_heads
 
 POS_SENTINEL = 2 ** 30
@@ -781,7 +782,7 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
     tp = _train_split(cfg, cache)
     if tp is not None:
         rules, group, cfg = tp
-        x = copy_to_model(x, rules)
+        x = enter_model(x, rules)
     if cache is not None and cache_is_per_slot(cache) and \
             positions.ndim == 1:
         positions = positions[None].expand(B, S)
@@ -839,8 +840,8 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
         out = _cached_attention(q, k_all, v_all, positions, k_pos, cfg)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     y = L.by_column(lambda t: L.linear(p["wo"], t), out, split)
-    if tp is not None:
-        y = reduce_from_model(y, rules)
+    if cache is None:
+        y = leave_model(y, training_rules(), partial=tp is not None)
     return y, new_cache
 
 

@@ -8,7 +8,8 @@ they are.  Norms compute in f32.
 Under training's mesh rules the MLP and the embedding run Megatron's
 split when their weights hold a "model" block (``sharding/rules.py``):
 the MLP's hidden units column-split in and row-split out
-(:func:`mlp` with ``tp``), the embedding over its vocab rows
+(:func:`mlp` with ``tp``; under sequence parallelism it leaves by a
+reduce-scatter of the sequence), the embedding over its vocab rows
 (:func:`embed_vocab_parallel`).
 """
 
@@ -19,8 +20,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.api import (block_index, copy_to_model,
-                                      reduce_from_model)
+from repro_torch.sharding.api import (block_index, enter_model,
+                                      leave_model, reduce_from_model)
 
 
 def truncated_normal_init(generator: torch.Generator, shape, scale: float,
@@ -92,11 +93,13 @@ def embed(p, ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(ids, p["table"])
 
 
-def embed_vocab_parallel(p, ids: torch.Tensor, rules) -> torch.Tensor:
+def embed_vocab_parallel(p, ids: torch.Tensor, rules,
+                         partial: bool = False) -> torch.Tensor:
     """The embedding of a rank that holds vocab rows ``[m * Vl, (m + 1) *
     Vl)`` of the table (m its "model" coordinate): its rows where an id
-    falls in them, zeros elsewhere, summed over "model".  Exactly one
-    rank's term is not zero, so the sum is the row itself."""
+    falls in them, zeros elsewhere, summed over "model" (left unsummed
+    with ``partial``).  Exactly one rank's term is not zero, so the sum is
+    the row itself."""
     table = p["table"]
     vl = table.shape[0]
     local = ids - block_index(rules, "model")[0] * vl
@@ -104,7 +107,7 @@ def embed_vocab_parallel(p, ids: torch.Tensor, rules) -> torch.Tensor:
     rows = F.embedding(torch.where(inside, local, torch.zeros_like(local)),
                        table)
     rows = rows * inside[..., None].to(rows.dtype)
-    return reduce_from_model(rows, rules)
+    return rows if partial else reduce_from_model(rows, rules)
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
@@ -182,10 +185,10 @@ def gelu(x):
 def mlp(p, x: torch.Tensor, kind: str = "swiglu", tp=None) -> torch.Tensor:
     """``tp``: training's rules where this rank holds a "model" block of
     the hidden units (Megatron): the input enters the region
-    (``copy_to_model``), the row-split ``wo``'s partial products are summed
-    over "model" (``reduce_from_model``)."""
+    (``sharding/api.py:enter_model``), the row-split ``wo``'s partial
+    products are summed over "model" (``leave_model``)."""
     if tp is not None:
-        return reduce_from_model(mlp(p, copy_to_model(x, tp), kind), tp)
+        return leave_model(mlp(p, enter_model(x, tp), kind), tp)
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else gelu
         h = act(linear(p["wi_gate"], x)) * linear(p["wi_up"], x)

@@ -16,6 +16,15 @@ the decoupled RoPE key [S, rope_dim].
 
 The cache is a contiguous shared-cursor layout; the write lands in place
 at ``length``, its start clamped as ``dynamic_update_slice`` clamps it.
+
+Under training's rules (``sharding/rules.py:make_rules``) whose "model"
+dim splits the heads of ``wq_b`` and ``wkv_b``, the cache-free forward
+runs Megatron's split (:func:`_train_split`): the latents ``q_lat``,
+``c_kv`` and the shared RoPE key enter the region
+(``sharding/api.py:enter_model``, so their gradients are summed over
+"model"), each rank expands and attends its own heads, and ``wo``'s rows
+are summed over "model" (``leave_model``).  Where "model" does not divide
+the heads the layer runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ import torch
 from repro_torch.core.besf import BitStopperConfig
 from repro_torch.core.lats import NEG_INF
 from repro_torch.models import layers as L
+from repro_torch.sharding.api import (enter_model, leave_model, model_split,
+                                      training_rules)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,20 +78,40 @@ def init_mla(generator, cfg: MLAConfig, device=None, dtype=torch.float32):
     }
 
 
-def _project_q(p, x, cfg: MLAConfig, positions):
-    q_lat = L.rms_norm(p["q_norm"], L.linear(p["wq_a"], x))
+def _keep(t):
+    return t
+
+
+def _project_q(p, x, cfg: MLAConfig, positions, enter=_keep):
+    q_lat = enter(L.rms_norm(p["q_norm"], L.linear(p["wq_a"], x)))
     q = L.linear(p["wq_b"], q_lat)                     # [B,S,H,nope+rope]
     q_pe = L.rope(q[..., cfg.qk_nope_dim:], positions[None, :],
                   cfg.rope_theta)
     return q[..., :cfg.qk_nope_dim], q_pe
 
 
-def _project_kv_latent(p, x, cfg: MLAConfig, positions):
+def _project_kv_latent(p, x, cfg: MLAConfig, positions, enter=_keep):
     kv = L.linear(p["wkv_a"], x)                       # [B,S,rank+rope]
     c_kv = L.rms_norm(p["kv_norm"], kv[..., :cfg.kv_rank])
     k_pe = L.rope(kv[..., None, cfg.kv_rank:], positions[None, :],
                   cfg.rope_theta)[..., 0, :]
-    return c_kv, k_pe
+    return enter(c_kv), enter(k_pe)
+
+
+def _train_split(cfg: MLAConfig, cache):
+    """``(rules, local cfg)`` where training's rules split this layer's
+    heads over "model" (``sharding/api.py:model_split`` of ``wq_b``), else
+    None; the local cfg counts the rank's heads."""
+    rules = training_rules()
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    if rules is None or not model_split(rules, "mla/wq_b/w",
+                                        (cfg.q_rank, cfg.n_heads, qk), 1):
+        return None
+    if cache is not None:
+        raise ValueError("training's rules split the MLA heads of a "
+                         "cache-free forward only")
+    return rules, dataclasses.replace(
+        cfg, n_heads=cfg.n_heads // rules.shape["model"])
 
 
 def _f32(a):
@@ -111,8 +142,15 @@ def mla_attention(p, x: torch.Tensor, positions: torch.Tensor,
     """x [B, S, d_model], positions [S] -> (out, new_cache)."""
     from repro_torch.models.attention import chunked_attention
     B, S, _ = x.shape
-    q_nope, q_pe = _project_q(p, x, cfg, positions)
-    c_kv, k_pe = _project_kv_latent(p, x, cfg, positions)
+    tp = _train_split(cfg, cache)
+    enter = _keep
+    if tp is not None:
+        rules, cfg = tp
+
+        def enter(t):
+            return enter_model(t, rules)
+    q_nope, q_pe = _project_q(p, x, cfg, positions, enter)
+    c_kv, k_pe = _project_kv_latent(p, x, cfg, positions, enter)
 
     if cache is None:
         kv = L.linear(p["wkv_b"], c_kv)                # [B,S,H,nope+v]
@@ -125,7 +163,8 @@ def mla_attention(p, x: torch.Tensor, positions: torch.Tensor,
                                 causal=True, window=None,
                                 chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k)
         out = out.reshape(B, S, cfg.n_heads * cfg.v_head_dim)
-        return L.linear(p["wo"], out), None
+        return leave_model(L.linear(p["wo"], out), training_rules(),
+                           partial=tp is not None), None
 
     T = cache["c_kv"].shape[1]
     start = min(max(int(cache["length"]), 0), T - S)

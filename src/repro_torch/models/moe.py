@@ -50,10 +50,10 @@ drops differ from its own single device (ROADMAP C11).
 Under training's rules (``sharding/rules.py:make_rules``) a data rank
 holds only its own rows, and the branch follows the rules' layout
 (:func:`_train_moe`, ``sharding/rules.py:moe_train_branch``): EP where the
-experts lie over "model", expert-TP where their hidden units do.  The
-routing ids of every data rank are gathered, so the plan, the capacity
-and the drops are one device's, and each data rank adds its share of one
-device's aux loss.
+experts lie over "model", expert-TP where their hidden units do, resident
+where they lie over data x model.  The routing ids of every data rank are
+gathered, so the plan, the capacity and the drops are one device's, and
+each data rank adds its share of one device's aux loss.
 """
 
 from __future__ import annotations
@@ -64,10 +64,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.sharding.api import (batch_gather, batch_sum, block_index,
-                                      copy_to_model, gather_owned,
-                                      gather_shards, mesh_shape, model_split,
-                                      reduce_from_model, training_rules)
+from repro_torch.sharding.api import (batch_dims, batch_gather, batch_sum,
+                                      block_index, enter_model, gather_owned,
+                                      gather_rows, gather_shards, leave_model,
+                                      mesh_shape, model_split,
+                                      reduce_from_model, scatter_rows,
+                                      seq_parallel, seq_part, training_rules)
 from repro_torch.sharding.rules import (expert_slice, make_serve_rules,
                                         moe_branch, moe_train_branch)
 
@@ -143,10 +145,12 @@ def _aux_loss_share(probs, top_i, cfg: MoEConfig, rules):
     whole batch: the expert counts summed over the data ranks (integers,
     exact), the probabilities of this rank's rows summed, both over the
     global token count.  The shares sum to one device's loss, and each
-    rank's router gradient is that of its own rows."""
+    rank's router gradient is that of its own rows.  ``probs`` may be a
+    part of the rows ``top_i`` routes (a "model" rank's part of the
+    sequence): the parts' shares then sum to the rows' share."""
     counts = batch_sum(rules, _count(top_i.reshape(-1).long(),
                                      cfg.n_routed))
-    n = probs.shape[0] * block_index(rules, rules.axis_map.get("batch"))[1]
+    n = top_i.shape[0] * block_index(rules, rules.axis_map.get("batch"))[1]
     density = counts.float() / float(n * cfg.top_k)
     return cfg.n_routed * torch.sum(density * probs.sum(0)) / n \
         * cfg.aux_loss_coef
@@ -378,43 +382,72 @@ def _mesh_moe(p, x2d, top_p, top_i, cfg: MoEConfig, mesh, branch: str,
     return _sum_pairs(gather_owned(rules, part, top_i // n_local, dims))
 
 
-def _train_moe(p, x2d, top_p, top_i, cfg: MoEConfig, rules):
-    """The routed experts under training's ``rules``: ``[T, D]`` for this
-    rank's tokens, whole on every "model" rank.
+def _train_moe(p, x, top_p, top_i, cfg: MoEConfig, rules):
+    """The routed experts under training's ``rules``: x [B, S, D], this
+    rank's tokens -> their output, whole on every "model" rank (under
+    sequence parallelism this rank's part of the sequence).
 
     The drops are one device's: the routing ids of every data rank are
     gathered in batch order (one device's token order), the plan is the
     whole batch's at its capacity, and this rank computes the rows of its
     own tokens, each expert's run of them (:func:`dispatch`).  Only those
-    rows run in the split region, entered through ``copy_to_model`` (the
+    rows run in the split region, entered through ``enter_model`` (the
     gradient of ``x`` summed over "model"): under EP a rank computes its
     block of experts' rows and each pair is taken from its owner
     (``gather_owned``), under expert-TP every expert's rows on its share
     of the hidden units, summed over "model" in rank order
     (``reduce_from_model``).  The ``top_p`` weights and the sum
     over k then run whole on every rank, so the router's gradient is whole
-    too, as on one device."""
+    too, as on one device.  Under sequence parallelism each rank weighs
+    and sums its own pairs (EP) or partial rows (expert-TP), and the sums
+    are reduce-scattered along the sequence.
+
+    Resident experts (over data x model) each see the whole batch: every
+    data rank's tokens and weights are gathered (``gather_rows``), a rank
+    runs its own experts' slots, weighs and sums its pairs, and the sums
+    come back to each data rank's rows (``scatter_rows``), then leave
+    as a partial sum over "model".
+    Over a "pod" dim, whose ranks hold the same experts, each pod runs its
+    own rows of the whole batch's plan, and the experts' gradients are
+    summed over "pod" (``transformer.gather_weights``)."""
     branch = moe_train_branch(rules, cfg.n_routed, cfg.d_model,
                               cfg.d_expert)
-    if branch == "resident":
-        raise ValueError("mesh training does not run the resident MoE "
-                         "layout (a decode layout)")
+    B, S, D = x.shape
+    x2d = x.reshape(B * S, D)
     every = batch_gather(rules, top_i)
-    t0 = block_index(rules, rules.axis_map.get("batch"))[0] * x2d.shape[0]
     cap = _capacity(every.shape[0], cfg.top_k, cfg.n_routed,
                     cfg.capacity_factor)
+    t0 = block_index(rules, rules.axis_map.get("batch"))[0] * x2d.shape[0]
+    if branch == "resident":
+        # The experts lie over "data" (and "model"): their data ranks'
+        # rows come together (all of them but over an outer "pod", whose
+        # ranks hold the same experts and run their own pod's rows).
+        expert = rules.axis_map["expert"]
+        dims = tuple(d for d in batch_dims(rules) if d in (
+            (expert,) if isinstance(expert, str) else expert))
+        n_local = p["wi_gate"].shape[0]
+        offset = block_index(rules, expert)[0] * n_local
+        x_all = gather_rows(rules, enter_model(x2d, rules), dims)
+        w_all = gather_rows(rules, enter_model(top_p, rules), dims)
+        n = x_all.shape[0]                   # the gathered ranks' tokens
+        pairs = _pair_rows(p, x_all, None, every, cfg, offset, n_local, cap,
+                           token_offset=t0 // n * n)
+        return leave_model(scatter_rows(rules, _sum_pairs(
+            pairs * w_all[..., None]).view(-1, S, D), dims), rules)
     n_local, offset = cfg.n_routed, 0
     if branch == "ep":
         n_local = p["wi_gate"].shape[0]
         offset = block_index(rules, "model")[0] * n_local
-    x_in = x2d if branch == "whole" else copy_to_model(x2d, rules)
+    x_in = x2d if branch == "whole" else enter_model(x2d, rules)
     pairs = _pair_rows(p, x_in, None, every, cfg, offset, n_local, cap,
                        token_offset=t0)
-    if branch == "ep":
+    partial = branch != "whole" and seq_parallel(rules)
+    if branch == "ep" and not partial:
         pairs = gather_owned(rules, pairs, top_i // n_local, "model")
-    elif branch == "tp":
+    elif branch == "tp" and not partial:
         pairs = reduce_from_model(pairs, rules)
-    return _sum_pairs(pairs * top_p[..., None])
+    out = _sum_pairs(pairs * top_p[..., None]).view(B, S, D)
+    return leave_model(out, rules, partial)
 
 
 def moe_ffn(p, x, cfg: MoEConfig, mesh=None, split: bool = False):
@@ -438,8 +471,15 @@ def moe_ffn(p, x, cfg: MoEConfig, mesh=None, split: bool = False):
     top_i = top_i.reshape(B * S, -1)
     train = training_rules()
     if train is not None:
-        aux = _aux_loss_share(probs, top_i, cfg, train)
-        out2d = _train_moe(p, x.reshape(B * S, D), top_p, top_i, cfg, train)
+        if seq_parallel(train):
+            # This rank's part of the sequence: the parts' shares summed
+            # over "model" (each rank's gradient its part's).
+            part = seq_part(probs.view(B, S, -1), train)
+            aux = reduce_from_model(_aux_loss_share(
+                part.reshape(-1, part.shape[-1]), top_i, cfg, train), train)
+        else:
+            aux = _aux_loss_share(probs, top_i, cfg, train)
+        out = _train_moe(p, x, top_p, top_i, cfg, train)
     else:
         aux = _aux_loss(probs, top_i, cfg)
         cap = _capacity(B * S, cfg.top_k, cfg.n_routed, cfg.capacity_factor)
@@ -451,12 +491,16 @@ def moe_ffn(p, x, cfg: MoEConfig, mesh=None, split: bool = False):
         else:
             out2d = _mesh_moe(p, x.reshape(B * S, D), top_p, top_i, cfg,
                               mesh, branch, cap, split and S > 1)
+        out = out2d.reshape(B, S, D)
     for log in RoutingLog.open_logs:
         log.routes.append((probs.detach(), aux.detach()))
-    out = out2d.reshape(B, S, D).to(x.dtype)
+    out = out.to(x.dtype)
     if "shared" in p:
         tp = (train if train is not None and model_split(
             train, "shared/wo/w", (cfg.d_shared, D), 0) else None)
-        out = out + L.by_column(
-            lambda t: L.mlp(p["shared"], t, cfg.act, tp), x, split)
+        y = L.by_column(lambda t: L.mlp(p["shared"], t, cfg.act, tp), x,
+                        split)
+        if tp is None:
+            y = leave_model(y, train, partial=False)
+        out = out + y
     return out, aux

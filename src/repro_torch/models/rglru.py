@@ -12,6 +12,12 @@ is a diagonal linear recurrence: a log-depth scan over the sequence for
 the cache-free forward (the reference's ``associative_scan``, within f32
 rounding) and one step per token for decode.  A call of S > 1 tokens on a
 cache raises ``ValueError`` (ROADMAP C8).
+
+Under training's rules the "model" split of ``rg``/``ig`` (``(None,
+"ffn", None)``: each head's input dim, a contraction) and of the other
+leaves is storage only, as for the SSM block: ``transformer.
+gather_weights`` reads every leaf whole and the block runs whole on every
+rank.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import causal_conv, one_token_cache
+from repro_torch.sharding.api import leave_model, training_rules
 
 _C = 8.0
 
@@ -114,7 +121,10 @@ def rglru_forward(p, x, cfg: RGLRUConfig,
         new_cache = {"conv": conv_state, "h": h[:, 0]}
 
     y = (h * gate).to(x.dtype)
-    return L.linear(p["out"], y), new_cache
+    out = L.linear(p["out"], y)
+    if cache is None:
+        out = leave_model(out, training_rules(), partial=False)
+    return out, new_cache
 
 
 def init_rglru_cache(cfg: RGLRUConfig, batch: int, dtype=torch.float32,

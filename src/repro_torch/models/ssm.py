@@ -6,6 +6,14 @@ recurrence across chunks, one loop step per chunk) and an O(1) stateful
 step for decode.  Layout: in_proj -> [z, x, B, C, dt]; causal depthwise
 conv over (x, B, C); SSD; gated RMSNorm; out_proj.
 
+Under training's rules (``sharding/rules.py:make_rules``) the "model"
+blocks of the SSM leaves cut across the parts of ``in_proj``'s output
+``[z | x | B | C | dt]`` and of ``conv_w``'s channels, so the split is
+storage only: ``transformer.gather_weights`` reads every leaf whole, the
+block runs whole on every rank, and each gradient lands on the rank's
+block (under sequence parallelism the block leaves with this rank's part
+of the sequence: ``sharding/api.py:leave_model``).
+
 The decode step handles one token per call.  The reference returns wrong
 outputs, with no error, for a call of S > 1 tokens on a cache (it rolls
 the conv window by S but convolves and updates the state once); the port
@@ -21,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding.api import leave_model, training_rules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,7 +206,10 @@ def ssm_forward(p, x, cfg: SSMConfig, cache: dict[str, Any] | None = None):
     y = y + xs * p["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(Bb, -1, cfg.d_inner)
     y = L.rms_norm(p["norm"], y * F.silu(z.float()).to(y.dtype))
-    return L.linear(p["out_proj"], y), new_cache
+    out = L.linear(p["out_proj"], y)
+    if cache is None:
+        out = leave_model(out, training_rules(), partial=False)
+    return out, new_cache
 
 
 def init_ssm_cache(cfg: SSMConfig, batch: int, dtype=torch.float32,

@@ -12,8 +12,12 @@ the attention layers run their paged block per rank
 (``models/attention.py``).  Under training's rules (``make_rules``) a
 rank holds its blocks of the weights; :func:`gather_weights` gathers
 their "data" blocks before the forward (FSDP) and the layers run
-Megatron's split over "model" (attention heads, the MLP's hidden units,
-the vocab; MoE experts by EP or expert-TP, ``models/moe.py``).
+Megatron's split over "model" (attention and MLA heads, the MLP's hidden
+units, the vocab; MoE experts by EP, expert-TP or the resident layout,
+``models/moe.py``; SSM and RG-LRU blocks whole, their weights gathered
+over "model" too).  Under sequence parallelism the stream between blocks
+is a rank's part of the sequence, which each block gathers at its input
+(:func:`block_forward`).
 :func:`params_from_numpy`, :func:`caches_from_numpy`,
 :func:`caches_to_numpy` and :func:`params_to_numpy` convert between the two layouts, so tests can carry
 weights across both ways and compare cache trees, and checkpoints are
@@ -44,7 +48,8 @@ from repro_torch.models.rglru import (init_rglru, init_rglru_cache,
                                       rglru_forward)
 from repro_torch.models.ssm import init_ssm, init_ssm_cache, ssm_forward
 from repro_torch.sharding.api import (current_rules, gather_param,
-                                      model_split, splits_model,
+                                      held_param, leave_model, model_split,
+                                      seq_gather, seq_parallel, splits_model,
                                       training_rules)
 
 _ATTN = ("attn", "local_attn")
@@ -81,9 +86,18 @@ def block_forward(p, x, positions, spec: BlockSpec, cfg: ModelConfig,
     """Returns (x, new_cache, aux_loss); aux_loss is None without a MoE
     FFN (no launch a layer for a zero).  A speculative verify runs the
     per-token layers position by position (``layers.by_column``); the
-    routed experts of a MoE FFN see the whole call, as in the reference."""
+    routed experts of a MoE FFN see the whole call, as in the reference.
+    Under sequence parallelism ``x`` is this rank's part of the sequence:
+    the mixer and the FFN each read it gathered (``positions`` are the
+    whole sequence's) and return this rank's part."""
     split = cfg.spec_verify and cache is not None
-    h = L.by_column(lambda t: L.norm(p["norm1"], t), x, split)
+    train = training_rules()
+    sp = cache is None and seq_parallel(train)
+
+    def whole(t):
+        return seq_gather(t, train) if sp else t
+
+    h = L.by_column(lambda t: L.norm(p["norm1"], t), whole(x), split)
     if spec.mixer in _ATTN:
         out, new_cache = attention(
             p["attn"], h, positions,
@@ -101,19 +115,21 @@ def block_forward(p, x, positions, spec: BlockSpec, cfg: ModelConfig,
     x = x + out
     aux = None
     if spec.ffn == "moe":
-        h2 = L.by_column(lambda t: L.norm(p["norm2"], t), x, split)
+        h2 = L.by_column(lambda t: L.norm(p["norm2"], t), whole(x), split)
         rules = current_rules()
         y, aux = moe_ffn(p["moe"], h2, cfg.moe_config(),
                          mesh=rules.mesh if rules is not None else None,
                          split=split)
         x = x + y
     elif spec.ffn != "none":
-        rules = training_rules()
-        tp = (rules if rules is not None and model_split(
-            rules, "ffn/wo/w", (cfg.d_ff, cfg.d_model), 0) else None)
-        x = x + L.by_column(
+        tp = (train if train is not None and model_split(
+            train, "ffn/wo/w", (cfg.d_ff, cfg.d_model), 0) else None)
+        y = L.by_column(
             lambda t: L.mlp(p["ffn"], L.norm(p["norm2"], t), cfg.act, tp),
-            x, split)
+            whole(x), split)
+        if tp is None:
+            y = leave_model(y, train, partial=False)
+        x = x + y
     return x.to(cfg.activation_dtype), new_cache, aux
 
 
@@ -158,30 +174,59 @@ def gather_weights(rules, params, specs):
     leaf of this rank's ``params`` (blocks, with ``specs``) through
     ``sharding/api.py:gather_param``, so its "data" blocks are gathered
     (FSDP) and its gradient lands on the block summed over the batch.
-    "model" blocks stay split (Megatron), except where an attention layer's
-    heads are whole (indivisible): its ``wo`` rows are gathered too.  Where
-    the q heads split and the KV heads do not (MQA), the KV projections are
-    whole inside the split region and their gradients are summed over
-    "model".  MoE leaves keep their "model" blocks: EP's experts or
-    expert-TP's hidden units (their "data" blocks gathered, the hidden
-    units or ``expert_dmodel``); the router is read whole on every rank,
-    its gradient summed over the batch alone, as a replicated layer's."""
+    "model" blocks stay split (Megatron), except where an attention or MLA
+    layer's heads are whole (indivisible): its ``wo`` rows are gathered
+    too.  Where the q heads split and the KV heads do not (MQA), the KV
+    projections are whole inside the split region and their gradients are
+    summed over "model".  SSM and RG-LRU leaves are gathered whole over
+    "model" (their blocks cut across their channels' parts; the block runs
+    whole on every rank).  MoE leaves keep their "model" blocks: EP's
+    experts or expert-TP's hidden units (their "data" blocks gathered, the
+    hidden units or ``expert_dmodel``); resident experts are used as held
+    (each rank runs its own on its pod's whole batch, its gradient summed
+    over "pod"); the router is read whole on every rank, its gradient
+    summed over the batch alone, as a replicated layer's.  Under sequence
+    parallelism each rank reads its part of the sequence in the layers
+    that run whole, so every leaf not split over "model" sums its
+    gradient over "model" too."""
+    sp = seq_parallel(rules)
 
-    def attn_flags(node_specs):
-        heads_split = splits_model(rules, node_specs["wq"]["w"][1])
-        kv_split = splits_model(rules, node_specs["wk"]["w"][1])
-        return {"wo": (not heads_split, False),
-                "wk": (False, heads_split and not kv_split),
-                "wv": (False, heads_split and not kv_split)}
+    def split_flags(node_specs):
+        if "wq" in node_specs:                        # attention
+            heads_split = splits_model(rules, node_specs["wq"]["w"][1])
+            kv_split = splits_model(rules, node_specs["wk"]["w"][1])
+            return {"wo": (not heads_split, False),
+                    "wk": (False, heads_split and not kv_split),
+                    "wv": (False, heads_split and not kv_split)}
+        if "wq_b" in node_specs:                      # MLA
+            return {"wo": (not splits_model(rules,
+                                            node_specs["wq_b"]["w"][1]),
+                           False)}
+        if "wi_gate" in node_specs and "router" in node_specs:   # MoE
+            entry = node_specs["wi_gate"][0]
+            if entry is not None and "data" in (
+                    (entry,) if isinstance(entry, str) else entry):
+                return dict.fromkeys(("wi_gate", "wi_up", "wo"), None)
+        return {}
+
+    def leaf(w, spec, flags):
+        if flags is None:                             # resident experts
+            return held_param(rules, w, spec)
+        gather_model, sum_model = flags
+        if sp and (gather_model or not any(splits_model(rules, e)
+                                           for e in spec)):
+            sum_model = True
+        return gather_param(rules, w, spec, gather_model, sum_model)
 
     def walk(node, spec, flags=(False, False)):
         if isinstance(node, dict):
-            sub = attn_flags(spec) if "wq" in node and "wo" in node else {}
-            return {k: walk(v, spec[k], sub.get(k, flags))
+            sub = split_flags(spec)
+            return {k: walk(v, spec[k], (True, False) if k in (
+                "ssm", "rglru") else sub.get(k, flags))
                     for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v, s, flags) for v, s in zip(node, spec)]
-        return gather_param(rules, node, spec, *flags)
+        return leaf(node, spec, flags)
 
     return walk(params, specs)
 

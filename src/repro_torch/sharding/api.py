@@ -65,6 +65,9 @@ import torch.distributed as dist
 
 _ACTIVE: list["MeshRules"] = []
 
+# The type bf16 tensors take on the wire (their bits, reinterpreted).
+WIRE_16 = torch.float16
+
 # Wall seconds this process has spent in the torch.distributed calls of
 # this module's collectives (host staging copies are outside it): read it
 # before and after a step to time the step's collectives.
@@ -308,8 +311,10 @@ def gather_shards(rules: MeshRules, x: torch.Tensor, spec) -> torch.Tensor:
     if all(n == 1 for n in counts):
         return x
     if x.dtype == torch.bfloat16:
-        # Moved as its 16-bit words: gloo builds differ in bf16 support.
-        return gather_shards(rules, x.view(torch.int16), spec).view(
+        # Moved as its 16-bit words in a type every gloo build carries
+        # (bf16 and int16 support differ between builds); a collective
+        # that only moves data keeps the bits.
+        return gather_shards(rules, x.view(WIRE_16), spec).view(
             torch.bfloat16)
     group, order = mesh_group(mesh)
     staged = _staged(x, group)
@@ -333,7 +338,7 @@ def gather_to_leader(rules: MeshRules, x: torch.Tensor, spec,
             return None
         return x.detach().cpu() if to_host else x
     if x.dtype == torch.bfloat16:
-        full = gather_to_leader(rules, x.view(torch.int16), spec, to_host)
+        full = gather_to_leader(rules, x.view(WIRE_16), spec, to_host)
         return None if full is None else full.view(torch.bfloat16)
     group, order = mesh_group(mesh)
     staged = _staged(x, group)
@@ -518,7 +523,7 @@ def dim_all_gather(mesh, x: torch.Tensor, dim: str) -> torch.Tensor:
     if n == 1:
         return x[None]
     if x.dtype == torch.bfloat16:
-        return dim_all_gather(mesh, x.view(torch.int16), dim).view(
+        return dim_all_gather(mesh, x.view(WIRE_16), dim).view(
             torch.bfloat16)
     group, order = _dim_group(mesh, dim)
     staged = _staged(x, group)
@@ -549,7 +554,7 @@ def dim_all_to_all(mesh, parts: list, dim: str) -> list:
     tensor under gloo).  Pure data movement."""
     x = parts[0]
     if x.dtype == torch.bfloat16:
-        got = dim_all_to_all(mesh, [t.view(torch.int16) for t in parts], dim)
+        got = dim_all_to_all(mesh, [t.view(WIRE_16) for t in parts], dim)
         return [t.view(torch.bfloat16) for t in got]
     group, order = _dim_group(mesh, dim)
     me = _coordinate(mesh)[dim]
@@ -616,9 +621,7 @@ def batch_gather(rules: MeshRules, x: torch.Tensor) -> torch.Tensor:
     """Every data rank's ``x`` (no gradient: routing ids) concatenated on
     its first axis in batch-block order, on every rank: for this rank's
     rows of the batch, the whole batch's rows in one device's order."""
-    for d in reversed(batch_dims(rules)):             # innermost first
-        x = torch.cat(dim_all_gather(rules.mesh, x, d).unbind(0))
-    return x
+    return _gather_axis(rules.mesh, x, batch_dims(rules), 0)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -660,6 +663,134 @@ def reduce_from_model(x: torch.Tensor, rules: MeshRules) -> torch.Tensor:
     return _ReduceFromModel.apply(x, rules.mesh)
 
 
+# -- sequence parallelism ---------------------------------------------------
+
+
+def seq_parallel(rules: MeshRules | None) -> bool:
+    """Whether ``rules`` split the residual stream's sequence over a
+    "model" dim of more than one rank (``make_rules(sequence_parallel=
+    True)``; :func:`seq_rules` turns it off where "model" does not divide
+    the sequence)."""
+    return (rules is not None and rules.axis_map.get("seq") == "model"
+            and rules.shape.get("model", 1) > 1)
+
+
+def seq_rules(rules: MeshRules, seq_len: int | None) -> MeshRules:
+    """``rules`` for a stream of ``seq_len`` positions: the sequence stays
+    whole where "model" does not divide it, as :meth:`MeshRules.pspec`
+    replicates an indivisible dim, and where ``seq_len`` is None."""
+    if seq_parallel(rules) and (seq_len is None or rules.pspec(
+            ("seq",), (seq_len,))[0] is None):
+        return dataclasses.replace(rules, axis_map=dict(rules.axis_map,
+                                                        seq=None))
+    return rules
+
+
+def _gather_axis(mesh, x: torch.Tensor, dims, axis: int) -> torch.Tensor:
+    """Every rank's ``x`` along the mesh dims ``dims`` (outermost first),
+    concatenated on ``axis`` in coordinate order (pure data movement)."""
+    for d in reversed(dims):                          # innermost first
+        x = torch.cat(dim_all_gather(mesh, x, d).unbind(0), axis)
+    return x
+
+
+def _scatter_axis(mesh, x: torch.Tensor, dims, axis: int) -> torch.Tensor:
+    """The sum of every rank's ``x`` along ``dims``, cut on ``axis`` to
+    this rank's part (a reduce-scatter in a fixed order): the adjoint of
+    :func:`_gather_axis`."""
+    shape = mesh_shape(mesh)
+    for d in dims:                                    # outermost first
+        n = shape[d]
+        part = x.shape[axis] // n
+        x = dim_sum(mesh, x, d, [[(axis, c * part, part)]
+                                 for c in range(n)])
+    return x.contiguous()
+
+
+class _GatherAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dims, axis):
+        ctx.args = (mesh, dims, axis)
+        return _gather_axis(mesh, x, dims, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dims, axis = ctx.args
+        return _scatter_axis(mesh, g, dims, axis), None, None, None
+
+
+class _ScatterAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dims, axis):
+        ctx.args = (mesh, dims, axis)
+        return _scatter_axis(mesh, x, dims, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dims, axis = ctx.args
+        return _gather_axis(mesh, g, dims, axis), None, None, None
+
+
+def seq_gather(x: torch.Tensor, rules: MeshRules) -> torch.Tensor:
+    """This rank's part ``[B, S / model, ...]`` of the stream -> the whole
+    sequence (an all-gather over "model"); backward sums each rank's
+    gradient of the whole sequence and keeps this rank's part (a
+    reduce-scatter in rank order)."""
+    return _GatherAxis.apply(x, rules.mesh, ("model",), 1)
+
+
+def seq_scatter(x: torch.Tensor, rules: MeshRules) -> torch.Tensor:
+    """A partial sum over "model" of the whole sequence -> this rank's part
+    of its sum (a reduce-scatter in rank order); backward all-gathers the
+    parts' gradients."""
+    return _ScatterAxis.apply(x, rules.mesh, ("model",), 1)
+
+
+def seq_part(x: torch.Tensor, rules: MeshRules) -> torch.Tensor:
+    """This rank's part of a sequence every "model" rank holds whole (a
+    slice; its gradient is this rank's part's alone)."""
+    n = rules.shape["model"]
+    length = x.shape[1] // n
+    return x.narrow(1, block_index(rules, "model")[0] * length, length)
+
+
+def enter_model(x: torch.Tensor, rules: MeshRules) -> torch.Tensor:
+    """Enter a Megatron region: :func:`copy_to_model`, except under
+    sequence parallelism, where the input is the gathered sequence and the
+    gather's backward already sums the ranks' gradients."""
+    return x if seq_parallel(rules) else copy_to_model(x, rules)
+
+
+def leave_model(y: torch.Tensor, rules: MeshRules | None,
+                partial: bool = True) -> torch.Tensor:
+    """Leave a block's mixer or FFN under training's ``rules``: a
+    ``partial`` sum over "model" is summed (:func:`reduce_from_model`), a
+    result whole on every rank stays as it is; under sequence parallelism
+    each becomes this rank's part of the sequence (:func:`seq_scatter`,
+    :func:`seq_part`)."""
+    if rules is None:
+        return y
+    if seq_parallel(rules):
+        return seq_scatter(y, rules) if partial else seq_part(y, rules)
+    return reduce_from_model(y, rules) if partial else y
+
+
+def gather_rows(rules: MeshRules, x: torch.Tensor, dims) -> torch.Tensor:
+    """The rows of ``x`` of every rank along the batch dims ``dims``
+    (outermost first) on each of them, in batch order (as
+    :func:`batch_gather` puts them), with a gradient: backward sums each
+    rank's gradient of those rows over ``dims`` and keeps this rank's rows
+    (a reduce-scatter)."""
+    return _GatherAxis.apply(x, rules.mesh, tuple(dims), 0)
+
+
+def scatter_rows(rules: MeshRules, x: torch.Tensor, dims) -> torch.Tensor:
+    """The adjoint of :func:`gather_rows`: a partial sum over ``dims`` of
+    the rows it put together -> this rank's rows of the sum (a
+    reduce-scatter); backward all-gathers the rows' gradients."""
+    return _ScatterAxis.apply(x, rules.mesh, tuple(dims), 0)
+
+
 class _GatherParam(torch.autograd.Function):
     """A weight's blocks gathered over ``gather`` (per axis, the mesh dims
     to gather, outermost first) before use; backward sums the gradient over
@@ -668,34 +799,38 @@ class _GatherParam(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, mesh, gather, reduce):
         ctx.mesh, ctx.gather, ctx.reduce = mesh, gather, reduce
-        out = w
         for axis, dims in enumerate(gather):
-            for d in reversed(dims):                  # innermost first
-                parts = dim_all_gather(mesh, out, d)
-                out = torch.cat(parts.unbind(0), axis)
-        return out
+            w = _gather_axis(mesh, w, dims, axis)
+        return w
 
     @staticmethod
     def backward(ctx, g):
         coord, shape = _coordinate(ctx.mesh), mesh_shape(ctx.mesh)
 
-        def cuts(at):
-            # The block that the rank at coordinates ``at`` keeps.
-            out, size = [], list(g.shape)           # each within the last
+        def cuts(at, dims_now, x):
+            # The block along ``dims_now`` that the rank at coordinates
+            # ``at`` keeps of ``x``, each cut within the last.
+            out, size = [], list(x.shape)
             for axis, dims in enumerate(ctx.gather):
                 for d in dims:                        # outermost first
-                    size[axis] //= shape[d]
-                    out.append((axis, at[d] * size[axis], size[axis]))
+                    if d in dims_now:
+                        size[axis] //= shape[d]
+                        out.append((axis, at[d] * size[axis], size[axis]))
             return out
 
-        if ctx.reduce:
-            d0 = ctx.reduce[0]
-            g = dim_sum(ctx.mesh, g, d0, [cuts(coord | {d0: c})
-                                          for c in range(shape[d0])])
-            for d in ctx.reduce[1:]:
-                g = dim_sum(ctx.mesh, g, d)
-        else:
-            g = _cut(g, cuts(coord))
+        # Sum over the reduce dims in order.  A gathered dim is cut at the
+        # first sum after which no later sum runs over it (a reduce-scatter
+        # where the sum runs over that dim itself), so every rank sums only
+        # the blocks that its peers along the summed dim share with it.
+        pending = {d for dims in ctx.gather for d in dims}
+        for i, d in enumerate(ctx.reduce):
+            now = pending - set(ctx.reduce[i + 1:])
+            g = dim_sum(ctx.mesh, g, d, [cuts(coord | {d: c}, now, g)
+                                         for c in range(shape[d])]
+                        if now else None)
+            pending -= now
+        if pending:
+            g = _cut(g, cuts(coord, pending, g))
         return g.contiguous(), None, None, None
 
 
@@ -708,8 +843,10 @@ def gather_param(rules: MeshRules, w: torch.Tensor, spec,
     whole); in backward the gradient is summed over the batch dims (each
     data rank's tokens), and over "model" with ``sum_model`` (a whole
     weight inside a Megatron region, whose gradient each rank has for its
-    own heads only), then cut back to the block.  A leaf with nothing to
-    gather still sums its gradient over the batch dims."""
+    own heads only; under sequence parallelism every weight not split
+    over "model", whose gradient each rank has for its own part of the
+    sequence), then cut back to the block.  A leaf with nothing to gather
+    still sums its gradient over the batch dims."""
     shape = rules.shape
     gather = []
     for e in spec:
@@ -721,3 +858,17 @@ def gather_param(rules: MeshRules, w: torch.Tensor, spec,
     if not reduce and not any(gather):
         return w
     return _GatherParam.apply(w, rules.mesh, tuple(gather), reduce)
+
+
+def held_param(rules: MeshRules, w: torch.Tensor, spec) -> torch.Tensor:
+    """Training's use of a weight that each rank uses as held (resident
+    experts, whose rank sees every row of the batch dims its ``spec`` lies
+    on): nothing gathered; in backward the gradient is summed over the
+    batch dims ``spec`` does not lie on (an outer "pod", whose ranks hold
+    the same block and see other rows)."""
+    held = {d for e in spec if e is not None
+            for d in ((e,) if isinstance(e, str) else e)}
+    reduce = tuple(d for d in batch_dims(rules) if d not in held)
+    if not reduce:
+        return w
+    return _GatherParam.apply(w, rules.mesh, ((),) * w.dim(), reduce)

@@ -169,15 +169,15 @@ def moe_train_branch(rules: MeshRules, n_routed: int, d_model: int,
                      d_expert: int) -> str:
     """The MoE branch training's ``rules`` put a rank in, read from the
     spec its expert weights were cut by (the axis map, then
-    divisibility): "resident" where the experts lie over "data" (a decode
-    layout, which training refuses), "ep" where they lie over "model",
-    "tp" where each expert's hidden units do, else "whole" (every expert
-    whole on every "model" rank)."""
-    expert = rules.axis_map.get("expert")
-    if expert is not None and "data" in (
-            (expert,) if isinstance(expert, str) else expert):
-        return "resident"
+    divisibility): "resident" where the experts lie over "data" (and
+    "model"), "ep" where they lie over "model", "tp" where each expert's
+    hidden units do, else "whole" (every expert whole on every "model"
+    rank)."""
     spec = rules.param_pspec("moe/wi_gate", (n_routed, d_model, d_expert))
+    names = () if spec[0] is None else (
+        (spec[0],) if isinstance(spec[0], str) else tuple(spec[0]))
+    if "data" in names:
+        return "resident"
     if splits_model(rules, spec[0]):
         return "ep"
     return "tp" if splits_model(rules, spec[2]) else "whole"

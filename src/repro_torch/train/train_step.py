@@ -23,12 +23,19 @@ the LM head vocab-parallel (:func:`chunked_lm_loss`) and divides by the
 global token count; each gradient comes back summed over the batch and cut
 to the rank's block (the reference's gradient pin), and the clip and the
 ``grad_norm`` metric take the global norm (``optimizer.global_norm``).
-Attention blocks with a dense or MoE FFN (``models/moe.py``'s EP and
-expert-TP training branches, at one device's drops and aux loss); other
-blocks, the resident expert layout and sequence parallelism are refused
-(:func:`check_mesh_trainable`).  With ``microbatches > 1`` a mesh
-microbatch holds other rows than one device's microbatch of its index,
-so where MoE capacity binds their drops differ (ROADMAP C15).
+Every block kind trains: attention and MLA split their heads, dense FFNs
+their hidden units, MoE FFNs their experts (``models/moe.py``'s EP,
+expert-TP and resident training branches, at one device's drops and aux
+loss), and SSM and RG-LRU blocks, whose "model" blocks cut across their
+channels' parts, read their weights whole (the "model" split is storage
+only).  Under ``make_rules(sequence_parallel=True)`` the residual stream
+between blocks is this rank's part of the sequence: each block gathers it
+at its input and leaves by a reduce-scatter (``sharding/api.py:
+leave_model``), and every weight not split over "model" sums its gradient
+over "model" too.  With ``microbatches > 1`` the data ranks' rows are
+dealt microbatch-major (``data/pipeline.py:shard_rows``), so a mesh
+microbatch holds one device's microbatch of its index and drops as one
+device does.
 
 The state is ``{"params", "opt", ["err"]}`` over the port's per-layer
 parameter tree; :func:`state_to_numpy` / :func:`state_from_numpy` convert it
@@ -50,18 +57,15 @@ from repro_torch.models import transformer as T
 from repro_torch.models.attention import tensor_from_host
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.api import (AbstractMesh, batch_sum, block_index,
-                                      copy_to_model, dim_all_gather, dim_max,
-                                      gather_shards, local_shard,
-                                      mesh_shape, model_split,
-                                      reduce_from_model, training_rules)
-from repro_torch.sharding.rules import moe_train_branch
+                                      dim_all_gather, dim_max, dim_sum,
+                                      enter_model, gather_shards,
+                                      local_shard, mesh_shape, model_split,
+                                      reduce_from_model, seq_gather,
+                                      seq_parallel, seq_part, seq_rules,
+                                      seq_scatter, training_rules, use_rules)
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          cosine_schedule, init_opt_state,
                                          tree_leaves, tree_map)
-
-# Where the blocks mesh training refuses are queued.
-MESH_TRAIN_NEXT = ("ROADMAP A10, 'Mesh training of MoE, MLA, SSM, RG-LRU "
-                   "and SP'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,13 +128,23 @@ def chunked_lm_loss(h, params, targets, cfg: ModelConfig, chunk: int = 512,
     reference's ``jax.checkpoint``), so at most one slice is alive.  Under
     training's rules the head is vocab-parallel where the rank holds a
     vocab block (:func:`_chunk_nll_vocab_parallel`), and the mean is over
-    the global token count (every data rank's)."""
-    B, S, _ = h.shape
-    c = min(chunk, S)
-    pad = (-S) % c
+    the global token count (every data rank's).  Under sequence
+    parallelism ``h`` is this rank's part of the sequence: gathered for a
+    vocab-parallel head, else its part's NLL is summed over "model"."""
+    rules = training_rules()
+    split = rules is not None and _vocab_split(rules, cfg)
+    sp = seq_parallel(rules)
+    if sp and split:
+        h = seq_gather(h, rules)
+    B, S = targets.shape
     tgt = torch.roll(targets, -shift, 1)
     w = torch.ones((B, S), dtype=torch.float32, device=h.device)
     w[:, S - shift:] = 0.0
+    if h.shape[1] != S:                    # this rank's part of the sequence
+        tgt, w = seq_part(tgt, rules), seq_part(w, rules)
+    S = h.shape[1]
+    c = min(chunk, S)
+    pad = (-S) % c
     if pad:
         F = torch.nn.functional
         h = F.pad(h, (0, 0, 0, pad))
@@ -138,12 +152,11 @@ def chunked_lm_loss(h, params, targets, cfg: ModelConfig, chunk: int = 512,
         w = F.pad(w, (0, pad))
     w_dv = (params["embed"]["table"].T if cfg.tie_embeddings
             else params["unembed"]["w"])
-    rules = training_rules()
     fn, extra = _chunk_nll, ()
-    if rules is not None and _vocab_split(rules, cfg):
+    if split:
         fn = _chunk_nll_vocab_parallel
         extra = (rules, block_index(rules, "model")[0] * w_dv.shape[1])
-        h = copy_to_model(h, rules)
+        h = enter_model(h, rules)
     step = fn
     if L.needs_grad(h, w_dv):
         from torch.utils.checkpoint import checkpoint
@@ -156,7 +169,11 @@ def chunked_lm_loss(h, params, targets, cfg: ModelConfig, chunk: int = 512,
                          w[:, c0:c0 + c], *extra)
         total, count = total + nll, count + wsum
     if rules is not None:
-        count = batch_sum(rules, count.detach())
+        count = count.detach()
+        if sp and not split:
+            total = reduce_from_model(total, rules)
+            count = dim_sum(rules.mesh, count, "model")
+        count = batch_sum(rules, count)
     return total / torch.clamp(count, min=1.0)
 
 
@@ -167,11 +184,25 @@ def _vocab_split(rules, cfg: ModelConfig) -> bool:
     return model_split(rules, "embed/table", (cfg.vocab, cfg.d_model), 0)
 
 
-def _embed(params, tokens, cfg: ModelConfig):
+def _embed(params, tokens, cfg: ModelConfig, patches=None):
+    """The embedded stream, ``patches`` (if given) before the text, in the
+    activation dtype; under sequence parallelism (a text stream) this
+    rank's part of it (a vocab-parallel embedding's partial rows
+    reduce-scattered)."""
     rules = training_rules()
-    if rules is not None and _vocab_split(rules, cfg):
-        return L.embed_vocab_parallel(params["embed"], tokens, rules)
-    return L.embed(params["embed"], tokens)
+    split = rules is not None and _vocab_split(rules, cfg)
+    sp = seq_parallel(rules)
+    if split:
+        x = L.embed_vocab_parallel(params["embed"], tokens, rules,
+                                   partial=sp)
+    else:
+        x = L.embed(params["embed"], tokens)
+    if patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], 1)
+    x = x.to(cfg.activation_dtype)
+    if not sp:
+        return x
+    return seq_scatter(x, rules) if split else seq_part(x, rules)
 
 
 def loss_fn(params, batch, cfg: ModelConfig, tcfg: TrainConfig, specs=None):
@@ -181,22 +212,25 @@ def loss_fn(params, batch, cfg: ModelConfig, tcfg: TrainConfig, specs=None):
     Under training's rules ``params`` are this rank's blocks (``specs``
     their specs, :func:`param_specs` by default), ``batch`` its rows, and
     the result is its share of the global mean: the data ranks' shares sum
-    to it."""
-    rules = training_rules()
-    if rules is not None:
-        specs = param_specs(cfg, rules) if specs is None else specs
-        params = T.gather_weights(rules, params, specs)
+    to it.  Sequence parallelism splits a text stream that "model"
+    divides; a stream with patches stays whole."""
     tokens = batch["tokens"] if isinstance(batch, dict) else batch
     patches = batch.get("patches") if isinstance(batch, dict) else None
-    n_patch = 0
-    if patches is not None:
-        n_patch = patches.shape[1]
-        text = _embed(params, tokens, cfg)
-        x = torch.cat([patches.to(text.dtype), text], 1).to(
-            cfg.activation_dtype)
-    else:
-        x = _embed(params, tokens, cfg).to(cfg.activation_dtype)
-    positions = torch.arange(x.shape[1], device=x.device)
+    rules = training_rules()
+    if rules is None:
+        return _loss(params, tokens, patches, cfg, tcfg)
+    specs = param_specs(cfg, rules) if specs is None else specs
+    rules = seq_rules(rules, None if patches is not None else
+                      tokens.shape[1])
+    with use_rules(rules):
+        return _loss(T.gather_weights(rules, params, specs), tokens,
+                     patches, cfg, tcfg)
+
+
+def _loss(params, tokens, patches, cfg: ModelConfig, tcfg: TrainConfig):
+    x = _embed(params, tokens, cfg, patches)
+    n_patch = 0 if patches is None else patches.shape[1]
+    positions = torch.arange(n_patch + tokens.shape[1], device=x.device)
     h, _, aux = T.run_segments(params, x, positions, cfg)
     if n_patch:
         h = h[:, n_patch:]                 # loss over the text positions
@@ -296,30 +330,6 @@ def _allreduce_int8_ef_blocks(rules, grads, err, specs, data_axes):
     return (tree_map(lambda t: t[0], pairs), tree_map(lambda t: t[1], pairs))
 
 
-def check_mesh_trainable(cfg: ModelConfig, rules) -> None:
-    """Raise ``ValueError`` where training's ``rules`` meet what mesh
-    training does not split yet: a block other than attention with a
-    dense, MoE or no FFN, MoE experts in the resident layout (a decode
-    layout), and sequence parallelism.  Refused, not run replicated."""
-    if rules is None or not rules.param_rules:
-        return
-    if rules.axis_map.get("seq") is not None:
-        raise ValueError(f"mesh training with sequence_parallel=True is not "
-                         f"ported: {MESH_TRAIN_NEXT}")
-    for unit, _ in cfg.segments:
-        for spec in unit:
-            if spec.mixer not in ("attn", "local_attn"):
-                raise ValueError(
-                    f"mesh training of {spec.mixer!r} blocks ({cfg.name}) "
-                    f"is not ported: {MESH_TRAIN_NEXT}")
-            if spec.ffn == "moe" and moe_train_branch(
-                    rules, cfg.n_routed, cfg.d_model,
-                    cfg.d_expert) == "resident":
-                raise ValueError(
-                    f"mesh training of MoE FFNs in the resident layout "
-                    f"({cfg.name}) is not ported: {MESH_TRAIN_NEXT}")
-
-
 def param_specs(cfg: ModelConfig, rules):
     """The spec of every parameter of ``cfg`` under ``rules``, from its
     full shapes (an init on the "meta" device: nothing is drawn or
@@ -394,7 +404,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         rules, specs = training_rules(), None
         if rules is not None:
             if specs_of["rules"] is not rules:
-                check_mesh_trainable(cfg, rules)
                 specs_of.update(rules=rules, specs=param_specs(cfg, rules))
             specs = specs_of["specs"]
         loss, grads = grads_of(params, tokens, specs)

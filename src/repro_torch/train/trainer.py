@@ -47,10 +47,9 @@ from repro_torch.sharding.api import (MeshRules, block_index, gather_state,
                                       is_leader, shard_state, use_rules,
                                       write_once)
 from repro_torch.train.optimizer import tree_map
-from repro_torch.train.train_step import (TrainConfig, check_mesh_trainable,
-                                          init_train_state, make_train_step,
-                                          state_from_numpy, state_specs,
-                                          state_to_numpy)
+from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                          make_train_step, state_from_numpy,
+                                          state_specs, state_to_numpy)
 
 
 @dataclasses.dataclass
@@ -77,12 +76,12 @@ class Trainer:
         shard, n_shards = 0, 1
         self.specs = None
         if rules is not None:
-            check_mesh_trainable(cfg, rules)
             shard, n_shards = block_index(rules, rules.pspec(
                 ("batch",), (self.data_cfg.global_batch,))[0])
             self.specs = state_specs(cfg, tcfg, rules)
         self.dataset = SyntheticLMDataset(self.data_cfg, shard=shard,
-                                          num_shards=n_shards)
+                                          num_shards=n_shards,
+                                          microbatches=tcfg.microbatches)
         self.ckpt = CheckpointManager(run.ckpt_dir)
         self.straggler = StragglerPolicy()
         self.metrics_log: list[dict] = []

@@ -1,6 +1,7 @@
 """What a rank of the 2x2 mesh of ``tests/test_torch_mesh.py``,
 ``tests/test_torch_mesh_state.py``, ``tests/test_torch_mesh_moe.py`` and
-``tests/test_torch_mesh_train.py`` runs, and the single-device runs it is held to.  Imports torch and the
+the ``tests/test_torch_mesh_train*.py`` files runs, and the single-device
+runs it is held to.  Imports torch and the
 port only: the ranks are spawned processes, and the JAX reference stays
 in the pytest process or its subprocesses."""
 
@@ -13,6 +14,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs import reduced_config
 from repro_torch.core.besf import BitStopperConfig
+from repro_torch.data import shard_rows
 from repro_torch.models.attention import host_array
 from repro_torch.models.moe import RoutingLog
 from repro_torch.runtime.fault_tolerance import ElasticMeshManager
@@ -597,8 +599,11 @@ def trainer_config(steps: int, ckpt_dir: str, int8: bool = False):
 
 
 def _host(tree):
+    """``tree``'s tensors as numpy arrays (bf16 ones as float32)."""
     from repro_torch.train.optimizer import tree_map
-    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
+    return tree_map(lambda t: (t.detach().cpu().float() if t.dtype ==
+                               torch.bfloat16 else t.detach().cpu()
+                               ).numpy().copy(), tree)
 
 
 def train_rank(mesh, device, params, tokens, dirs, g, e,
@@ -716,7 +721,8 @@ def heads_case(mesh, key: str, params, tokens) -> dict:
 # ---------------------------------------------------------------------------
 # MoE training on the mesh (tests/test_torch_mesh_train_moe.py): the EP and
 # expert-TP branches under make_rules, drops and aux loss where capacity
-# binds, microbatches (C15) and the Trainer.
+# binds, microbatches over rows dealt microbatch-major (C15) and the
+# Trainer.
 # ---------------------------------------------------------------------------
 
 # Reduced qwen2-moe's 8 routed experts: a 2-way "model" dim divides them
@@ -751,8 +757,10 @@ def moe_train_rank(mesh, device, params_by_variant, tokens, ckpt_dir) -> dict:
     gathered parameters after the last), then from the same parameters
     at capacity factor MOE_BIND_FACTOR the loss and gathered gradients
     with each MoE call's drops and aux share; one EP step at that factor
-    in MOE_MICROBATCHES microbatches (its drops); last the Trainer over
-    the mesh (2 steps and a checkpoint, then a resume for a third).  After
+    in MOE_MICROBATCHES microbatches on the rank's rows dealt
+    microbatch-major (``data/pipeline.py:shard_rows``; its drops and aux
+    shares); last the Trainer over the mesh (2 steps and a checkpoint,
+    then a resume for a third).  After
     each variant's steps, one int8_ef step (``allreduce_int8_ef`` over the
     MoE leaves): its loss and the gathered parameters and residuals."""
     from repro_torch.models import transformer as T
@@ -804,9 +812,12 @@ def moe_train_rank(mesh, device, params_by_variant, tokens, ckpt_dir) -> dict:
                 state = {"params": p, "opt": O.init_opt_state(
                     p, tcfg.optimizer)}
                 mb = train_tcfg(microbatches=MOE_MICROBATCHES)
+                dealt = torch.as_tensor(tokens[shard_rows(
+                    tokens.shape[0], d, mesh.mesh.shape[0],
+                    MOE_MICROBATCHES)])
                 with DropSpy() as log:
-                    TS.make_train_step(bcfg, mb)(state, local)
-                out["microbatch_drops"] = log.drops
+                    TS.make_train_step(bcfg, mb)(state, dealt)
+                out["microbatch"] = {"drops": log.drops, "aux": log.aux}
     cfg = moe_train_config("ep")
     rules = make_rules(mesh, n_routed=cfg.n_routed)
     runs = []
@@ -818,3 +829,185 @@ def moe_train_rank(mesh, device, params_by_variant, tokens, ckpt_dir) -> dict:
         runs.append(tr.metrics_log)
     out["trainer"] = runs
     return out
+
+
+# ---------------------------------------------------------------------------
+# The rest of mesh training (tests/test_torch_mesh_train_zoo.py and
+# tests/test_torch_mesh_train_sp.py): MLA with MoE and MTP, SSM, RG-LRU,
+# resident experts and sequence parallelism, each held to one device.
+# ---------------------------------------------------------------------------
+
+# Each case: (arch, make_rules keywords, config changes).  deepseek-v3's
+# MLA layers (2 dense, 2 MoE in EP) with its MTP block; mamba2-130m's SSM
+# blocks; recurrentgemma-2b's RG-LRU blocks and MQA local attention;
+# qwen2-moe's 8 experts resident, 2 a rank.
+ZOO_CASES = {
+    "deepseek": ("deepseek-v3-671b", {}, {}),
+    "mamba": ("mamba2-130m", {}, {}),
+    "rgemma": ("recurrentgemma-2b", {}, {}),
+    "resident": (MOE_ARCH, {"moe_resident": True}, {}),
+}
+SP = {"sequence_parallel": True}
+# Sequence parallelism over the dense arch and each other block kind:
+# qwen2-moe's EP and resident experts, SSM, RG-LRU with MQA local
+# attention, MLA with MoE and MTP.
+SP_CASES = {
+    "stablelm": (TRAIN_ARCH, SP, {}),
+    "qwen_ep": (MOE_ARCH, SP, {}),
+    "qwen_resident": (MOE_ARCH, dict(SP, moe_resident=True), {}),
+    "mamba": ("mamba2-130m", SP, {}),
+    "rgemma": ("recurrentgemma-2b", SP, {}),
+    "deepseek": ("deepseek-v3-671b", SP, {}),
+}
+# deepseek-v3's layers above at its published dtype (bf16 parameters and
+# compute), held to one device's bf16 step beside one device's f32 step
+# from the same parameters, which says how far bf16 rounding alone moves
+# a step.  Every token is routed to both of 2 experts (EP, one a rank),
+# so that the routing is continuous: a top-k choice at a near-tie turns
+# on the last bit of a bf16 score, and a token routed otherwise moves the
+# loss by far more than rounding (BF16_ROUTED).
+BF16 = {"dtype": "bfloat16", "param_dtype": "bfloat16"}
+BF16_CASES = {"deepseek_bf16": ("deepseek-v3-671b", {},
+                                dict(BF16, n_routed=2, top_k=2))}
+# deepseek-v3 in bf16 with its own top-2 of 8 routing: the routing ids of
+# a loss pass, compared with one device's (measured on the CPU: one token
+# routed otherwise in the first MoE call apart, then the mesh's loss
+# 0.114 from one device's, where one device's bf16 and f32 losses are
+# 0.0056 apart).
+BF16_ROUTED = ("deepseek-v3-671b", {}, BF16)
+# The zoo's Trainer case: mamba2-130m, 2 steps and a checkpoint, then a
+# resume for a third.
+ZOO_TRAINER_CASE = "mamba"
+
+
+def held_config(case):
+    """A case's model config (its changes applied to the reference's
+    config too)."""
+    arch, _, kw = case
+    return reduced_config(arch).replace(**kw)
+
+
+def held_rules(mesh, case, cfg):
+    from repro_torch.sharding.rules import make_rules
+    return make_rules(mesh, n_routed=cfg.n_routed, **case[1])
+
+
+def held_step(mesh, case, params, tokens, bind: bool = False) -> dict:
+    """Case ``case`` on the mesh from its full ``params``, on this rank's
+    rows ``tokens``: the loss and every gradient gathered whole at the
+    initial parameters, then one step's metrics and the gathered
+    parameters after it; with ``bind``, the loss, drops and aux shares at
+    capacity factor MOE_BIND_FACTOR too."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.api import gather_state, shard_state, use_rules
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    cfg, tcfg = held_config(case), train_tcfg()
+    rules = held_rules(mesh, case, cfg)
+    specs = TS.param_specs(cfg, rules)
+    p = TS.trainable(shard_state(rules, params, specs))
+    out = {}
+    with use_rules(rules):
+        loss, grads = TS.value_and_grad(p, tokens, cfg, tcfg, specs)
+        out["loss"], out["grads"] = float(loss), _host(gather_state(
+            rules, grads, specs))
+        if bind:
+            bcfg = cfg.replace(moe_capacity_factor=MOE_BIND_FACTOR)
+            with DropSpy() as log:
+                loss, _ = TS.value_and_grad(p, tokens, bcfg, tcfg, specs)
+            out["bind"] = {"loss": float(loss), "drops": log.drops,
+                           "aux": log.aux}
+        state = {"params": p, "opt": O.init_opt_state(p, tcfg.optimizer)}
+        state, m = TS.make_train_step(cfg, tcfg)(state, tokens)
+    out["metrics"] = {k: float(v) for k, v in m.items()}
+    out["params"] = O.tree_map(np.array, T.params_to_numpy(
+        gather_state(rules, state["params"], specs), cfg))
+    return out
+
+
+def held_trainer_config(case, steps: int, ckpt_dir: str):
+    """A held case's Trainer: TrainConfig, TrainerConfig and DataConfig."""
+    from repro_torch.data import DataConfig
+    from repro_torch.train.trainer import TrainerConfig
+    return (train_tcfg(total_steps=4),
+            TrainerConfig(steps=steps, ckpt_every=100, ckpt_dir=ckpt_dir,
+                          log_every=0),
+            DataConfig(vocab=held_config(case).vocab, **TRAINER_DATA))
+
+
+def routing_ids(case, params, tokens, rules=None) -> list:
+    """The routing ids ``top_i`` of each MoE plan in a no-grad loss pass
+    of ``case`` from its full ``params`` on ``tokens`` (this rank's rows;
+    under ``rules`` a plan routes the whole batch), each beside its MoE
+    call's router probabilities of this rank's rows ``[T, E]``."""
+    from repro_torch.sharding.api import shard_state, use_rules
+    from repro_torch.train import train_step as TS
+    cfg, tcfg = held_config(case), train_tcfg()
+    with RoutingLog() as log, torch.no_grad():
+        if rules is None:
+            TS.loss_fn(params, tokens, cfg, tcfg)
+        else:
+            specs = TS.param_specs(cfg, rules)
+            with use_rules(rules):
+                TS.loss_fn(shard_state(rules, params, specs), tokens, cfg,
+                           tcfg, specs)
+    return [(t.cpu().numpy().copy(),
+             p.reshape(-1, p.shape[-1]).float().cpu().numpy().copy())
+            for (t, _, _), (p, _) in zip(log.plans, log.routes)]
+
+
+def zoo_train_rank(mesh, device, cases, params, tokens, ckpt_dir) -> dict:
+    """A rank of the 2x2 mesh for the zoo's cases (``cases``, a dict of
+    ``ZOO_CASES``', ``BF16_CASES``' or ``SP_CASES``' entries):
+    :func:`held_step` of each on this rank's rows of ``tokens`` (the bound
+    run for resident experts); where ``params`` holds "bf16_routed", the
+    routing ids of BF16_ROUTED from those parameters; with ``ckpt_dir``,
+    the Trainer on ZOO_TRAINER_CASE over the mesh, 2 steps and a
+    checkpoint, then a resume for a third; without
+    it, the sequence parallel stablelm case on a sequence one shorter,
+    which "model" does not divide (the stream whole), beside the same
+    without sequence parallelism."""
+    from repro_torch.train.trainer import Trainer
+    d = mesh.get_coordinate()[0]
+    rows = tokens.shape[0] // mesh.mesh.shape[0]
+    local = torch.as_tensor(tokens[d * rows:(d + 1) * rows])
+    out = {"coord": tuple(mesh.get_coordinate()),
+           "cases": {key: held_step(mesh, case, params[key], local,
+                                    bind=case[1].get("moe_resident", False))
+                     for key, case in cases.items()}}
+    if "bf16_routed" in params:
+        cfg = held_config(BF16_ROUTED)
+        out["routes"] = routing_ids(
+            BF16_ROUTED, params["bf16_routed"], local,
+            held_rules(mesh, BF16_ROUTED, cfg))
+    if ckpt_dir is not None:
+        case = ZOO_CASES[ZOO_TRAINER_CASE]
+        cfg = held_config(case)
+        runs = []
+        for steps in (TRAINER_STEPS, TRAINER_STEPS + 1):
+            tcfg, run, data = held_trainer_config(case, steps, ckpt_dir)
+            tr = Trainer(cfg, tcfg, run, data_cfg=data, device=device,
+                         rules=held_rules(mesh, case, cfg))
+            tr.train()
+            runs.append(tr.metrics_log)
+        out["trainer"] = runs
+    else:
+        odd = local[:, :-1]
+        case = SP_CASES["stablelm"]
+        out["odd"] = {sp: held_step(mesh, (case[0], kw, {}),
+                                    params["stablelm"], odd)
+                      for sp, kw in (("sp", SP), ("plain", {}))}
+    return out
+
+
+def pod_train_rank(mesh, device, case, params, tokens) -> dict:
+    """A rank of the (pod, data, model) mesh: :func:`held_step` of ``case``
+    on this rank's rows of ``tokens``, the batch over ("pod", "data")."""
+    names = mesh.mesh_dim_names
+    coord = dict(zip(names, mesh.get_coordinate()))
+    shape = dict(zip(names, mesh.mesh.shape))
+    rows = tokens.shape[0] // (shape["pod"] * shape["data"])
+    b = coord["pod"] * shape["data"] + coord["data"]
+    local = torch.as_tensor(tokens[b * rows:(b + 1) * rows])
+    return {"coord": tuple(mesh.get_coordinate()),
+            "case": held_step(mesh, case, params, local)}

@@ -12,7 +12,8 @@ drop per data shard (C11), so the yardstick is one device.  The port
 gathers every data rank's routing ids and plans the whole batch at its
 capacity, so where capacity binds its drops are one device's pair for
 pair, and the data ranks' aux-loss shares sum to one device's loss.  With
-microbatches a mesh microbatch holds other rows than one device's (C15).
+microbatches the data ranks' rows are dealt microbatch-major, so a mesh
+microbatch holds one device's and drops as it does (C15, repaired).
 
 One module-scoped spawn (``tests/_torch_mesh_worker.py:moe_train_rank``)
 runs every mesh case while the pytest process compiles the reference's
@@ -114,14 +115,6 @@ def _bound(variant, params, tokens):
         grads=TO.tree_map(lambda t: t.detach().numpy(), grads))
 
 
-def _drops_of(params, tokens):
-    """One device's drops at MOE_BIND_FACTOR over ``tokens`` (a forward)."""
-    cfg = W.moe_train_config("ep", moe_capacity_factor=W.MOE_BIND_FACTOR)
-    with W.DropSpy() as log, torch.no_grad():
-        TS.loss_fn(params, torch.as_tensor(tokens), cfg, W.train_tcfg())
-    return log.drops
-
-
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     tokens = np.random.default_rng(1).integers(0, 256, (4, 32))
@@ -147,13 +140,7 @@ def run(tmp_path_factory):
         TS.make_train_step(cfg, tcfg)(
             {"params": p, "opt": TO.init_opt_state(p, tcfg.optimizer)},
             torch.as_tensor(tokens))
-    one_mb = log.drops
-    # The rows a mesh microbatch holds: data rank d's i-th slice of its
-    # own rows, for each d.
-    rows = tokens.shape[0] // 2
-    mesh_rows = [[d * rows + i * (rows // mb) + r for d in range(2)
-                  for r in range(rows // mb)] for i in range(mb)]
-    on_mesh_rows = [_drops_of(params["ep"], tokens[r]) for r in mesh_rows]
+    one_mb = types.SimpleNamespace(drops=log.drops, aux=log.aux)
     tcfg, trun, data = W.moe_trainer_config(W.TRAINER_STEPS + 1,
                                             dirs["single"])
     straight = Trainer(W.moe_train_config("ep"), tcfg, trun, data_cfg=data,
@@ -163,8 +150,7 @@ def run(tmp_path_factory):
     return types.SimpleNamespace(
         params=params, tokens=tokens, dirs=dirs, ranks=ranks,
         reference=reference, single=single, bound=bound, one_mb=one_mb,
-        mesh_rows=mesh_rows, on_mesh_rows=on_mesh_rows, straight=straight,
-        straight_state=straight_state)
+        straight=straight, straight_state=straight_state)
 
 
 def _leaves(tree):
@@ -192,6 +178,7 @@ BRANCH_CASES = {
     "ep_indivisible": ((2, 2), 5, {"moe_ep": True}, "whole"),
     "model_1": ((4, 1), 8, {}, "whole"),
     "resident": ((2, 2), 8, {"moe_resident": True}, "resident"),
+    "resident_indivisible": ((2, 2), 6, {"moe_resident": True}, "whole"),
 }
 
 
@@ -199,19 +186,18 @@ BRANCH_CASES = {
 def test_train_branch_follows_the_axis_map(case):
     """The branch training runs comes from the spec the expert weights are
     cut by: experts over "model" EP, hidden units over "model" expert-TP,
-    neither (an indivisible forced EP, a "model" dim of 1) every expert
-    whole; the resident layout is refused with its ROADMAP item."""
+    over data x model resident, neither (an indivisible forced EP, a
+    "model" dim of 1, resident experts that data x model does not divide)
+    every expert whole; the train step's specs put the experts over "data"
+    in the resident branch alone."""
     shape, n_routed, kw, want = BRANCH_CASES[case]
     cfg = W.moe_train_config("ep", n_routed=n_routed)
     rules = make_rules(AbstractMesh(shape, ("data", "model")),
                        n_routed=n_routed, **kw)
     assert moe_train_branch(rules, n_routed, cfg.d_model,
                             cfg.d_expert) == want
-    if want == "resident":
-        with pytest.raises(ValueError, match="ROADMAP A10"):
-            TS.check_mesh_trainable(cfg, rules)
-    else:
-        TS.check_mesh_trainable(cfg, rules)
+    expert = TS.param_specs(cfg, rules)["seg0"][0]["b0"]["moe"]["wi_gate"][0]
+    assert (expert == ("data", "model")) == (want == "resident"), expert
 
 
 @pytest.mark.parametrize("factor", [0.5, 1.25])
@@ -357,35 +343,25 @@ def test_capacity_binding_drops_and_aux_are_one_devices(run, variant):
         _assert_trees_close(got["grads"], want.grads, GRAD_ATOL)
 
 
-def _by_row(drops, rows, seq):
-    """Drops numbered by the call's tokens as (batch row, position,
-    expert), for a call over batch rows ``rows``."""
-    return {(rows[t // seq], t % seq, e) for t, e in drops}
-
-
 def test_microbatches_drop_other_pairs_c15(run):
-    """ROADMAP C15: with two microbatches a mesh microbatch holds data rank
-    d's i-th slice of its rows for every d, not one device's i-th slice of
-    the batch, so where capacity binds the mesh drops other pairs than one
-    device's microbatched step; its drops are those of one device over the
-    rows the mesh microbatch holds."""
-    seq, mb, layers = run.tokens.shape[1], W.MOE_MICROBATCHES, 2
-    rows = run.tokens.shape[0] // mb
-    ones = [list(range(i * rows, (i + 1) * rows)) for i in range(mb)]
+    """ROADMAP C15, repaired (mesh microbatches used to drop other pairs
+    than one device's): with two microbatches at capacity factor 0.5
+    each data rank holds its rows dealt microbatch-major, so mesh
+    microbatch i is one device's microbatch i in its order: every MoE
+    call's dropped pairs (a data rank's "model" ranks together) equal one
+    device's microbatched step's pair for pair, and the data ranks' aux
+    shares sum to its aux loss within 1e-6 relative."""
+    want = run.one_mb
+    assert all(want.drops) and len(want.drops) == 2 * W.MOE_MICROBATCHES
     for d in range(2):
-        logs = [r["microbatch_drops"] for r in run.ranks
+        logs = [r["microbatch"]["drops"] for r in run.ranks
                 if r["coord"][0] == d]
-        mesh = _union(logs)
-        assert mesh == [c for calls in run.on_mesh_rows for c in calls]
-        mesh_pairs = [set() for _ in range(layers)]
-        one_pairs = [set() for _ in range(layers)]
-        for i in range(mb):
-            for layer in range(layers):
-                mesh_pairs[layer] |= _by_row(mesh[i * layers + layer],
-                                             run.mesh_rows[i], seq)
-                one_pairs[layer] |= _by_row(run.one_mb[i * layers + layer],
-                                            ones[i], seq)
-        assert mesh_pairs != one_pairs
+        assert _union(logs) == want.drops
+    for m in range(2):
+        shares = [r["microbatch"]["aux"] for r in run.ranks
+                  if r["coord"][1] == m]
+        np.testing.assert_allclose([sum(x) for x in zip(*shares)],
+                                   want.aux, rtol=AUX_RTOL, atol=0)
 
 
 # ---------------------------------------------------------------------------

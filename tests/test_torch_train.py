@@ -22,7 +22,7 @@ from repro.models import attention as JA
 from repro.train import optimizer as JO
 from repro.train import train_step as JS
 from repro_torch.configs import reduced_config
-from repro_torch.data import DataConfig, SyntheticLMDataset
+from repro_torch.data import DataConfig, SyntheticLMDataset, shard_rows
 from repro_torch.models import attention as TA
 from repro_torch.models import transformer as TT
 from repro_torch.train import optimizer as TO
@@ -93,6 +93,32 @@ def test_data_batches_shards_and_prefetch_match_reference():
     assert [s for s, _ in got] == [5, 6]
     for s, batch in got:
         np.testing.assert_array_equal(batch, ref.batch_at(s))
+
+
+@pytest.mark.parametrize("shards,microbatches", [(1, 1), (1, 4), (2, 1),
+                                                 (4, 1), (2, 2), (2, 4)])
+def test_microbatch_major_deal(shards, microbatches):
+    """``shard_rows`` (ROADMAP C15): at one shard or one microbatch each
+    shard's batches equal the reference's shard bit for bit (its default
+    deal); with both, shard d's local microbatch i is its part of one
+    device's microbatch i, so the data ranks' i-th microbatches,
+    concatenated in rank order, are one device's i-th microbatch."""
+    kw = dict(vocab=300, seq_len=24, global_batch=8, seed=5)
+    full = JDataset(JDataConfig(**kw)).batch_at(2)
+    local = [SyntheticLMDataset(DataConfig(**kw), shard=d, num_shards=shards,
+                                microbatches=microbatches).batch_at(2)
+             for d in range(shards)]
+    if shards == 1 or microbatches == 1:
+        for d, got in enumerate(local):
+            np.testing.assert_array_equal(got, JDataset(
+                JDataConfig(**kw), shard=d, num_shards=shards).batch_at(2))
+    n = 8 // microbatches // shards
+    for i in range(microbatches):
+        np.testing.assert_array_equal(
+            np.concatenate([x[i * n:(i + 1) * n] for x in local]),
+            full[i * n * shards:(i + 1) * n * shards])
+    with pytest.raises(ValueError, match="does not deal"):
+        shard_rows(8, 0, 3, 1)
 
 
 # ---------------------------------------------------------------------------
